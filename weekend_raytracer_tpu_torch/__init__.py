@@ -1,0 +1,46 @@
+"""weekend_raytracer_tpu_torch — the PyTorch/CUDA port of weekend_raytracer_tpu.
+
+Progressive Monte-Carlo path tracing of sphere scenes, with the JAX
+package's scene and parameter model, its progressive ``Renderer``, and its
+fused megakernel rewritten as a hand-written CUDA kernel for NVIDIA Hopper
+(csrc/megakernel.cu). It imports torch, numpy and scipy, never jax. The
+public names are the JAX package's, for the parts that exist so far.
+"""
+
+from .models.angle import Angle
+from .models.camera import Camera, CameraBasis
+from .models.materials import Material, MaterialTable
+from .models.params import RenderParams, RenderParamsValidationError, SamplingParams
+from .models.scenes import SCENES, SceneDesc
+from .models.sky import SkyParams, SkyState, to_sky_state
+from .models.spheres import Sphere, SphereSoA
+from .models.textures import Texture, TexturePool
+from .ops.tracer import Scene
+from .renderer import GpuSamplingParams, Renderer, RenderProgress, RenderStats
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Angle",
+    "Camera",
+    "CameraBasis",
+    "GpuSamplingParams",
+    "Material",
+    "MaterialTable",
+    "RenderParams",
+    "RenderParamsValidationError",
+    "Renderer",
+    "RenderProgress",
+    "RenderStats",
+    "SamplingParams",
+    "SCENES",
+    "Scene",
+    "SceneDesc",
+    "SkyParams",
+    "SkyState",
+    "Sphere",
+    "SphereSoA",
+    "Texture",
+    "TexturePool",
+    "to_sky_state",
+]
