@@ -5,15 +5,20 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA megakernel from the sources in the checkout, holds it
-against its plain PyTorch version on the card, renders the RTiOW final scene
-at 1920x1080 (32 spp per frame, 96 spp, 8 bounces) through
-``Renderer(backend="auto", device="cuda")``, checks that every frame went
-through the kernel and that the image is right, and times the kernel against
-the plain version. Each phase prints one line; any failure exits non-zero
-without the final ``ok`` line. It needs a CUDA device and imports nothing of
-JAX. Options: ``--png PATH`` (default: chip_smoke_rtiow.png in the temporary
-directory) and ``--out DIR`` (also write every number as JSON there).
+It builds the CUDA libraries from the sources in the checkout (the
+megakernel and the regroup pipeline, one nvcc each, in parallel), holds
+every kernel against its plain PyTorch version on the card, holds the
+regroup pipeline against the megakernel, and renders the RTiOW final scene
+at 1920x1080 (32 spp per frame, 96 spp, 8 bounces) twice:
+through ``Renderer(backend="auto", device="cuda")``, which resolves to the
+regroup pipeline (K0, PACK, K1, COMBINE), and through
+``Renderer(backend="pallas")``, the megakernel. For each it checks that
+every frame went through the kernels and that the image is right, and it
+times the kernels against their plain versions. Each phase prints one line;
+any failure exits non-zero without the final ``ok`` line. It needs a CUDA
+device and imports nothing of JAX. Options: ``--png PATH`` (default:
+chip_smoke_rtiow.png in the temporary directory) and ``--out DIR`` (also
+write every number as JSON there).
 """
 from __future__ import annotations
 
@@ -29,11 +34,14 @@ import time
 _PLAIN_CASES = (("first_hit", 64, 48, 1, 1, 1),
                 ("rtiow", 96, 64, 4, 4, 8),
                 ("textured", 96, 64, 4, 4, 8))
+_REGROUP_CASES = (("rtiow", 96, 64, 4, 4, 8), ("textured", 96, 64, 4, 4, 8))
+_CUTS = (2, 4, 6)  # default_cuts(8, 486), the main path's schedule
 _MAIN = dict(width=1920, height=1080, spp=32, max_spp=96, bounces=8)
 _TIMING = dict(scene="rtiow", width=480, height=270, spp=4, bounces=8)
 RMSE_GATE = 5e-3  # tonemapped RMSE (tests/test_pallas.py's gate)
 MEAN_REL_GATE = 1e-3  # relative linear mean radiance
 FIRST_HIT_GATE = 0.01  # fraction of first-hit pixels allowed to differ
+REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
 
 
 def _check(ok: bool, what) -> None:
@@ -90,12 +98,12 @@ def _case(name, w, h, device):
             CameraBasis.create(cam, (w, h), device=device))
 
 
-def _render(fn, inp, w, h, frames, spp, bounces):
+def _render(fn, inp, w, h, frames, spp, bounces, **kw):
     import torch
 
     acc = torch.zeros((w * h, 3), dtype=torch.float32, device="cuda")
     for f in range(frames):
-        fn(acc, inp, f, f == 0, width=w, height=h, spp=spp, num_bounces=bounces)
+        fn(acc, inp, f, f == 0, width=w, height=h, spp=spp, num_bounces=bounces, **kw)
     torch.cuda.synchronize()
     return acc / (frames * spp)
 
@@ -111,6 +119,138 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _stage_ms(run) -> dict:
+    """CUDA-event time of each stage of one regrouped frame: ``run`` takes
+    an on_stage callback."""
+    import torch
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    mark("start")
+    run(mark)
+    torch.cuda.synchronize()
+    return {name: marks[i - 1][1].elapsed_time(ev)
+            for i, (name, ev) in enumerate(marks) if i}
+
+
+def _per_kernel(stages: dict) -> dict:
+    """Stage times summed per kernel: {"k0": ms, "pack": ms, ...}."""
+    out = dict.fromkeys(REGROUP_KERNELS, 0.0)
+    for name, ms in stages.items():
+        out[next(k for k in REGROUP_KERNELS if name.startswith(k))] += ms
+    return out
+
+
+def _launch_counts(mk, rg) -> dict:
+    return {"megakernel": mk.render_image_megakernel.launches,
+            **{k: getattr(rg, f"launch_{k}").launches for k in REGROUP_KERNELS}}
+
+
+def _zero_launch_counts(mk, rg) -> None:
+    mk.render_image_megakernel.launches = 0
+    for k in REGROUP_KERNELS:
+        getattr(rg, f"launch_{k}").launches = 0
+
+
+def _bitwise_max_err(a, b) -> float:
+    """Max |a - b|, and a check that a and b are equal with +-0 equal."""
+    _check(bool(((a + 0.0) == (b + 0.0)).all()), "not bit for bit")
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def _regroup_kernels_vs_plain(mk, rg) -> dict:
+    """Each regroup kernel against its twin on the same inputs: K0 and K1
+    on the first-hit scene (two bounces into a constant sky, so every path
+    is decided), PACK and COMBINE bit for bit on rtiow's K0 pool with its
+    own, a random, an all-live and an all-dead alive mask."""
+    import torch
+
+    dev = torch.device("cuda")
+    out = {}
+    # K0 and K1 on the first-hit scene, cut after bounce 0
+    w, h = 64, 48
+    scene, sky, basis = _case("first_hit", w, h, dev)
+    inp = mk.kernel_inputs(scene, sky, basis)
+    t, _ = rg.plan(w, h, 1, 2, (1,))
+    pools = [torch.empty((rg.N_COMP, t.cap), device=dev) for _ in range(2)]
+    contribs = [torch.empty((3, t.cap), device=dev) for _ in range(2)]
+    rg.launch_k0(inp, pools[0], contribs[0], t, 0, 1)
+    rg.k0_plain(inp, pools[1], contribs[1], t, 0, 1)
+    torch.cuda.synchronize()
+    _check(torch.equal(pools[0][rg._AL], pools[1][rg._AL]), "K0 alive")
+    _check(torch.equal(pools[0][[rg._HLO, rg._HHI]], pools[1][[rg._HLO, rg._HHI]]),
+           "K0 home slots")
+    out["k0"] = float((contribs[0] - contribs[1]).abs().max())
+    counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=dev)
+    dense = torch.empty_like(pools[0])
+    inv = torch.empty((t.cap,), dtype=torch.int32, device=dev)
+    rg.pack_plain(pools[0], dense, inv, counts, 1)
+    n = int(counts[1])
+    _check(n > 0, "first hit: no live path after bounce 0")
+    dk, dp = dense.clone(), dense.clone()
+    r8 = [torch.zeros((3, t.cap), device=dev) for _ in range(2)]
+    rg.launch_k1(inp, dk, r8[0], counts, 1, t, 0, 1, 2)
+    rg.k1_plain(inp, dp, r8[1], counts, 1, t, 0, 1, 2)
+    torch.cuda.synchronize()
+    same = dk[rg._AL, :n] == dp[rg._AL, :n]
+    _check(float(same.float().mean()) >= 0.99, ("K1 alive agreement", float(same.float().mean())))
+    out["k1"] = float((r8[0][:, :n] - r8[1][:, :n]).abs()[:, same].max())
+
+    # PACK and COMBINE on rtiow's K0 pool
+    w, h = 96, 64
+    scene, sky, basis = _case("rtiow", w, h, dev)
+    inp = mk.kernel_inputs(scene, sky, basis)
+    t, _ = rg.plan(w, h, 4, 8, _CUTS)
+    pool = torch.empty((rg.N_COMP, t.cap), device=dev)
+    contrib = torch.empty((3, t.cap), device=dev)
+    rg.launch_k0(inp, pool, contrib, t, 0, _CUTS[0])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    masks = {"k0": pool[rg._AL].clone(),
+             "random": (torch.rand(t.cap, device=dev, generator=gen) < 0.3).float(),
+             "all_live": torch.ones(t.cap, device=dev),
+             "all_dead": torch.zeros(t.cap, device=dev)}
+    pack_err, combine_err, live = 0.0, 0.0, {}
+    block_sums = torch.empty((t.cap // 1024,), dtype=torch.int32, device=dev)
+    for label, mask in masks.items():
+        pool[rg._AL] = mask
+        res = []
+        for pack in (rg.launch_pack, rg.pack_plain):
+            counts = torch.tensor([t.cap, 0, 0], dtype=torch.int32, device=dev)
+            dst = torch.full((rg.N_COMP, t.cap), 7.0, device=dev)
+            inv = torch.full((t.cap,), -7, dtype=torch.int32, device=dev)
+            pack(pool, dst, inv, counts, 1, block_sums)
+            res.append((counts, dst, inv))
+        torch.cuda.synchronize()
+        n = int(res[1][0][1])
+        live[label] = n
+        _check(int(res[0][0][1]) == n, (label, "pack count", int(res[0][0][1]), n))
+        end = -(-n // 128) * 128
+        pack_err = max(pack_err, _bitwise_max_err(res[0][1][:, :end], res[1][1][:, :end]))
+        _check(torch.equal(res[0][2], res[1][2]), (label, "inverse map"))
+        # COMBINE through this inverse map: a level (k = 2) and the home level
+        counts, inv = res[1][0], res[1][2]
+        src = torch.rand((3, t.cap), device=dev, generator=gen)
+        base = torch.rand((3, t.cap), device=dev, generator=gen)
+        accum = torch.rand((w * h, 3), device=dev, generator=gen)
+        level = [base.clone(), base.clone()]
+        counts2 = torch.tensor([t.cap, t.cap], dtype=torch.int32, device=dev)
+        rg.launch_combine(inv, src, level[0], counts2, 2)
+        rg.combine_plain(inv, src, level[1], counts2, 2)
+        home = [accum.clone(), accum.clone()]
+        rg.launch_combine(inv, src, base.clone(), counts, 1, accum=home[0], t=t)
+        rg.combine_plain(inv, src, base.clone(), counts, 1, accum=home[1], t=t)
+        torch.cuda.synchronize()
+        combine_err = max(combine_err, _bitwise_max_err(level[0], level[1]),
+                          _bitwise_max_err(home[0], home[1]))
+    out["pack"], out["combine"], out["pack_live"] = pack_err, combine_err, live
+    return out
 
 
 def main(argv=None) -> int:
@@ -130,7 +270,9 @@ def main(argv=None) -> int:
         return 2
     from weekend_raytracer_tpu_torch import (SCENES, RenderParams, Renderer,
                                              SamplingParams)
+    from weekend_raytracer_tpu_torch.ops.cuda import build
     from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk
+    from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg
 
     _check("jax" not in sys.modules, "the port imported jax")
     smi = _nvidia_smi()
@@ -141,18 +283,25 @@ def main(argv=None) -> int:
     record["env"] = {"nvidia_smi": smi, "device": kind, "torch": torch.__version__,
                      "cuda": torch.version.cuda}
 
-    # 2. build
+    # 2. build both libraries, one nvcc each, in parallel
     t0 = time.perf_counter()
-    built = mk._library()
+    built = dict(zip(("megakernel", "regroup"),
+                     build.load_libraries([mk.LIBRARY, rg.LIBRARY])))
     build_s = time.perf_counter() - t0
-    ptxas = built.ptxas_usage()
-    attrs = {t: mk.kernel_attributes(t) for t in (False, True)}
-    _say("build", seconds=f"{build_s:.2f}", nvcc_seconds=f"{built.build_seconds:.2f}",
+    ptxas = {k: b.ptxas_usage() for k, b in built.items()}
+    attrs = {"megakernel": {str(t): mk.kernel_attributes(t) for t in (False, True)},
+             "regroup": rg.kernel_attributes()}
+    _say("build", seconds=f"{build_s:.2f}",
+         nvcc_seconds=json.dumps({k: round(b.build_seconds, 2) for k, b in built.items()}),
          ptxas=json.dumps(ptxas, sort_keys=True), attributes=json.dumps(attrs))
-    record["build"] = {"seconds": build_s, "nvcc_seconds": built.build_seconds,
-                       "ptxas": ptxas, "attributes": {str(k): v for k, v in attrs.items()}}
+    record["build"] = {"seconds": build_s,
+                       "nvcc_seconds": {k: b.build_seconds for k, b in built.items()},
+                       "ptxas": ptxas, "attributes": attrs}
+    spills = [u for lib in ptxas.values() for u in lib.values()
+              if u.get("spill_stores") or u.get("spill_loads")]
+    _check(not spills, ("register spills", spills))
 
-    # 3. kernel against plain, both on the card
+    # 3. megakernel against plain, both on the card
     record["plain"] = {}
     max_abs_err = None
     for name, w, h, frames, spp, bounces in _PLAIN_CASES:
@@ -171,106 +320,213 @@ def main(argv=None) -> int:
         else:
             _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE, st)
 
-    # 4. the main path, through the entry points a user calls
+    # 4. regroup kernels against their twins, then the pipeline
+    rg_err = _regroup_kernels_vs_plain(mk, rg)
+    _say("regroup_plain", case="kernels", k0_max_abs_err=f"{rg_err['k0']:.3e}",
+         k1_max_abs_err=f"{rg_err['k1']:.3e}", pack="bit-exact",
+         combine="bit-exact", pack_live=json.dumps(rg_err["pack_live"]))
+    record["regroup_plain"] = {"kernels": rg_err}
+    for name, w, h, frames, spp, bounces in _REGROUP_CASES:
+        scene, sky, basis = _case(name, w, h, "cuda")
+        inp = mk.kernel_inputs(scene, sky, basis)
+        a = _render(rg.launch_regrouped, inp, w, h, frames, spp, bounces, cuts=_CUTS)
+        b = _render(rg.regrouped_plain_with_inputs, inp, w, h, frames, spp, bounces,
+                    cuts=_CUTS)
+        _check(bool(torch.isfinite(a).all()), f"{name}: non-finite regroup output")
+        st = _compare(b, a, w, h)
+        _say("regroup_plain", case=name, size=f"{w}x{h}", frames=frames, spp=spp,
+             bounces=bounces, cuts=_CUTS, **{k: f"{v:.3e}" for k, v in st.items()})
+        record["regroup_plain"][name] = st
+        _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE, st)
+
+    # 5. regroup against the megakernel, both CUDA, one frame
+    tm = _TIMING
+    w, h = tm["width"], tm["height"]
+    scene, sky, basis = _case(tm["scene"], w, h, "cuda")
+    inp_t = mk.kernel_inputs(scene, sky, basis)
+    record["regroup_vs_megakernel"] = {}
+    for spp in (tm["spp"], 1):
+        a = _render(rg.launch_regrouped, inp_t, w, h, 1, spp, tm["bounces"], cuts=_CUTS)
+        m = _render(mk.launch_megakernel, inp_t, w, h, 1, spp, tm["bounces"])
+        st = _compare(m, a, w, h)
+        st["pixels_differing"] = int((a != m).any(dim=1).sum())
+        _say("regroup_vs_megakernel", shape=f"{tm['scene']} {w}x{h} spp{spp} "
+             f"b{tm['bounces']}", cuts=_CUTS, pixels=w * h,
+             **{k: (v if isinstance(v, int) else f"{v:.3e}") for k, v in st.items()})
+        record["regroup_vs_megakernel"][f"spp{spp}"] = st
+        _check(st["pixel_mismatch"] < FIRST_HIT_GATE and st["rmse"] < RMSE_GATE
+               and st["mean_rel"] < MEAN_REL_GATE, st)
+
+    # 6. the main paths, through the entry points a user calls: "auto"
+    # (which resolves to regroup), then "pallas" (the megakernel)
     mp = _MAIN
+    w, h = mp["width"], mp["height"]
     params = RenderParams(
-        camera=SCENES["rtiow"][1](), viewport_size=(mp["width"], mp["height"]),
+        camera=SCENES["rtiow"][1](), viewport_size=(w, h),
         sampling=SamplingParams(max_samples_per_pixel=mp["max_spp"],
                                 num_samples_per_pixel=mp["spp"],
                                 num_bounces=mp["bounces"]))
-    renderer = Renderer(SCENES["rtiow"][0](), params, backend="auto", device="cuda")
-    _check(renderer.backend == "pallas", renderer.backend)
-    mk.render_image_megakernel.launches = 0
-    stats = renderer.render()
-    launches = mk.render_image_megakernel.launches
-    _check(stats.frames == mp["max_spp"] // mp["spp"], stats)
-    _check(launches == stats.frames, (launches, stats.frames))
-    mean = renderer.mean_radiance()
-    _check(tuple(mean.shape) == (mp["height"], mp["width"], 3), tuple(mean.shape))
-    _check(bool(torch.isfinite(mean).all()), "non-finite accumulator")
-    img = renderer.image()
-    frac_black = float((img.max(axis=2) == 0).mean())
-    frac_white = float((img.min(axis=2) == 255).mean())
-    _check(20 < img.mean() < 235 and frac_black < 0.5 and frac_white < 0.5, (
-        img.mean(), frac_black, frac_white))
-    # a band of rows of the main path's image against the plain version
-    band0, band_h = 536, 8
-    w, h = mp["width"], mp["height"]
-    inp = mk.kernel_inputs(renderer._scene, renderer._sky, renderer._basis)
-    ref = torch.zeros((w * band_h, 3), dtype=torch.float32, device="cuda")
-    for f in range(stats.frames):
-        mk.render_plain_with_inputs(ref, inp, f, f == 0, width=w, height=band_h,
-                                    spp=mp["spp"], num_bounces=mp["bounces"],
-                                    row_offset=band0, full_height=h)
-    ref = ref / stats.samples_per_pixel
-    band = mean.reshape(-1, 3)[band0 * w:(band0 + band_h) * w]
-    band_st = _compare(ref, band, w, band_h)
-    _check(band_st["rmse"] < RMSE_GATE and band_st["mean_rel"] < MEAN_REL_GATE, band_st)
-    from weekend_raytracer_tpu_torch.utils.image import save_png
+    band0, band_h = 528, 32  # one full row of tiles
+    record["main"] = {}
+    launches = {}
+    for backend in ("auto", "pallas"):
+        renderer = Renderer(SCENES["rtiow"][0](), params, backend=backend, device="cuda")
+        expect = "regroup" if backend == "auto" else "pallas"
+        _check(renderer.backend == expect, (backend, renderer.backend))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts(mk, rg)
+        stats = renderer.render()
+        counts = _launch_counts(mk, rg)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        frames = stats.frames
+        _check(frames == mp["max_spp"] // mp["spp"], stats)
+        if expect == "regroup":
+            want = {"megakernel": 0, "k0": frames, "pack": 3 * frames,
+                    "k1": 3 * frames, "combine": 3 * frames}
+        else:
+            want = {"megakernel": frames, "k0": 0, "pack": 0, "k1": 0, "combine": 0}
+        _check(counts == want, (expect, counts, want))
+        launches[expect] = counts
+        mean = renderer.mean_radiance()
+        _check(tuple(mean.shape) == (h, w, 3), tuple(mean.shape))
+        _check(bool(torch.isfinite(mean).all()), "non-finite accumulator")
+        img = renderer.image()
+        frac_black = float((img.max(axis=2) == 0).mean())
+        frac_white = float((img.min(axis=2) == 255).mean())
+        _check(20 < img.mean() < 235 and frac_black < 0.5 and frac_white < 0.5, (
+            img.mean(), frac_black, frac_white))
+        # a band of rows of the main path's image against its plain twin
+        inp = mk.kernel_inputs(renderer._scene, renderer._sky, renderer._basis)
+        ref = torch.zeros((w * band_h, 3), dtype=torch.float32, device="cuda")
+        for f in range(frames):
+            kw = dict(width=w, height=band_h, spp=mp["spp"], num_bounces=mp["bounces"],
+                      row_offset=band0, full_height=h)
+            if expect == "regroup":
+                rg.render_image_regrouped_plain(ref, f, f == 0, renderer._scene,
+                                                renderer._sky, renderer._basis,
+                                                cuts=_CUTS, **kw)
+            else:
+                mk.render_plain_with_inputs(ref, inp, f, f == 0, **kw)
+        ref = ref / stats.samples_per_pixel
+        band = mean.reshape(-1, 3)[band0 * w:(band0 + band_h) * w]
+        band_st = _compare(ref, band, w, band_h)
+        _check(band_st["rmse"] < RMSE_GATE and band_st["mean_rel"] < MEAN_REL_GATE,
+               band_st)
+        warm_frames = frames - 1
+        warm_s = (stats.seconds - stats.warmup_seconds) / max(warm_frames, 1)
+        # where a frame's time goes: the per-frame host prep (host clock
+        # around a synchronized kernel_inputs) and the kernels (CUDA events)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            mk.kernel_inputs(renderer._scene, renderer._sky, renderer._basis)
+        torch.cuda.synchronize()
+        prep_ms = (time.perf_counter() - t0) * 1e3 / 5
+        scratch = torch.zeros_like(renderer._accum)
+        fkw = dict(width=w, height=h, spp=mp["spp"], num_bounces=mp["bounces"])
+        rec = {"frames": frames, "launches": counts, "warmup_s": stats.warmup_seconds,
+               "warm_frame_s": warm_s, "rays_per_s": stats.rays_per_sec,
+               "seconds": stats.seconds, "prep_ms": prep_ms, "peak_gb": peak_gb,
+               "image_mean": float(img.mean()), "band": band_st}
+        if expect == "regroup":
+            stages = _stage_ms(lambda mark: rg.launch_regrouped(
+                scratch, inp, 0, True, cuts=_CUTS, on_stage=mark, **fkw))
+            # live records per phase, in dense rows of 128 (the last row part full)
+            _, rows = rg.launch_regrouped(scratch, inp, 0, True, cuts=_CUTS,
+                                          debug_counts=True, **fkw)
+            rec.update(frame_kernel_ms=sum(stages.values()), stages_ms=stages,
+                       rows=rows)
+            extra = dict(stages_ms=json.dumps({k: round(v, 3) for k, v in stages.items()}),
+                         rows=json.dumps(rows))
+        else:
+            rec["frame_kernel_ms"] = _time_ms(lambda: mk.launch_megakernel(
+                scratch, inp, 0, True, **fkw), 3)
+            extra = {}
+        record["main"][expect] = rec
+        _say("main", backend=renderer.backend, frames=frames,
+             launches=json.dumps(counts), spp=stats.samples_per_pixel,
+             warmup_s=f"{stats.warmup_seconds:.3f}", warm_frame_s=f"{warm_s:.4f}",
+             rays_per_s=f"{stats.rays_per_sec:.4e}",
+             frame_kernel_ms=f"{rec['frame_kernel_ms']:.2f}", prep_ms=f"{prep_ms:.2f}",
+             peak_gb=f"{peak_gb:.3f}", image_mean=f"{img.mean():.1f}",
+             band=json.dumps(band_st), **extra, card=repr(smi))
+        if expect == "regroup":
+            from weekend_raytracer_tpu_torch.utils.image import save_png
 
-    os.makedirs(os.path.dirname(os.path.abspath(args.png)), exist_ok=True)
-    save_png(args.png, img)
-    warm_frames = stats.frames - 1
-    warm_s = (stats.seconds - stats.warmup_seconds) / max(warm_frames, 1)
-    # where a frame's time goes: the per-frame host prep (host clock around
-    # a synchronized kernel_inputs) and the kernel alone (CUDA events)
-    t0 = time.perf_counter()
-    for _ in range(5):
-        mk.kernel_inputs(renderer._scene, renderer._sky, renderer._basis)
-    torch.cuda.synchronize()
-    prep_ms = (time.perf_counter() - t0) * 1e3 / 5
-    scratch = torch.zeros_like(renderer._accum)
-    frame_kernel_ms = _time_ms(lambda: mk.launch_megakernel(
-        scratch, inp, 0, True, width=w, height=h, spp=mp["spp"],
-        num_bounces=mp["bounces"]), 3)
-    _say("main", backend=renderer.backend, frames=stats.frames, launches=launches,
-         spp=stats.samples_per_pixel, warmup_s=f"{stats.warmup_seconds:.3f}",
-         warm_frame_s=f"{warm_s:.4f}", rays_per_s=f"{stats.rays_per_sec:.4e}",
-         frame_kernel_ms=f"{frame_kernel_ms:.2f}", prep_ms=f"{prep_ms:.2f}",
-         image_mean=f"{img.mean():.1f}", band=json.dumps(band_st), png=args.png,
-         card=repr(smi))
-    record["main"] = {"frames": stats.frames, "launches": launches,
-                      "warmup_s": stats.warmup_seconds, "warm_frame_s": warm_s,
-                      "rays_per_s": stats.rays_per_sec, "seconds": stats.seconds,
-                      "frame_kernel_ms": frame_kernel_ms, "prep_ms": prep_ms,
-                      "image_mean": float(img.mean()), "band": band_st}
+            os.makedirs(os.path.dirname(os.path.abspath(args.png)), exist_ok=True)
+            save_png(args.png, img)
+        del renderer, scratch
+        torch.cuda.empty_cache()
 
-    # 5. kernel against plain time, one shape, CUDA events
-    tm = _TIMING
-    scene, sky, basis = _case(tm["scene"], tm["width"], tm["height"], "cuda")
-    inp = mk.kernel_inputs(scene, sky, basis)
-    acc = torch.zeros((tm["width"] * tm["height"], 3), device="cuda")
+    # 7. kernels against plain time at one shape (CUDA events), and the
+    # 1080p frame of each backend, in turns
     kw = dict(width=tm["width"], height=tm["height"], spp=tm["spp"],
               num_bounces=tm["bounces"])
+    acc = torch.zeros((tm["width"] * tm["height"], 3), device="cuda")
 
-    def kernel():
-        mk.launch_megakernel(acc, inp, 0, True, **kw)
+    def mega():
+        mk.launch_megakernel(acc, inp_t, 0, True, **kw)
 
-    def plain():
-        mk.render_plain_with_inputs(acc, inp, 0, True, **kw)
+    def mega_plain():
+        mk.render_plain_with_inputs(acc, inp_t, 0, True, **kw)
 
-    kernel()
-    plain()
-    times = {"kernel": [], "plain": []}
-    for order in (("plain", 2), ("kernel", 10), ("kernel", 10), ("plain", 2)):
-        times[order[0]].append(_time_ms(kernel if order[0] == "kernel" else plain,
-                                        order[1]))
-    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    def regroup_stages(plain):
+        fn = rg.regrouped_plain_with_inputs if plain else rg.launch_regrouped
+        return _per_kernel(_stage_ms(lambda mark: fn(acc, inp_t, 0, True, cuts=_CUTS,
+                                                     on_stage=mark, **kw)))
+
+    mega()
+    mega_plain()
+    regroup_stages(False)
+    regroup_stages(True)
+    times = {"megakernel": [], "megakernel_plain": [], "regroup": [], "regroup_plain": []}
+    for label, reps in (("plain", 2), ("kernel", 10), ("kernel", 10), ("plain", 2)):
+        if label == "kernel":
+            times["megakernel"].append(_time_ms(mega, reps))
+            times["regroup"].append(regroup_stages(False))
+        else:
+            times["megakernel_plain"].append(_time_ms(mega_plain, reps))
+            times["regroup_plain"].append(regroup_stages(True))
+    ms = {"megakernel": min(times["megakernel"]),
+          **{k: min(r[k] for r in times["regroup"]) for k in REGROUP_KERNELS}}
+    plain_ms = {"megakernel": min(times["megakernel_plain"]),
+                **{k: min(r[k] for r in times["regroup_plain"]) for k in REGROUP_KERNELS}}
+    # the 1080p frame, kernels only: regroup, megakernel, megakernel, regroup
+    inp = mk.kernel_inputs(*_case("rtiow", mp["width"], mp["height"], "cuda"))
+    big = torch.zeros((mp["width"] * mp["height"], 3), device="cuda")
+    fkw = dict(width=mp["width"], height=mp["height"], spp=mp["spp"],
+               num_bounces=mp["bounces"])
+    frame_fns = {
+        "regroup": lambda: rg.launch_regrouped(big, inp, 0, True, cuts=_CUTS, **fkw),
+        "megakernel": lambda: mk.launch_megakernel(big, inp, 0, True, **fkw)}
+    frame_fns["regroup"]()
+    frame_ms = {"regroup": [], "megakernel": []}
+    for label in ("regroup", "megakernel", "megakernel", "regroup"):
+        frame_ms[label].append(_time_ms(frame_fns[label], 3))
     _say("timing", shape=f"{tm['scene']} {tm['width']}x{tm['height']} "
-         f"spp{tm['spp']} b{tm['bounces']}", kernel_ms=f"{ms:.3f}",
-         plain_ms=f"{plain_ms:.3f}", runs=json.dumps(times), card=repr(smi))
+         f"spp{tm['spp']} b{tm['bounces']}",
+         kernel_ms=json.dumps({k: round(v, 4) for k, v in ms.items()}),
+         plain_ms=json.dumps({k: round(v, 3) for k, v in plain_ms.items()}),
+         frame_1080p_ms=json.dumps(frame_ms), card=repr(smi))
     record["timing"] = {"shape": tm, "kernel_ms": ms, "plain_ms": plain_ms,
-                        "runs": times}
+                        "runs": times, "frame_1080p_ms": frame_ms}
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
-    print(smi, flush=True)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "megakernel", "route": "cuda", "source": mk.KERNEL_SOURCE,
-        "replaces": mk.REPLACES, "launches": launches,
-        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+        "replaces": mk.REPLACES, "launches": launches["pallas"]["megakernel"],
+        "max_abs_err": max_abs_err, "ms": ms["megakernel"],
+        "plain_ms": plain_ms["megakernel"]}]
+    for k in REGROUP_KERNELS:
+        kernels.append({
+            "name": f"regroup_{k}", "route": "cuda", "source": rg.KERNEL_SOURCE,
+            "replaces": rg.REPLACES[k], "launches": launches["regroup"][k],
+            "max_abs_err": rg_err[k], "ms": ms[k], "plain_ms": plain_ms[k]})
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,9 +1,10 @@
 """The port's Renderer: end to end on the CPU against the JAX Renderer,
 backend resolution, the progress machine, and the import boundary.
 
-On the CPU every frame runs the kernel's plain PyTorch version (the
-wrapper takes it only for CPU tensors), so this is the whole progressive
-path short of the CUDA launch.
+On the CPU every frame runs the backend's plain PyTorch twins (the
+megakernel's, or the regroup pipeline's for "auto" at a power-of-two spp;
+the wrappers take them only for CPU tensors), so this is the whole
+progressive path short of the CUDA launches.
 """
 import dataclasses
 import os
@@ -22,6 +23,7 @@ import weekend_raytracer_tpu_torch as twrt  # noqa: E402
 from weekend_raytracer_tpu_torch.models import scenes as tscenes  # noqa: E402
 from weekend_raytracer_tpu_torch.models.sky import SkyParams  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
+from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg  # noqa: E402
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,18 +42,17 @@ def _renderer(backend="auto", name="three", **kw):
                          backend=backend, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["three", "single"])
-def test_renderer_matches_jax_renderer(name):
+def _matches_jax_renderer(name, backend, expect):
     """32x18, 16 spp in 8 frames of 2: the port's Renderer on the CPU
-    against the JAX Renderer's fused megakernel, at tests/test_pallas.py's
+    against the JAX Renderer on the same backend, at tests/test_pallas.py's
     statistical gates."""
     kw = dict(max_spp=16, spp=2, bounces=8, name=name)
     jr = jwrt.Renderer(jscenes.SCENES[name][0](), _params(jwrt, jscenes, **kw),
-                       backend="pallas")
+                       backend=backend)
     jstats = jr.render()
-    tr = _renderer(**kw)
+    tr = _renderer(backend=backend, **kw)
     tstats = tr.render()
-    assert tr.backend == "pallas"
+    assert jr.backend == tr.backend == expect
     assert (tstats.frames, tstats.samples_per_pixel, tstats.rays) == (
         jstats.frames, jstats.samples_per_pixel, jstats.rays)
     a = np.asarray(jr.mean_radiance())
@@ -64,15 +65,30 @@ def test_renderer_matches_jax_renderer(name):
     assert abs(a.mean() - b.mean()) / a.mean() < 1e-3
 
 
+@pytest.mark.parametrize("name", ["three", "single"])
+def test_renderer_matches_jax_renderer(name):
+    """The megakernel backend, pinned on both sides."""
+    _matches_jax_renderer(name, "pallas", "pallas")
+
+
+@pytest.mark.parametrize("name", ["three", "single"])
+def test_auto_renderer_matches_jax_regroup(name):
+    """'auto' at spp 2 and 8 bounces: regroup on both sides."""
+    _matches_jax_renderer(name, "auto", "regroup")
+
+
 @pytest.mark.parametrize("spp,bounces", [(2, 4), (3, 4), (4, 1)])
 def test_auto_resolves_to_pallas(spp, bounces):
-    """'auto' is the megakernel for every spp and depth until regroup is
-    ported (the JAX rule would pick regroup for power-of-two spp)."""
-    r = _renderer(max_spp=12, spp=spp, bounces=bounces)
-    assert r.backend == "pallas"
+    """'auto' follows the JAX package's rule: regroup for power-of-two spp
+    <= 128 and at least 2 bounces (2, 4), the megakernel otherwise (3, 4)
+    and (4, 1)."""
+    kw = dict(max_spp=12, spp=spp, bounces=bounces)
+    r = _renderer(**kw)
+    jr = jwrt.Renderer(jscenes.SCENES["three"][0](), _params(jwrt, jscenes, **kw))
+    assert r.backend == jr.backend == ("regroup" if (spp, bounces) == (2, 4) else "pallas")
 
 
-@pytest.mark.parametrize("backend", ["regroup", "xla", "wavefront"])
+@pytest.mark.parametrize("backend", ["xla", "wavefront"])
 def test_unported_backends_raise(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _renderer(backend=backend)
@@ -81,6 +97,9 @@ def test_unported_backends_raise(backend):
 def test_regroup_keeps_the_jax_validation():
     with pytest.raises(twrt.RenderParamsValidationError):
         _renderer(backend="regroup", max_spp=9, spp=3)
+    with pytest.raises(twrt.RenderParamsValidationError):
+        _renderer(backend="regroup", bounces=1)
+    assert _renderer(backend="regroup", spp=4, max_spp=8).backend == "regroup"
     with pytest.raises(ValueError, match="unknown backend"):
         _renderer(backend="vulkan")
 
@@ -99,18 +118,42 @@ def test_set_render_params_reresolves_and_raises_unported():
         r.set_render_params(bad)
 
 
+def _regroup_launches():
+    return [getattr(rg, f"launch_{k}").launches for k in ("k0", "pack", "k1", "combine")]
+
+
 def test_render_to_convergence_and_readback():
     r = _renderer(max_spp=8, spp=2, size=(40, 24))
-    before = mk.render_image_megakernel.launches
+    assert r.backend == "regroup"
+    before = mk.render_image_megakernel.launches, _regroup_launches()
     stats = r.render()
     assert stats.frames == 4 and stats.samples_per_pixel == 8
     assert r.progress() == pytest.approx(1.0)
     assert not r.render_frame()  # converged: no more work
-    assert mk.render_image_megakernel.launches == before  # no CUDA launch on CPU
+    # no CUDA launch on the CPU
+    assert (mk.render_image_megakernel.launches, _regroup_launches()) == before
     img = r.image()
     assert img.shape == (24, 40, 3) and img.dtype == np.uint8
     assert r.mean_radiance().device.type == "cpu"
     assert r.sky_model() == "preetham-fit-builtin"
+
+
+def test_cpu_auto_render_runs_the_regroup_twins(monkeypatch):
+    """On the CPU, 'auto' at a power-of-two spp runs the regroup pipeline's
+    plain twins, with the scene's default cuts (three spheres: one cut, 3)."""
+    calls = []
+    for name in ("k0_plain", "pack_plain", "k1_plain", "combine_plain"):
+        real = getattr(rg, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(rg, name, spy)
+    r = _renderer(max_spp=4, spp=2, bounces=6)
+    assert r.render().frames == 2
+    assert calls == ["k0_plain", "pack_plain", "k1_plain", "combine_plain"] * 2
+    assert np.isfinite(r.mean_radiance().numpy()).all()
 
 
 def test_reset_and_resize():
@@ -133,6 +176,7 @@ def test_prebuilt_scene_is_moved_to_the_device():
 def test_import_leaves_jax_out():
     code = ("import sys, weekend_raytracer_tpu_torch as w; "
             "import weekend_raytracer_tpu_torch.ops.cuda.megakernel; "
+            "import weekend_raytracer_tpu_torch.ops.cuda.regroup; "
             "import weekend_raytracer_tpu_torch.renderer; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
             "assert 'weekend_raytracer_tpu' not in sys.modules")

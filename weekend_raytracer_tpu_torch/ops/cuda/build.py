@@ -3,9 +3,10 @@
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) with a plain C
 interface and loaded with ctypes; no PyTorch header is compiled, so a build
 takes seconds. Builds land in ``weekend_raytracer_tpu_torch/_build/``, one
-directory per hash of the sources and flags, so a changed source or flag
-rebuilds and an unchanged one loads the library already built. Nothing
-here runs at import time.
+directory per hash of the sources, the headers they include and the flags,
+so a changed source, header or flag rebuilds and an unchanged one loads
+the library already built. Several libraries build in parallel, one nvcc
+each. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -79,39 +80,62 @@ def parse_ptxas(log: str) -> dict:
     return out
 
 
-_LOADED: dict = {}
+_LOADED: dict = {}  # (name, sources, headers) -> BuiltLibrary, per process
 
 
-def load_library(name: str, sources: tuple) -> BuiltLibrary:
-    """Build (if needed) and load ``lib<name>.so`` from ``sources``, paths
-    relative to the package's csrc/ directory. Raises if nvcc fails."""
-    paths = [CSRC_DIR / s for s in sources]
+def build_key(name: str, sources: tuple, headers: tuple = ()) -> str:
+    """The build directory's name: a hash of the compiled sources, the
+    headers they include and the flags. Headers are hashed, not compiled,
+    so a changed header rebuilds every library that includes it."""
     digest = hashlib.sha256()
-    for p in paths:
+    for p in [CSRC_DIR / s for s in (*sources, *headers)]:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    key = f"{name}-{digest.hexdigest()[:16]}"
-    if key in _LOADED:
-        return _LOADED[key]
-    out_dir = BUILD_DIR / key
-    so_path = out_dir / f"lib{name}.so"
-    log_path = out_dir / "build.log"
-    seconds = 0.0
-    if not so_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {name}:\n{log[-4000:]}")
-        log_path.write_text(log)
-        os.replace(tmp, so_path)
-    built = BuiltLibrary(lib=ctypes.CDLL(str(so_path)), path=so_path,
-                         build_seconds=seconds, log=log_path.read_text())
-    _LOADED[key] = built
-    return built
+    return f"{name}-{digest.hexdigest()[:16]}"
+
+
+def load_library(name: str, sources: tuple, headers: tuple = ()) -> BuiltLibrary:
+    """Build (if needed) and load ``lib<name>.so`` from ``sources``, paths
+    relative to the package's csrc/ directory; ``headers`` are the csrc/
+    headers they include (hashed into the key, not compiled). A process
+    loads each library once and keeps it. Raises if nvcc fails."""
+    return load_libraries([(name, sources, headers)])[0]
+
+
+def load_libraries(specs) -> list:
+    """``load_library`` for each (name, sources, headers) of ``specs``; the
+    libraries not built yet are built by one nvcc each, all started at
+    once."""
+    specs = [(name, tuple(sources), tuple(headers)) for name, sources, headers in specs]
+    running = []
+    for spec in specs:
+        if spec in _LOADED:
+            continue
+        name, sources, _ = spec
+        out_dir = BUILD_DIR / build_key(*spec)
+        so_path = out_dir / f"lib{name}.so"
+        proc = tmp = None
+        if not so_path.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out_dir / f".lib{name}.{os.getpid()}.so"
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(CSRC_DIR / s) for s in sources]]
+            with open(out_dir / "build.log", "w") as log:
+                log.write(" ".join(cmd) + "\n")
+                log.flush()
+                proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        running.append((spec, out_dir, so_path, proc, tmp, time.perf_counter()))
+    for spec, out_dir, so_path, proc, tmp, t0 in running:
+        seconds = 0.0
+        if proc is not None:
+            rc = proc.wait()
+            seconds = time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}) building {spec[0]}:\n"
+                                   f"{(out_dir / 'build.log').read_text()[-4000:]}")
+            os.replace(tmp, so_path)
+        _LOADED[spec] = BuiltLibrary(lib=ctypes.CDLL(str(so_path)), path=so_path,
+                                     build_seconds=seconds,
+                                     log=(out_dir / "build.log").read_text())
+    return [_LOADED[spec] for spec in specs]

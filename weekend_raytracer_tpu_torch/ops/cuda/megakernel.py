@@ -272,6 +272,8 @@ def kernel_inputs(scene: Scene, sky: SkyState, basis: CameraBasis, *,
 
 KERNEL_SOURCE = "weekend_raytracer_tpu_torch/csrc/megakernel.cu"
 REPLACES = "weekend_raytracer_tpu/ops/pallas/megakernel.py:1713"
+# (name, compiled sources, included headers) for build.load_library
+LIBRARY = ("wrt_megakernel", ("megakernel.cu",), ("bounce.cuh",))
 
 # TPU-only knobs of render_image_pallas and the values that leave them off.
 # mxu_sweep, listed and subcull were measured as losses on the TPU; tsub and
@@ -288,7 +290,7 @@ _TPU_KNOBS = {
 
 def _library():
     """Build (first use) and load the kernel library; raises on failure."""
-    built = load_library("wrt_megakernel", ("megakernel.cu",))
+    built = load_library(*LIBRARY)
     fn = built.lib.wrt_megakernel_launch
     if fn.argtypes is None:
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
@@ -528,14 +530,34 @@ def _closest_hit(o, d, sweep):
     return bt, bi
 
 
-def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int):
-    """Radiance [n, 3] of one sample per ray; dead rays leave the batch."""
+class PathState(NamedTuple):
+    """Per-ray path state after a run of bounces (the CUDA ``Ray``)."""
+
+    o: torch.Tensor  # [n, 3] origin
+    d: torch.Tensor  # [n, 3] unit direction
+    tr: torch.Tensor  # [n, 3] throughput
+    c: torch.Tensor  # [n, 3] colour of the light that ended the path, else 0
+    alive: torch.Tensor  # [n] bool: still bouncing
+    state: torch.Tensor  # [n] RNG state (uint32 in int64)
+
+
+def trace_bounces_plain(o, d, tr, state, inp: KernelInputs, b_lo: int,
+                        b_hi: int) -> PathState:
+    """Bounces [b_lo, b_hi) of live paths (bounce.cuh ``trace_bounces``).
+
+    o and d are (x, y, z) tuples of [n] f32, tr is [n, 3]. Paths that end
+    leave the batch; a path's final state is written back at its index. A
+    path that ends keeps the ray it ended on, and one still alive after
+    b_hi keeps colour 0."""
     n = o[0].shape[0]
     dev = o[0].device
     out_c = torch.zeros((n, 3), dtype=_F32, device=dev)
-    out_t = torch.ones((n, 3), dtype=_F32, device=dev)
+    out_t = tr.clone()
+    out_o = torch.stack(o, dim=1)
+    out_d = torch.stack(d, dim=1)
+    out_alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    out_state = state.clone()
     live = torch.arange(n, device=dev)
-    tr = torch.ones((n, 3), dtype=_F32, device=dev)
     sky = [_f32(v) for v in inp.sky.tolist()]
     attrs = inp.attrs
     textured = inp.tex_pool is not None
@@ -544,7 +566,7 @@ def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int):
            ("LAMBERTIAN", "METAL", "DIELECTRIC", "CHECKERBOARD", "EMISSIVE")}
     ox, oy, oz = o
     dx, dy, dz = d
-    for _ in range(num_bounces):
+    for _ in range(b_lo, b_hi):
         if live.numel() == 0:
             break
         bt, bi = _closest_hit((ox, oy, oz), (dx, dy, dz), inp.sweep)
@@ -565,6 +587,9 @@ def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int):
             idx = live[miss]
             out_c[idx] = rad
             out_t[idx] = tr[miss]
+            out_alive[idx] = False
+            out_o[idx] = torch.stack([ox[miss], oy[miss], oz[miss]], dim=1)
+            out_d[idx] = torch.stack([mdx, mdy, mdz], dim=1)
 
         (live, bt, bi, ox, oy, oz, dx, dy, dz, state) = (
             v[hit] for v in (live, bt, bi, ox, oy, oz, dx, dy, dz, state))
@@ -692,6 +717,9 @@ def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int):
                 [bmx[lit] * b1r[lit], bmx[lit] * b1g[lit], bmx[lit] * b1b[lit]],
                 dim=1)
             out_t[idx] = tr[lit]
+            out_alive[idx] = False
+            out_o[idx] = torch.stack([ox[lit], oy[lit], oz[lit]], dim=1)
+            out_d[idx] = torch.stack([dx[lit], dy[lit], dz[lit]], dim=1)
         scat = ~lit
         tr = tr[scat] * att[scat]
         live, state = live[scat], state[scat]
@@ -699,8 +727,42 @@ def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int):
         dx = (ndx * inv_len)[scat]
         dy = (ndy * inv_len)[scat]
         dz = (ndz * inv_len)[scat]
-    # paths alive after the last bounce keep color 0 (out_c's zero)
-    return out_t * out_c
+    # paths alive after the last bounce keep colour 0 (out_c's zero)
+    if live.numel():
+        out_o[live] = torch.stack([ox, oy, oz], dim=1)
+        out_d[live] = torch.stack([dx, dy, dz], dim=1)
+        out_t[live] = tr
+        out_state[live] = state
+    return PathState(out_o, out_d, out_t, out_c, out_alive, out_state)
+
+
+def camera_rays_plain(cam, xf, yf, inv_w: float, inv_h: float, state):
+    """Jittered thin-lens camera rays (bounce.cuh ``camera_ray``): cam is
+    the 20 f32 camera values as Python floats; returns (state, o, d) with
+    o and d (x, y, z) tuples of [n] f32, d unit."""
+    state, (ju, jv, dr, da) = rng.next_floats(state, 4)
+    su = (xf + ju) * inv_w
+    sv = 1.0 - (yf + jv) * inv_h
+    lr = torch.sqrt(dr)
+    la = TWO_PI * da
+    lens_x = cam[18] * lr * torch.cos(la)
+    lens_y = cam[18] * lr * torch.sin(la)
+    ox = cam[0] + lens_x * cam[9] + lens_y * cam[12]
+    oy = cam[1] + lens_x * cam[10] + lens_y * cam[13]
+    oz = cam[2] + lens_x * cam[11] + lens_y * cam[14]
+    dx = cam[15] + su * cam[3] + sv * cam[6] - ox
+    dy = cam[16] + su * cam[4] + sv * cam[7] - oy
+    dz = cam[17] + su * cam[5] + sv * cam[8] - oz
+    inv_len = 1.0 / torch.sqrt(
+        torch.clamp(dx * dx + dy * dy + dz * dz, min=1.0e-24))
+    return state, (ox, oy, oz), (dx * inv_len, dy * inv_len, dz * inv_len)
+
+
+def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int):
+    """Radiance [n, 3] of one sample per ray: tr * c after every bounce."""
+    tr = torch.ones((o[0].shape[0], 3), dtype=_F32, device=o[0].device)
+    p = trace_bounces_plain(o, d, tr, state, inp, 0, num_bounces)
+    return p.tr * p.c
 
 
 def render_image_megakernel_plain(
@@ -758,23 +820,8 @@ def render_plain_with_inputs(accum: torch.Tensor, inp: KernelInputs, frame,
         tot = torch.zeros((idx.numel(), 3), dtype=_F32, device=dev)
         for s in range(spp):
             state = rng.init_sample_state(pix, frame, s)
-            state, (ju, jv, dr, da) = rng.next_floats(state, 4)
-            su = (xf + ju) * inv_w
-            sv = 1.0 - (yf + jv) * inv_h
-            lr = torch.sqrt(dr)
-            la = TWO_PI * da
-            lens_x = cam[18] * lr * torch.cos(la)
-            lens_y = cam[18] * lr * torch.sin(la)
-            ox = cam[0] + lens_x * cam[9] + lens_y * cam[12]
-            oy = cam[1] + lens_x * cam[10] + lens_y * cam[13]
-            oz = cam[2] + lens_x * cam[11] + lens_y * cam[14]
-            dx = cam[15] + su * cam[3] + sv * cam[6] - ox
-            dy = cam[16] + su * cam[4] + sv * cam[7] - oy
-            dz = cam[17] + su * cam[5] + sv * cam[8] - oz
-            inv_len = 1.0 / torch.sqrt(
-                torch.clamp(dx * dx + dy * dy + dz * dz, min=1.0e-24))
-            d = (dx * inv_len, dy * inv_len, dz * inv_len)
-            tot = tot + _trace_plain((ox, oy, oz), d, state, inp, num_bounces)
+            state, o, d = camera_rays_plain(cam, xf, yf, inv_w, inv_h, state)
+            tot = tot + _trace_plain(o, d, state, inp, num_bounces)
         total[p0:p0 + idx.numel()] = tot
     if clear:
         accum.zero_()

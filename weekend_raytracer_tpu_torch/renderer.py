@@ -13,6 +13,10 @@ src/raytracer/mod.rs:20-394, and ``RenderProgress``, mod.rs:615-679):
 
 Every renderer names its device. Checkpoints, mesh sharding, the CLI and
 the viewer are not ported yet (ROADMAP Queue 1).
+
+Backends: ``"pallas"`` is the fused CUDA megakernel (one launch per frame),
+``"regroup"`` the lane-regrouped wavefront (K0, then PACK and K1 per cut,
+then COMBINE); ``"auto"`` picks between them by the JAX package's rule.
 """
 from __future__ import annotations
 
@@ -29,14 +33,14 @@ from .models.scenes import SceneDesc
 from .models.sky import resolve_sky_state
 from .ops import tonemap
 from .ops.cuda.megakernel import render_image_megakernel
+from .ops.cuda.regroup import default_cuts, render_image_regrouped
 from .ops.tracer import Scene
 
 # Backends of the JAX package that this package does not have yet, and the
 # ROADMAP Queue 1 item that brings each. None is replaced by another.
 _NOT_PORTED = {
-    "regroup": "ROADMAP Queue 1, item 1 (regroup port, kernels #3-#6)",
     "xla": "ROADMAP Queue 1, item 3 (XLA tracer as the 'xla' backend)",
-    "wavefront": "ROADMAP Queue 1, item 9 (left out: an internal test oracle)",
+    "wavefront": "ROADMAP Queue 1, item 8 (left out: an internal test oracle)",
 }
 
 
@@ -85,24 +89,26 @@ class RenderProgress:
 
 def resolve_backend(requested: str, params: RenderParams) -> str:
     """The JAX package's backend rule, with its validation, for the
-    backends this package has. ``"auto"`` resolves to ``"pallas"`` (the CUDA
-    megakernel): the JAX rule picks ``"regroup"`` for power-of-two spp, and
-    will here once regroup is ported. Backends not ported yet raise
-    NotImplementedError; none is replaced by another."""
+    backends this package has (weekend_raytracer_tpu/renderer.py:184-192):
+    ``"auto"`` is ``"regroup"`` for power-of-two spp <= 128 and at least 2
+    bounces, else ``"pallas"`` (the CUDA megakernel). Backends not ported
+    yet raise NotImplementedError; none is replaced by another."""
     spp = params.sampling.num_samples_per_pixel
     bounces = params.sampling.num_bounces
     pow2 = spp >= 1 and spp & (spp - 1) == 0
     regroup_ok = pow2 and spp <= 128 and bounces >= 2
     if requested == "auto":
-        return "pallas"
+        return "regroup" if regroup_ok else "pallas"
     if requested == "pallas":
         return "pallas"
-    if requested == "regroup" and not regroup_ok:
-        raise RenderParamsValidationError(
-            "backend='regroup' requires power-of-two (per-shard) "
-            "spp <= 128 and num_bounces >= 2; got spp="
-            f"{spp}, bounces={bounces} — use backend='pallas' or 'auto'"
-        )
+    if requested == "regroup":
+        if not regroup_ok:
+            raise RenderParamsValidationError(
+                "backend='regroup' requires power-of-two (per-shard) "
+                "spp <= 128 and num_bounces >= 2; got spp="
+                f"{spp}, bounces={bounces} — use backend='pallas' or 'auto'"
+            )
+        return "regroup"
     if requested in _NOT_PORTED:
         raise NotImplementedError(
             f"backend={requested!r} is not ported yet: {_NOT_PORTED[requested]}")
@@ -116,11 +122,13 @@ class Renderer:
     ----------
     scene : SceneDesc or a prebuilt ops.tracer.Scene (moved to ``device``)
     params : RenderParams (validated on construction and on update)
-    backend : "auto" | "pallas" (the CUDA megakernel). "regroup", "xla" and
-        "wavefront" raise NotImplementedError until they are ported.
+    backend : "auto" | "pallas" (the CUDA megakernel) | "regroup" (the
+        lane-regrouped wavefront). "auto" follows the JAX package's rule.
+        "xla" and "wavefront" raise NotImplementedError until they are
+        ported.
     device : the torch device every tensor of this renderer lives on, e.g.
-        "cuda" or "cpu". On a CUDA device each frame is one launch of the
-        CUDA kernel; on the CPU it runs the kernel's plain PyTorch twin.
+        "cuda" or "cpu". On a CUDA device each frame launches the backend's
+        CUDA kernels; on the CPU it runs their plain PyTorch twins.
     budget_texels : texels per image texture in the kernel's LUT (default
         8192); textures are mipped down to fit.
     hw_dataset : optional path to the published Hosek-Wilkie 2012 RGB
@@ -198,10 +206,15 @@ class Renderer:
         w, h = self._params.viewport_size
         bt = ({} if self.budget_texels is None
               else {"budget_texels": self.budget_texels})
-        render_image_megakernel(
-            self._accum, self._frame_number, gpu.clear_accumulated_samples,
-            self._scene, self._sky, self._basis, width=w, height=h,
-            spp=gpu.num_samples_per_pixel, num_bounces=gpu.num_bounces, **bt)
+        if self.backend == "regroup":
+            n_spheres = int(self._scene.spheres.centers.shape[0])
+            fn = render_image_regrouped
+            bt["cuts"] = default_cuts(gpu.num_bounces, n_spheres)
+        else:
+            fn = render_image_megakernel
+        fn(self._accum, self._frame_number, gpu.clear_accumulated_samples,
+           self._scene, self._sky, self._basis, width=w, height=h,
+           spp=gpu.num_samples_per_pixel, num_bounces=gpu.num_bounces, **bt)
         self._frame_number += 1
         return True
 
