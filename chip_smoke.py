@@ -159,22 +159,26 @@ def _zero_launch_counts(mk, rg) -> None:
         getattr(rg, f"launch_{k}").launches = 0
 
 
-def _bitwise_max_err(a, b) -> float:
-    """Max |a - b|, and a check that a and b are equal with +-0 equal."""
-    _check(bool(((a + 0.0) == (b + 0.0)).all()), "not bit for bit")
-    return float((a - b).abs().max()) if a.numel() else 0.0
+def _bitwise_max_err(a, b, what) -> float:
+    """Check that a and b are equal in every bit, +0.0 and -0.0 held equal;
+    returns max |a - b| (0.0 then)."""
+    import torch
+
+    same = a.shape == b.shape and torch.equal((a + 0.0).view(torch.int32),
+                                              (b + 0.0).view(torch.int32))
+    _check(same, (what, "not bit for bit"))
+    return float((a - b).nan_to_num(0.0).abs().max()) if a.numel() else 0.0
 
 
-def _regroup_kernels_vs_plain(mk, rg) -> dict:
-    """Each regroup kernel against its twin on the same inputs: K0 and K1
-    on the first-hit scene (two bounces into a constant sky, so every path
-    is decided), PACK and COMBINE bit for bit on rtiow's K0 pool with its
-    own, a random, an all-live and an all-dead alive mask."""
+def _k0_k1_vs_plain(mk, rg) -> dict:
+    """K0 and K1 against their twins on the first-hit scene (two bounces
+    into a constant sky, so every path is decided), cut after bounce 0.
+    K0's alive flags and home slots must agree exactly, K1's alive flags on
+    99% of the records, and the radiance of both with an error of 0."""
     import torch
 
     dev = torch.device("cuda")
     out = {}
-    # K0 and K1 on the first-hit scene, cut after bounce 0
     w, h = 64, 48
     scene, sky, basis = _case("first_hit", w, h, dev)
     inp = mk.kernel_inputs(scene, sky, basis)
@@ -188,6 +192,7 @@ def _regroup_kernels_vs_plain(mk, rg) -> dict:
     _check(torch.equal(pools[0][[rg._HLO, rg._HHI]], pools[1][[rg._HLO, rg._HHI]]),
            "K0 home slots")
     out["k0"] = float((contribs[0] - contribs[1]).abs().max())
+    _check(out["k0"] == 0.0, ("K0 contributions", out["k0"]))
     counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=dev)
     dense = torch.empty_like(pools[0])
     inv = torch.empty((t.cap,), dtype=torch.int32, device=dev)
@@ -202,27 +207,35 @@ def _regroup_kernels_vs_plain(mk, rg) -> dict:
     same = dk[rg._AL, :n] == dp[rg._AL, :n]
     _check(float(same.float().mean()) >= 0.99, ("K1 alive agreement", float(same.float().mean())))
     out["k1"] = float((r8[0][:, :n] - r8[1][:, :n]).abs()[:, same].max())
+    _check(out["k1"] == 0.0, ("K1 base radiance", out["k1"]))
+    return out
 
-    # PACK and COMBINE on rtiow's K0 pool
-    w, h = 96, 64
-    scene, sky, basis = _case("rtiow", w, h, dev)
-    inp = mk.kernel_inputs(scene, sky, basis)
-    t, _ = rg.plan(w, h, 4, 8, _CUTS)
+
+def _pack_combine_vs_plain(rg, inp, t, seed: int) -> dict:
+    """PACK and COMBINE against their twins, bit for bit, on the K0 pool of
+    tiling ``t`` with its own, a random, an all-live and an all-dead alive
+    mask: the live count, the dense pool (+-0 equal), the inverse map, a
+    combine level, and the home level's fold into the accumulator (which
+    must leave K0's contributions untouched)."""
+    import torch
+
+    dev = torch.device("cuda")
     pool = torch.empty((rg.N_COMP, t.cap), device=dev)
     contrib = torch.empty((3, t.cap), device=dev)
     rg.launch_k0(inp, pool, contrib, t, 0, _CUTS[0])
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     masks = {"k0": pool[rg._AL].clone(),
              "random": (torch.rand(t.cap, device=dev, generator=gen) < 0.3).float(),
              "all_live": torch.ones(t.cap, device=dev),
              "all_dead": torch.zeros(t.cap, device=dev)}
+    del contrib
     pack_err, combine_err, live = 0.0, 0.0, {}
     block_sums = torch.empty((t.cap // 1024,), dtype=torch.int32, device=dev)
     for label, mask in masks.items():
         pool[rg._AL] = mask
         res = []
         for pack in (rg.launch_pack, rg.pack_plain):
-            counts = torch.tensor([t.cap, 0, 0], dtype=torch.int32, device=dev)
+            counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=dev)
             dst = torch.full((rg.N_COMP, t.cap), 7.0, device=dev)
             inv = torch.full((t.cap,), -7, dtype=torch.int32, device=dev)
             pack(pool, dst, inv, counts, 1, block_sums)
@@ -232,25 +245,31 @@ def _regroup_kernels_vs_plain(mk, rg) -> dict:
         live[label] = n
         _check(int(res[0][0][1]) == n, (label, "pack count", int(res[0][0][1]), n))
         end = -(-n // 128) * 128
-        pack_err = max(pack_err, _bitwise_max_err(res[0][1][:, :end], res[1][1][:, :end]))
+        pack_err = max(pack_err, _bitwise_max_err(res[0][1][:, :end], res[1][1][:, :end],
+                                                  (label, "dense pool")))
         _check(torch.equal(res[0][2], res[1][2]), (label, "inverse map"))
-        # COMBINE through this inverse map: a level (k = 2) and the home level
         counts, inv = res[1][0], res[1][2]
+        del res
+        # COMBINE through this inverse map: a level (k = 2) and the home level
         src = torch.rand((3, t.cap), device=dev, generator=gen)
         base = torch.rand((3, t.cap), device=dev, generator=gen)
-        accum = torch.rand((w * h, 3), device=dev, generator=gen)
+        accum = torch.rand((t.width * t.height, 3), device=dev, generator=gen)
         level = [base.clone(), base.clone()]
         counts2 = torch.tensor([t.cap, t.cap], dtype=torch.int32, device=dev)
         rg.launch_combine(inv, src, level[0], counts2, 2)
         rg.combine_plain(inv, src, level[1], counts2, 2)
-        home = [accum.clone(), accum.clone()]
-        rg.launch_combine(inv, src, base.clone(), counts, 1, accum=home[0], t=t)
-        rg.combine_plain(inv, src, base.clone(), counts, 1, accum=home[1], t=t)
+        combine_err = max(combine_err, _bitwise_max_err(level[0], level[1],
+                                                        (label, "combine level")))
+        del level
+        home, home_base = [accum.clone(), accum.clone()], [base.clone(), base.clone()]
+        rg.launch_combine(inv, src, home_base[0], counts, 1, accum=home[0], t=t)
+        rg.combine_plain(inv, src, home_base[1], counts, 1, accum=home[1], t=t)
         torch.cuda.synchronize()
-        combine_err = max(combine_err, _bitwise_max_err(level[0], level[1]),
-                          _bitwise_max_err(home[0], home[1]))
-    out["pack"], out["combine"], out["pack_live"] = pack_err, combine_err, live
-    return out
+        combine_err = max(combine_err, _bitwise_max_err(home[0], home[1],
+                                                        (label, "home fold")))
+        _check(torch.equal(home_base[0], base) and torch.equal(home_base[1], base),
+               (label, "the home level changed K0's contributions"))
+    return {"pack": pack_err, "combine": combine_err, "live": live}
 
 
 def main(argv=None) -> int:
@@ -321,11 +340,16 @@ def main(argv=None) -> int:
             _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE, st)
 
     # 4. regroup kernels against their twins, then the pipeline
-    rg_err = _regroup_kernels_vs_plain(mk, rg)
+    rg_err = _k0_k1_vs_plain(mk, rg)
+    w, h = 96, 64
+    t = rg.plan(w, h, 4, 8, _CUTS)[0]
+    small = _pack_combine_vs_plain(rg, mk.kernel_inputs(*_case("rtiow", w, h, "cuda")),
+                                   t, seed=0)
+    rg_err.update(pack=small["pack"], combine=small["combine"])
     _say("regroup_plain", case="kernels", k0_max_abs_err=f"{rg_err['k0']:.3e}",
          k1_max_abs_err=f"{rg_err['k1']:.3e}", pack="bit-exact",
-         combine="bit-exact", pack_live=json.dumps(rg_err["pack_live"]))
-    record["regroup_plain"] = {"kernels": rg_err}
+         combine="bit-exact", size=f"{w}x{h}", spp=4, pack_live=json.dumps(small["live"]))
+    record["regroup_plain"] = {"kernels": {**rg_err, "pack_live": small["live"]}}
     for name, w, h, frames, spp, bounces in _REGROUP_CASES:
         scene, sky, basis = _case(name, w, h, "cuda")
         inp = mk.kernel_inputs(scene, sky, basis)
@@ -356,6 +380,8 @@ def main(argv=None) -> int:
         record["regroup_vs_megakernel"][f"spp{spp}"] = st
         _check(st["pixel_mismatch"] < FIRST_HIT_GATE and st["rmse"] < RMSE_GATE
                and st["mean_rel"] < MEAN_REL_GATE, st)
+        # one sample per pixel leaves no sum to contract: the same bits
+        _check(spp != 1 or st["pixels_differing"] == 0, st)
 
     # 6. the main paths, through the entry points a user calls: "auto"
     # (which resolves to regroup), then "pallas" (the megakernel)
@@ -438,6 +464,15 @@ def main(argv=None) -> int:
                        rows=rows)
             extra = dict(stages_ms=json.dumps({k: round(v, 3) for k, v in stages.items()}),
                          rows=json.dumps(rows))
+            # PACK and COMBINE bit for bit at the main path's size, where the
+            # scan runs over 64 block totals a thread and a pixel folds 32 lanes
+            big = _pack_combine_vs_plain(
+                rg, inp, rg.plan(w, h, mp["spp"], mp["bounces"], _CUTS)[0], seed=1)
+            rg_err["pack"] = max(rg_err["pack"], big["pack"])
+            rg_err["combine"] = max(rg_err["combine"], big["combine"])
+            rec["pack_combine_vs_plain"] = big
+            _say("main", case="pack_combine_vs_plain", size=f"{w}x{h}", spp=mp["spp"],
+                 pack="bit-exact", combine="bit-exact", pack_live=json.dumps(big["live"]))
         else:
             rec["frame_kernel_ms"] = _time_ms(lambda: mk.launch_megakernel(
                 scratch, inp, 0, True, **fkw), 3)

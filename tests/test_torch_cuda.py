@@ -161,12 +161,14 @@ def test_pack_and_combine_bit_for_bit(alive, cuda):
     level = [base.clone(), base.clone()]
     counts2 = torch.tensor([t.cap, t.cap], dtype=torch.int32, device=cuda)
     home = [accum.clone(), accum.clone()]
+    home_base = [base.clone(), base.clone()]
     for i, combine in enumerate((rg.launch_combine, rg.combine_plain)):
         combine(out[1][2], src, level[i], counts2, 2)
-        combine(out[1][2], src, base.clone(), out[1][0], 1, accum=home[i], t=t)
+        combine(out[1][2], src, home_base[i], out[1][0], 1, accum=home[i], t=t)
     torch.cuda.synchronize()
     assert torch.equal(level[0], level[1])
     assert torch.equal(home[0], home[1])
+    assert torch.equal(home_base[0], base) and torch.equal(home_base[1], base)
 
 
 @pytest.mark.cuda

@@ -3,9 +3,9 @@
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) with a plain C
 interface and loaded with ctypes; no PyTorch header is compiled, so a build
 takes seconds. Builds land in ``weekend_raytracer_tpu_torch/_build/``, one
-directory per hash of the sources, the headers they include and the flags,
-so a changed source, header or flag rebuilds and an unchanged one loads
-the library already built. Several libraries build in parallel, one nvcc
+directory per hash of the sources, every header under csrc/ and the
+flags, so a changed source, header or flag rebuilds and an unchanged one
+loads the library already built. Several libraries build in parallel, one nvcc
 each. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -80,39 +80,41 @@ def parse_ptxas(log: str) -> dict:
     return out
 
 
-_LOADED: dict = {}  # (name, sources, headers) -> BuiltLibrary, per process
+_LOADED: dict = {}  # (name, sources) -> BuiltLibrary, per process
+HEADER_SUFFIXES = (".cuh", ".h", ".hpp")
 
 
-def build_key(name: str, sources: tuple, headers: tuple = ()) -> str:
-    """The build directory's name: a hash of the compiled sources, the
-    headers they include and the flags. Headers are hashed, not compiled,
-    so a changed header rebuilds every library that includes it."""
+def build_key(name: str, sources: tuple) -> str:
+    """The build directory's name: a hash of the compiled sources, of every
+    header under csrc/ and of the flags. All headers are hashed, whether a
+    source includes them or not, so no list of includes has to be kept and
+    a changed header rebuilds every library."""
+    headers = sorted(p.relative_to(CSRC_DIR).as_posix() for p in CSRC_DIR.rglob("*")
+                     if p.suffix in HEADER_SUFFIXES)
     digest = hashlib.sha256()
-    for p in [CSRC_DIR / s for s in (*sources, *headers)]:
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
+    for rel in (*sources, *headers):
+        digest.update(rel.encode())
+        digest.update((CSRC_DIR / rel).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return f"{name}-{digest.hexdigest()[:16]}"
 
 
-def load_library(name: str, sources: tuple, headers: tuple = ()) -> BuiltLibrary:
+def load_library(name: str, sources: tuple) -> BuiltLibrary:
     """Build (if needed) and load ``lib<name>.so`` from ``sources``, paths
-    relative to the package's csrc/ directory; ``headers`` are the csrc/
-    headers they include (hashed into the key, not compiled). A process
-    loads each library once and keeps it. Raises if nvcc fails."""
-    return load_libraries([(name, sources, headers)])[0]
+    relative to the package's csrc/ directory. A process loads each library
+    once and keeps it. Raises if nvcc fails."""
+    return load_libraries([(name, sources)])[0]
 
 
 def load_libraries(specs) -> list:
-    """``load_library`` for each (name, sources, headers) of ``specs``; the
-    libraries not built yet are built by one nvcc each, all started at
-    once."""
-    specs = [(name, tuple(sources), tuple(headers)) for name, sources, headers in specs]
+    """``load_library`` for each (name, sources) of ``specs``; the libraries
+    not built yet are built by one nvcc each, all started at once."""
+    specs = [(name, tuple(sources)) for name, sources in specs]
     running = []
     for spec in specs:
         if spec in _LOADED:
             continue
-        name, sources, _ = spec
+        name, sources = spec
         out_dir = BUILD_DIR / build_key(*spec)
         so_path = out_dir / f"lib{name}.so"
         proc = tmp = None

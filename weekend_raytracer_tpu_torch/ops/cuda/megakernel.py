@@ -272,8 +272,8 @@ def kernel_inputs(scene: Scene, sky: SkyState, basis: CameraBasis, *,
 
 KERNEL_SOURCE = "weekend_raytracer_tpu_torch/csrc/megakernel.cu"
 REPLACES = "weekend_raytracer_tpu/ops/pallas/megakernel.py:1713"
-# (name, compiled sources, included headers) for build.load_library
-LIBRARY = ("wrt_megakernel", ("megakernel.cu",), ("bounce.cuh",))
+# (name, compiled sources) for build.load_library
+LIBRARY = ("wrt_megakernel", ("megakernel.cu",))
 
 # TPU-only knobs of render_image_pallas and the values that leave them off.
 # mxu_sweep, listed and subcull were measured as losses on the TPU; tsub and

@@ -67,8 +67,8 @@ _BLOCK = 1 << 16  # slots per batch of the plain twins (bounds their memory)
 _PACK_BLOCK = 1024  # slots per block of the CUDA pack (regroup.cu)
 
 KERNEL_SOURCE = "weekend_raytracer_tpu_torch/csrc/regroup.cu"
-# (name, compiled sources, included headers) for build.load_library
-LIBRARY = ("wrt_regroup", ("regroup.cu",), ("bounce.cuh",))
+# (name, compiled sources) for build.load_library
+LIBRARY = ("wrt_regroup", ("regroup.cu",))
 # the pallas_call each kernel replaces
 REPLACES = {
     "k0": "weekend_raytracer_tpu/ops/pallas/regroup.py:1198",
@@ -466,16 +466,17 @@ def _fold_plain(contrib: torch.Tensor, accum: torch.Tensor, t: Tiling,
 def combine_plain(inv: torch.Tensor, src: torch.Tensor, base: torch.Tensor,
                   counts: torch.Tensor, k: int, *, accum: torch.Tensor = None,
                   t: Tiling = None, clear=False) -> None:
-    """``launch_combine``'s twin. At the home level (k = 1) it also writes
-    the combined radiance over ``base`` before the fold; the kernel leaves
-    K0's contributions as they are."""
+    """``launch_combine``'s twin. At the home level (k = 1) it combines
+    into a copy and folds that, leaving ``base`` (K0's contributions) as it
+    is, as the kernel does."""
     n = int(counts[k - 1])
     j = inv[:n].to(torch.int64)
     live = j >= 0
-    view = base[:, :n]
+    out = base.clone() if k == 1 else base
+    view = out[:, :n]
     view[:, live] = src[:, j[live]]
     if k == 1:
-        _fold_plain(base, accum, t, clear)
+        _fold_plain(out, accum, t, clear)
 
 
 # --------------------------------------------------------------------------
