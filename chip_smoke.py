@@ -14,11 +14,27 @@ through ``Renderer(backend="auto", device="cuda")``, which resolves to the
 regroup pipeline (K0, PACK, K1, COMBINE), and through
 ``Renderer(backend="pallas")``, the megakernel. For each it checks that
 every frame went through the kernels and that the image is right, and it
-times the kernels against their plain versions. Each phase prints one line;
-any failure exits non-zero without the final ``ok`` line. It needs a CUDA
-device and imports nothing of JAX. Options: ``--png PATH`` (default:
-chip_smoke_rtiow.png in the temporary directory) and ``--out DIR`` (also
-write every number as JSON there).
+times the kernels against their plain versions.
+
+The ``[stats]`` phase holds the two stats kernels (the megakernel's and
+K1's kStats instantiations) against their twins, then runs the counters'
+own path at full size, as benchmarks/kernel_stats.py and
+benchmarks/profile_regroup.py's ``stats`` run the TPU kernels: the
+megakernel with ``stats=True`` on RTiOW 1920x1080 and random_spheres(10000)
+at 3840x2160 (4 spp, 8 bounces), and K0 -> PACK -> K1(stats) at the first
+cut of RTiOW 1920x1080 x 32 spp; it prints their summaries and times each
+stats kernel against its kStats = false twin. ``[trace]`` runs one regroup
+1080p frame under ``utils.metrics.profiler_trace`` and prints what the
+profiler saw beside the CUDA-event stage times. The ``kernels`` line gives
+every kernel its time, its twin's, its bound (the least time the card could
+take, from this run's live counts) and a library call's time where one
+computes the same function.
+
+Each phase prints one line; any failure exits non-zero without the final
+``ok`` line. It needs a CUDA device and imports nothing of JAX. Options:
+``--png PATH`` (default: chip_smoke_rtiow.png in the temporary directory)
+and ``--out DIR`` (also write every number as JSON there, and the profiler
+trace).
 """
 from __future__ import annotations
 
@@ -29,6 +45,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import torch
 
 # name, w, h, frames, spp, bounces of the kernel-against-plain cases
 _PLAIN_CASES = (("first_hit", 64, 48, 1, 1, 1),
@@ -41,7 +59,19 @@ _TIMING = dict(scene="rtiow", width=480, height=270, spp=4, bounces=8)
 RMSE_GATE = 5e-3  # tonemapped RMSE (tests/test_pallas.py's gate)
 MEAN_REL_GATE = 1e-3  # relative linear mean radiance
 FIRST_HIT_GATE = 0.01  # fraction of first-hit pixels allowed to differ
+STATS_SUM_GATE = 0.01  # each counter column's sum against the twin, over 8 bounces
 REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
+# the counters' full-size cases: benchmarks/kernel_stats.py:30, 41-45 and
+# benchmarks/profile_regroup.py:42, 114-279
+_STATS_MK = (("rtiow", 1920, 1080), ("random10k", 3840, 2160))
+_STATS_MK_RUN = dict(spp=4, bounces=8, frame=1)
+_STATS_K1 = dict(width=1920, height=1080, spp=32, bounces=8, frame=0)
+# H100 SXM peaks at 700 W (the on-chip-measurement guide's table)
+FP32_PEAK = 67e12  # FP32 operations per second, outside the tensor cores
+HBM_RATE = 3.35e12  # bytes per second
+SPHERE_TEST_OPS = 21  # FP32 operations of one sphere test (bounce.cuh sweep_sphere)
+SLAB_TEST_OPS = 12  # per chunk or super-chunk box: 6 subtractions, 6 products
+RECORD_BYTES = 64  # a pool record: 16 f32 components
 
 
 def _check(ok: bool, what) -> None:
@@ -99,8 +129,6 @@ def _case(name, w, h, device):
 
 
 def _render(fn, inp, w, h, frames, spp, bounces, **kw):
-    import torch
-
     acc = torch.zeros((w * h, 3), dtype=torch.float32, device="cuda")
     for f in range(frames):
         fn(acc, inp, f, f == 0, width=w, height=h, spp=spp, num_bounces=bounces, **kw)
@@ -109,8 +137,6 @@ def _render(fn, inp, w, h, frames, spp, bounces, **kw):
 
 
 def _time_ms(fn, reps: int) -> float:
-    import torch
-
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -124,8 +150,6 @@ def _time_ms(fn, reps: int) -> float:
 def _stage_ms(run) -> dict:
     """CUDA-event time of each stage of one regrouped frame: ``run`` takes
     an on_stage callback."""
-    import torch
-
     marks = []
 
     def mark(name):
@@ -150,11 +174,15 @@ def _per_kernel(stages: dict) -> dict:
 
 def _launch_counts(mk, rg) -> dict:
     return {"megakernel": mk.render_image_megakernel.launches,
-            **{k: getattr(rg, f"launch_{k}").launches for k in REGROUP_KERNELS}}
+            **{k: getattr(rg, f"launch_{k}").launches for k in REGROUP_KERNELS},
+            "megakernel_stats": mk.render_image_megakernel.stats_launches,
+            "k1_stats": rg.launch_k1.stats_launches}
 
 
 def _zero_launch_counts(mk, rg) -> None:
     mk.render_image_megakernel.launches = 0
+    mk.render_image_megakernel.stats_launches = 0
+    rg.launch_k1.stats_launches = 0
     for k in REGROUP_KERNELS:
         getattr(rg, f"launch_{k}").launches = 0
 
@@ -162,8 +190,6 @@ def _zero_launch_counts(mk, rg) -> None:
 def _bitwise_max_err(a, b, what) -> float:
     """Check that a and b are equal in every bit, +0.0 and -0.0 held equal;
     returns max |a - b| (0.0 then)."""
-    import torch
-
     same = a.shape == b.shape and torch.equal((a + 0.0).view(torch.int32),
                                               (b + 0.0).view(torch.int32))
     _check(same, (what, "not bit for bit"))
@@ -175,8 +201,6 @@ def _k0_k1_vs_plain(mk, rg) -> dict:
     into a constant sky, so every path is decided), cut after bounce 0.
     K0's alive flags and home slots must agree exactly, K1's alive flags on
     99% of the records, and the radiance of both with an error of 0."""
-    import torch
-
     dev = torch.device("cuda")
     out = {}
     w, h = 64, 48
@@ -217,8 +241,6 @@ def _pack_combine_vs_plain(rg, inp, t, seed: int) -> dict:
     mask: the live count, the dense pool (+-0 equal), the inverse map, a
     combine level, and the home level's fold into the accumulator (which
     must leave K0's contributions untouched)."""
-    import torch
-
     dev = torch.device("cuda")
     pool = torch.empty((rg.N_COMP, t.cap), device=dev)
     contrib = torch.empty((3, t.cap), device=dev)
@@ -272,6 +294,350 @@ def _pack_combine_vs_plain(rg, inp, t, seed: int) -> dict:
     return {"pack": pack_err, "combine": combine_err, "live": live}
 
 
+def _check_stats(st, max_iters: int, what, chunked: bool = True) -> None:
+    """tests/test_pallas.py:252-255's invariants, in every tile of a
+    counter table (its live tiles, for K1)."""
+    _check(tuple(st.shape[1:]) == (8,) and bool((st[:, 4:] == 0).all()), (what, "shape"))
+    _check(bool((st[:, 0] >= 1).all() and (st[:, 0] <= max_iters).all()), (what, "iterations"))
+    _check(bool((st[:, 1] > 0).all()), (what, "live lanes"))
+    _check(not chunked or bool((st[:, 2] >= st[:, 0]).all()), (what, "chunks < iterations"))
+
+
+def _sum_rel(st, ref) -> list:
+    """Each counter column's sum against the twin's, relative."""
+    a, b = st[:, :4].double().sum(0), ref[:, :4].double().sum(0)
+    return [float(abs(x - y) / y) if y else float(x != 0) for x, y in zip(a, b)]
+
+
+def _dense_pool(rg, inp, t, frame, cut):
+    """K0 (bounces [0, cut)) and PACK, kernels: the dense pool K1 takes,
+    its counts [cap, live] and the live record count."""
+    dev = inp.sweep.device
+    pool = torch.empty((rg.N_COMP, t.cap), device=dev)
+    rg.launch_k0(inp, pool, torch.empty((3, t.cap), device=dev), t, frame, cut)
+    dense = torch.empty_like(pool)
+    counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=dev)
+    rg.launch_pack(pool, dense, torch.empty((t.cap,), dtype=torch.int32, device=dev), counts, 1,
+                   torch.empty((t.cap // 1024,), dtype=torch.int32, device=dev))
+    del pool
+    return dense, counts, int(counts[1])
+
+
+def _k1_stats(rg, fn, inp, dense, counts, t, frame, b_lo, b_hi):
+    """K1 (kernel or twin) with counters on a copy of the dense pool."""
+    st = torch.full((t.cap // rg.TILE_RECORDS, 8), -1.0, device=dense.device)
+    fn(inp, dense.clone(), torch.empty((3, t.cap), device=dense.device), counts, 1, t, frame,
+       b_lo, b_hi, stats=st)
+    return st
+
+
+def _stats_vs_plain(mk, rg) -> dict:
+    """Both stats kernels against their twins on RTiOW 96x64 x 4 spp: equal
+    per tile over one bounce, each column's sum within STATS_SUM_GATE over
+    more (8 for the megakernel, [2, 4) for K1), the invariants in every
+    tile, and the kStats image equal in every bit to the kStats = false
+    one. Returns the counters' largest error at one bounce and the sums'."""
+    w, h, spp = 96, 64, 4
+    dev = torch.device("cuda")
+    inp = mk.kernel_inputs(*_case("rtiow", w, h, dev))
+    out = {"megakernel_err": 0.0, "k1_err": 0.0}
+    for bounces in (1, 8):
+        kw = dict(width=w, height=h, spp=spp, num_bounces=bounces)
+        img, st = mk.launch_megakernel(torch.zeros((w * h, 3), device=dev), inp, 1, True,
+                                       stats=True, **kw)
+        _, ref = mk.render_plain_with_inputs(torch.zeros((w * h, 3), device=dev), inp, 1, True,
+                                             stats=True, **kw)
+        img0 = mk.launch_megakernel(torch.zeros((w * h, 3), device=dev), inp, 1, True, **kw)
+        torch.cuda.synchronize()
+        _check(torch.equal(img, img0), ("megakernel stats image", bounces))
+        _check_stats(st, spp * bounces, ("megakernel stats", bounces))
+        if bounces == 1:
+            out["megakernel_err"] = float((st - ref).abs().max())
+            _check(torch.equal(st, ref), ("megakernel stats at one bounce", st, ref))
+        else:
+            out["megakernel_sum_rel"] = _sum_rel(st, ref)
+            _check(max(out["megakernel_sum_rel"]) < STATS_SUM_GATE, out)
+    t, _ = rg.plan(w, h, spp, 8, _CUTS)
+    dense, counts, n = _dense_pool(rg, inp, t, 0, _CUTS[0])
+    live = -(-n // rg.TILE_RECORDS)
+    for b_hi in (_CUTS[0] + 1, _CUTS[1]):
+        st, ref = (_k1_stats(rg, fn, inp, dense, counts, t, 0, _CUTS[0], b_hi)
+                   for fn in (rg.launch_k1, rg.k1_plain))
+        torch.cuda.synchronize()
+        _check(bool((st[live:] == 0).all()), "K1 stats past the count")
+        _check_stats(st[:live], b_hi - _CUTS[0], ("K1 stats", b_hi))
+        if b_hi == _CUTS[0] + 1:
+            out["k1_err"] = float((st - ref).abs().max())
+            _check(torch.equal(st, ref), ("K1 stats over one bounce", st[:live], ref[:live]))
+        else:
+            out["k1_sum_rel"] = _sum_rel(st[:live], ref[:live])
+            _check(max(out["k1_sum_rel"]) < STATS_SUM_GATE, out)
+    return out
+
+
+def _summary(st, inp, lanes: int = 32 * 128) -> dict:
+    """benchmarks/kernel_stats.py's summary (lines 52-66) and
+    profile_regroup.py's k1_stats fields (264-277) of one counter table,
+    with the scene's own chunk size (kernel_stats.py assumes 32)."""
+    st = st.double().cpu()
+    iters, live, chunks, supers = st[:, 0], st[:, 1], st[:, 2], st[:, 3]
+    q = torch.quantile(iters, torch.tensor([0.1, 0.5, 0.9, 1.0], dtype=torch.float64))
+    entry = chunks / (iters * max(inp.n_chunks, 1) + 1e-9)
+    return {
+        "tiles": int(st.shape[0]), "iters_mean": float(iters.mean()),
+        "iters_p10_p50_p90_max": [float(v) for v in q],
+        "live_frac_mean": float((live / (iters * lanes + 1e-9)).mean()),
+        "chunk_entry_frac": float(entry.mean()),
+        "supers_per_tile": float(supers.mean()),
+        "tests_per_segment": float((chunks * inp.chunk_size * lanes).sum()
+                                   / max(float(live.sum()), 1.0)),
+        "spheres": inp.n_spheres, "chunks": inp.n_chunks, "chunk_size": inp.chunk_size,
+        "supers": inp.n_super,
+    }
+
+
+def _stats_path(mk, rg) -> dict:
+    """The counters' own path at full size, through the entry points:
+    render_image_megakernel(stats=True) for each _STATS_MK case, and K0 ->
+    PACK -> K1(stats) at the first cut of RTiOW 1080p x 32 spp. Each counter
+    table is checked, summarised, and held against a second run in which the
+    kStats kernel is timed against its kStats = false twin (CUDA events, in
+    turns); the 1080p stats image must equal the stats=False one in every
+    bit. Returns the launches of the path, the summaries and the times."""
+    dev = torch.device("cuda")
+    run = _STATS_MK_RUN
+    cases = {}
+    for name, w, h in _STATS_MK:
+        cases[name] = (w, h, *_case(name, w, h, dev))
+    k = _STATS_K1
+    t, cuts = rg.plan(k["width"], k["height"], k["spp"], k["bounces"], _CUTS)
+    scene, sky, basis = _case("rtiow", k["width"], k["height"], dev)
+    inp_k1 = mk.kernel_inputs(scene, sky, basis)
+    torch.cuda.synchronize()
+    _zero_launch_counts(mk, rg)
+    tables, images = {}, {}
+    for name, (w, h, sc, sk, ba) in cases.items():
+        images[name], tables[name] = mk.render_image_megakernel(
+            torch.zeros((w * h, 3), device=dev), run["frame"], True, sc, sk, ba, width=w,
+            height=h, spp=run["spp"], num_bounces=run["bounces"], stats=True)
+    dense, counts, n = _dense_pool(rg, inp_k1, t, k["frame"], cuts[0])
+    st_k1 = torch.empty((t.cap // rg.TILE_RECORDS, 8), device=dev)
+    rg.launch_k1(inp_k1, dense.clone(), torch.empty((3, t.cap), device=dev), counts, 1, t,
+                 k["frame"], cuts[0], cuts[1], stats=st_k1)
+    torch.cuda.synchronize()
+    launches = _launch_counts(mk, rg)
+    want = {"megakernel": 0, "k0": 1, "pack": 1, "k1": 0, "combine": 0,
+            "megakernel_stats": len(_STATS_MK), "k1_stats": 1}
+    _check(launches == want, ("stats path launches", launches, want))
+    out = {"launches": launches, "summary": {}, "ms": {}}
+    for name, (w, h, sc, sk, ba) in cases.items():
+        st = tables[name]
+        # a tile of sky enters no chunk, so chunks >= iterations holds only
+        # at the small sizes of _stats_vs_plain, where every tile sees spheres
+        _check_stats(st, run["spp"] * run["bounces"], name, chunked=False)
+        inp = mk.kernel_inputs(sc, sk, ba)
+        out["summary"][f"megakernel_{name}"] = _summary(st, inp)
+        kw = dict(width=w, height=h, spp=run["spp"], num_bounces=run["bounces"])
+        scratch = torch.zeros((w * h, 3), device=dev)
+        times = {False: [], True: []}
+        reps = 2 if name == "rtiow" else 1
+        for stats in (False, True, True, False):
+            times[stats].append(_time_ms(lambda: mk.launch_megakernel(
+                scratch, inp, run["frame"], True, stats=stats, **kw), reps))
+        if name == "rtiow":
+            _check(torch.equal(scratch, images[name]), "1080p stats image differs")
+        out["ms"][f"megakernel_{name}"] = {"stats": times[True], "plain_kernel": times[False]}
+    live = -(-n // rg.TILE_RECORDS)
+    _check_stats(st_k1[:live], cuts[1] - cuts[0], "k1 stats", chunked=False)
+    _check(bool((st_k1[live:] == 0).all()), "K1 stats past the count")
+    out["summary"]["k1_rtiow"] = {"cut": cuts[0], "b_hi": cuts[1], "live_records": n,
+                                  "of": t.cap, **_summary(st_k1[:live], inp_k1)}
+    times = {False: [], True: []}
+    for stats in (False, True, True, False):
+        times[stats].append(_k1_ms(rg, inp_k1, dense, counts, t, k["frame"], cuts[0], cuts[1],
+                                   stats, reps=2))
+    out["ms"]["k1_rtiow"] = {"stats": times[True], "plain_kernel": times[False]}
+    return out
+
+
+def _k1_ms(rg, inp, dense, counts, t, frame, b_lo, b_hi, stats: bool, reps: int,
+           fn=None) -> float:
+    """Mean CUDA-event time of K1 (or ``fn``, its twin) on a fresh copy of
+    the dense pool per run; the copies are not timed."""
+    fn = fn or rg.launch_k1
+    st = torch.empty((t.cap // rg.TILE_RECORDS, 8), device=dense.device) if stats else None
+    r8 = torch.empty((3, t.cap), device=dense.device)
+    total = 0.0
+    for _ in range(reps):
+        pool = dense.clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(inp, pool, r8, counts, 1, t, frame, b_lo, b_hi, stats=st)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+        del pool
+    return total / reps
+
+
+def _trace_frame(rg, inp, fkw, log_dir) -> dict:
+    """One regroup frame under profiler_trace, with CUDA-event stage times
+    beside it: each kernel's device time as the profiler's key_averages()
+    report it, and how many device events it recorded."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    from weekend_raytracer_tpu_torch.utils.metrics import profiler_trace
+
+    scratch = torch.zeros((fkw["width"] * fkw["height"], 3), device="cuda")
+    rg.launch_regrouped(scratch, inp, 0, True, cuts=_CUTS, **fkw)  # warm
+    torch.cuda.synchronize()
+    with profiler_trace(log_dir) as prof:
+        stages = _stage_ms(lambda mark: rg.launch_regrouped(
+            scratch, inp, 0, True, cuts=_CUTS, on_stage=mark, **fkw))
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us and e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
+            name = m.group(1) if m else e.key[:40]
+            kernels[name] = kernels.get(name, 0.0) + us / 1e3
+    return {"device_events": len(device_events), "kernel_ms": kernels,
+            "kernel_total_ms": sum(kernels.values()), "stages_ms": stages,
+            "stage_total_ms": sum(stages.values())}
+
+
+def _slot_pixels(t, dev):
+    """Pixel column and row of each ray slot of tiling ``t``, unclamped
+    (past the image edge for the padding slots)."""
+    slot = torch.arange(t.cap, device=dev)
+    tile, row, lane = slot >> 12, (slot >> 7) & 31, slot & 127
+    return ((tile % t.tiles_x) * t.block_w + (lane >> t.spp_shift),
+            (tile // t.tiles_x) * 32 + row)
+
+
+def _live_per_bounce(rg, inp, t, frame, bounces):
+    """Paths alive at the start of each bounce (K0 run to each depth): of
+    every slot, and of the slots of real pixels (the megakernel's)."""
+    dev = inp.sweep.device
+    x, y = _slot_pixels(t, dev)
+    real = (x < t.width) & (y < t.height)
+    live_all, live_real = [t.cap], [int(real.sum())]
+    pool = torch.empty((rg.N_COMP, t.cap), device=dev)
+    contrib = torch.empty((3, t.cap), device=dev)
+    for b in range(1, bounces):
+        rg.launch_k0(inp, pool, contrib, t, frame, b)
+        alive = pool[rg._AL] > 0.5
+        live_all.append(int(alive.sum()))
+        live_real.append(int((alive & real).sum()))
+    return live_all, live_real
+
+
+def _bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations over the FP32 peak or
+    bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None) -> dict:
+    """Each kernel's bound at the [timing] shape, from this run's live
+    counts: a live path segment (a path alive at the start of a bounce)
+    tests every prepared sphere; a kStats segment also tests the priors and
+    every chunk and super-chunk box (its live segments are its own
+    table's col 1, given). Each record or value is read once and written
+    once (csrc/regroup.cu's layout). The scatter, camera and sky add under
+    2% to a sweep of 496 spheres and are not counted."""
+    n = inp.n_spheres
+    sweep = SPHERE_TEST_OPS * n
+    counted = sweep + SPHERE_TEST_OPS * mk.N_PRIORS + SLAB_TEST_OPS * (inp.n_tests
+                                                                        + inp.n_super)
+    pixels = t.width * t.height
+    cuts = list(_CUTS)
+    n_in = [t.cap] + [live_all[c] for c in cuts[:-1]]  # each PACK's input records
+    n_out = [live_all[c] for c in cuts]  # and the live records it keeps
+    k1_seg = sum(live_all[cuts[0]:])
+    out = {
+        "megakernel": _bound(sweep * sum(live_real), pixels * 12),
+        "k0": _bound(sweep * (live_all[0] + live_all[1]), t.cap * (RECORD_BYTES + 12)),
+        "pack": _bound(0, sum(a * 8 + b * 2 * RECORD_BYTES for a, b in zip(n_in, n_out))),
+        "k1": _bound(sweep * k1_seg, sum(b * (2 * RECORD_BYTES + 12) for b in n_out)),
+        "combine": _bound(0, sum(a * 4 + b * 24 for a, b in zip(n_in[1:], n_out[1:]))
+                          + t.cap * 16 + pixels * 12),
+    }
+    if mk_stats is not None:
+        out["megakernel_stats"] = _bound(counted * float(mk_stats[:, 1].sum()),
+                                         pixels * 12 + mk_stats.numel() * 4)
+    if k1_stats is not None:
+        out["k1_stats"] = _bound(counted * float(k1_stats[:, 1].sum()),
+                                 n_out[0] * (2 * RECORD_BYTES + 12) + k1_stats.numel() * 4)
+    return out
+
+
+def _library_ms(rg, inp, t, frame, num_bounces, live_all, reps: int = 5) -> dict:
+    """One PyTorch call per kernel's function, where one computes it, on
+    this frame's own inputs at the [timing] shape (a manual K0 -> PACK ->
+    K1 chain of the kernels gives them): PACK as torch.nonzero +
+    index_select of the live records (the inverse map left out), COMBINE as
+    an index_put_ per level and one index_add_ of every slot's radiance
+    into its pixel (the home level's fold); the indices are computed
+    outside the timed calls. The sweeps have no such call."""
+    dev = inp.sweep.device
+    pool = torch.empty((rg.N_COMP, t.cap), device=dev)
+    contrib = torch.empty((3, t.cap), device=dev)
+    rg.launch_k0(inp, pool, contrib, t, frame, _CUTS[0])
+    counts = torch.full((len(_CUTS) + 1,), t.cap, dtype=torch.int32, device=dev)
+    pools = [pool, torch.empty_like(pool)]
+    invs, r8s = [], []
+    block_sums = torch.empty((t.cap // 1024,), dtype=torch.int32, device=dev)
+    pack_ms = 0.0
+    for k, b_lo in enumerate(_CUTS, 1):
+        src, dst = pools[(k - 1) % 2], pools[k % 2]
+        n_in = t.cap if k == 1 else live_all[_CUTS[k - 2]]
+
+        def lib_pack(src=src, n_in=n_in):
+            idx = torch.nonzero(src[rg._AL, :n_in] > 0.5).squeeze(1)
+            return src.index_select(1, idx)
+
+        pack_ms += _time_ms(lib_pack, reps)
+        invs.append(torch.empty((t.cap,), dtype=torch.int32, device=dev))
+        rg.launch_pack(src, dst, invs[-1], counts, k, block_sums)
+        r8s.append(torch.empty((3, t.cap), device=dev))
+        b_hi = _CUTS[k] if k < len(_CUTS) else num_bounces
+        rg.launch_k1(inp, dst, r8s[-1], counts, k, t, frame, b_lo, b_hi)
+    combine_ms = 0.0
+    radiance = r8s[-1]
+    for k in range(len(_CUTS), 1, -1):
+        n_in = live_all[_CUTS[k - 2]]
+        j = invs[k - 1][:n_in].long()
+        p = torch.nonzero(j >= 0).squeeze(1)
+        jp = j[p]
+        base = r8s[k - 2]
+
+        def lib_level(base=base, p=p, jp=jp, radiance=radiance):
+            base[:, p] = radiance[:, jp]
+
+        combine_ms += _time_ms(lib_level, reps)
+        lib_level()
+        radiance = base
+    j = invs[0].long()
+    per_slot = torch.where(j >= 0, radiance[:, j.clamp(min=0)], contrib).T.contiguous()
+    x, y = _slot_pixels(t, dev)
+    real = torch.nonzero((x < t.width) & (y < t.height)).squeeze(1)
+    pix = (y * t.width + x)[real]
+    vals = per_slot[real]
+    acc = torch.zeros((t.width * t.height, 3), device=dev)
+    combine_ms += _time_ms(lambda: acc.index_add_(0, pix, vals), reps)
+    return {"pack": pack_ms, "combine": combine_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png", default=os.path.join(tempfile.gettempdir(),
@@ -281,8 +647,6 @@ def main(argv=None) -> int:
     record = {}
 
     # 1. environment
-    import torch
-
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -308,7 +672,9 @@ def main(argv=None) -> int:
                      build.load_libraries([mk.LIBRARY, rg.LIBRARY])))
     build_s = time.perf_counter() - t0
     ptxas = {k: b.ptxas_usage() for k, b in built.items()}
-    attrs = {"megakernel": {str(t): mk.kernel_attributes(t) for t in (False, True)},
+    attrs = {"megakernel": {("textured" if t else "plain") + ("_stats" if st else ""):
+                            mk.kernel_attributes(t, st) for t in (False, True)
+                            for st in (False, True)},
              "regroup": rg.kernel_attributes()}
     _say("build", seconds=f"{build_s:.2f}",
          nvcc_seconds=json.dumps({k: round(b.build_seconds, 2) for k, b in built.items()}),
@@ -412,6 +778,7 @@ def main(argv=None) -> int:
                     "k1": 3 * frames, "combine": 3 * frames}
         else:
             want = {"megakernel": frames, "k0": 0, "pack": 0, "k1": 0, "combine": 0}
+        want.update(megakernel_stats=0, k1_stats=0)
         _check(counts == want, (expect, counts, want))
         launches[expect] = counts
         mean = renderer.mean_radiance()
@@ -455,6 +822,10 @@ def main(argv=None) -> int:
                "seconds": stats.seconds, "prep_ms": prep_ms, "peak_gb": peak_gb,
                "image_mean": float(img.mean()), "band": band_st}
         if expect == "regroup":
+            # one frame first, as [trace] does, so that the stages time
+            # the kernels alone: the first frame after the band check's
+            # twin can put host work between the start event and K0
+            rg.launch_regrouped(scratch, inp, 0, True, cuts=_CUTS, **fkw)
             stages = _stage_ms(lambda mark: rg.launch_regrouped(
                 scratch, inp, 0, True, cuts=_CUTS, on_stage=mark, **fkw))
             # live records per phase, in dense rows of 128 (the last row part full)
@@ -493,39 +864,91 @@ def main(argv=None) -> int:
         del renderer, scratch
         torch.cuda.empty_cache()
 
-    # 7. kernels against plain time at one shape (CUDA events), and the
+    # 7. the stats kernels against their twins, then the counters' own path
+    # at full size, with its launches counted from 0 (after the main paths,
+    # so that their numbers are taken as before)
+    sv = _stats_vs_plain(mk, rg)
+    _say("stats", case="vs_plain", shape="rtiow 96x64 spp4", bounces="1 and 8",
+         k1_span=f"[{_CUTS[0]}, {_CUTS[0] + 1}) and [{_CUTS[0]}, {_CUTS[1]})",
+         megakernel_err_one_bounce=sv["megakernel_err"], k1_err_one_bounce=sv["k1_err"],
+         megakernel_sum_rel=json.dumps([round(v, 5) for v in sv["megakernel_sum_rel"]]),
+         k1_sum_rel=json.dumps([round(v, 5) for v in sv["k1_sum_rel"]]))
+    sp = _stats_path(mk, rg)
+    for name, summ in sp["summary"].items():
+        _say("stats", case=name, **{k: json.dumps(v) for k, v in summ.items()})
+    _say("stats", case="stats_vs_plain_kernel_ms", ms=json.dumps(sp["ms"]),
+         launches=json.dumps(sp["launches"]), card=repr(smi))
+    record["stats"] = {"vs_plain": sv, **sp}
+    torch.cuda.empty_cache()
+
+    # 8. kernels against plain time at one shape (CUDA events), and the
     # 1080p frame of each backend, in turns
     kw = dict(width=tm["width"], height=tm["height"], spp=tm["spp"],
               num_bounces=tm["bounces"])
     acc = torch.zeros((tm["width"] * tm["height"], 3), device="cuda")
+    t_t = rg.plan(tm["width"], tm["height"], tm["spp"], tm["bounces"], _CUTS)[0]
+    dense_t, counts_t, _ = _dense_pool(rg, inp_t, t_t, 0, _CUTS[0])
 
-    def mega():
-        mk.launch_megakernel(acc, inp_t, 0, True, **kw)
+    def mega(stats=False):
+        return mk.launch_megakernel(acc, inp_t, 0, True, stats=stats, **kw)
 
-    def mega_plain():
-        mk.render_plain_with_inputs(acc, inp_t, 0, True, **kw)
+    def mega_plain(stats=False):
+        return mk.render_plain_with_inputs(acc, inp_t, 0, True, stats=stats, **kw)
 
     def regroup_stages(plain):
         fn = rg.regrouped_plain_with_inputs if plain else rg.launch_regrouped
         return _per_kernel(_stage_ms(lambda mark: fn(acc, inp_t, 0, True, cuts=_CUTS,
                                                      on_stage=mark, **kw)))
 
+    def k1_stats(plain, reps):
+        return _k1_ms(rg, inp_t, dense_t, counts_t, t_t, 0, _CUTS[0], _CUTS[1], True, reps,
+                      fn=rg.k1_plain if plain else None)
+
     mega()
     mega_plain()
+    mega(True)
+    mega_plain(True)
     regroup_stages(False)
     regroup_stages(True)
-    times = {"megakernel": [], "megakernel_plain": [], "regroup": [], "regroup_plain": []}
+    k1_stats(False, 1)
+    k1_stats(True, 1)
+    times = {k: [] for k in ("megakernel", "megakernel_plain", "regroup", "regroup_plain",
+                             "megakernel_stats", "megakernel_stats_plain", "k1_stats",
+                             "k1_stats_plain")}
     for label, reps in (("plain", 2), ("kernel", 10), ("kernel", 10), ("plain", 2)):
         if label == "kernel":
             times["megakernel"].append(_time_ms(mega, reps))
             times["regroup"].append(regroup_stages(False))
+            times["megakernel_stats"].append(_time_ms(lambda: mega(True), reps))
+            times["k1_stats"].append(k1_stats(False, reps))
         else:
             times["megakernel_plain"].append(_time_ms(mega_plain, reps))
             times["regroup_plain"].append(regroup_stages(True))
+            times["megakernel_stats_plain"].append(_time_ms(lambda: mega_plain(True), reps))
+            times["k1_stats_plain"].append(k1_stats(True, reps))
     ms = {"megakernel": min(times["megakernel"]),
-          **{k: min(r[k] for r in times["regroup"]) for k in REGROUP_KERNELS}}
+          **{k: min(r[k] for r in times["regroup"]) for k in REGROUP_KERNELS},
+          "megakernel_stats": min(times["megakernel_stats"]),
+          "k1_stats": min(times["k1_stats"])}
     plain_ms = {"megakernel": min(times["megakernel_plain"]),
-                **{k: min(r[k] for r in times["regroup_plain"]) for k in REGROUP_KERNELS}}
+                **{k: min(r[k] for r in times["regroup_plain"]) for k in REGROUP_KERNELS},
+                "megakernel_stats": min(times["megakernel_stats_plain"]),
+                "k1_stats": min(times["k1_stats_plain"])}
+    # bounds from this shape's live counts, and the library calls
+    live_all, live_real = _live_per_bounce(rg, inp_t, t_t, 0, tm["bounces"])
+    mk_table = mega(True)[1]
+    k1_table = _k1_stats(rg, rg.launch_k1, inp_t, dense_t, counts_t, t_t, 0, _CUTS[0],
+                         _CUTS[1])
+    bounds = _bounds(mk, inp_t, t_t, live_all, live_real, mk_table, k1_table)
+    library_ms = _library_ms(rg, inp_t, t_t, 0, tm["bounces"], live_all)
+    del dense_t
+    _say("bounds", shape=f"{tm['scene']} {tm['width']}x{tm['height']} spp{tm['spp']} "
+         f"b{tm['bounces']}", live_per_bounce=json.dumps(live_all),
+         live_real_per_bounce=json.dumps(live_real),
+         bounds=json.dumps({k: [round(v["bound_ms"], 5), v["bound_by"]]
+                            for k, v in bounds.items()}),
+         library_ms=json.dumps({k: round(v, 4) for k, v in library_ms.items()}),
+         card=repr(smi))
     # the 1080p frame, kernels only: regroup, megakernel, megakernel, regroup
     inp = mk.kernel_inputs(*_case("rtiow", mp["width"], mp["height"], "cuda"))
     big = torch.zeros((mp["width"] * mp["height"], 3), device="cuda")
@@ -544,22 +967,54 @@ def main(argv=None) -> int:
          plain_ms=json.dumps({k: round(v, 3) for k, v in plain_ms.items()}),
          frame_1080p_ms=json.dumps(frame_ms), card=repr(smi))
     record["timing"] = {"shape": tm, "kernel_ms": ms, "plain_ms": plain_ms,
-                        "runs": times, "frame_1080p_ms": frame_ms}
+                        "runs": times, "frame_1080p_ms": frame_ms, "bounds": bounds,
+                        "library_ms": library_ms, "live_per_bounce": live_all,
+                        "live_real_per_bounce": live_real}
+
+    # 9. one regroup 1080p frame under the port's profiler_trace, and the
+    # bounds of the 1080p frames' kernels beside their times
+    trace_dir = (os.path.join(args.out, "trace") if args.out
+                 else tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    tr = _trace_frame(rg, inp, fkw, trace_dir)
+    _say("trace", device_events=tr["device_events"],
+         kernel_ms=json.dumps({k: round(v, 3) for k, v in tr["kernel_ms"].items()}),
+         kernel_total_ms=f"{tr['kernel_total_ms']:.3f}",
+         stages_ms=json.dumps({k: round(v, 3) for k, v in tr["stages_ms"].items()}),
+         stage_total_ms=f"{tr['stage_total_ms']:.3f}", card=repr(smi))
+    record["trace"] = tr
+    t_big = rg.plan(mp["width"], mp["height"], mp["spp"], mp["bounces"], _CUTS)[0]
+    live_big = _live_per_bounce(rg, inp, t_big, 0, mp["bounces"])
+    bounds_big = _bounds(mk, inp, t_big, *live_big)
+    stage_big = {**_per_kernel(tr["stages_ms"]), "megakernel": min(frame_ms["megakernel"])}
+    _say("bounds", shape=f"rtiow {mp['width']}x{mp['height']} spp{mp['spp']} "
+         f"b{mp['bounces']}", live_per_bounce=json.dumps(live_big[0]),
+         live_real_per_bounce=json.dumps(live_big[1]),
+         ms_bound_share=json.dumps({k: [round(stage_big[k], 3),
+                                        round(bounds_big[k]["bound_ms"], 3),
+                                        bounds_big[k]["bound_by"],
+                                        round(bounds_big[k]["bound_ms"] / stage_big[k], 4)]
+                                    for k in stage_big}), card=repr(smi))
+    record["bounds_1080p"] = {"live": live_big, "bounds": bounds_big, "ms": stage_big}
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
-    kernels = [{
-        "name": "megakernel", "route": "cuda", "source": mk.KERNEL_SOURCE,
-        "replaces": mk.REPLACES, "launches": launches["pallas"]["megakernel"],
-        "max_abs_err": max_abs_err, "ms": ms["megakernel"],
-        "plain_ms": plain_ms["megakernel"]}]
-    for k in REGROUP_KERNELS:
-        kernels.append({
-            "name": f"regroup_{k}", "route": "cuda", "source": rg.KERNEL_SOURCE,
-            "replaces": rg.REPLACES[k], "launches": launches["regroup"][k],
-            "max_abs_err": rg_err[k], "ms": ms[k], "plain_ms": plain_ms[k]})
+    def entry(name, key, source, replaces, n, err):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": err, "ms": ms[key], "plain_ms": plain_ms[key],
+                "bound_ms": bounds[key]["bound_ms"], "bound_by": bounds[key]["bound_by"],
+                "library_ms": library_ms.get(key)}
+
+    kernels = [entry("megakernel", "megakernel", mk.KERNEL_SOURCE, mk.REPLACES,
+                     launches["pallas"]["megakernel"], max_abs_err)]
+    kernels += [entry(f"regroup_{k}", k, rg.KERNEL_SOURCE, rg.REPLACES[k],
+                      launches["regroup"][k], rg_err[k]) for k in REGROUP_KERNELS]
+    kernels += [
+        entry("megakernel_stats", "megakernel_stats", mk.KERNEL_SOURCE, mk.STATS_REPLACES,
+              sp["launches"]["megakernel_stats"], sv["megakernel_err"]),
+        entry("regroup_k1_stats", "k1_stats", rg.KERNEL_SOURCE, rg.REPLACES["k1_stats"],
+              sp["launches"]["k1_stats"], sv["k1_err"])]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -216,3 +216,71 @@ def test_regroup_row_band_reproduces_full_image(cuda):
                         full_height=h, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(band, full[33 * w:39 * w], rtol=0, atol=0)
+
+
+def _stats_case(name, w, h, device):
+    if name == "super":  # 75 chunks of 16 in 5 super-chunks
+        from weekend_raytracer_tpu_torch.models.scenes import (random_spheres,
+                                                               random_spheres_camera)
+
+        return mk.kernel_inputs(random_spheres(1200).build(device=device),
+                                to_sky_state(SkyParams(), device=device),
+                                CameraBasis.create(random_spheres_camera(), (w, h),
+                                                   device=device), chunk_size=16)
+    return _inputs(name, w, h, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rtiow", "super"])
+def test_megakernel_stats_match_plain(name, cuda):
+    """The kStats megakernel against its twin: equal per tile at one
+    bounce, each column's sum within 1% at eight; and its image is the
+    kStats = false kernel's, bit for bit."""
+    w, h, spp = 96, 64, 4
+    inp = _stats_case(name, w, h, cuda)
+    for bounces in (1, 8):
+        kw = dict(width=w, height=h, spp=spp, num_bounces=bounces, stats=True)
+        img, st = mk.launch_megakernel(torch.zeros((w * h, 3), device=cuda), inp, 1, True, **kw)
+        _, ref = mk.render_plain_with_inputs(torch.zeros((w * h, 3), device=cuda), inp, 1,
+                                             True, **kw)
+        plain_img = mk.launch_megakernel(torch.zeros((w * h, 3), device=cuda), inp, 1, True,
+                                         width=w, height=h, spp=spp, num_bounces=bounces)
+        torch.cuda.synchronize()
+        assert torch.equal(img, plain_img)
+        if bounces == 1:
+            assert torch.equal(st, ref)
+        else:
+            torch.testing.assert_close(st.sum(0), ref.sum(0), rtol=0.01, atol=0)
+        assert bool((st[:, 0] >= 1).all() and (st[:, 0] <= spp * bounces).all())
+        assert bool((st[:, 1] > 0).all() and (st[:, 2] >= st[:, 0]).all())
+
+
+@pytest.mark.cuda
+def test_k1_stats_match_plain(cuda):
+    """K1's kStats instantiation against k1_plain on one dense pool (K0 and
+    PACK kernels, RTiOW 96x64 x 4 spp, cut 2): equal per tile over one
+    bounce, each column's sum within 1% over [2, 4)."""
+    w, h = 96, 64
+    inp = _inputs("rtiow", w, h, cuda)
+    t, _ = rg.plan(w, h, 4, 8, (2, 4, 6))
+    pool = torch.empty((rg.N_COMP, t.cap), device=cuda)
+    rg.launch_k0(inp, pool, torch.empty((3, t.cap), device=cuda), t, 0, 2)
+    dense = torch.empty_like(pool)
+    counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=cuda)
+    rg.launch_pack(pool, dense, torch.empty((t.cap,), dtype=torch.int32, device=cuda), counts,
+                   1, torch.empty((t.cap // 1024,), dtype=torch.int32, device=cuda))
+    live = -(-int(counts[1]) // rg.TILE_RECORDS)
+    for b_hi in (3, 4):
+        out = []
+        for k1 in (rg.launch_k1, rg.k1_plain):
+            st = torch.full((t.cap // rg.TILE_RECORDS, 8), -1.0, device=cuda)
+            k1(inp, dense.clone(), torch.empty((3, t.cap), device=cuda), counts, 1, t, 0, 2,
+               b_hi, stats=st)
+            out.append(st)
+        torch.cuda.synchronize()
+        assert bool((out[0][live:] == 0).all())
+        if b_hi == 3:
+            assert torch.equal(out[0], out[1])
+        else:
+            torch.testing.assert_close(out[0].sum(0), out[1].sum(0), rtol=0.01, atol=0)
+        assert bool((out[0][:live, 0] >= 1).all() and (out[0][:live, 1] > 0).all())

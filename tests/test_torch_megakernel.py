@@ -217,7 +217,7 @@ def test_row_band_reproduces_full_image():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("tsub", 16), ("block_w", 32), ("stats", True), ("subcull", 8),
+    ("tsub", 16), ("block_w", 32), ("subcull", 8),
     ("listed", True), ("mxu_sweep", True)])
 def test_tpu_only_knobs_raise(knob, value):
     w, h = 8, 8

@@ -23,11 +23,17 @@
 // (ops/cuda/megakernel.py) operation for operation, including the
 // polynomial acos/atan2. Built without --use_fast_math: the sweep relies on
 // sqrtf(negative) = NaN failing the sq > 0 test.
+//
+// trace_bounces<kTextured, kStats = true> is the body of the kStats
+// instantiations: the same bounces, sweeping the same spheres in the same
+// order, plus the cull counters of stats.cuh.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "stats.cuh"
 
 namespace {
 
@@ -195,12 +201,84 @@ __device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float 
   r.alive = true;
 }
 
+// One sphere of the closest-hit sweep (sphere_ts, megakernel.py:437-465):
+// sphere i with (cx, cy, cz, kq) = c takes (bt, bi) if it is hit closer.
+__device__ __forceinline__ void sweep_sphere(const float4 c, int i, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, float od, float oo,
+                                             float& bt, int& bi) {
+  const float cd = c.x * dx + c.y * dy + c.z * dz;
+  const float co2 = (c.x + c.x) * ox + (c.y + c.y) * oy + (c.z + c.z) * oz;
+  const float bq = cd - od;
+  const float cq = oo - co2 + c.w;
+  const float sq = sqrtf(bq * bq - cq);  // NaN for a negative discriminant
+  const float t0 = bq - sq;
+  const float t1 = bq + sq;
+  const float ts = t0 > kMinT ? t0 : t1;
+  if (sq > 0.0f && ts > kMinT && ts < bt) {
+    bt = ts;
+    bi = i;
+  }
+}
+
+// The same sweep, chunk by chunk, with the TPU's whole-tile cull tests run
+// before each chunk and each super-chunk and their outcomes ORed into the
+// loop iteration k's bits of the ray's group (stats.cuh). Sweeps every
+// sphere in the same order, so (bt, bi) is the plain sweep's.
+__device__ __forceinline__ void sweep_counted(const SceneRefs& sc, const RayCounter& rc, int k,
+                                              float ox, float oy, float oz, float dx, float dy,
+                                              float dz, float od, float oo, float& bt, int& bi) {
+  const CullRefs& cu = *rc.cull;
+  const StatsRefs& st = *rc.st;
+  // best-t of the priors alone, which the TPU sweeps before any test
+  // (megakernel.py:615-623)
+  float pbt = kMaxT;
+  int pbi = -1;
+  for (int p = 0; p < kNPriors; ++p) {
+    const int sp = __ldg(cu.priors + p);
+    sweep_sphere(__ldg(sc.sweep + sp), sp, ox, oy, oz, dx, dy, dz, od, oo, pbt, pbi);
+  }
+  const float ix = slab_inverse(dx);
+  const float iy = slab_inverse(dy);
+  const float iz = slab_inverse(dz);
+  const size_t row = static_cast<size_t>(rc.group) * st.n_iters + k;
+  unsigned* cw = st.chunk_words + row * st.words_c;
+  unsigned* sw = st.super_words + row * st.words_s;
+  unsigned cbits = 0u, sbits = 0u;
+  for (int c = 0; c < cu.n_tests; ++c) {
+    const float tb = fminf(pbt, bt);
+    if (cu.n_super > 0 && c % cu.super_factor == 0) {
+      const int s = c / cu.super_factor;
+      if (slab_enters(cu.super_bounds, cu.n_super, s, ox, oy, oz, ix, iy, iz, tb)) {
+        sbits |= 1u << (s & 31);
+      }
+      if ((s & 31) == 31 || s == cu.n_super - 1) {
+        or_word(sw + (s >> 5), sbits);
+        sbits = 0u;
+      }
+    }
+    if (slab_enters(cu.chunk_bounds, cu.n_tests, c, ox, oy, oz, ix, iy, iz, tb)) {
+      cbits |= 1u << (c & 31);
+    }
+    if ((c & 31) == 31 || c == cu.n_tests - 1) {
+      or_word(cw + (c >> 5), cbits);
+      cbits = 0u;
+    }
+    if (c < cu.n_chunks) {
+      for (int i = c * cu.chunk_size; i < (c + 1) * cu.chunk_size; ++i) {
+        sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
+      }
+    }
+  }
+}
+
 // Bounces [b_lo, b_hi) of one live path. A miss sets the sky colour and a
 // hit on an emissive sphere its light; either ends the path (alive = false,
 // the ray itself left as it was). A path still alive after b_hi keeps
-// colour 0.
-template <bool kTextured>
-__device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int b_hi, Ray& r) {
+// colour 0. The kStats instantiation also counts the loop iterations in
+// rc->trips and, in a scene with chunks, the cull tests (sweep_counted).
+template <bool kTextured, bool kStats = false>
+__device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int b_hi, Ray& r,
+                                              RayCounter* rc = nullptr) {
   const float* __restrict__ sky = sc.sky;
   const float* __restrict__ at = sc.attrs;
   const int n = sc.n;
@@ -209,24 +287,23 @@ __device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int
   float tr = r.tr, tg = r.tg, tb = r.tb;
   uint32_t state = r.state;
   for (int bounce = b_lo; bounce < b_hi; ++bounce) {
-    // Closest hit over every prepared sphere (sphere_ts, megakernel.py:437-465).
+    // Closest hit over every prepared sphere.
     const float od = ox * dx + oy * dy + oz * dz;
     const float oo = ox * ox + oy * oy + oz * oz;
     float bt = kMaxT;
     int bi = -1;
-    for (int i = 0; i < n; ++i) {
-      const float4 c = __ldg(sc.sweep + i);
-      const float cd = c.x * dx + c.y * dy + c.z * dz;
-      const float co2 = (c.x + c.x) * ox + (c.y + c.y) * oy + (c.z + c.z) * oz;
-      const float bq = cd - od;
-      const float cq = oo - co2 + c.w;
-      const float sq = sqrtf(bq * bq - cq);  // NaN for a negative discriminant
-      const float t0 = bq - sq;
-      const float t1 = bq + sq;
-      const float ts = t0 > kMinT ? t0 : t1;
-      if (sq > 0.0f && ts > kMinT && ts < bt) {
-        bt = ts;
-        bi = i;
+    if constexpr (kStats) {
+      ++rc->trips;
+      if (rc->cull->n_chunks > 0) {
+        sweep_counted(sc, *rc, bounce - b_lo, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
+      } else {
+        for (int i = 0; i < n; ++i) {
+          sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
+        }
+      }
+    } else {
+      for (int i = 0; i < n; ++i) {
+        sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
       }
     }
 

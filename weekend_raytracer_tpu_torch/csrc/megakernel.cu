@@ -36,8 +36,16 @@
 // render_image_megakernel_plain) operation for operation. nvcc's default FMA
 // contraction stays on; images are held to the plain version statistically,
 // as the TPU kernel is held to the XLA path.
+//
+// The kStats instantiation replaces the same TPU kernel built with
+// stats=True (_make_kernel, 1146; its counters 1233-1286): the same frame,
+// plus the per-tile counters of stats.cuh. It adds no culling either: it
+// counts what the TPU's whole-tile cull would enter, so its image is the
+// kStats = false image bit for bit. Bound like the frame itself, by FP32
+// work: the cull tests add about 4% to the sweep.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
@@ -54,11 +62,37 @@ struct Args {
   int clear, spp, num_bounces;
 };
 
-template <bool kTextured>
-__global__ void __launch_bounds__(256) megakernel(const Args a) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= a.width || y >= a.height) return;
+// What the kStats instantiation reads besides: the cull hierarchy, the
+// counters, and the TPU tiles across. (The kStats = false instantiation
+// keeps Args alone, so it compiles as it did before the counters.)
+struct StatsArgs : Args {
+  CullRefs cull;
+  StatsRefs st;
+  int tiles_x;
+};
+
+template <bool kStats>
+using ArgsOf = std::conditional_t<kStats, StatsArgs, Args>;
+
+// The TPU kernel's tile: tsub = 32 rows of 128 lanes as a block_w = 64
+// pixel-wide block (megakernel.py:1634-1640).
+constexpr int kTileW = 64;
+constexpr int kTileH = 64;
+
+// The kStats instantiation runs one thread per lane of the TPU's padded
+// tiles: a lane past the image edge is clamped into it and traces that
+// pixel's path again, which the TPU counts (megakernel.py:1204-1206), and
+// writes nothing. Its counts group by (tile, sample). Its launch bound asks
+// for 4 blocks per SM: left to itself ptxas kept the textured kStats
+// instantiation at 48 registers and spilled 88 bytes; a minimum of 0
+// blocks is no minimum, so kStats = false compiles as it did before.
+template <bool kTextured, bool kStats>
+__global__ void __launch_bounds__(256, kStats ? 4 : 0) megakernel(const ArgsOf<kStats> a) {
+  const int x_lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y_lane = blockIdx.y * blockDim.y + threadIdx.y;
+  if (!kStats && (x_lane >= a.width || y_lane >= a.height)) return;
+  const int x = kStats ? min(x_lane, a.width - 1) : x_lane;
+  const int y = kStats ? min(y_lane, a.height - 1) : y_lane;
 
   // Seeds and aim use the global row, so a row band of a sharded image
   // reproduces the same pixels as the whole image (megakernel.py:1207-1213).
@@ -73,12 +107,22 @@ __global__ void __launch_bounds__(256) megakernel(const Args a) {
     Ray r;
     r.state = sample_seed(pix, frame_hash, static_cast<uint32_t>(s));
     camera_ray(a.cam, xf, yf, a.inv_w, a.inv_h, r);
-    trace_bounces<kTextured>(a.scene, 0, a.num_bounces, r);
+    if constexpr (kStats) {
+      const int tile = (y_lane / kTileH) * a.tiles_x + x_lane / kTileW;
+      RayCounter rc{&a.cull, &a.st, tile * a.spp + s, 0u};
+      trace_bounces<kTextured, true>(a.scene, 0, a.num_bounces, r, &rc);
+      count_trips(a.st, rc.group, rc.trips);
+    } else {
+      trace_bounces<kTextured>(a.scene, 0, a.num_bounces, r);
+    }
     tot_r = tot_r + r.tr * r.cr;
     tot_g = tot_g + r.tg * r.cg;
     tot_b = tot_b + r.tb * r.cb;
   }
 
+  if constexpr (kStats) {
+    if (x_lane >= a.width || y_lane >= a.height) return;
+  }
   float* out = a.acc + (static_cast<size_t>(y) * a.width + x) * 3;
   const float base_r = a.clear ? 0.0f : out[0];
   const float base_g = a.clear ? 0.0f : out[1];
@@ -91,18 +135,11 @@ __global__ void __launch_bounds__(256) megakernel(const Args a) {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
 
-}  // namespace
-
-extern "C" {
-
-// One frame over a width x height image. Pointers are device pointers;
-// `stream` is a cudaStream_t. Returns cudaGetLastError() after the launch.
-int wrt_megakernel_launch(const float* cam, const float* sky, const float* sweep,
-                          const float* attrs, const int* tex_pool, float* acc, int n_spheres,
-                          int width, int height, float inv_w, float inv_h, unsigned frame,
-                          unsigned row_offset, int clear, int spp, int num_bounces,
-                          void* stream) {
-  Args a;
+StatsArgs frame_args(const float* cam, const float* sky, const float* sweep, const float* attrs,
+                const int* tex_pool, float* acc, int n_spheres, int width, int height,
+                float inv_w, float inv_h, unsigned frame, unsigned row_offset, int clear, int spp,
+                int num_bounces) {
+  StatsArgs a = {};
   a.cam = cam;
   a.scene.sky = sky;
   a.scene.sweep = reinterpret_cast<const float4*>(sweep);
@@ -119,23 +156,85 @@ int wrt_megakernel_launch(const float* cam, const float* sky, const float* sweep
   a.clear = clear;
   a.spp = spp;
   a.num_bounces = num_bounces;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One frame over a width x height image. Pointers are device pointers;
+// `stream` is a cudaStream_t. Returns cudaGetLastError() after the launch.
+int wrt_megakernel_launch(const float* cam, const float* sky, const float* sweep,
+                          const float* attrs, const int* tex_pool, float* acc, int n_spheres,
+                          int width, int height, float inv_w, float inv_h, unsigned frame,
+                          unsigned row_offset, int clear, int spp, int num_bounces,
+                          void* stream) {
+  const Args a = frame_args(cam, sky, sweep, attrs, tex_pool, acc, n_spheres, width, height,
+                            inv_w, inv_h, frame, row_offset, clear, spp, num_bounces);
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tex_pool != nullptr) {
-    megakernel<true><<<grid, block, 0, s>>>(a);
+    megakernel<true, false><<<grid, block, 0, s>>>(a);
   } else {
-    megakernel<false><<<grid, block, 0, s>>>(a);
+    megakernel<false, false><<<grid, block, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The same frame through the kStats instantiation, which also writes the
+// TPU kernel's per-tile counters into stats [n_tiles, 8] f32, n_tiles =
+// ceil(width / 64) * ceil(height / 64). The cull hierarchy is
+// prepare_scene_arrays' (chunk_bounds [6, n_tests], super_bounds
+// [6, n_super], priors [4]); scratch holds scratch_words u32 words
+// (stats_scratch_words with groups = n_tiles * spp and n_iters =
+// num_bounces). Returns a cudaError_t.
+int wrt_megakernel_stats_launch(const float* cam, const float* sky, const float* sweep,
+                                const float* attrs, const int* tex_pool, float* acc,
+                                int n_spheres, int width, int height, float inv_w, float inv_h,
+                                unsigned frame, unsigned row_offset, int clear, int spp,
+                                int num_bounces, const float* chunk_bounds,
+                                const float* super_bounds, const int* priors, int n_chunks,
+                                int n_tests, int n_super, int chunk_size, int super_factor,
+                                unsigned* scratch, long long scratch_words, float* stats,
+                                void* stream) {
+  StatsArgs a = frame_args(cam, sky, sweep, attrs, tex_pool, acc, n_spheres, width, height,
+                           inv_w, inv_h, frame, row_offset, clear, spp, num_bounces);
+  a.tiles_x = (width + kTileW - 1) / kTileW;
+  const int tiles_y = (height + kTileH - 1) / kTileH;
+  const int n_tiles = a.tiles_x * tiles_y;
+  const long long groups = static_cast<long long>(n_tiles) * spp;
+  if (scratch_words != stats_scratch_words(groups, num_bounces, n_tests, n_super)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.cull = CullRefs{chunk_bounds, super_bounds, priors, n_chunks, n_tests,
+                    n_super, chunk_size, super_factor};
+  a.st = stats_refs(scratch, groups, num_bounces, n_tests, n_super);
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid(a.tiles_x * (kTileW / kBlockX), tiles_y * (kTileH / kBlockY));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_counted(scratch, scratch_words, a.st, n_tests, n_super, super_factor, spp, n_tiles,
+                     stats, s, [&] {
+                       if (tex_pool != nullptr) {
+                         megakernel<true, true><<<grid, block, 0, s>>>(a);
+                       } else {
+                         megakernel<false, true><<<grid, block, 0, s>>>(a);
+                       }
+                     });
+}
+
 // Registers per thread and local (spill) bytes of one instantiation, as the
-// CUDA runtime reports them; returns a cudaError_t.
-int wrt_megakernel_attributes(int textured, int* num_regs, int* local_bytes) {
+// CUDA runtime reports them; returns a cudaError_t. `stats` picks kStats.
+int wrt_megakernel_attributes(int textured, int stats, int* num_regs, int* local_bytes) {
+  const void* fns[2][2] = {
+      {reinterpret_cast<const void*>(megakernel<false, false>),
+       reinterpret_cast<const void*>(megakernel<false, true>)},
+      {reinterpret_cast<const void*>(megakernel<true, false>),
+       reinterpret_cast<const void*>(megakernel<true, true>)},
+  };
   cudaFuncAttributes attr;
-  const cudaError_t err = textured ? cudaFuncGetAttributes(&attr, megakernel<true>)
-                                   : cudaFuncGetAttributes(&attr, megakernel<false>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[textured != 0][stats != 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   *num_regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);

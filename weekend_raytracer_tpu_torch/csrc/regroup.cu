@@ -9,7 +9,10 @@
 //            compaction of live records into a dense pool, the inverse map
 //            and the live count.
 //   K1       _make_k1 (regroup.py:1378): bounces [b_lo, b_hi) on the dense
-//            pool, in place, plus the base-radiance pool tr * cr.
+//            pool, in place, plus the base-radiance pool tr * cr. Its
+//            kStats instantiation is _make_k1(stats=True) (regroup.py:618,
+//            745-758; launched by benchmarks/profile_regroup.py:244), which
+//            also counts per dense tile of 4096 records (stats.cuh).
 //   COMBINE  _make_level_kernel_v2 / _make_level_kernel (regroup.py:1467):
 //            the reverse-composed levels, and at the home level the fold of
 //            each pixel's samples into the scanline accumulator.
@@ -35,6 +38,7 @@
 // has no host synchronisation between its kernels.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
@@ -140,10 +144,25 @@ struct K1Args {
   int b_lo, b_hi;
 };
 
+// What the kStats instantiation reads besides (the kStats = false one keeps
+// K1Args alone, so it compiles as it did before the counters).
+struct K1StatsArgs : K1Args {
+  CullRefs cull;
+  StatsRefs st;
+};
+
+template <bool kStats>
+using K1ArgsOf = std::conditional_t<kStats, K1StatsArgs, K1Args>;
+
+constexpr int kTileRecords = 32 * 128;  // a dense TPU tile (regroup.py:679-721)
+
 // K1: bounces [b_lo, b_hi) of one dense record. The RNG state is the home
-// slot's seed advanced 4 * (b_lo + 1) draws (regroup.py:723-741).
-template <bool kTextured>
-__global__ void __launch_bounds__(kThreads) regroup_k1(const K1Args a) {
+// slot's seed advanced 4 * (b_lo + 1) draws (regroup.py:723-741). The
+// kStats instantiation also counts per dense tile of 4096 records, as
+// _make_k1(stats=True) at tsub1 = 32 (regroup.py:745-758): col 0 is then
+// the tile's loop trips from b_lo.
+template <bool kTextured, bool kStats>
+__global__ void __launch_bounds__(kThreads) regroup_k1(const K1ArgsOf<kStats> a) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= *a.count) return;
   float* p = a.pool + i;
@@ -169,7 +188,13 @@ __global__ void __launch_bounds__(kThreads) regroup_k1(const K1Args a) {
   r.cg = p[kCG * c];
   r.cb = p[kCB * c];
   r.alive = true;
-  trace_bounces<kTextured>(a.scene, a.b_lo, a.b_hi, r);
+  if constexpr (kStats) {
+    RayCounter rc{&a.cull, &a.st, static_cast<int>(i / kTileRecords), 0u};
+    trace_bounces<kTextured, true>(a.scene, a.b_lo, a.b_hi, r, &rc);
+    count_trips(a.st, rc.group, rc.trips);
+  } else {
+    trace_bounces<kTextured>(a.scene, a.b_lo, a.b_hi, r);
+  }
 
   p[kOX * c] = r.ox;
   p[kOY * c] = r.oy;
@@ -381,6 +406,24 @@ Tiling tiling(int width, int height, int tiles_x, int spp_shift) {
   return g;
 }
 
+K1StatsArgs k1_args(const float* sky, const float* sweep, const float* attrs, const int* tex_pool,
+               int n_spheres, float* pool, float* r8, const int* count, long long cap, int width,
+               int height, int tiles_x, int spp_shift, unsigned frame, unsigned row_offset,
+               int b_lo, int b_hi) {
+  K1StatsArgs a = {};
+  a.scene = scene_refs(sky, sweep, attrs, tex_pool, n_spheres);
+  a.pool = pool;
+  a.r8 = r8;
+  a.count = count;
+  a.cap = cap;
+  a.g = tiling(width, height, tiles_x, spp_shift);
+  a.frame = frame;
+  a.row_offset = row_offset;
+  a.b_lo = b_lo;
+  a.b_hi = b_hi;
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
@@ -435,24 +478,49 @@ int wrt_regroup_k1(const float* sky, const float* sweep, const float* attrs, con
                    int n_spheres, float* pool, float* r8, const int* count, long long cap,
                    int width, int height, int tiles_x, int spp_shift, unsigned frame,
                    unsigned row_offset, int b_lo, int b_hi, void* stream) {
-  K1Args a;
-  a.scene = scene_refs(sky, sweep, attrs, tex_pool, n_spheres);
-  a.pool = pool;
-  a.r8 = r8;
-  a.count = count;
-  a.cap = cap;
-  a.g = tiling(width, height, tiles_x, spp_shift);
-  a.frame = frame;
-  a.row_offset = row_offset;
-  a.b_lo = b_lo;
-  a.b_hi = b_hi;
+  const K1Args a = k1_args(sky, sweep, attrs, tex_pool, n_spheres, pool, r8, count, cap, width,
+                           height, tiles_x, spp_shift, frame, row_offset, b_lo, b_hi);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tex_pool != nullptr) {
-    regroup_k1<true><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
+    regroup_k1<true, false><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
   } else {
-    regroup_k1<false><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
+    regroup_k1<false, false><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1 through the kStats instantiation: also writes the per-dense-tile
+// counters into stats [cap / 4096, 8] f32 (rows of tiles past the count
+// stay 0). The cull hierarchy is prepare_scene_arrays'; scratch holds
+// scratch_words u32 words (stats_scratch_words with groups = cap / 4096
+// and n_iters = b_hi - b_lo).
+int wrt_regroup_k1_stats(const float* sky, const float* sweep, const float* attrs,
+                         const int* tex_pool, int n_spheres, float* pool, float* r8,
+                         const int* count, long long cap, int width, int height, int tiles_x,
+                         int spp_shift, unsigned frame, unsigned row_offset, int b_lo, int b_hi,
+                         const float* chunk_bounds, const float* super_bounds, const int* priors,
+                         int n_chunks, int n_tests, int n_super, int chunk_size,
+                         int super_factor, unsigned* scratch, long long scratch_words,
+                         float* stats, void* stream) {
+  K1StatsArgs a = k1_args(sky, sweep, attrs, tex_pool, n_spheres, pool, r8, count, cap, width,
+                          height, tiles_x, spp_shift, frame, row_offset, b_lo, b_hi);
+  const int n_tiles = static_cast<int>(cap / kTileRecords);
+  if (b_hi <= b_lo ||
+      scratch_words != stats_scratch_words(n_tiles, b_hi - b_lo, n_tests, n_super)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.cull = CullRefs{chunk_bounds, super_bounds, priors, n_chunks, n_tests,
+                    n_super, chunk_size, super_factor};
+  a.st = stats_refs(scratch, n_tiles, b_hi - b_lo, n_tests, n_super);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_counted(scratch, scratch_words, a.st, n_tests, n_super, super_factor, 1, n_tiles,
+                     stats, s, [&] {
+                       if (tex_pool != nullptr) {
+                         regroup_k1<true, true><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
+                       } else {
+                         regroup_k1<false, true><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
+                       }
+                     });
 }
 
 int wrt_regroup_combine(const int* inv, const float* src, float* base, const int* dest_count,
@@ -474,18 +542,20 @@ int wrt_regroup_combine_home(const int* inv, const float* src, const float* cont
 // Registers per thread and local (spill) bytes of one kernel, as the CUDA
 // runtime reports them; returns a cudaError_t. `which`: 0/1 K0 untextured/
 // textured, 2/3 K1, 4 pack_count, 5 pack_scan, 6 pack_scatter,
-// 7 combine_level, 8 combine_home.
+// 7 combine_level, 8 combine_home, 9/10 K1 kStats.
 int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes) {
   const void* fns[] = {
       reinterpret_cast<const void*>(regroup_k0<false>),
       reinterpret_cast<const void*>(regroup_k0<true>),
-      reinterpret_cast<const void*>(regroup_k1<false>),
-      reinterpret_cast<const void*>(regroup_k1<true>),
+      reinterpret_cast<const void*>(regroup_k1<false, false>),
+      reinterpret_cast<const void*>(regroup_k1<true, false>),
       reinterpret_cast<const void*>(pack_count),
       reinterpret_cast<const void*>(pack_scan),
       reinterpret_cast<const void*>(pack_scatter),
       reinterpret_cast<const void*>(combine_level),
       reinterpret_cast<const void*>(combine_home),
+      reinterpret_cast<const void*>(regroup_k1<false, true>),
+      reinterpret_cast<const void*>(regroup_k1<true, true>),
   };
   if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0]))) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -17,6 +17,9 @@ see that file for what bounds it on the card and how its design answers.
 - ``render_image_megakernel_plain`` is the same computation in plain
   PyTorch, vectorized over pixels, for the CPU tests and for holding the
   kernel to it on the card.
+- ``stats=True`` (kernel #2, ``_make_kernel(stats=True)``) also returns the
+  TPU kernel's per-tile cull counters: the CUDA kStats instantiation
+  counts them on the card (csrc/stats.cuh), ``CullStats`` in the twin.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ _F32 = torch.float32
 # sweep block bound its [rays, spheres] temporaries to 16 MiB each
 _PIXEL_BLOCK = 1 << 16
 _SPHERE_BLOCK = 64
+_STATS_RAYS = 4096  # rays per batch of the plain cull tests
 
 
 # --------------------------------------------------------------------------
@@ -239,7 +243,12 @@ def prepare_scene_arrays(scene: Scene, basis: CameraBasis, chunk_size: int,
 
 
 class KernelInputs(NamedTuple):
-    """What the kernel reads, laid out for it (shared with the plain twin)."""
+    """What the kernel reads, laid out for it (shared with the plain twin).
+
+    The chunk hierarchy (the last seven fields) is read only by the kStats
+    instantiations, which count the TPU kernel's cull decisions; it is a
+    few KiB (RTiOW: 6 x 31 chunk bounds, 744 bytes; random_spheres(10000):
+    6 x 320 chunk and 6 x 20 super bounds, 8.2 KiB)."""
 
     cam: torch.Tensor  # [20] f32
     sky: torch.Tensor  # [33] f32
@@ -247,6 +256,19 @@ class KernelInputs(NamedTuple):
     attrs: torch.Tensor  # [12 or 18, n] f32 SoA (no kq)
     tex_pool: Optional[torch.Tensor]  # [rows * 128] i32, or None
     n_spheres: int
+    chunk_bounds: torch.Tensor  # [6, max(n_tests, 1)] f32: lo x, y, z, hi x, y, z
+    super_bounds: torch.Tensor  # [6, max(n_super, 1)] f32
+    prior_idx: torch.Tensor  # [N_PRIORS] i32
+    n_chunks: int  # chunks of chunk_size spheres; 0: no chunk hierarchy
+    n_super: int  # super-chunks of super_factor chunks; 0: one level
+    chunk_size: int
+    super_factor: int
+
+    @property
+    def n_tests(self) -> int:
+        """Chunk boxes the TPU tests per bounce: n_chunks, padded to a
+        multiple of super_factor when there are super-chunks."""
+        return int(self.chunk_bounds.shape[1]) if self.n_chunks else 0
 
 
 def kernel_inputs(scene: Scene, sky: SkyState, basis: CameraBasis, *,
@@ -263,7 +285,11 @@ def kernel_inputs(scene: Scene, sky: SkyState, basis: CameraBasis, *,
     attrs = torch.stack(a[:-1], dim=0).contiguous()
     pool = None if prep.tex_pool is None else prep.tex_pool.reshape(-1).contiguous()
     return KernelInputs(pack_camera(basis).contiguous(), pack_sky(sky).contiguous(),
-                        sweep, attrs, pool, prep.n_spheres)
+                        sweep, attrs, pool, prep.n_spheres,
+                        torch.stack(prep.chunk_arrays[:6]).contiguous(),
+                        torch.stack(prep.super_arrays).contiguous(),
+                        prep.chunk_arrays[6].contiguous(), prep.n_chunks, prep.n_super,
+                        chunk_size, super_factor)
 
 
 # --------------------------------------------------------------------------
@@ -272,16 +298,20 @@ def kernel_inputs(scene: Scene, sky: SkyState, basis: CameraBasis, *,
 
 KERNEL_SOURCE = "weekend_raytracer_tpu_torch/csrc/megakernel.cu"
 REPLACES = "weekend_raytracer_tpu/ops/pallas/megakernel.py:1713"
+# the stats=True instantiation of the same pallas_call (_make_kernel, 1146)
+STATS_REPLACES = "weekend_raytracer_tpu/ops/pallas/megakernel.py:1146"
 # (name, compiled sources) for build.load_library
 LIBRARY = ("wrt_megakernel", ("megakernel.cu",))
+# The TPU kernel's tile, which its counters are per: tsub = 32 rows of 128
+# lanes as a block of 64 x 64 pixels (megakernel.py:1634-1640).
+TILE_W = TILE_H = 64
 
 # TPU-only knobs of render_image_pallas and the values that leave them off.
 # mxu_sweep, listed and subcull were measured as losses on the TPU; tsub and
-# block_w shape its lane tiles; stats waits for the observability work.
+# block_w shape its lane tiles.
 _TPU_KNOBS = {
     "tsub": (None, 32),
     "block_w": (None, 64),
-    "stats": (False,),
     "subcull": (0,),
     "listed": (False,),
     "mxu_sweep": (None, False),
@@ -294,19 +324,23 @@ def _library():
     fn = built.lib.wrt_megakernel_launch
     if fn.argtypes is None:
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, f, f, u, u, i, i, i, vp]
+        frame = [vp, vp, vp, vp, vp, vp, i, i, i, f, f, u, u, i, i, i]
+        fn.argtypes = frame + [vp]
         fn.restype = ctypes.c_int
+        st = built.lib.wrt_megakernel_stats_launch
+        st.argtypes = frame + CULL_ARGTYPES + [vp, ctypes.c_longlong, vp, vp]
+        st.restype = ctypes.c_int
         attr = built.lib.wrt_megakernel_attributes
-        attr.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        attr.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
         attr.restype = ctypes.c_int
     return built
 
 
-def kernel_attributes(textured: bool) -> dict:
+def kernel_attributes(textured: bool, stats: bool = False) -> dict:
     """Registers per thread and local-memory bytes of the built kernel."""
     built = _library()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = built.lib.wrt_megakernel_attributes(int(textured), ctypes.byref(regs),
+    err = built.lib.wrt_megakernel_attributes(int(textured), int(stats), ctypes.byref(regs),
                                               ctypes.byref(local))
     if err:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
@@ -315,6 +349,40 @@ def kernel_attributes(textured: bool) -> dict:
 
 def _stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ctypes types of cull_args(), as both libraries' kStats entry points take them
+CULL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+
+
+def cull_args(inp: KernelInputs, device) -> tuple:
+    """The chunk hierarchy as a kStats entry point takes it, after checking
+    it: three device pointers, then n_chunks, n_tests, n_super,
+    chunk_size, super_factor."""
+    for t, shape, dtype in ((inp.chunk_bounds, (6, max(inp.n_tests, 1)), _F32),
+                            (inp.super_bounds, (6, max(inp.n_super, 1)), _F32),
+                            (inp.prior_idx, (N_PRIORS,), torch.int32)):
+        if (t.device != device or tuple(t.shape) != shape or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"chunk hierarchy {tuple(t.shape)} {t.dtype} on {t.device} does not "
+                f"match {shape} {dtype} contiguous on {device}")
+    return (inp.chunk_bounds.data_ptr(), inp.super_bounds.data_ptr(),
+            inp.prior_idx.data_ptr(), inp.n_chunks, inp.n_tests, inp.n_super,
+            inp.chunk_size, inp.super_factor)
+
+
+def stats_scratch_words(groups: int, n_iters: int, inp: KernelInputs) -> int:
+    """u32 words of a kStats launch's scratch (csrc/stats.cuh): per group
+    of rays its iterations, its live lanes, and one bit per chunk and per
+    super-chunk for each loop iteration."""
+    words = lambda bits: -(-bits // 32)  # noqa: E731
+    return groups * (2 + n_iters * (words(inp.n_tests) + words(inp.n_super)))
+
+
+def stats_tiles(width: int, height: int) -> int:
+    """TPU tiles of a width x height image (the rows of its stats table)."""
+    return -(-width // TILE_W) * -(-height // TILE_H)
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -364,7 +432,7 @@ def render_image_megakernel(
     subcull=0,
     listed=False,
     mxu_sweep=None,
-) -> torch.Tensor:
+):
     """One progressive frame via the fused megakernel; returns ``accum``.
 
     The JAX package donates and aliases the accumulator into its kernel
@@ -372,14 +440,23 @@ def render_image_megakernel(
     caller's tensor, which is also returned. A CUDA ``accum`` launches the
     CUDA kernel (and counts one launch in ``render_image_megakernel.launches``)
     or raises; a CPU ``accum`` runs ``render_image_megakernel_plain``.
+
+    stats=True returns ``(accum, table)`` as ``render_image_pallas`` does:
+    a [n_tiles, 8] f32 table, one row per 64 x 64-pixel TPU tile (col 0
+    bounce iterations of the tile's loop summed over samples, 1 live lanes
+    summed over those iterations, 2 chunk bodies and 3 super-chunk bodies
+    the TPU's whole-tile cull enters, 4-7 zero). On a CUDA ``accum`` it
+    launches the kStats instantiation (counted in
+    ``render_image_megakernel.stats_launches``) or raises; the image is the
+    one stats=False gives.
     """
-    _check_knobs(dict(tsub=tsub, block_w=block_w, stats=stats,
-                      subcull=subcull, listed=listed, mxu_sweep=mxu_sweep))
+    _check_knobs(dict(tsub=tsub, block_w=block_w, subcull=subcull, listed=listed,
+                      mxu_sweep=mxu_sweep))
     _check_accum(accum, width, height, spp, num_bounces)
     kw = dict(width=width, height=height, spp=spp, num_bounces=num_bounces,
               chunk_size=chunk_size, super_factor=super_factor,
               row_offset=row_offset, full_height=full_height,
-              budget_texels=budget_texels)
+              budget_texels=budget_texels, stats=stats)
     kind = _device_type(accum)
     if kind == "cpu":
         return render_image_megakernel_plain(accum, frame, clear, scene, sky,
@@ -392,15 +469,19 @@ def render_image_megakernel(
                         super_factor=super_factor, budget_texels=budget_texels)
     return launch_megakernel(accum, inp, frame, clear, width=width,
                              height=height, spp=spp, num_bounces=num_bounces,
-                             row_offset=row_offset, full_height=full_height)
+                             row_offset=row_offset, full_height=full_height,
+                             stats=stats)
 
 
 def launch_megakernel(accum: torch.Tensor, inp: KernelInputs, frame, clear, *,
                       width: int, height: int, spp: int, num_bounces: int,
-                      row_offset: int = 0,
-                      full_height: Optional[int] = None) -> torch.Tensor:
+                      row_offset: int = 0, full_height: Optional[int] = None,
+                      stats: bool = False):
     """Launch the CUDA kernel on prepared inputs, on the current stream;
-    counts the launch in ``render_image_megakernel.launches``."""
+    counts the launch in ``render_image_megakernel.launches``. With
+    ``stats`` it launches the kStats instantiation instead, counted in
+    ``render_image_megakernel.stats_launches``, and returns
+    ``(accum, table)``."""
     _check_accum(accum, width, height, spp, num_bounces)
     n = inp.n_spheres
     expect = [(inp.cam, (20,), _F32), (inp.sky, (33,), _F32),
@@ -416,21 +497,36 @@ def launch_megakernel(accum: torch.Tensor, inp: KernelInputs, frame, clear, *,
                 f"match {shape} {dtype} contiguous on {accum.device}")
     fh = height if full_height is None else full_height
     lib = _library().lib
-    err = lib.wrt_megakernel_launch(
+    frame_args = (
         inp.cam.data_ptr(), inp.sky.data_ptr(), inp.sweep.data_ptr(),
         inp.attrs.data_ptr(),
         None if inp.tex_pool is None else inp.tex_pool.data_ptr(),
         accum.data_ptr(), inp.n_spheres, width, height,
         float(np.float32(1.0 / width)), float(np.float32(1.0 / fh)),
         int(frame) & rng.MASK32, int(row_offset) & rng.MASK32, int(bool(clear)),
-        spp, num_bounces, _stream_handle(accum.device))
+        spp, num_bounces)
+    if not stats:
+        err = lib.wrt_megakernel_launch(*frame_args, _stream_handle(accum.device))
+        if err != 0:
+            raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+        render_image_megakernel.launches += 1
+        return accum
+    cull = cull_args(inp, accum.device)
+    n_tiles = stats_tiles(width, height)
+    words = stats_scratch_words(n_tiles * spp, num_bounces, inp)
+    scratch = torch.empty((words,), dtype=torch.int32, device=accum.device)
+    table = torch.empty((n_tiles, 8), dtype=_F32, device=accum.device)
+    err = lib.wrt_megakernel_stats_launch(
+        *frame_args, *cull, scratch.data_ptr(), words, table.data_ptr(),
+        _stream_handle(accum.device))
     if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
-    render_image_megakernel.launches += 1
-    return accum
+        raise RuntimeError(f"megakernel stats launch failed: CUDA error {err}")
+    render_image_megakernel.stats_launches += 1
+    return accum, table
 
 
 render_image_megakernel.launches = 0
+render_image_megakernel.stats_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -499,35 +595,140 @@ def _tex_lookup(pool, base, tw, th, u, v, fr, fg, fb):
             torch.where(valid, tb_, fb))
 
 
+def _sphere_ts(o, d, od, oo, c):
+    """Hit distance [n, m] of each ray against each sphere of c [m, 4]
+    (cx, cy, cz, kq), MAX_T where it misses: the kernel's sphere test."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    cx, cy, cz, kq = c[:, 0], c[:, 1], c[:, 2], c[:, 3]
+    cd = cx * dx[:, None] + cy * dy[:, None] + cz * dz[:, None]
+    co2 = ((cx + cx) * ox[:, None] + (cy + cy) * oy[:, None]
+           + (cz + cz) * oz[:, None])
+    b = cd - od
+    cq = oo - co2 + kq
+    sq = torch.sqrt(b * b - cq)  # NaN for a negative discriminant
+    t0 = b - sq
+    t1 = b + sq
+    ts = torch.where(t0 > MIN_T, t0, t1)
+    return torch.where((sq > 0.0) & (ts > MIN_T), ts, torch.full_like(ts, MAX_T))
+
+
+def _od_oo(o, d):
+    ox, oy, oz = o
+    dx, dy, dz = d
+    return (ox * dx + oy * dy + oz * dz)[:, None], (ox * ox + oy * oy + oz * oz)[:, None]
+
+
 def _closest_hit(o, d, sweep):
     """Closest hit over every sphere: the kernel's sweep, with the running
     strict-< min taken per block of spheres (first index wins ties)."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-    od = (ox * dx + oy * dy + oz * dz)[:, None]
-    oo = (ox * ox + oy * oy + oz * oz)[:, None]
-    n = ox.shape[0]
-    bt = torch.full((n,), MAX_T, dtype=_F32, device=ox.device)
-    bi = torch.full((n,), -1, dtype=torch.int64, device=ox.device)
+    od, oo = _od_oo(o, d)
+    n = o[0].shape[0]
+    bt = torch.full((n,), MAX_T, dtype=_F32, device=o[0].device)
+    bi = torch.full((n,), -1, dtype=torch.int64, device=o[0].device)
     for s0 in range(0, sweep.shape[0], _SPHERE_BLOCK):
-        c = sweep[s0:s0 + _SPHERE_BLOCK]
-        cx, cy, cz, kq = c[:, 0], c[:, 1], c[:, 2], c[:, 3]
-        cd = cx * dx[:, None] + cy * dy[:, None] + cz * dz[:, None]
-        co2 = ((cx + cx) * ox[:, None] + (cy + cy) * oy[:, None]
-               + (cz + cz) * oz[:, None])
-        b = cd - od
-        cq = oo - co2 + kq
-        sq = torch.sqrt(b * b - cq)  # NaN for a negative discriminant
-        t0 = b - sq
-        t1 = b + sq
-        ts = torch.where(t0 > MIN_T, t0, t1)
-        ts = torch.where((sq > 0.0) & (ts > MIN_T), ts,
-                         torch.full_like(ts, MAX_T))
+        ts = _sphere_ts(o, d, od, oo, sweep[s0:s0 + _SPHERE_BLOCK])
         tm, im = torch.min(ts, dim=1)
         better = tm < bt
         bt = torch.where(better, tm, bt)
         bi = torch.where(better, im + s0, bi)
     return bt, bi
+
+
+def _slab_enters(bounds, o, inv, bt):
+    """The TPU's slab test (slab_hit, megakernel.py:529-550) of each ray
+    against each box of bounds [6, m]: [n, m] bool, can the ray enter the
+    box closer than bt [n, m]?"""
+    t = [((bounds[a + k][None, :] - o[a][:, None]) * inv[a][:, None])
+         for k in (0, 3) for a in range(3)]
+    tnear = torch.maximum(torch.maximum(torch.minimum(t[0], t[3]), torch.minimum(t[1], t[4])),
+                          torch.minimum(t[2], t[5]))
+    tfar = torch.minimum(torch.minimum(torch.maximum(t[0], t[3]), torch.maximum(t[1], t[4])),
+                         torch.maximum(t[2], t[5]))
+    return (tfar >= tnear) & (tfar > MIN_T) & (tnear < bt)
+
+
+def _cull_tests(o, d, inp: KernelInputs):
+    """Each ray's outcome of the TPU's whole-tile cull tests at one bounce
+    (megakernel.py:615-660, 826-848): chunk tests [n, n_tests] and super
+    tests [n, n_super] bool. The test before chunk c uses min(best-t of the
+    priors, best-t of the spheres before c), which is the culled sweep's
+    best-t at c for every live ray, since culling never skips a chunk that
+    holds a closer hit (csrc/stats.cuh)."""
+    od, oo = _od_oo(o, d)
+    n = o[0].shape[0]
+    dev = o[0].device
+    prior_bt = torch.full((n,), MAX_T, dtype=_F32, device=dev)
+    for p in inp.prior_idx.tolist():
+        ts = _sphere_ts(o, d, od, oo, inp.sweep[p:p + 1])[:, 0]
+        prior_bt = torch.where(ts < prior_bt, ts, prior_bt)
+    cs = inp.chunk_size
+    per_block = max(1, _SPHERE_BLOCK // cs)
+    chunk_min = torch.cat([
+        _sphere_ts(o, d, od, oo, inp.sweep[c0 * cs:(c0 + per_block) * cs])
+        .reshape(n, -1, cs).amin(dim=2)
+        for c0 in range(0, inp.n_chunks, per_block)], dim=1)
+    # best-t before each chunk box: the spheres of the chunks before it
+    run = torch.cummin(chunk_min, dim=1).values
+    before = torch.cat([torch.full((n, 1), MAX_T, dtype=_F32, device=dev), run[:, :-1],
+                        run[:, -1:].expand(n, inp.n_tests - inp.n_chunks)], dim=1)
+    bt = torch.minimum(torch.clamp(before, max=MAX_T), prior_bt[:, None])
+    inv = [1.0 / (torch.where(v >= 0.0, 1.0, -1.0).to(_F32) * torch.clamp(torch.abs(v),
+                                                                           min=1.0e-12))
+           for v in d]
+    chunk_hit = _slab_enters(inp.chunk_bounds, o, inv, bt)
+    super_hit = (_slab_enters(inp.super_bounds, o, inv, bt[:, ::inp.super_factor])
+                 if inp.n_super else None)
+    return chunk_hit, super_hit
+
+
+class CullStats:
+    """The TPU kernels' stats=True counters, gathered by the plain twins
+    (the CUDA kStats instantiations count the same, csrc/stats.cuh).
+
+    Rays belong to groups (a TPU tile and sample of the megakernel, a dense
+    tile of K1); ``record`` takes the rays alive at the start of loop
+    iteration k with their groups and weights (a padded TPU lane traces
+    its clamped pixel's path again, so that pixel's rays weigh more), and
+    ``table`` sums groups into the [n_tiles, 8] f32 table: col 0 the
+    iterations the group's loop ran, col 1 live lanes summed over them,
+    col 2 chunk bodies entered inside entered super-chunks, col 3
+    super-chunk bodies entered, cols 4-7 zero."""
+
+    def __init__(self, inp: KernelInputs, n_groups: int, n_iters: int, device):
+        self.inp = inp
+        self.ran = torch.zeros((n_iters, n_groups), dtype=torch.bool, device=device)
+        self.live = torch.zeros((n_groups,), dtype=torch.float64, device=device)
+        self.chunks = torch.zeros((n_iters, n_groups, inp.n_tests), dtype=torch.int32,
+                                  device=device)
+        self.supers = torch.zeros((n_iters, n_groups, inp.n_super), dtype=torch.int32,
+                                  device=device)
+
+    def record(self, k: int, group, weight, o, d) -> None:
+        self.ran[k].index_fill_(0, group, True)
+        self.live.index_add_(0, group, weight.to(torch.float64))
+        if not self.inp.n_chunks:
+            return
+        for r0 in range(0, group.numel(), _STATS_RAYS):
+            sl = slice(r0, r0 + _STATS_RAYS)
+            chunk_hit, super_hit = _cull_tests(tuple(v[sl] for v in o),
+                                               tuple(v[sl] for v in d), self.inp)
+            self.chunks[k].index_add_(0, group[sl], chunk_hit.to(torch.int32))
+            if super_hit is not None:
+                self.supers[k].index_add_(0, group[sl], super_hit.to(torch.int32))
+
+    def table(self, groups_per_tile: int) -> torch.Tensor:
+        entered = self.chunks > 0
+        supers = self.supers > 0
+        if self.inp.n_super:  # a chunk counts only inside an entered super-chunk
+            entered &= supers.repeat_interleave(self.inp.super_factor, dim=2)
+        per_group = torch.stack([self.ran.sum(0).double(), self.live,
+                                 entered.sum((0, 2)).double(),
+                                 supers.sum((0, 2)).double()], dim=1)
+        per_tile = per_group.reshape(-1, groups_per_tile, 4).sum(1)
+        out = torch.zeros((per_tile.shape[0], 8), dtype=_F32, device=per_tile.device)
+        out[:, :4] = per_tile.to(_F32)
+        return out
 
 
 class PathState(NamedTuple):
@@ -542,13 +743,14 @@ class PathState(NamedTuple):
 
 
 def trace_bounces_plain(o, d, tr, state, inp: KernelInputs, b_lo: int,
-                        b_hi: int) -> PathState:
+                        b_hi: int, counted=None) -> PathState:
     """Bounces [b_lo, b_hi) of live paths (bounce.cuh ``trace_bounces``).
 
     o and d are (x, y, z) tuples of [n] f32, tr is [n, 3]. Paths that end
     leave the batch; a path's final state is written back at its index. A
     path that ends keeps the ray it ended on, and one still alive after
-    b_hi keeps colour 0."""
+    b_hi keeps colour 0. ``counted`` = (CullStats, group [n], weight [n])
+    records each bounce's live rays there."""
     n = o[0].shape[0]
     dev = o[0].device
     out_c = torch.zeros((n, 3), dtype=_F32, device=dev)
@@ -566,9 +768,13 @@ def trace_bounces_plain(o, d, tr, state, inp: KernelInputs, b_lo: int,
            ("LAMBERTIAN", "METAL", "DIELECTRIC", "CHECKERBOARD", "EMISSIVE")}
     ox, oy, oz = o
     dx, dy, dz = d
-    for _ in range(b_lo, b_hi):
+    for bounce in range(b_lo, b_hi):
         if live.numel() == 0:
             break
+        if counted is not None:
+            counter, group, weight = counted
+            counter.record(bounce - b_lo, group[live], weight[live], (ox, oy, oz),
+                           (dx, dy, dz))
         bt, bi = _closest_hit((ox, oy, oz), (dx, dy, dz), inp.sweep)
         hit = bi >= 0
 
@@ -758,10 +964,10 @@ def camera_rays_plain(cam, xf, yf, inv_w: float, inv_h: float, state):
     return state, (ox, oy, oz), (dx * inv_len, dy * inv_len, dz * inv_len)
 
 
-def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int):
+def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int, counted=None):
     """Radiance [n, 3] of one sample per ray: tr * c after every bounce."""
     tr = torch.ones((o[0].shape[0], 3), dtype=_F32, device=o[0].device)
-    p = trace_bounces_plain(o, d, tr, state, inp, 0, num_bounces)
+    p = trace_bounces_plain(o, d, tr, state, inp, 0, num_bounces, counted)
     return p.tr * p.c
 
 
@@ -782,26 +988,40 @@ def render_image_megakernel_plain(
     row_offset: int = 0,
     full_height: Optional[int] = None,
     budget_texels: int = DEFAULT_TEXTURE_BUDGET,
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """The megakernel's computation in plain PyTorch, on ``accum``'s device;
-    accumulates in place and returns ``accum``. It reads the same prepared
-    inputs and repeats the kernel's arithmetic: the same RNG order, the
-    polynomial acos/atan2, the mipped texture LUT and the prefolded
-    albedos. Pixels run in blocks of _PIXEL_BLOCK and spheres in blocks of
-    _SPHERE_BLOCK, to bound memory."""
+    accumulates in place and returns ``accum`` (and, with ``stats``, the
+    TPU kernel's per-tile table, as ``render_image_megakernel``). It reads
+    the same prepared inputs and repeats the kernel's arithmetic: the same
+    RNG order, the polynomial acos/atan2, the mipped texture LUT and the
+    prefolded albedos. Pixels run in blocks of _PIXEL_BLOCK and spheres in
+    blocks of _SPHERE_BLOCK, to bound memory."""
     inp = kernel_inputs(scene, sky, basis, chunk_size=chunk_size,
                         super_factor=super_factor, budget_texels=budget_texels)
     return render_plain_with_inputs(
         accum, inp, frame, clear, width=width, height=height, spp=spp,
         num_bounces=num_bounces, row_offset=row_offset,
-        full_height=full_height)
+        full_height=full_height, stats=stats)
+
+
+def _lane_weights(x, y, width: int, height: int):
+    """How many lanes of the TPU's padded 64 x 64 tiles trace each pixel's
+    path: the last column and row stand in for the padding past them
+    (megakernel.py:1204-1206)."""
+    pad_x = -(-width // TILE_W) * TILE_W - width
+    pad_y = -(-height // TILE_H) * TILE_H - height
+    return (torch.where(x == width - 1, 1 + pad_x, 1)
+            * torch.where(y == height - 1, 1 + pad_y, 1))
 
 
 def render_plain_with_inputs(accum: torch.Tensor, inp: KernelInputs, frame,
                              clear, *, width: int, height: int, spp: int,
                              num_bounces: int, row_offset: int = 0,
-                             full_height: Optional[int] = None) -> torch.Tensor:
-    """The plain version on prepared inputs (``launch_megakernel``'s twin)."""
+                             full_height: Optional[int] = None, stats: bool = False):
+    """The plain version on prepared inputs (``launch_megakernel``'s twin).
+    The counters do not touch the image's arithmetic: with ``stats`` the
+    image is the same in every bit."""
     dev = accum.device
     fh = height if full_height is None else full_height
     inv_w = _f32(1.0 / width)
@@ -809,21 +1029,29 @@ def render_plain_with_inputs(accum: torch.Tensor, inp: KernelInputs, frame,
     cam = [_f32(v) for v in inp.cam.tolist()]
     frame = int(frame) & rng.MASK32
     n = width * height
+    tiles_x = -(-width // TILE_W)
+    counter = (CullStats(inp, stats_tiles(width, height) * spp, num_bounces, dev)
+               if stats else None)
     total = torch.empty((n, 3), dtype=_F32, device=dev)
     for p0 in range(0, n, _PIXEL_BLOCK):
         idx = torch.arange(p0, min(n, p0 + _PIXEL_BLOCK), device=dev)
         x = idx % width
-        y_g = (idx // width + int(row_offset)) & rng.MASK32
+        y = idx // width
+        y_g = (y + int(row_offset)) & rng.MASK32
         pix = (y_g * width + x) & rng.MASK32
         xf = x.to(_F32)
         yf = y_g.to(torch.int32).to(_F32)
+        if counter is not None:
+            tile = (y // TILE_H) * tiles_x + x // TILE_W
+            weight = _lane_weights(x, y, width, height)
         tot = torch.zeros((idx.numel(), 3), dtype=_F32, device=dev)
         for s in range(spp):
             state = rng.init_sample_state(pix, frame, s)
             state, o, d = camera_rays_plain(cam, xf, yf, inv_w, inv_h, state)
-            tot = tot + _trace_plain(o, d, state, inp, num_bounces)
+            counted = None if counter is None else (counter, tile * spp + s, weight)
+            tot = tot + _trace_plain(o, d, state, inp, num_bounces, counted)
         total[p0:p0 + idx.numel()] = tot
     if clear:
         accum.zero_()
     accum += total
-    return accum
+    return (accum, counter.table(spp)) if stats else accum

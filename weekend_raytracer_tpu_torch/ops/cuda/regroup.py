@@ -18,7 +18,9 @@ bounds them on the card. Each has a plain PyTorch twin here (``k0_plain``,
 ``pack_plain``, ``k1_plain``, ``combine_plain``) with the same contract on
 the same buffers, and ``render_image_regrouped_plain`` is the frame built
 from the twins. ``render_image_regrouped`` launches the kernels for a CUDA
-``accum`` (or raises) and runs the twins for a CPU one.
+``accum`` (or raises) and runs the twins for a CPU one. ``launch_k1`` and
+``k1_plain`` also take a ``stats=`` table, ``_make_k1(stats=True)``'s
+counters per dense tile.
 
 Layout, as in the JAX package (regroup.py:76-127, 1072-1091): 32-row x
 128-lane tiles with spp folded into lanes (``block_w = 128 >> log2(spp)``
@@ -69,13 +71,16 @@ _PACK_BLOCK = 1024  # slots per block of the CUDA pack (regroup.cu)
 KERNEL_SOURCE = "weekend_raytracer_tpu_torch/csrc/regroup.cu"
 # (name, compiled sources) for build.load_library
 LIBRARY = ("wrt_regroup", ("regroup.cu",))
-# the pallas_call each kernel replaces
+# the pallas_call each kernel replaces (K1's stats instantiation: _make_k1
+# with stats=True, as benchmarks/profile_regroup.py:244 launches it)
 REPLACES = {
     "k0": "weekend_raytracer_tpu/ops/pallas/regroup.py:1198",
     "pack": "weekend_raytracer_tpu/ops/pallas/regroup.py:1322",
     "k1": "weekend_raytracer_tpu/ops/pallas/regroup.py:1378",
     "combine": "weekend_raytracer_tpu/ops/pallas/regroup.py:1467",
+    "k1_stats": "weekend_raytracer_tpu/ops/pallas/regroup.py:618",
 }
+TILE_RECORDS = 32 * 128  # a dense TPU tile: the rows of K1's stats table
 
 # TPU sweep variants measured as losses on the TPU (ROADMAP Queue 2, "Do
 # not port"), and the values that leave them off.
@@ -176,7 +181,8 @@ def _workspace(device, cap: int, phases: int) -> Workspace:
 
 # regroup.cu wrt_regroup_attributes index -> kernel
 KERNEL_NAMES = ("k0", "k0_textured", "k1", "k1_textured", "pack_count",
-                "pack_scan", "pack_scatter", "combine_level", "combine_home")
+                "pack_scan", "pack_scatter", "combine_level", "combine_home",
+                "k1_stats", "k1_stats_textured")
 
 
 def _library():
@@ -190,6 +196,8 @@ def _library():
             "wrt_regroup_k0": [vp] * 5 + [i, vp, vp, ll, i, i, i, i, f, f, u, u, i, vp],
             "wrt_regroup_pack": [vp] * 6 + [ll, vp],
             "wrt_regroup_k1": [vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i, vp],
+            "wrt_regroup_k1_stats": ([vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i]
+                                     + mk.CULL_ARGTYPES + [vp, ll, vp, vp]),
             "wrt_regroup_combine": [vp] * 4 + [ll, vp],
             "wrt_regroup_combine_home": [vp] * 4 + [ll, i, i, i, i, i, vp],
             "wrt_regroup_attributes": [i, ctypes.POINTER(i), ctypes.POINTER(i)],
@@ -304,22 +312,53 @@ def launch_pack(src: torch.Tensor, dst: torch.Tensor, inv: torch.Tensor,
     launch_pack.launches += 1
 
 
+def _check_k1_stats(stats, t: Tiling, b_lo: int, b_hi: int, k1_tsub: int, device) -> None:
+    if stats is None:
+        return
+    if k1_tsub != 32:
+        raise NotImplementedError(
+            f"K1 stats take only k1_tsub=32, got {k1_tsub}: at tsub1 < 32 the JAX "
+            "kernel writes each sub-block's counters over the last one's "
+            "(regroup.py:698-758), so its table has no per-tile meaning to match")
+    if b_hi <= b_lo:
+        raise ValueError(f"K1 stats need at least one bounce, got [{b_lo}, {b_hi})")
+    _expect(stats, (t.cap // TILE_RECORDS, 8), _F32, device)
+
+
 def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
               counts: torch.Tensor, k: int, t: Tiling, frame, b_lo: int,
-              b_hi: int) -> None:
+              b_hi: int, stats: Optional[torch.Tensor] = None,
+              k1_tsub: int = 32) -> None:
     """K1 of phase k on the current stream: bounces [b_lo, b_hi) of the
     counts[k] dense records of ``pool``, in place, and their tr * cr into
-    ``r8`` [3, cap]. Counts one launch in ``launch_k1.launches``."""
+    ``r8`` [3, cap]. Counts one launch in ``launch_k1.launches``.
+
+    With ``stats`` [cap / 4096, 8] f32 it launches the kStats
+    instantiation instead (counted in ``launch_k1.stats_launches``), which
+    also writes _make_k1(stats=True)'s counters per dense tile of 4096
+    records: col 0 the tile's loop iterations from b_lo, col 1 live lanes
+    summed over them, cols 2-3 chunk and super-chunk bodies the TPU's
+    whole-tile cull enters, the rest 0 (and every column of a tile past
+    the count)."""
     dev = pool.device
     _expect_scene(inp, dev)
     _expect(pool, (N_COMP, t.cap), _F32, dev)
     _expect(r8, (3, t.cap), _F32, dev)
-    err = _library().lib.wrt_regroup_k1(
-        *_scene_ptrs(inp), pool.data_ptr(), r8.data_ptr(), _count_ptr(counts, k, dev),
-        t.cap, t.width, t.height, t.tiles_x, t.spp_shift, int(frame) & rng.MASK32,
-        t.row_offset & rng.MASK32, int(b_lo), int(b_hi), _stream_handle(dev))
-    _raise_on(err, "K1")
-    launch_k1.launches += 1
+    _check_k1_stats(stats, t, b_lo, b_hi, k1_tsub, dev)
+    lib = _library().lib
+    args = (*_scene_ptrs(inp), pool.data_ptr(), r8.data_ptr(), _count_ptr(counts, k, dev),
+            t.cap, t.width, t.height, t.tiles_x, t.spp_shift, int(frame) & rng.MASK32,
+            t.row_offset & rng.MASK32, int(b_lo), int(b_hi))
+    if stats is None:
+        _raise_on(lib.wrt_regroup_k1(*args, _stream_handle(dev)), "K1")
+        launch_k1.launches += 1
+        return
+    words = mk.stats_scratch_words(t.cap // TILE_RECORDS, b_hi - b_lo, inp)
+    scratch = torch.empty((words,), dtype=_I32, device=dev)
+    err = lib.wrt_regroup_k1_stats(*args, *mk.cull_args(inp, dev), scratch.data_ptr(), words,
+                                   stats.data_ptr(), _stream_handle(dev))
+    _raise_on(err, "K1 stats")
+    launch_k1.stats_launches += 1
 
 
 def launch_combine(inv: torch.Tensor, src: torch.Tensor, base: torch.Tensor,
@@ -355,6 +394,7 @@ def launch_combine(inv: torch.Tensor, src: torch.Tensor, base: torch.Tensor,
 
 for _fn in (launch_k0, launch_pack, launch_k1, launch_combine):
     _fn.launches = 0
+launch_k1.stats_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -429,10 +469,14 @@ def pack_plain(src: torch.Tensor, dst: torch.Tensor, inv: torch.Tensor,
 
 def k1_plain(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
              counts: torch.Tensor, k: int, t: Tiling, frame, b_lo: int,
-             b_hi: int) -> None:
-    """``launch_k1``'s twin."""
+             b_hi: int, stats: Optional[torch.Tensor] = None,
+             k1_tsub: int = 32) -> None:
+    """``launch_k1``'s twin, with the counters when given ``stats``."""
+    _check_k1_stats(stats, t, b_lo, b_hi, k1_tsub, pool.device)
     n = int(counts[k])
     frame = int(frame) & rng.MASK32
+    counter = (mk.CullStats(inp, t.cap // TILE_RECORDS, b_hi - b_lo, pool.device)
+               if stats is not None else None)
     for lo in range(0, n, _BLOCK):
         hi = min(n, lo + _BLOCK)
         rec = pool[:, lo:hi]
@@ -443,9 +487,15 @@ def k1_plain(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
         o = (rec[_OX], rec[_OY], rec[_OZ])
         d = (rec[_DX], rec[_DY], rec[_DZ])
         tr = rec[_TR:_TB + 1].T.contiguous()
-        p = mk.trace_bounces_plain(o, d, tr, state, inp, b_lo, b_hi)
+        counted = None
+        if counter is not None:
+            tile = torch.arange(lo, hi, device=pool.device) // TILE_RECORDS
+            counted = (counter, tile, torch.ones_like(tile))
+        p = mk.trace_bounces_plain(o, d, tr, state, inp, b_lo, b_hi, counted)
         _store(pool, lo, hi, p)
         r8[:, lo:hi] = (p.tr * p.c).T
+    if counter is not None:
+        stats.copy_(counter.table(1))
 
 
 def _fold_plain(contrib: torch.Tensor, accum: torch.Tensor, t: Tiling,
