@@ -66,7 +66,7 @@ REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
 _STATS_MK = (("rtiow", 1920, 1080), ("random10k", 3840, 2160))
 _STATS_MK_RUN = dict(spp=4, bounces=8, frame=1)
 _STATS_K1 = dict(width=1920, height=1080, spp=32, bounces=8, frame=0)
-# H100 SXM peaks at 700 W (the on-chip-measurement guide's table)
+# H100 SXM peaks at 700 W (NVIDIA's published figures)
 FP32_PEAK = 67e12  # FP32 operations per second, outside the tensor cores
 HBM_RATE = 3.35e12  # bytes per second
 SPHERE_TEST_OPS = 21  # FP32 operations of one sphere test (bounce.cuh sweep_sphere)
