@@ -17,13 +17,15 @@ every frame went through the kernels and that the image is right, and it
 times the kernels against their plain versions.
 
 The ``[stats]`` phase holds the two stats kernels (the megakernel's and
-K1's kStats instantiations) against their twins, then runs the counters'
-own path at full size, as benchmarks/kernel_stats.py and
-benchmarks/profile_regroup.py's ``stats`` run the TPU kernels: the
-megakernel with ``stats=True`` on RTiOW 1920x1080 and random_spheres(10000)
-at 3840x2160 (4 spp, 8 bounces), and K0 -> PACK -> K1(stats) at the first
-cut of RTiOW 1920x1080 x 32 spp; it prints their summaries and times each
-stats kernel against its kStats = false twin. ``[trace]`` runs one regroup
+K1's kStats instantiations) against their twins at small sizes (a
+super-chunk scene among them), then runs the counters' own path at full
+size, as benchmarks/kernel_stats.py and benchmarks/profile_regroup.py's
+``stats`` run the TPU kernels: the megakernel with ``stats=True`` on RTiOW
+1920x1080 and random_spheres(10000) at 3840x2160 (4 spp, 8 bounces), and
+K0 -> PACK -> K1(stats) at the first cut of RTiOW 1920x1080 x 32 spp. Each
+full-size table is held against the twin on a part of it (the last row of
+TPU tiles, the last dense tiles); the phase prints the summaries and times
+each stats kernel against its kStats = false twin. ``[trace]`` runs one regroup
 1080p frame under ``utils.metrics.profiler_trace`` and prints what the
 profiler saw beside the CUDA-event stage times. The ``kernels`` line gives
 every kernel its time, its twin's, its bound (the least time the card could
@@ -59,8 +61,21 @@ _TIMING = dict(scene="rtiow", width=480, height=270, spp=4, bounces=8)
 RMSE_GATE = 5e-3  # tonemapped RMSE (tests/test_pallas.py's gate)
 MEAN_REL_GATE = 1e-3  # relative linear mean radiance
 FIRST_HIT_GATE = 0.01  # fraction of first-hit pixels allowed to differ
-STATS_SUM_GATE = 0.01  # each counter column's sum against the twin, over 8 bounces
+# Each counter column's sum against the twin over 8 bounces. The megakernel
+# and its twin differ only by nvcc's contraction of a * b + c into FMAs,
+# which the twin does not do: built with -fmad=false the kernel equals its
+# twin in every bit, image and counters (tools/fma_divergence.py). With it,
+# paths that part by an ulp move the sums by under 0.4% on RTiOW and by up
+# to 2.7% on the random_spheres scenes, where more of them part.
+STATS_SUM_GATE = 0.01
+STATS_SUM_GATE_RANDOM = 0.03
+_RANDOM_SCENES = ("super", "random10k")
 REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
+# name, w, h, spp of the stats kernels' cases against their twins: RTiOW, and
+# random_spheres(1200) in 75 chunks of 16 and 5 super-chunks, seen through a
+# narrow lens so that a tile's rays miss some super-chunks (col 3)
+_STATS_PLAIN_CASES = (("rtiow", 96, 64, 4), ("super", 256, 128, 4))
+K1_SPAN_TILES = 32  # dense tiles of the 1080p pool held against k1_plain
 # the counters' full-size cases: benchmarks/kernel_stats.py:30, 41-45 and
 # benchmarks/profile_regroup.py:42, 114-279
 _STATS_MK = (("rtiow", 1920, 1080), ("random10k", 3840, 2160))
@@ -126,6 +141,20 @@ def _case(name, w, h, device):
         sky = to_sky_state(SkyParams(), device=device)
     return (desc.build(device=device), sky,
             CameraBasis.create(cam, (w, h), device=device))
+
+
+def _stats_inputs(mk, name, w, h, device):
+    """Kernel inputs of a _STATS_PLAIN_CASES case."""
+    if name != "super":
+        return mk.kernel_inputs(*_case(name, w, h, device))
+    from weekend_raytracer_tpu_torch import Camera, CameraBasis, SkyParams, to_sky_state
+    from weekend_raytracer_tpu_torch.models.scenes import random_spheres
+
+    cam = Camera.look_at((0.0, 6.0, 60.0), (30.0, 0.5, 30.0), vfov_degrees=8.0,
+                         aperture=0.02)
+    return mk.kernel_inputs(random_spheres(1200).build(device=device),
+                            to_sky_state(SkyParams(), device=device),
+                            CameraBasis.create(cam, (w, h), device=device), chunk_size=16)
 
 
 def _render(fn, inp, w, h, frames, spp, bounces, **kw):
@@ -332,31 +361,41 @@ def _k1_stats(rg, fn, inp, dense, counts, t, frame, b_lo, b_hi):
 
 
 def _stats_vs_plain(mk, rg) -> dict:
-    """Both stats kernels against their twins on RTiOW 96x64 x 4 spp: equal
-    per tile over one bounce, each column's sum within STATS_SUM_GATE over
-    more (8 for the megakernel, [2, 4) for K1), the invariants in every
-    tile, and the kStats image equal in every bit to the kStats = false
-    one. Returns the counters' largest error at one bounce and the sums'."""
-    w, h, spp = 96, 64, 4
+    """Both stats kernels against their twins at small sizes: the
+    megakernel on each _STATS_PLAIN_CASES case, K1 on RTiOW 96x64 x 4 spp.
+    Equal per tile over one bounce, each column's sum within _sum_gate
+    over more (8 for the megakernel, [2, 4) for K1), the invariants in
+    every tile, and the kStats image equal in every bit to the kStats =
+    false one; in the super-chunk case some tile enters fewer super-chunks
+    than there are. Returns the counters' largest error at one bounce and
+    the sums'."""
     dev = torch.device("cuda")
-    inp = mk.kernel_inputs(*_case("rtiow", w, h, dev))
-    out = {"megakernel_err": 0.0, "k1_err": 0.0}
-    for bounces in (1, 8):
-        kw = dict(width=w, height=h, spp=spp, num_bounces=bounces)
-        img, st = mk.launch_megakernel(torch.zeros((w * h, 3), device=dev), inp, 1, True,
-                                       stats=True, **kw)
-        _, ref = mk.render_plain_with_inputs(torch.zeros((w * h, 3), device=dev), inp, 1, True,
-                                             stats=True, **kw)
-        img0 = mk.launch_megakernel(torch.zeros((w * h, 3), device=dev), inp, 1, True, **kw)
-        torch.cuda.synchronize()
-        _check(torch.equal(img, img0), ("megakernel stats image", bounces))
-        _check_stats(st, spp * bounces, ("megakernel stats", bounces))
-        if bounces == 1:
-            out["megakernel_err"] = float((st - ref).abs().max())
-            _check(torch.equal(st, ref), ("megakernel stats at one bounce", st, ref))
-        else:
-            out["megakernel_sum_rel"] = _sum_rel(st, ref)
-            _check(max(out["megakernel_sum_rel"]) < STATS_SUM_GATE, out)
+    out = {"megakernel_err": 0.0, "k1_err": 0.0, "megakernel_sum_rel": {}}
+    for name, w, h, spp in _STATS_PLAIN_CASES:
+        inp = _stats_inputs(mk, name, w, h, dev)
+        for bounces in (1, 8):
+            kw = dict(width=w, height=h, spp=spp, num_bounces=bounces)
+            img, st = mk.launch_megakernel(torch.zeros((w * h, 3), device=dev), inp, 1, True,
+                                           stats=True, **kw)
+            _, ref = mk.render_plain_with_inputs(torch.zeros((w * h, 3), device=dev), inp, 1,
+                                                 True, stats=True, **kw)
+            img0 = mk.launch_megakernel(torch.zeros((w * h, 3), device=dev), inp, 1, True, **kw)
+            torch.cuda.synchronize()
+            what = ("megakernel stats", name, bounces)
+            _check(torch.equal(img, img0), what + ("image",))
+            # a late iteration whose live rays all leave the scene enters no chunk
+            _check_stats(st, spp * bounces, what, chunked=name == "rtiow" or bounces == 1)
+            if bounces == 1:
+                out["megakernel_err"] = max(out["megakernel_err"], float((st - ref).abs().max()))
+                _check(torch.equal(st, ref), what + ("at one bounce", st, ref))
+                if inp.n_super:
+                    _check(bool((st[:, 3] > 0).all() and (st[:, 3] < inp.n_super * spp).any()),
+                           what + ("super-chunks", st[:, 3]))
+            else:
+                out["megakernel_sum_rel"][name] = _sum_rel(st, ref)
+                _check(max(out["megakernel_sum_rel"][name]) < _sum_gate(name), out)
+    w, h, spp = 96, 64, 4
+    inp = _stats_inputs(mk, "rtiow", w, h, dev)
     t, _ = rg.plan(w, h, spp, 8, _CUTS)
     dense, counts, n = _dense_pool(rg, inp, t, 0, _CUTS[0])
     live = -(-n // rg.TILE_RECORDS)
@@ -372,6 +411,66 @@ def _stats_vs_plain(mk, rg) -> dict:
         else:
             out["k1_sum_rel"] = _sum_rel(st[:live], ref[:live])
             _check(max(out["k1_sum_rel"]) < STATS_SUM_GATE, out)
+    return out
+
+
+def _sum_gate(name: str) -> float:
+    return STATS_SUM_GATE_RANDOM if name in _RANDOM_SCENES else STATS_SUM_GATE
+
+
+def _megakernel_band_vs_plain(mk, name, inp, w, h, run, table) -> dict:
+    """The kStats megakernel at full size against its twin on the image's
+    last row of TPU tiles (a band of rows at full width through row_offset
+    and full_height; its padding rows repeat the image's last row, as the
+    full image's do): the kernel's rows of that band equal the twin's per
+    tile over one bounce (a full-size launch of its own), and each column's
+    sum within _sum_gate(name) over the path's bounces (``table``, the
+    path's own)."""
+    dev = inp.sweep.device
+    top = (h - 1) // mk.TILE_H * mk.TILE_H
+    tiles_x = -(-w // mk.TILE_W)
+    out = {"rows": [top, h], "tiles": tiles_x}
+    one = mk.launch_megakernel(torch.zeros((w * h, 3), device=dev), inp, run["frame"], True,
+                               width=w, height=h, spp=run["spp"], num_bounces=1, stats=True)[1]
+    for bounces, full in ((1, one), (run["bounces"], table)):
+        kw = dict(width=w, spp=run["spp"], num_bounces=bounces, stats=True)
+        _, ref = mk.render_plain_with_inputs(torch.zeros((w * (h - top), 3), device=dev), inp,
+                                             run["frame"], True, height=h - top, row_offset=top,
+                                             full_height=h, **kw)
+        st = full[-tiles_x:]
+        if bounces == 1:
+            out["err_one_bounce"] = float((st - ref).abs().max())
+            _check(torch.equal(st, ref), ("megakernel stats band at one bounce", w, h, out))
+        else:
+            out["sum_rel"] = _sum_rel(st, ref)
+            _check(max(out["sum_rel"]) < _sum_gate(name), ("megakernel stats band", w, h, out))
+    return out
+
+
+def _k1_span_vs_plain(rg, inp, dense, counts, n, t, frame, b_lo, b_hi, table) -> dict:
+    """K1's kStats kernel on the whole dense pool against k1_plain on its
+    last K1_SPAN_TILES dense tiles (the last part full), moved to the front
+    of a pool of their own: the kernel's rows equal the twin's per tile over
+    [b_lo, b_lo + 1) (a launch of its own) and each column's sum within
+    STATS_SUM_GATE over [b_lo, b_hi) (``table``, the path's own)."""
+    dev = dense.device
+    live = -(-n // rg.TILE_RECORDS)
+    t0 = max(0, live - K1_SPAN_TILES)
+    start = t0 * rg.TILE_RECORDS
+    span = torch.zeros_like(dense)
+    span[:, :n - start] = dense[:, start:n]
+    span_counts = torch.tensor([t.cap, n - start], dtype=torch.int32, device=dev)
+    out = {"tiles": [t0, live]}
+    one = _k1_stats(rg, rg.launch_k1, inp, dense, counts, t, frame, b_lo, b_lo + 1)
+    for hi, full in ((b_lo + 1, one), (b_hi, table)):
+        ref = _k1_stats(rg, rg.k1_plain, inp, span, span_counts, t, frame, b_lo, hi)
+        st, ref = full[t0:live], ref[:live - t0]
+        if hi == b_lo + 1:
+            out["err_one_bounce"] = float((st - ref).abs().max())
+            _check(torch.equal(st, ref), ("K1 stats span over one bounce", out))
+        else:
+            out["sum_rel"] = _sum_rel(st, ref)
+            _check(max(out["sum_rel"]) < STATS_SUM_GATE, ("K1 stats span", out))
     return out
 
 
@@ -429,13 +528,15 @@ def _stats_path(mk, rg) -> dict:
     want = {"megakernel": 0, "k0": 1, "pack": 1, "k1": 0, "combine": 0,
             "megakernel_stats": len(_STATS_MK), "k1_stats": 1}
     _check(launches == want, ("stats path launches", launches, want))
-    out = {"launches": launches, "summary": {}, "ms": {}}
+    out = {"launches": launches, "summary": {}, "ms": {}, "vs_plain": {}}
     for name, (w, h, sc, sk, ba) in cases.items():
         st = tables[name]
         # a tile of sky enters no chunk, so chunks >= iterations holds only
         # at the small sizes of _stats_vs_plain, where every tile sees spheres
         _check_stats(st, run["spp"] * run["bounces"], name, chunked=False)
         inp = mk.kernel_inputs(sc, sk, ba)
+        out["vs_plain"][f"megakernel_{name}"] = _megakernel_band_vs_plain(
+            mk, name, inp, w, h, run, st)
         out["summary"][f"megakernel_{name}"] = _summary(st, inp)
         kw = dict(width=w, height=h, spp=run["spp"], num_bounces=run["bounces"])
         scratch = torch.zeros((w * h, 3), device=dev)
@@ -452,6 +553,8 @@ def _stats_path(mk, rg) -> dict:
     _check(bool((st_k1[live:] == 0).all()), "K1 stats past the count")
     out["summary"]["k1_rtiow"] = {"cut": cuts[0], "b_hi": cuts[1], "live_records": n,
                                   "of": t.cap, **_summary(st_k1[:live], inp_k1)}
+    out["vs_plain"]["k1_rtiow"] = _k1_span_vs_plain(rg, inp_k1, dense, counts, n, t,
+                                                    k["frame"], cuts[0], cuts[1], st_k1)
     times = {False: [], True: []}
     for stats in (False, True, True, False):
         times[stats].append(_k1_ms(rg, inp_k1, dense, counts, t, k["frame"], cuts[0], cuts[1],
@@ -551,10 +654,13 @@ def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None) -> di
     """Each kernel's bound at the [timing] shape, from this run's live
     counts: a live path segment (a path alive at the start of a bounce)
     tests every prepared sphere; a kStats segment also tests the priors and
-    every chunk and super-chunk box (its live segments are its own
-    table's col 1, given). Each record or value is read once and written
-    once (csrc/regroup.cu's layout). The scatter, camera and sky add under
-    2% to a sweep of 496 spheres and are not counted."""
+    every chunk and super-chunk box. The megakernels trace the real
+    pixels' paths (the stats one counts the TPU's padded lanes without
+    tracing them); K1 stats traces the segments of its table's col 1
+    (``k1_stats``). Each record or value is read once and written once
+    (csrc/regroup.cu's layout), and a stats table (``mk_stats``,
+    ``k1_stats``) written once. The scatter, camera and sky add under 2%
+    to a sweep of 496 spheres and are not counted."""
     n = inp.n_spheres
     sweep = SPHERE_TEST_OPS * n
     counted = sweep + SPHERE_TEST_OPS * mk.N_PRIORS + SLAB_TEST_OPS * (inp.n_tests
@@ -573,7 +679,7 @@ def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None) -> di
                           + t.cap * 16 + pixels * 12),
     }
     if mk_stats is not None:
-        out["megakernel_stats"] = _bound(counted * float(mk_stats[:, 1].sum()),
+        out["megakernel_stats"] = _bound(counted * sum(live_real),
                                          pixels * 12 + mk_stats.numel() * 4)
     if k1_stats is not None:
         out["k1_stats"] = _bound(counted * float(k1_stats[:, 1].sum()),
@@ -868,12 +974,17 @@ def main(argv=None) -> int:
     # at full size, with its launches counted from 0 (after the main paths,
     # so that their numbers are taken as before)
     sv = _stats_vs_plain(mk, rg)
-    _say("stats", case="vs_plain", shape="rtiow 96x64 spp4", bounces="1 and 8",
-         k1_span=f"[{_CUTS[0]}, {_CUTS[0] + 1}) and [{_CUTS[0]}, {_CUTS[1]})",
+    _say("stats", case="vs_plain",
+         shapes=json.dumps([f"{n} {w}x{h} spp{spp}" for n, w, h, spp in _STATS_PLAIN_CASES]),
+         bounces="1 and 8", k1_span=f"[{_CUTS[0]}, {_CUTS[0] + 1}) and [{_CUTS[0]}, {_CUTS[1]})",
          megakernel_err_one_bounce=sv["megakernel_err"], k1_err_one_bounce=sv["k1_err"],
-         megakernel_sum_rel=json.dumps([round(v, 5) for v in sv["megakernel_sum_rel"]]),
+         megakernel_sum_rel=json.dumps({k: [round(x, 5) for x in v]
+                                        for k, v in sv["megakernel_sum_rel"].items()}),
          k1_sum_rel=json.dumps([round(v, 5) for v in sv["k1_sum_rel"]]))
     sp = _stats_path(mk, rg)
+    for name, cmp in sp["vs_plain"].items():
+        _say("stats", case=f"{name}_vs_plain_full_size", **{k: json.dumps(v)
+                                                            for k, v in cmp.items()})
     for name, summ in sp["summary"].items():
         _say("stats", case=name, **{k: json.dumps(v) for k, v in summ.items()})
     _say("stats", case="stats_vs_plain_kernel_ms", ms=json.dumps(sp["ms"]),

@@ -231,12 +231,14 @@ def _stats_case(name, w, h, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["rtiow", "super"])
-def test_megakernel_stats_match_plain(name, cuda):
+@pytest.mark.parametrize("name, w, h", [("rtiow", 96, 64), ("super", 96, 64),
+                                         ("rtiow", 70, 66)])
+def test_megakernel_stats_match_plain(name, w, h, cuda):
     """The kStats megakernel against its twin: equal per tile at one
     bounce, each column's sum within 1% at eight; and its image is the
-    kStats = false kernel's, bit for bit."""
-    w, h, spp = 96, 64, 4
+    kStats = false kernel's, bit for bit. 96 and 70 x 66 pad to whole
+    64 x 64 TPU tiles, whose padded lanes count as the edge pixel's."""
+    spp = 4
     inp = _stats_case(name, w, h, cuda)
     for bounces in (1, 8):
         kw = dict(width=w, height=h, spp=spp, num_bounces=bounces, stats=True)
@@ -249,6 +251,7 @@ def test_megakernel_stats_match_plain(name, cuda):
         assert torch.equal(img, plain_img)
         if bounces == 1:
             assert torch.equal(st, ref)
+            assert bool((st[:, 1] == 4096 * spp).all())  # every lane of a tile, once
         else:
             torch.testing.assert_close(st.sum(0), ref.sum(0), rtol=0.01, atol=0)
         assert bool((st[:, 0] >= 1).all() and (st[:, 0] <= spp * bounces).all())

@@ -69,6 +69,7 @@ struct StatsArgs : Args {
   CullRefs cull;
   StatsRefs st;
   int tiles_x;
+  unsigned pad_x, pad_y;  // lanes of the TPU's last tile past the image edge
 };
 
 template <bool kStats>
@@ -79,20 +80,19 @@ using ArgsOf = std::conditional_t<kStats, StatsArgs, Args>;
 constexpr int kTileW = 64;
 constexpr int kTileH = 64;
 
-// The kStats instantiation runs one thread per lane of the TPU's padded
-// tiles: a lane past the image edge is clamped into it and traces that
-// pixel's path again, which the TPU counts (megakernel.py:1204-1206), and
-// writes nothing. Its counts group by (tile, sample). Its launch bound asks
-// for 4 blocks per SM: left to itself ptxas kept the textured kStats
+// The kStats instantiation counts per (TPU tile, sample). The TPU pads the
+// image to whole tiles and clamps a padded lane into the image, so the lane
+// traces the edge pixel's path again and counts it (megakernel.py:1204-1206);
+// here the edge pixel's path is traced once and its live lanes count with
+// the weight of every lane that traces it. Its launch bound asks for 4
+// blocks per SM: left to itself ptxas kept the textured kStats
 // instantiation at 48 registers and spilled 88 bytes; a minimum of 0
 // blocks is no minimum, so kStats = false compiles as it did before.
 template <bool kTextured, bool kStats>
 __global__ void __launch_bounds__(256, kStats ? 4 : 0) megakernel(const ArgsOf<kStats> a) {
-  const int x_lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y_lane = blockIdx.y * blockDim.y + threadIdx.y;
-  if (!kStats && (x_lane >= a.width || y_lane >= a.height)) return;
-  const int x = kStats ? min(x_lane, a.width - 1) : x_lane;
-  const int y = kStats ? min(y_lane, a.height - 1) : y_lane;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= a.width || y >= a.height) return;
 
   // Seeds and aim use the global row, so a row band of a sharded image
   // reproduces the same pixels as the whole image (megakernel.py:1207-1213).
@@ -108,10 +108,12 @@ __global__ void __launch_bounds__(256, kStats ? 4 : 0) megakernel(const ArgsOf<k
     r.state = sample_seed(pix, frame_hash, static_cast<uint32_t>(s));
     camera_ray(a.cam, xf, yf, a.inv_w, a.inv_h, r);
     if constexpr (kStats) {
-      const int tile = (y_lane / kTileH) * a.tiles_x + x_lane / kTileW;
-      RayCounter rc{&a.cull, &a.st, tile * a.spp + s, 0u};
+      const int tile = (y / kTileH) * a.tiles_x + x / kTileW;
+      const unsigned weight = (x == a.width - 1 ? 1u + a.pad_x : 1u) *
+                              (y == a.height - 1 ? 1u + a.pad_y : 1u);
+      RayCounter rc{&a.cull, &a.st, tile * a.spp + s, weight, 0u};
       trace_bounces<kTextured, true>(a.scene, 0, a.num_bounces, r, &rc);
-      count_trips(a.st, rc.group, rc.trips);
+      count_trips(a.st, rc);
     } else {
       trace_bounces<kTextured>(a.scene, 0, a.num_bounces, r);
     }
@@ -120,9 +122,6 @@ __global__ void __launch_bounds__(256, kStats ? 4 : 0) megakernel(const ArgsOf<k
     tot_b = tot_b + r.tb * r.cb;
   }
 
-  if constexpr (kStats) {
-    if (x_lane >= a.width || y_lane >= a.height) return;
-  }
   float* out = a.acc + (static_cast<size_t>(y) * a.width + x) * 3;
   const float base_r = a.clear ? 0.0f : out[0];
   const float base_g = a.clear ? 0.0f : out[1];
@@ -203,6 +202,8 @@ int wrt_megakernel_stats_launch(const float* cam, const float* sky, const float*
                            inv_w, inv_h, frame, row_offset, clear, spp, num_bounces);
   a.tiles_x = (width + kTileW - 1) / kTileW;
   const int tiles_y = (height + kTileH - 1) / kTileH;
+  a.pad_x = static_cast<unsigned>(a.tiles_x * kTileW - width);
+  a.pad_y = static_cast<unsigned>(tiles_y * kTileH - height);
   const int n_tiles = a.tiles_x * tiles_y;
   const long long groups = static_cast<long long>(n_tiles) * spp;
   if (scratch_words != stats_scratch_words(groups, num_bounces, n_tests, n_super)) {
@@ -212,7 +213,7 @@ int wrt_megakernel_stats_launch(const float* cam, const float* sky, const float*
                     n_super, chunk_size, super_factor};
   a.st = stats_refs(scratch, groups, num_bounces, n_tests, n_super);
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid(a.tiles_x * (kTileW / kBlockX), tiles_y * (kTileH / kBlockY));
+  const dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_counted(scratch, scratch_words, a.st, n_tests, n_super, super_factor, spp, n_tiles,
                      stats, s, [&] {

@@ -189,9 +189,9 @@ __global__ void __launch_bounds__(kThreads) regroup_k1(const K1ArgsOf<kStats> a)
   r.cb = p[kCB * c];
   r.alive = true;
   if constexpr (kStats) {
-    RayCounter rc{&a.cull, &a.st, static_cast<int>(i / kTileRecords), 0u};
+    RayCounter rc{&a.cull, &a.st, static_cast<int>(i / kTileRecords), 1u, 0u};
     trace_bounces<kTextured, true>(a.scene, a.b_lo, a.b_hi, r, &rc);
-    count_trips(a.st, rc.group, rc.trips);
+    count_trips(a.st, rc);
   } else {
     trace_bounces<kTextured>(a.scene, a.b_lo, a.b_hi, r);
   }

@@ -67,7 +67,8 @@ struct RayCounter {
   const CullRefs* cull;
   const StatsRefs* st;
   int group;
-  unsigned trips;  // loop iterations this ray ran
+  unsigned weight;  // lanes of the TPU tile that trace this path (its padding repeats the edge)
+  unsigned trips;   // loop iterations this ray ran
 };
 
 inline int stats_words(int bits) { return (bits + 31) / 32; }
@@ -113,15 +114,16 @@ __device__ __forceinline__ void or_word(unsigned* word, unsigned bits) {
   if (leads(peers) && all != 0u) atomicOr(word, all);
 }
 
-// A ray's loop iterations: the group's maximum and sum.
-__device__ __forceinline__ void count_trips(const StatsRefs& st, int group, unsigned trips) {
-  unsigned* it = st.iters + group;
+// A ray's loop iterations: the group's maximum, and the sum over the lanes
+// that trace the ray.
+__device__ __forceinline__ void count_trips(const StatsRefs& st, const RayCounter& rc) {
+  unsigned* it = st.iters + rc.group;
   const unsigned peers = peers_of(it);
-  const unsigned most = __reduce_max_sync(peers, trips);
-  const unsigned sum = __reduce_add_sync(peers, trips);
+  const unsigned most = __reduce_max_sync(peers, rc.trips);
+  const unsigned sum = __reduce_add_sync(peers, rc.trips * rc.weight);
   if (leads(peers)) {
     atomicMax(it, most);
-    atomicAdd(st.live + group, sum);
+    atomicAdd(st.live + rc.group, sum);
   }
 }
 

@@ -312,14 +312,9 @@ def launch_pack(src: torch.Tensor, dst: torch.Tensor, inv: torch.Tensor,
     launch_pack.launches += 1
 
 
-def _check_k1_stats(stats, t: Tiling, b_lo: int, b_hi: int, k1_tsub: int, device) -> None:
+def _check_k1_stats(stats, t: Tiling, b_lo: int, b_hi: int, device) -> None:
     if stats is None:
         return
-    if k1_tsub != 32:
-        raise NotImplementedError(
-            f"K1 stats take only k1_tsub=32, got {k1_tsub}: at tsub1 < 32 the JAX "
-            "kernel writes each sub-block's counters over the last one's "
-            "(regroup.py:698-758), so its table has no per-tile meaning to match")
     if b_hi <= b_lo:
         raise ValueError(f"K1 stats need at least one bounce, got [{b_lo}, {b_hi})")
     _expect(stats, (t.cap // TILE_RECORDS, 8), _F32, device)
@@ -327,8 +322,7 @@ def _check_k1_stats(stats, t: Tiling, b_lo: int, b_hi: int, k1_tsub: int, device
 
 def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
               counts: torch.Tensor, k: int, t: Tiling, frame, b_lo: int,
-              b_hi: int, stats: Optional[torch.Tensor] = None,
-              k1_tsub: int = 32) -> None:
+              b_hi: int, stats: Optional[torch.Tensor] = None) -> None:
     """K1 of phase k on the current stream: bounces [b_lo, b_hi) of the
     counts[k] dense records of ``pool``, in place, and their tr * cr into
     ``r8`` [3, cap]. Counts one launch in ``launch_k1.launches``.
@@ -339,12 +333,14 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
     records: col 0 the tile's loop iterations from b_lo, col 1 live lanes
     summed over them, cols 2-3 chunk and super-chunk bodies the TPU's
     whole-tile cull enters, the rest 0 (and every column of a tile past
-    the count)."""
+    the count). These are the counters of the JAX kernel's k1_tsub = 32
+    layout, which profile_regroup.py runs; at a smaller k1_tsub it writes
+    each sub-block's counters over the last one's (regroup.py:698-758)."""
     dev = pool.device
     _expect_scene(inp, dev)
     _expect(pool, (N_COMP, t.cap), _F32, dev)
     _expect(r8, (3, t.cap), _F32, dev)
-    _check_k1_stats(stats, t, b_lo, b_hi, k1_tsub, dev)
+    _check_k1_stats(stats, t, b_lo, b_hi, dev)
     lib = _library().lib
     args = (*_scene_ptrs(inp), pool.data_ptr(), r8.data_ptr(), _count_ptr(counts, k, dev),
             t.cap, t.width, t.height, t.tiles_x, t.spp_shift, int(frame) & rng.MASK32,
@@ -469,10 +465,9 @@ def pack_plain(src: torch.Tensor, dst: torch.Tensor, inv: torch.Tensor,
 
 def k1_plain(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
              counts: torch.Tensor, k: int, t: Tiling, frame, b_lo: int,
-             b_hi: int, stats: Optional[torch.Tensor] = None,
-             k1_tsub: int = 32) -> None:
+             b_hi: int, stats: Optional[torch.Tensor] = None) -> None:
     """``launch_k1``'s twin, with the counters when given ``stats``."""
-    _check_k1_stats(stats, t, b_lo, b_hi, k1_tsub, pool.device)
+    _check_k1_stats(stats, t, b_lo, b_hi, pool.device)
     n = int(counts[k])
     frame = int(frame) & rng.MASK32
     counter = (mk.CullStats(inp, t.cap // TILE_RECORDS, b_hi - b_lo, pool.device)
