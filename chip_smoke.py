@@ -6,15 +6,24 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA libraries from the sources in the checkout (the
-megakernel and the regroup pipeline, one nvcc each, in parallel), holds
-every kernel against its plain PyTorch version on the card, holds the
-regroup pipeline against the megakernel, and renders the RTiOW final scene
-at 1920x1080 (32 spp per frame, 96 spp, 8 bounces) twice:
-through ``Renderer(backend="auto", device="cuda")``, which resolves to the
-regroup pipeline (K0, PACK, K1, COMBINE), and through
-``Renderer(backend="pallas")``, the megakernel. For each it checks that
-every frame went through the kernels and that the image is right, and it
-times the kernels against their plain versions.
+megakernel, the regroup pipeline and the row-compacted wavefront, one nvcc
+each, in parallel), holds every kernel against its plain PyTorch version on
+the card, holds the regroup pipeline against the megakernel, and renders
+the RTiOW final scene at 1920x1080 (32 spp per frame, 96 spp, 8 bounces)
+three times: through ``Renderer(backend="auto", device="cuda")``, which
+resolves to the regroup pipeline (K0, PACK, K1, COMBINE), through
+``Renderer(backend="pallas")``, the megakernel, and through
+``Renderer(backend="wavefront")``, which runs the wavefront as the JAX
+Renderer does, one K0 per frame. For each it checks that every frame went
+through the kernels and that the image is right, and it times the kernels
+against their plain versions.
+
+The ``[wavefront]`` phase drives COMPACT and K1 through
+``render_image_wavefront(..., phase_cuts=...)`` at 1080p x 32 spp and holds
+the wavefront in every bit against regroup (two frames), against the
+megakernel at one sample per pixel, and against itself under four cut
+schedules; COMPACT against its twin bit for bit and K1 against its twin
+on the whole dense pool at the first cut.
 
 The ``[stats]`` phase holds the two stats kernels (the megakernel's and
 K1's kStats instantiations) against their twins at small sizes (a
@@ -71,6 +80,11 @@ STATS_SUM_GATE = 0.01
 STATS_SUM_GATE_RANDOM = 0.03
 _RANDOM_SCENES = ("super", "random10k")
 REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
+WAVEFRONT_KERNELS = ("k0", "compact", "k1")
+# the wavefront's cut schedules held equal in every bit: none (the
+# Renderer's), the main path's first cut, its cuts, and a cut at every bounce
+_WF_SCHEDULES = ((), (2,), _CUTS, (1, 2, 3, 4, 5, 6, 7))
+ALIVE_GATE = 0.99  # share of a K1's lanes whose alive flag must match the twin's
 # name, w, h, spp of the stats kernels' cases against their twins: RTiOW, and
 # random_spheres(1200) in 75 chunks of 16 and 5 super-chunks, seen through a
 # narrow lens so that a tile's rays miss some super-chunks (col 3)
@@ -87,6 +101,8 @@ HBM_RATE = 3.35e12  # bytes per second
 SPHERE_TEST_OPS = 21  # FP32 operations of one sphere test (bounce.cuh sweep_sphere)
 SLAB_TEST_OPS = 12  # per chunk or super-chunk box: 6 subtractions, 6 products
 RECORD_BYTES = 64  # a pool record: 16 f32 components
+WF_COMPONENTS = 15  # a wavefront row holds 15 components of 128 f32 lanes
+ROW_PLANE_BYTES = 128 * 4  # one component of one wavefront row
 
 
 def _check(ok: bool, what) -> None:
@@ -193,27 +209,35 @@ def _stage_ms(run) -> dict:
             for i, (name, ev) in enumerate(marks) if i}
 
 
-def _per_kernel(stages: dict) -> dict:
+def _per_kernel(stages: dict, kernels=REGROUP_KERNELS) -> dict:
     """Stage times summed per kernel: {"k0": ms, "pack": ms, ...}."""
-    out = dict.fromkeys(REGROUP_KERNELS, 0.0)
+    out = dict.fromkeys(kernels, 0.0)
     for name, ms in stages.items():
-        out[next(k for k in REGROUP_KERNELS if name.startswith(k))] += ms
+        out[next(k for k in kernels if name.startswith(k))] += ms
     return out
 
 
-def _launch_counts(mk, rg) -> dict:
+def _launch_counts(mk, rg, wf) -> dict:
     return {"megakernel": mk.render_image_megakernel.launches,
             **{k: getattr(rg, f"launch_{k}").launches for k in REGROUP_KERNELS},
             "megakernel_stats": mk.render_image_megakernel.stats_launches,
-            "k1_stats": rg.launch_k1.stats_launches}
+            "k1_stats": rg.launch_k1.stats_launches,
+            **{f"wavefront_{k}": getattr(wf, f"launch_{k}").launches
+               for k in WAVEFRONT_KERNELS}}
 
 
-def _zero_launch_counts(mk, rg) -> None:
+def _zero_launch_counts(mk, rg, wf) -> None:
     mk.render_image_megakernel.launches = 0
     mk.render_image_megakernel.stats_launches = 0
     rg.launch_k1.stats_launches = 0
     for k in REGROUP_KERNELS:
         getattr(rg, f"launch_{k}").launches = 0
+    for k in WAVEFRONT_KERNELS:
+        getattr(wf, f"launch_{k}").launches = 0
+
+
+# launches of no wavefront kernel, for the other paths' counts
+_NO_WAVEFRONT = {f"wavefront_{k}": 0 for k in WAVEFRONT_KERNELS}
 
 
 def _bitwise_max_err(a, b, what) -> float:
@@ -495,7 +519,7 @@ def _summary(st, inp, lanes: int = 32 * 128) -> dict:
     }
 
 
-def _stats_path(mk, rg) -> dict:
+def _stats_path(mk, rg, wf) -> dict:
     """The counters' own path at full size, through the entry points:
     render_image_megakernel(stats=True) for each _STATS_MK case, and K0 ->
     PACK -> K1(stats) at the first cut of RTiOW 1080p x 32 spp. Each counter
@@ -513,7 +537,7 @@ def _stats_path(mk, rg) -> dict:
     scene, sky, basis = _case("rtiow", k["width"], k["height"], dev)
     inp_k1 = mk.kernel_inputs(scene, sky, basis)
     torch.cuda.synchronize()
-    _zero_launch_counts(mk, rg)
+    _zero_launch_counts(mk, rg, wf)
     tables, images = {}, {}
     for name, (w, h, sc, sk, ba) in cases.items():
         images[name], tables[name] = mk.render_image_megakernel(
@@ -524,9 +548,9 @@ def _stats_path(mk, rg) -> dict:
     rg.launch_k1(inp_k1, dense.clone(), torch.empty((3, t.cap), device=dev), counts, 1, t,
                  k["frame"], cuts[0], cuts[1], stats=st_k1)
     torch.cuda.synchronize()
-    launches = _launch_counts(mk, rg)
+    launches = _launch_counts(mk, rg, wf)
     want = {"megakernel": 0, "k0": 1, "pack": 1, "k1": 0, "combine": 0,
-            "megakernel_stats": len(_STATS_MK), "k1_stats": 1}
+            "megakernel_stats": len(_STATS_MK), "k1_stats": 1, **_NO_WAVEFRONT}
     _check(launches == want, ("stats path launches", launches, want))
     out = {"launches": launches, "summary": {}, "ms": {}, "vs_plain": {}}
     for name, (w, h, sc, sk, ba) in cases.items():
@@ -584,22 +608,20 @@ def _k1_ms(rg, inp, dense, counts, t, frame, b_lo, b_hi, stats: bool, reps: int,
     return total / reps
 
 
-def _trace_frame(rg, inp, fkw, log_dir) -> dict:
-    """One regroup frame under profiler_trace, with CUDA-event stage times
-    beside it: each kernel's device time as the profiler's key_averages()
-    report it, and how many device events it recorded."""
+def _trace_frame(run, log_dir) -> dict:
+    """One frame, ``run(on_stage)``, under profiler_trace, with CUDA-event
+    stage times beside it: each kernel's device time as the profiler's
+    key_averages() report it, and how many device events it recorded."""
     import re
 
     from torch.autograd import DeviceType
 
     from weekend_raytracer_tpu_torch.utils.metrics import profiler_trace
 
-    scratch = torch.zeros((fkw["width"] * fkw["height"], 3), device="cuda")
-    rg.launch_regrouped(scratch, inp, 0, True, cuts=_CUTS, **fkw)  # warm
+    run(None)  # warm
     torch.cuda.synchronize()
     with profiler_trace(log_dir) as prof:
-        stages = _stage_ms(lambda mark: rg.launch_regrouped(
-            scratch, inp, 0, True, cuts=_CUTS, on_stage=mark, **fkw))
+        stages = _stage_ms(run)
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     kernels = {}
     for e in prof.key_averages():
@@ -744,6 +766,208 @@ def _library_ms(rg, inp, t, frame, num_bounces, live_all, reps: int = 5) -> dict
     return {"pack": pack_ms, "combine": combine_ms}
 
 
+def _wf_buffers(t, comps, dev="cuda"):
+    """An empty [tiles, comps, 32, 128] f32 buffer of tiling ``t``."""
+    return torch.empty((t.cap // 4096, comps, 32, 128), device=dev)
+
+
+def _row_plane(pool, comp: int, n: int):
+    """Component ``comp`` of rows [0, n) of a wavefront pool, [n, 128]."""
+    return pool[:, comp].reshape(-1, 128)[:n]
+
+
+def _rows_bit_equal(a, b, n: int) -> bool:
+    """Whether rows [0, n) of two wavefront pools agree in every bit."""
+    full, part = divmod(n, 32)
+    ai, bi = a.view(torch.int32), b.view(torch.int32)
+    return (torch.equal(ai[:full], bi[:full])
+            and torch.equal(ai[full:full + 1, :, :part], bi[full:full + 1, :, :part]))
+
+
+def _row_contribs(pool, n: int):
+    """tr * cr of every lane of rows [0, n): the contributions K1 writes
+    to their home rows, [n, 3, 128]."""
+    return torch.stack([_row_plane(pool, c, n) * _row_plane(pool, c + 3, n)
+                        for c in range(6, 9)], dim=1)
+
+
+def _compact_both(wf, pool, n_in: int):
+    """COMPACT, kernel and twin, on the first n_in rows of ``pool``: the
+    dense pools and their row counts, the twin's after the kernel's."""
+    dev = pool.device
+    out = []
+    for fn in (wf.launch_compact, wf.compact_plain):
+        counts = torch.tensor([n_in, -1], dtype=torch.int32, device=dev)
+        dense = torch.full_like(pool, 7.0)
+        fn(pool, dense, counts, 1, torch.empty((pool.shape[0],), dtype=torch.int32, device=dev))
+        out.append((dense, counts))
+    torch.cuda.synchronize()
+    return out
+
+
+def _wf_first_hit_vs_plain(mk, wf) -> dict:
+    """K0, COMPACT and K1 against their twins on the first-hit scene (two
+    bounces into a constant sky, so every path is decided), cut after
+    bounce 0: K0's alive flags and home rows equal and its contributions
+    with an error of 0; COMPACT bit for bit; K1's alive flags equal on
+    ALIVE_GATE of the live rows' lanes and their contributions with an
+    error of 0 where they do."""
+    dev = torch.device("cuda")
+    w, h = 64, 48
+    inp = mk.kernel_inputs(*_case("first_hit", w, h, dev))
+    t = wf.plan(w, h, 1)
+    pools = [_wf_buffers(t, wf.N_COMP) for _ in range(2)]
+    contribs = [_wf_buffers(t, 3) for _ in range(2)]
+    wf.launch_k0(inp, pools[0], contribs[0], t, 0, 1)
+    wf.k0_plain(inp, pools[1], contribs[1], t, 0, 1)
+    torch.cuda.synchronize()
+    _check(torch.equal(pools[0][:, wf._AL], pools[1][:, wf._AL]), "wavefront K0 alive")
+    _check(torch.equal(pools[0][:, wf._HOME], pools[1][:, wf._HOME]), "wavefront K0 home rows")
+    out = {"k0": float((contribs[0] - contribs[1]).abs().max())}
+    _check(out["k0"] == 0.0, ("wavefront K0 contributions", out["k0"]))
+    (dk, ck), (dp, cp) = _compact_both(wf, pools[0], t.cap // 128)
+    n = int(cp[1])
+    _check(int(ck[1]) == n and n > 0, ("first hit: COMPACT rows", int(ck[1]), n))
+    _check(_rows_bit_equal(dk, dp, n), "first hit: COMPACT rows differ from the twin's")
+    out["compact"] = 0.0
+    base = [contribs[0].clone(), contribs[0].clone()]
+    pk, pp = dk.clone(), dk.clone()
+    wf.launch_k1(inp, pk, base[0], cp, 1, 1, 2)
+    wf.k1_plain(inp, pp, base[1], cp, 1, 1, 2)
+    torch.cuda.synchronize()
+    same = _row_plane(pk, wf._AL, n) == _row_plane(pp, wf._AL, n)
+    _check(float(same.float().mean()) >= ALIVE_GATE, ("wavefront K1 alive agreement",
+                                                       float(same.float().mean())))
+    diff = (_row_contribs(pk, n) - _row_contribs(pp, n)).abs().amax(dim=1)
+    out["k1"] = float(diff[same].max())
+    _check(out["k1"] == 0.0, ("wavefront K1 base radiance", out["k1"]))
+    return out
+
+
+def _wf_compact_k1_full(mk, wf, inp, t, frame, fkw) -> dict:
+    """COMPACT and K1 against their twins at full size, at the main path's
+    first cut. COMPACT, on K0's pool, equals its twin bit for bit (count
+    and every dense row). K1 runs, kernel and twin, on that dense pool
+    over [_CUTS[0], _CUTS[1]); its rows past the count are NaN before the
+    kernel runs, which must read none of them. Home rows must be unchanged
+    and equal, alive flags equal on ALIVE_GATE of the lanes, and the
+    contributions, folded onto K0's, meet RMSE_GATE and MEAN_REL_GATE.
+    COMPACT then runs again on K1's output with the live row count as its
+    input count (the second cut's limit), bit for bit with its twin."""
+    dev = inp.sweep.device
+    b_lo, b_hi = _CUTS[0], _CUTS[1]
+    pool = _wf_buffers(t, wf.N_COMP)
+    contrib = _wf_buffers(t, 3)
+    wf.launch_k0(inp, pool, contrib, t, frame, b_lo)
+    (dk, ck), (dp, cp) = _compact_both(wf, pool, t.cap // 128)
+    del pool
+    n = int(cp[1])
+    _check(int(ck[1]) == n, ("COMPACT count", int(ck[1]), n))
+    _check(_rows_bit_equal(dk, dp, n), "COMPACT rows differ from the twin's at full size")
+    out = {"rows_in": t.cap // 128, "rows": n}
+    del dp
+    pk, pp = dk, dk.clone()
+    full, part = divmod(n, 32)
+    pk[full:full + 1, :, part:] = float("nan")
+    pk[full + 1:] = float("nan")
+    home = _row_plane(pp, wf._HOME, n).clone()
+    base = [contrib, contrib.clone()]
+    wf.launch_k1(inp, pk, base[0], cp, 1, b_lo, b_hi)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf.k1_plain(inp, pp, base[1], cp, 1, b_lo, b_hi)
+    torch.cuda.synchronize()
+    out["k1_plain_s"] = time.perf_counter() - t0
+    _check(bool(torch.isfinite(base[0]).all()), "K1 read a row past the count")
+    _check(bool(torch.isnan(pk[full + 1:]).all() and torch.isnan(pk[full:full + 1, :, part:]).all()),
+           "K1 wrote a row past the count")
+    _check(torch.equal(_row_plane(pk, wf._HOME, n), home)
+           and torch.equal(_row_plane(pp, wf._HOME, n), home), "K1 home rows")
+    same = _row_plane(pk, wf._AL, n) == _row_plane(pp, wf._AL, n)
+    out["alive_agreement"] = float(same.float().mean())
+    _check(out["alive_agreement"] >= ALIVE_GATE, ("K1 alive agreement", out))
+    out["contrib_max_abs_err"] = float((base[0] - base[1]).abs().max())
+    w, h, spp = fkw["width"], fkw["height"], fkw["spp"]
+    img = []
+    for c in base:
+        acc = torch.zeros((w * h, 3), device=dev)
+        wf._fold(c, acc, t, True)
+        img.append(acc / spp)
+    out["image"] = _compare(img[1], img[0], w, h)
+    _check(out["image"]["rmse"] < RMSE_GATE and out["image"]["mean_rel"] < MEAN_REL_GATE,
+           ("K1 at full size", out))
+    del base, img, pp
+    (dk2, ck2), (dp2, cp2) = _compact_both(wf, pk, n)
+    n2 = int(cp2[1])
+    _check(int(ck2[1]) == n2 <= n < t.cap // 128, ("second COMPACT count", int(ck2[1]), n2, n))
+    _check(_rows_bit_equal(dk2, dp2, n2), "second COMPACT rows differ from the twin's")
+    out["rows_second"] = n2
+    return out
+
+
+def _wf_bounds(inp, t, live_all, rows) -> dict:
+    """The wavefront kernels' bounds over _CUTS, from this frame's live
+    counts (``live_all``, paths alive entering each bounce, as for regroup:
+    the same slots trace the same paths) and row counts (``rows``: the home
+    pool's rows, then the live rows after each cut, from debug_counts). K0
+    and K1 test every prepared sphere per live path segment of the bounces
+    they run and move each row once each way (K1 also writes 3 components
+    of contributions); COMPACT reads each input row's alive component and
+    reads and writes each live row."""
+    sweep = SPHERE_TEST_OPS * inp.n_spheres
+    c1 = _CUTS[0]
+    return {
+        "wavefront_k0": _bound(sweep * sum(live_all[:c1]), t.cap * (WF_COMPONENTS * 4 + 12)),
+        "wavefront_compact": _bound(0, sum(a * ROW_PLANE_BYTES
+                                           + b * 2 * WF_COMPONENTS * ROW_PLANE_BYTES
+                                           for a, b in zip(rows[:-1], rows[1:]))),
+        "wavefront_k1": _bound(sweep * sum(live_all[c1:]),
+                               sum(b * (2 * WF_COMPONENTS + 3) * ROW_PLANE_BYTES
+                                   for b in rows[1:])),
+    }
+
+
+def _wf_library_ms(wf, inp, t, frame, num_bounces, reps: int = 5) -> float:
+    """COMPACT's function in PyTorch calls, summed over _CUTS on this
+    frame's own pools (a K0 -> COMPACT -> K1 chain of the kernels gives
+    them): torch.nonzero of the row flags and an index of the live rows;
+    the flags are computed outside the timed call, as PACK's are."""
+    dev = inp.sweep.device
+    pools = [_wf_buffers(t, wf.N_COMP) for _ in range(2)]
+    contrib = _wf_buffers(t, 3)
+    wf.launch_k0(inp, pools[0], contrib, t, frame, _CUTS[0])
+    counts = torch.full((len(_CUTS) + 1,), t.cap // 128, dtype=torch.int32, device=dev)
+    tile_sums = torch.empty((t.cap // 4096,), dtype=torch.int32, device=dev)
+    total = 0.0
+    for k, b_lo in enumerate(_CUTS, 1):
+        src, dst = pools[(k - 1) % 2], pools[k % 2]
+        flags = (src[:, wf._AL] > 0.0).any(dim=-1)
+        flags.view(-1)[int(counts[k - 1]):] = False
+
+        def lib(src=src, flags=flags):
+            idx = torch.nonzero(flags)
+            return src[idx[:, 0], :, idx[:, 1]]
+
+        total += _time_ms(lib, reps)
+        wf.launch_compact(src, dst, counts, k, tile_sums)
+        b_hi = _CUTS[k] if k < len(_CUTS) else num_bounces
+        wf.launch_k1(inp, dst, contrib, counts, k, b_lo, b_hi)
+    torch.cuda.synchronize()
+    return total
+
+
+def _wavefront_device_ms(kernel_ms: dict) -> dict:
+    """The profiler's kernel device times of a wavefront frame, per
+    wavefront kernel, and the fold's (PyTorch's elementwise kernels)."""
+    names = {"wavefront_k0": "wavefront_k0", "compact_count": "wavefront_compact",
+             "compact_scan": "wavefront_compact", "compact_scatter": "wavefront_compact",
+             "wavefront_k1": "wavefront_k1"}
+    out = dict.fromkeys(("wavefront_k0", "wavefront_compact", "wavefront_k1", "fold"), 0.0)
+    for name, ms in kernel_ms.items():
+        out[names.get(name, "fold")] += ms
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png", default=os.path.join(tempfile.gettempdir(),
@@ -762,6 +986,7 @@ def main(argv=None) -> int:
     from weekend_raytracer_tpu_torch.ops.cuda import build
     from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk
     from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg
+    from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf
 
     _check("jax" not in sys.modules, "the port imported jax")
     smi = _nvidia_smi()
@@ -772,19 +997,20 @@ def main(argv=None) -> int:
     record["env"] = {"nvidia_smi": smi, "device": kind, "torch": torch.__version__,
                      "cuda": torch.version.cuda}
 
-    # 2. build both libraries, one nvcc each, in parallel
+    # 2. build the libraries, one nvcc each, in parallel
     t0 = time.perf_counter()
-    built = dict(zip(("megakernel", "regroup"),
-                     build.load_libraries([mk.LIBRARY, rg.LIBRARY])))
+    built = dict(zip(("megakernel", "regroup", "wavefront"),
+                     build.load_libraries([mk.LIBRARY, rg.LIBRARY, wf.LIBRARY])))
     build_s = time.perf_counter() - t0
     ptxas = {k: b.ptxas_usage() for k, b in built.items()}
     attrs = {"megakernel": {("textured" if t else "plain") + ("_stats" if st else ""):
                             mk.kernel_attributes(t, st) for t in (False, True)
                             for st in (False, True)},
-             "regroup": rg.kernel_attributes()}
+             "regroup": rg.kernel_attributes(), "wavefront": wf.kernel_attributes()}
     _say("build", seconds=f"{build_s:.2f}",
          nvcc_seconds=json.dumps({k: round(b.build_seconds, 2) for k, b in built.items()}),
-         ptxas=json.dumps(ptxas, sort_keys=True), attributes=json.dumps(attrs))
+         ptxas=json.dumps(ptxas, sort_keys=True), attributes=json.dumps(attrs),
+         wavefront_registers=json.dumps({k: v["registers"] for k, v in attrs["wavefront"].items()}))
     record["build"] = {"seconds": build_s,
                        "nvcc_seconds": {k: b.build_seconds for k, b in built.items()},
                        "ptxas": ptxas, "attributes": attrs}
@@ -835,6 +1061,26 @@ def main(argv=None) -> int:
         record["regroup_plain"][name] = st
         _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE, st)
 
+    # 4b. the wavefront's kernels against their twins, then the frame at
+    # three cut schedules
+    wf_err = _wf_first_hit_vs_plain(mk, wf)
+    _say("wavefront_plain", case="first_hit", size="64x48", spp=1, cut=1,
+         k0_max_abs_err=f"{wf_err['k0']:.3e}", compact="bit-exact",
+         k1_max_abs_err=f"{wf_err['k1']:.3e}")
+    record["wavefront_plain"] = {"first_hit": wf_err}
+    for name, w, h, frames, spp, bounces in _REGROUP_CASES:
+        inp = mk.kernel_inputs(*_case(name, w, h, "cuda"))
+        for cuts in _WF_SCHEDULES[:3]:
+            a = _render(wf.launch_wavefront, inp, w, h, frames, spp, bounces, phase_cuts=cuts)
+            b = _render(wf.wavefront_plain_with_inputs, inp, w, h, frames, spp, bounces,
+                        phase_cuts=cuts)
+            _check(bool(torch.isfinite(a).all()), f"{name}: non-finite wavefront output")
+            st = _compare(b, a, w, h)
+            _say("wavefront_plain", case=name, size=f"{w}x{h}", frames=frames, spp=spp,
+                 bounces=bounces, phase_cuts=cuts, **{k: f"{v:.3e}" for k, v in st.items()})
+            record["wavefront_plain"][f"{name}_{cuts}"] = st
+            _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE, st)
+
     # 5. regroup against the megakernel, both CUDA, one frame
     tm = _TIMING
     w, h = tm["width"], tm["height"]
@@ -866,16 +1112,16 @@ def main(argv=None) -> int:
                                 num_bounces=mp["bounces"]))
     band0, band_h = 528, 32  # one full row of tiles
     record["main"] = {}
-    launches = {}
+    launches, accums = {}, {}
     for backend in ("auto", "pallas"):
         renderer = Renderer(SCENES["rtiow"][0](), params, backend=backend, device="cuda")
         expect = "regroup" if backend == "auto" else "pallas"
         _check(renderer.backend == expect, (backend, renderer.backend))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _zero_launch_counts(mk, rg)
+        _zero_launch_counts(mk, rg, wf)
         stats = renderer.render()
-        counts = _launch_counts(mk, rg)
+        counts = _launch_counts(mk, rg, wf)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         frames = stats.frames
         _check(frames == mp["max_spp"] // mp["spp"], stats)
@@ -884,9 +1130,10 @@ def main(argv=None) -> int:
                     "k1": 3 * frames, "combine": 3 * frames}
         else:
             want = {"megakernel": frames, "k0": 0, "pack": 0, "k1": 0, "combine": 0}
-        want.update(megakernel_stats=0, k1_stats=0)
+        want.update(megakernel_stats=0, k1_stats=0, **_NO_WAVEFRONT)
         _check(counts == want, (expect, counts, want))
         launches[expect] = counts
+        accums[expect] = renderer._accum.clone()
         mean = renderer.mean_radiance()
         _check(tuple(mean.shape) == (h, w, 3), tuple(mean.shape))
         _check(bool(torch.isfinite(mean).all()), "non-finite accumulator")
@@ -970,6 +1217,112 @@ def main(argv=None) -> int:
         del renderer, scratch
         torch.cuda.empty_cache()
 
+    # 6b. the wavefront through Renderer(backend="wavefront"), as the JAX
+    # Renderer runs it: no cuts, so one K0 per frame. After the same frames
+    # its accumulator must be regroup's in every bit.
+    fkw = dict(width=w, height=h, spp=mp["spp"], num_bounces=mp["bounces"])
+    renderer = Renderer(SCENES["rtiow"][0](), params, backend="wavefront", device="cuda")
+    _check(renderer.backend == "wavefront", renderer.backend)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(mk, rg, wf)
+    stats = renderer.render()
+    counts = _launch_counts(mk, rg, wf)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    frames = stats.frames
+    want = {**dict.fromkeys(counts, 0), "wavefront_k0": frames}
+    _check(frames == mp["max_spp"] // mp["spp"] and counts == want, ("wavefront", counts, want))
+    launches["wavefront"] = counts
+    _check(torch.equal(renderer._accum, accums["regroup"]),
+           ("the wavefront Renderer's accumulator is not regroup's",
+            _compare(accums["regroup"], renderer._accum, w, h)))
+    img = renderer.image()
+    _check(bool(torch.isfinite(renderer._accum).all()) and 20 < img.mean() < 235, img.mean())
+    warm_s = (stats.seconds - stats.warmup_seconds) / max(frames - 1, 1)
+    inp = mk.kernel_inputs(renderer._scene, renderer._sky, renderer._basis)
+    scratch = torch.zeros_like(renderer._accum)
+    wf.launch_wavefront(scratch, inp, 0, True, **fkw)
+    stages = _stage_ms(lambda mark: wf.launch_wavefront(scratch, inp, 0, True, on_stage=mark,
+                                                        **fkw))
+    record["main"]["wavefront"] = {
+        "frames": frames, "launches": counts, "warmup_s": stats.warmup_seconds,
+        "warm_frame_s": warm_s, "rays_per_s": stats.rays_per_sec, "seconds": stats.seconds,
+        "peak_gb": peak_gb, "image_mean": float(img.mean()),
+        "frame_kernel_ms": sum(stages.values()), "stages_ms": stages}
+    _say("main", backend=renderer.backend, frames=frames, launches=json.dumps(counts),
+         spp=stats.samples_per_pixel, warmup_s=f"{stats.warmup_seconds:.3f}",
+         warm_frame_s=f"{warm_s:.4f}", rays_per_s=f"{stats.rays_per_sec:.4e}",
+         frame_kernel_ms=f"{sum(stages.values()):.2f}",
+         stages_ms=json.dumps({k: round(v, 3) for k, v in stages.items()}),
+         peak_gb=f"{peak_gb:.3f}", image_mean=f"{img.mean():.1f}",
+         accumulator="regroup's, bit for bit", card=repr(smi))
+    del renderer, scratch, accums
+    torch.cuda.empty_cache()
+
+    # 6c. COMPACT and K1 at 1080p x 32 spp, through render_image_wavefront
+    # (the entry point tests/test_wavefront.py calls), with the launches
+    # counted from 0: the image equals regroup's in every pixel over two
+    # frames, the second accumulated onto the first; every cut schedule
+    # gives the same bits; one sample per pixel gives the megakernel's
+    case = _case("rtiow", w, h, "cuda")
+    inp = mk.kernel_inputs(*case)
+    ref, acc = [], torch.zeros((w * h, 3), device="cuda")
+    for f in range(2):
+        rg.launch_regrouped(acc, inp, f, f == 0, cuts=_CUTS, **fkw)
+        ref.append(acc.clone())
+    torch.cuda.synchronize()
+    _zero_launch_counts(mk, rg, wf)
+    wf_rows, wf_peak = {}, {}
+    for cuts in _WF_SCHEDULES[1:3]:
+        acc = torch.zeros((w * h, 3), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in range(2):
+            _, rows = wf.render_image_wavefront(acc, f, f == 0, *case, phase_cuts=cuts,
+                                                debug_counts=True, **fkw)
+            if f == 0:
+                wf_peak[str(cuts)] = torch.cuda.max_memory_allocated() / 1e9
+                wf_rows[cuts] = [int(r) for r in rows]
+            _check(torch.equal(acc, ref[f]), ("wavefront is not regroup", cuts, f,
+                                              _compare(ref[f], acc, w, h)))
+    counts = _launch_counts(mk, rg, wf)
+    n_cuts = len(_WF_SCHEDULES[1]) + len(_CUTS)
+    want = {**dict.fromkeys(counts, 0), "wavefront_k0": 4, "wavefront_compact": 2 * n_cuts,
+            "wavefront_k1": 2 * n_cuts}
+    _check(counts == want, ("wavefront cuts", counts, want))
+    launches["wavefront_cuts"] = counts
+    for cuts in (_WF_SCHEDULES[0], _WF_SCHEDULES[3]):
+        acc = torch.zeros((w * h, 3), device="cuda")
+        wf.launch_wavefront(acc, inp, 0, True, phase_cuts=cuts, **fkw)
+        _check(torch.equal(acc, ref[0]), ("wavefront cut schedules differ", cuts,
+                                          _compare(ref[0], acc, w, h)))
+    one = dict(fkw, spp=1)
+    a, m = torch.zeros((w * h, 3), device="cuda"), torch.zeros((w * h, 3), device="cuda")
+    wf.launch_wavefront(a, inp, 0, True, phase_cuts=_WF_SCHEDULES[1], **one)
+    mk.launch_megakernel(m, inp, 0, True, **one)
+    one_spp_differing = int((a != m).any(dim=1).sum())
+    _check(one_spp_differing == 0, ("wavefront against the megakernel at 1 spp",
+                                    one_spp_differing))
+    del ref, acc, a, m
+    full = _wf_compact_k1_full(mk, wf, inp, wf.plan(w, h, mp["spp"]), 0, fkw)
+    record["wavefront"] = {
+        "launches": counts, "equal_to_regroup": "2 frames, phase_cuts (2,) and (2, 4, 6)",
+        "schedules_equal": [list(c) for c in _WF_SCHEDULES], "one_spp_pixels_differing": 0,
+        "rows": {str(k): v for k, v in wf_rows.items()},
+        "regroup_rows": record["main"]["regroup"]["rows"], "peak_gb": wf_peak,
+        "vs_plain_full_size": full}
+    _say("wavefront", shape=f"rtiow {w}x{h} spp{mp['spp']} b{mp['bounces']}",
+         vs_regroup="bit-exact (2 frames, phase_cuts (2,) and (2, 4, 6))",
+         schedules=json.dumps([list(c) for c in _WF_SCHEDULES]), schedules_equal=True,
+         one_spp_pixels_differing=one_spp_differing, launches=json.dumps(counts))
+    _say("wavefront", case="live_rows", rows=json.dumps({str(k): v for k, v in wf_rows.items()}),
+         regroup_dense_rows=json.dumps(record["main"]["regroup"]["rows"]),
+         peak_gb=json.dumps({k: round(v, 3) for k, v in wf_peak.items()}),
+         renderer_peak_gb=f"{record['main']['wavefront']['peak_gb']:.3f}", card=repr(smi))
+    _say("wavefront", case="compact_k1_vs_plain_full_size", compact="bit-exact (two cuts)",
+         **{k: json.dumps(v) for k, v in full.items()})
+    torch.cuda.empty_cache()
+
     # 7. the stats kernels against their twins, then the counters' own path
     # at full size, with its launches counted from 0 (after the main paths,
     # so that their numbers are taken as before)
@@ -981,7 +1334,7 @@ def main(argv=None) -> int:
          megakernel_sum_rel=json.dumps({k: [round(x, 5) for x in v]
                                         for k, v in sv["megakernel_sum_rel"].items()}),
          k1_sum_rel=json.dumps([round(v, 5) for v in sv["k1_sum_rel"]]))
-    sp = _stats_path(mk, rg)
+    sp = _stats_path(mk, rg, wf)
     for name, cmp in sp["vs_plain"].items():
         _say("stats", case=f"{name}_vs_plain_full_size", **{k: json.dumps(v)
                                                             for k, v in cmp.items()})
@@ -1015,6 +1368,12 @@ def main(argv=None) -> int:
         return _k1_ms(rg, inp_t, dense_t, counts_t, t_t, 0, _CUTS[0], _CUTS[1], True, reps,
                       fn=rg.k1_plain if plain else None)
 
+    def wavefront_stages(plain):
+        fn = wf.wavefront_plain_with_inputs if plain else wf.launch_wavefront
+        return _per_kernel(_stage_ms(lambda mark: fn(acc, inp_t, 0, True, phase_cuts=_CUTS,
+                                                     on_stage=mark, **kw)),
+                           WAVEFRONT_KERNELS + ("fold",))
+
     mega()
     mega_plain()
     mega(True)
@@ -1023,28 +1382,35 @@ def main(argv=None) -> int:
     regroup_stages(True)
     k1_stats(False, 1)
     k1_stats(True, 1)
+    wavefront_stages(False)
+    wavefront_stages(True)
     times = {k: [] for k in ("megakernel", "megakernel_plain", "regroup", "regroup_plain",
                              "megakernel_stats", "megakernel_stats_plain", "k1_stats",
-                             "k1_stats_plain")}
+                             "k1_stats_plain", "wavefront", "wavefront_plain")}
     for label, reps in (("plain", 2), ("kernel", 10), ("kernel", 10), ("plain", 2)):
         if label == "kernel":
             times["megakernel"].append(_time_ms(mega, reps))
             times["regroup"].append(regroup_stages(False))
             times["megakernel_stats"].append(_time_ms(lambda: mega(True), reps))
             times["k1_stats"].append(k1_stats(False, reps))
+            times["wavefront"].append(wavefront_stages(False))
         else:
             times["megakernel_plain"].append(_time_ms(mega_plain, reps))
             times["regroup_plain"].append(regroup_stages(True))
             times["megakernel_stats_plain"].append(_time_ms(lambda: mega_plain(True), reps))
             times["k1_stats_plain"].append(k1_stats(True, reps))
+            times["wavefront_plain"].append(wavefront_stages(True))
     ms = {"megakernel": min(times["megakernel"]),
           **{k: min(r[k] for r in times["regroup"]) for k in REGROUP_KERNELS},
           "megakernel_stats": min(times["megakernel_stats"]),
-          "k1_stats": min(times["k1_stats"])}
+          "k1_stats": min(times["k1_stats"]),
+          **{f"wavefront_{k}": min(r[k] for r in times["wavefront"]) for k in WAVEFRONT_KERNELS}}
     plain_ms = {"megakernel": min(times["megakernel_plain"]),
                 **{k: min(r[k] for r in times["regroup_plain"]) for k in REGROUP_KERNELS},
                 "megakernel_stats": min(times["megakernel_stats_plain"]),
-                "k1_stats": min(times["k1_stats_plain"])}
+                "k1_stats": min(times["k1_stats_plain"]),
+                **{f"wavefront_{k}": min(r[k] for r in times["wavefront_plain"])
+                   for k in WAVEFRONT_KERNELS}}
     # bounds from this shape's live counts, and the library calls
     live_all, live_real = _live_per_bounce(rg, inp_t, t_t, 0, tm["bounces"])
     mk_table = mega(True)[1]
@@ -1053,13 +1419,27 @@ def main(argv=None) -> int:
     bounds = _bounds(mk, inp_t, t_t, live_all, live_real, mk_table, k1_table)
     library_ms = _library_ms(rg, inp_t, t_t, 0, tm["bounces"], live_all)
     del dense_t
+    # the wavefront's: its rows per cut at this shape, and the profiler's
+    # device times of its kernels beside the stage events (at about 1 ms a
+    # stage's events also time host work)
+    wf_t = wf.plan(tm["width"], tm["height"], tm["spp"])
+    _, rows_t = wf.launch_wavefront(acc, inp_t, 0, True, phase_cuts=_CUTS, debug_counts=True,
+                                    **kw)
+    rows_t = [int(r) for r in rows_t]
+    bounds.update(_wf_bounds(inp_t, wf_t, live_all, rows_t))
+    library_ms["wavefront_compact"] = _wf_library_ms(wf, inp_t, wf_t, 0, tm["bounces"])
+    trace_root = args.out or tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    wf_device_t = _wavefront_device_ms(_trace_frame(
+        lambda mark: wf.launch_wavefront(acc, inp_t, 0, True, phase_cuts=_CUTS,
+                                         on_stage=mark, **kw),
+        os.path.join(trace_root, "trace_wavefront_timing"))["kernel_ms"])
     _say("bounds", shape=f"{tm['scene']} {tm['width']}x{tm['height']} spp{tm['spp']} "
          f"b{tm['bounces']}", live_per_bounce=json.dumps(live_all),
          live_real_per_bounce=json.dumps(live_real),
          bounds=json.dumps({k: [round(v["bound_ms"], 5), v["bound_by"]]
                             for k, v in bounds.items()}),
          library_ms=json.dumps({k: round(v, 4) for k, v in library_ms.items()}),
-         card=repr(smi))
+         wavefront_rows=json.dumps(rows_t), card=repr(smi))
     # the 1080p frame, kernels only: regroup, megakernel, megakernel, regroup
     inp = mk.kernel_inputs(*_case("rtiow", mp["width"], mp["height"], "cuda"))
     big = torch.zeros((mp["width"] * mp["height"], 3), device="cuda")
@@ -1067,36 +1447,57 @@ def main(argv=None) -> int:
                num_bounces=mp["bounces"])
     frame_fns = {
         "regroup": lambda: rg.launch_regrouped(big, inp, 0, True, cuts=_CUTS, **fkw),
-        "megakernel": lambda: mk.launch_megakernel(big, inp, 0, True, **fkw)}
-    frame_fns["regroup"]()
-    frame_ms = {"regroup": [], "megakernel": []}
-    for label in ("regroup", "megakernel", "megakernel", "regroup"):
+        "megakernel": lambda: mk.launch_megakernel(big, inp, 0, True, **fkw),
+        "wavefront": lambda: wf.launch_wavefront(big, inp, 0, True, **fkw),
+        "wavefront_cuts": lambda: wf.launch_wavefront(big, inp, 0, True, phase_cuts=_CUTS,
+                                                      **fkw)}
+    for label in ("regroup", "wavefront", "wavefront_cuts"):
+        frame_fns[label]()
+    frame_ms = {k: [] for k in frame_fns}
+    for label in ("regroup", "megakernel", "wavefront", "wavefront_cuts", "wavefront_cuts",
+                  "wavefront", "megakernel", "regroup"):
         frame_ms[label].append(_time_ms(frame_fns[label], 3))
     _say("timing", shape=f"{tm['scene']} {tm['width']}x{tm['height']} "
          f"spp{tm['spp']} b{tm['bounces']}",
          kernel_ms=json.dumps({k: round(v, 4) for k, v in ms.items()}),
          plain_ms=json.dumps({k: round(v, 3) for k, v in plain_ms.items()}),
+         wavefront_device_ms=json.dumps({k: round(v, 4) for k, v in wf_device_t.items()}),
          frame_1080p_ms=json.dumps(frame_ms), card=repr(smi))
     record["timing"] = {"shape": tm, "kernel_ms": ms, "plain_ms": plain_ms,
                         "runs": times, "frame_1080p_ms": frame_ms, "bounds": bounds,
                         "library_ms": library_ms, "live_per_bounce": live_all,
-                        "live_real_per_bounce": live_real}
+                        "live_real_per_bounce": live_real, "wavefront_rows": rows_t,
+                        "wavefront_device_ms": wf_device_t}
 
-    # 9. one regroup 1080p frame under the port's profiler_trace, and the
-    # bounds of the 1080p frames' kernels beside their times
-    trace_dir = (os.path.join(args.out, "trace") if args.out
-                 else tempfile.mkdtemp(prefix="chip_smoke_trace_"))
-    tr = _trace_frame(rg, inp, fkw, trace_dir)
-    _say("trace", device_events=tr["device_events"],
+    # 9. one regroup and one wavefront 1080p frame under the port's
+    # profiler_trace, and the bounds of the 1080p frames' kernels beside
+    # their times
+    tr = _trace_frame(lambda mark: rg.launch_regrouped(big, inp, 0, True, cuts=_CUTS,
+                                                       on_stage=mark, **fkw),
+                      os.path.join(trace_root, "trace"))
+    _say("trace", frame="regroup", device_events=tr["device_events"],
          kernel_ms=json.dumps({k: round(v, 3) for k, v in tr["kernel_ms"].items()}),
          kernel_total_ms=f"{tr['kernel_total_ms']:.3f}",
          stages_ms=json.dumps({k: round(v, 3) for k, v in tr["stages_ms"].items()}),
          stage_total_ms=f"{tr['stage_total_ms']:.3f}", card=repr(smi))
     record["trace"] = tr
+    tr_wf = _trace_frame(lambda mark: wf.launch_wavefront(big, inp, 0, True, phase_cuts=_CUTS,
+                                                          on_stage=mark, **fkw),
+                         os.path.join(trace_root, "trace_wavefront"))
+    wf_device = _wavefront_device_ms(tr_wf["kernel_ms"])
+    _say("trace", frame="wavefront", phase_cuts=_CUTS, device_events=tr_wf["device_events"],
+         kernel_ms=json.dumps({k: round(v, 3) for k, v in wf_device.items()}),
+         kernel_total_ms=f"{tr_wf['kernel_total_ms']:.3f}",
+         stages_ms=json.dumps({k: round(v, 3) for k, v in tr_wf["stages_ms"].items()}),
+         stage_total_ms=f"{tr_wf['stage_total_ms']:.3f}", card=repr(smi))
+    record["trace_wavefront"] = {**tr_wf, "per_kernel_ms": wf_device}
     t_big = rg.plan(mp["width"], mp["height"], mp["spp"], mp["bounces"], _CUTS)[0]
     live_big = _live_per_bounce(rg, inp, t_big, 0, mp["bounces"])
     bounds_big = _bounds(mk, inp, t_big, *live_big)
-    stage_big = {**_per_kernel(tr["stages_ms"]), "megakernel": min(frame_ms["megakernel"])}
+    bounds_big.update(_wf_bounds(inp, t_big, live_big[0], wf_rows[_CUTS]))
+    stage_big = {**_per_kernel(tr["stages_ms"]), "megakernel": min(frame_ms["megakernel"]),
+                 **{f"wavefront_{k}": v for k, v in _per_kernel(
+                     tr_wf["stages_ms"], WAVEFRONT_KERNELS + ("fold",)).items() if k != "fold"}}
     _say("bounds", shape=f"rtiow {mp['width']}x{mp['height']} spp{mp['spp']} "
          f"b{mp['bounces']}", live_per_bounce=json.dumps(live_big[0]),
          live_real_per_bounce=json.dumps(live_big[1]),
@@ -1104,8 +1505,10 @@ def main(argv=None) -> int:
                                         round(bounds_big[k]["bound_ms"], 3),
                                         bounds_big[k]["bound_by"],
                                         round(bounds_big[k]["bound_ms"] / stage_big[k], 4)]
-                                    for k in stage_big}), card=repr(smi))
-    record["bounds_1080p"] = {"live": live_big, "bounds": bounds_big, "ms": stage_big}
+                                    for k in stage_big}),
+         wavefront_rows=json.dumps(wf_rows[_CUTS]), card=repr(smi))
+    record["bounds_1080p"] = {"live": live_big, "bounds": bounds_big, "ms": stage_big,
+                              "wavefront_device_ms": wf_device}
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -1126,6 +1529,11 @@ def main(argv=None) -> int:
               sp["launches"]["megakernel_stats"], sv["megakernel_err"]),
         entry("regroup_k1_stats", "k1_stats", rg.KERNEL_SOURCE, rg.REPLACES["k1_stats"],
               sp["launches"]["k1_stats"], sv["k1_err"])]
+    # K0's launches are the Renderer's (one per frame, no cuts); COMPACT's
+    # and K1's those of render_image_wavefront with cuts
+    kernels += [entry(f"wavefront_{k}", f"wavefront_{k}", wf.KERNEL_SOURCE, wf.REPLACES[k],
+                      launches["wavefront" if k == "k0" else "wavefront_cuts"][f"wavefront_{k}"],
+                      wf_err[k]) for k in WAVEFRONT_KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ FMAs and the CUDA math library rounds sin/cos/exp differently from
 PyTorch's, so chaotic Monte-Carlo paths may diverge at silhouettes. The
 regroup pipeline's PACK and COMBINE are held bit for bit; its K0 and K1
 run the megakernel's own per-ray body, so at one sample per pixel regroup
-and the megakernel give the same bits.
+and the megakernel give the same bits. The row-compacted wavefront runs the
+same body on the same slots: it gives regroup's image in every bit, and
+its COMPACT equals its twin bit for bit.
 """
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from weekend_raytracer_tpu_torch import (  # noqa: E402
 from weekend_raytracer_tpu_torch.ops import tonemap  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg  # noqa: E402
+from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf  # noqa: E402
 
 
 @pytest.fixture
@@ -287,3 +290,171 @@ def test_k1_stats_match_plain(cuda):
         else:
             torch.testing.assert_close(out[0].sum(0), out[1].sum(0), rtol=0.01, atol=0)
         assert bool((out[0][:live, 0] >= 1).all() and (out[0][:live, 1] > 0).all())
+
+
+# --- the row-compacted wavefront ---------------------------------------------
+
+def _wf_pool(t, comps, device):
+    return torch.empty((t.cap // 4096, comps, 32, 128), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rtiow", "textured"])
+def test_wavefront_equals_regroup_bit_for_bit(name, cuda):
+    """The JAX package's invariant (tests/test_renderer.py:283-301): the
+    wavefront gives regroup's pixels, in every bit on the card, for every
+    cut schedule, over two frames (the second accumulated)."""
+    w, h, spp, bounces = 96, 64, 4, 8
+    inp = _inputs(name, w, h, cuda)
+    ref = _render(rg.launch_regrouped, inp, w, h, 2, spp, bounces, cuda, cuts=(2, 4, 6))
+    for cuts in ((), (2,), (2, 4, 6), (1, 2, 3, 4, 5, 6, 7)):
+        got = _render(wf.launch_wavefront, inp, w, h, 2, spp, bounces, cuda, phase_cuts=cuts)
+        assert torch.equal(got, ref), cuts
+
+
+@pytest.mark.cuda
+def test_wavefront_equals_megakernel_at_one_sample(cuda):
+    w, h = 96, 64
+    inp = _inputs("rtiow", w, h, cuda)
+    m = _render(mk.launch_megakernel, inp, w, h, 1, 1, 8, cuda)
+    a = _render(wf.launch_wavefront, inp, w, h, 1, 1, 8, cuda, phase_cuts=(2,))
+    assert torch.equal(a, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alive", ["k0", "random", "all_live", "all_dead"])
+def test_wavefront_compact_bit_for_bit(alive, cuda):
+    """COMPACT against its twin on K0's pool with its own, a random (one
+    lane per live row), an all-live and an all-dead alive component, over
+    every row and over the first 70: the count and every dense row, and
+    no row written past the count."""
+    w, h = 96, 64
+    inp = _inputs("rtiow", w, h, cuda)
+    t = wf.plan(w, h, 4)
+    n_rows = t.cap // 128
+    pool = _wf_pool(t, wf.N_COMP, cuda)
+    wf.launch_k0(inp, pool, _wf_pool(t, 3, cuda), t, 0, 2)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    if alive != "k0":
+        rows = torch.zeros((n_rows, 128), device=cuda)
+        if alive == "random":
+            live = torch.rand(n_rows, device=cuda, generator=gen) < 0.5
+            lane = torch.randint(0, 128, (n_rows,), device=cuda, generator=gen)
+            rows[live, lane[live]] = 1.0
+        elif alive == "all_live":
+            rows[:] = 1.0
+        pool[:, wf._AL] = rows.reshape(-1, 32, 128)
+    for n_in in (n_rows, 70):
+        out = []
+        for compact in (wf.launch_compact, wf.compact_plain):
+            counts = torch.tensor([n_in, -1], dtype=torch.int32, device=cuda)
+            dst = torch.full_like(pool, 7.0)
+            compact(pool, dst, counts, 1, torch.empty((t.cap // 4096,), dtype=torch.int32,
+                                                      device=cuda))
+            out.append((counts, dst))
+        torch.cuda.synchronize()
+        n = int(out[1][0][1])
+        assert int(out[0][0][1]) == n
+        a = out[0][1].permute(0, 2, 1, 3).reshape(n_rows, -1)
+        b = out[1][1].permute(0, 2, 1, 3).reshape(n_rows, -1)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))  # rows past n stay 7.0
+
+
+@pytest.mark.cuda
+def test_renderer_wavefront_counts_one_k0_per_frame(cuda):
+    params = RenderParams(
+        camera=SCENES["rtiow"][1](), viewport_size=(64, 36),
+        sampling=SamplingParams(max_samples_per_pixel=12,
+                                num_samples_per_pixel=4, num_bounces=8))
+    r = Renderer(SCENES["rtiow"][0](), params, backend="wavefront", device=cuda)
+    before = [getattr(wf, f"launch_{k}").launches for k in ("k0", "compact", "k1")]
+    assert r.render().frames == 3
+    after = [getattr(wf, f"launch_{k}").launches for k in ("k0", "compact", "k1")]
+    assert [a - b for a, b in zip(after, before)] == [3, 0, 0]
+    ra = Renderer(SCENES["rtiow"][0](), params, device=cuda)
+    ra.render()
+    assert torch.equal(r.mean_radiance(), ra.mean_radiance())
+
+
+class _Recording:
+    """The built library, with each C call recorded (or, with ``rc``, not
+    made and answered with that error)."""
+
+    def __init__(self, lib, rc=0):
+        self.lib, self.rc, self.calls = lib, rc, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return self.rc if self.rc else fn(*args)
+        return call
+
+
+def _recorded(monkeypatch, rc=0):
+    built = wf._library()
+    rec = _Recording(built.lib, rc)
+
+    class _Built:
+        lib = rec
+
+    monkeypatch.setattr(wf, "_library", lambda: _Built)
+
+    def _no_plain(*a, **k):
+        raise AssertionError("a plain twin ran for a CUDA tensor")
+
+    for name in ("k0_plain", "compact_plain", "k1_plain"):
+        monkeypatch.setattr(wf, name, _no_plain)
+    return rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cuts", [(), (2,), (2, 4, 6)])
+def test_wavefront_wrapper_launches_for_cuda_tensors(cuts, monkeypatch, cuda):
+    """render_image_wavefront on CUDA tensors calls the C entry points, one
+    K0 and one COMPACT and K1 per cut, with the device pointers of its
+    buffers and the current stream, and never a twin."""
+    w, h = 40, 24
+    params = RenderParams(camera=SCENES["three"][1](), viewport_size=(w, h),
+                          sampling=SamplingParams(max_samples_per_pixel=4,
+                                                  num_samples_per_pixel=4, num_bounces=8))
+    r = Renderer(SCENES["three"][0](), params, backend="wavefront", device=cuda)
+    rec = _recorded(monkeypatch)
+    before = [getattr(wf, f"launch_{k}").launches for k in ("k0", "compact", "k1")]
+    acc = torch.zeros((w * h, 3), device=cuda)
+    out, rows = wf.render_image_wavefront(acc, 3, True, r._scene, r._sky, r._basis, width=w,
+                                          height=h, spp=4, num_bounces=8, phase_cuts=cuts,
+                                          debug_counts=True)
+    torch.cuda.synchronize()
+    assert out is acc and bool(torch.isfinite(acc).all())
+    after = [getattr(wf, f"launch_{k}").launches for k in ("k0", "compact", "k1")]
+    assert [a - b for a, b in zip(after, before)] == [1, len(cuts), len(cuts)]
+    assert [n for n, _ in rec.calls] == (["wrt_wavefront_k0"]
+                                         + ["wrt_wavefront_compact", "wrt_wavefront_k1"]
+                                         * len(cuts))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert all(args[-1] == stream for _, args in rec.calls)
+    t = wf.plan(w, h, 4)
+    k0 = rec.calls[0][1]
+    assert k0[8:13] == (t.cap, w, h, t.tiles_x, 2) and k0[15:17] == (3, cuts[0] if cuts else 8)
+    counts_ptr = rows[0].data_ptr()
+    src = k0[6]
+    for k, i in enumerate(range(1, len(rec.calls), 2)):
+        c, k1 = rec.calls[i][1], rec.calls[i + 1][1]
+        assert c[0] == src and c[2] == counts_ptr + 4 * k and c[3] == counts_ptr + 4 * (k + 1)
+        assert k1[5] == c[1] and k1[6] == k0[7] and k1[7] == c[3]
+        assert k1[9:11] == (cuts[k], cuts[k + 1] if k + 1 < len(cuts) else 8)
+        src = c[1]
+    assert [int(x) for x in rows] == [t.cap // 128] + [int(x) for x in rows[1:]]
+
+
+@pytest.mark.cuda
+def test_wavefront_wrapper_raises_on_launch_error(monkeypatch, cuda):
+    inp = _inputs("three", 16, 8, cuda)
+    _recorded(monkeypatch, rc=700)
+    before = [getattr(wf, f"launch_{k}").launches for k in ("k0", "compact", "k1")]
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        wf.launch_wavefront(torch.zeros((16 * 8, 3), device=cuda), inp, 0, True, width=16,
+                            height=8, spp=1, num_bounces=4, phase_cuts=(2,))
+    assert [getattr(wf, f"launch_{k}").launches for k in ("k0", "compact", "k1")] == before

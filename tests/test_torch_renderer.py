@@ -88,10 +88,51 @@ def test_auto_resolves_to_pallas(spp, bounces):
     assert r.backend == jr.backend == ("regroup" if (spp, bounces) == (2, 4) else "pallas")
 
 
-@pytest.mark.parametrize("backend", ["xla", "wavefront"])
+@pytest.mark.parametrize("backend", ["xla"])
 def test_unported_backends_raise(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _renderer(backend=backend)
+
+
+def test_regroup_backend_matches_wavefront_through_renderer():
+    """The counterpart of tests/test_renderer.py's test of the same name:
+    'auto' (regroup, with its default cuts) gives the image of the
+    uncompacted wavefront (one K0 per frame) bit for bit."""
+    params = twrt.RenderParams(
+        camera=tscenes.reference_demo_camera(), viewport_size=(64, 36),
+        sampling=twrt.SamplingParams(max_samples_per_pixel=8,
+                                     num_samples_per_pixel=4, num_bounces=5))
+    ra = twrt.Renderer(tscenes.reference_demo(), params, backend="auto", device="cpu")
+    assert ra.backend == "regroup"
+    ra.render()
+    rw = twrt.Renderer(tscenes.reference_demo(), params, backend="wavefront", device="cpu")
+    assert rw.backend == "wavefront"
+    rw.render()
+    np.testing.assert_array_equal(ra.image(), rw.image())
+
+
+@pytest.mark.parametrize("spp,bounces", [(4, 5), (3, 4), (4, 1), (1, 2)])
+def test_auto_never_picks_wavefront(spp, bounces, monkeypatch):
+    """'auto' resolves to regroup or the megakernel, never to the wavefront
+    (an explicit choice, as in the JAX package), and a frame of it runs no
+    wavefront function."""
+    def _no_wavefront(*a, **k):
+        raise AssertionError("'auto' ran the wavefront")
+
+    monkeypatch.setattr(twrt.renderer, "render_image_wavefront", _no_wavefront)
+    r = _renderer(max_spp=spp, spp=spp, bounces=bounces, size=(8, 4))
+    assert r.backend == ("regroup" if spp in (1, 4) and bounces >= 2 else "pallas")
+    assert r.render_frame()
+
+
+def test_wavefront_backend_checks_spp_per_frame():
+    """As in the JAX package, 'wavefront' is taken at construction and its
+    spp checked when a frame renders; it runs with no cuts, so a frame is
+    the K0 twin and the fold alone on the CPU."""
+    r = _renderer(backend="wavefront", max_spp=6, spp=3)
+    assert r.backend == "wavefront"
+    with pytest.raises(ValueError, match="power of two"):
+        r.render_frame()
 
 
 def test_regroup_keeps_the_jax_validation():
@@ -177,6 +218,7 @@ def test_import_leaves_jax_out():
     code = ("import sys, weekend_raytracer_tpu_torch as w; "
             "import weekend_raytracer_tpu_torch.ops.cuda.megakernel; "
             "import weekend_raytracer_tpu_torch.ops.cuda.regroup; "
+            "import weekend_raytracer_tpu_torch.ops.cuda.wavefront; "
             "import weekend_raytracer_tpu_torch.renderer; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
             "assert 'weekend_raytracer_tpu' not in sys.modules")

@@ -2,9 +2,10 @@
 
 Progressive Monte-Carlo path tracing of sphere scenes, with the JAX
 package's scene and parameter model, its progressive ``Renderer``, and its
-two kernel backends rewritten as hand-written CUDA kernels for NVIDIA
-Hopper: the fused megakernel (csrc/megakernel.cu) and the lane-regrouped
-wavefront (csrc/regroup.cu), which share one per-ray body
+kernel backends rewritten as hand-written CUDA kernels for NVIDIA Hopper:
+the fused megakernel (csrc/megakernel.cu), the lane-regrouped wavefront
+(csrc/regroup.cu, ops/cuda/regroup.py) and the row-compacted wavefront
+(csrc/wavefront.cu, ops/cuda/wavefront.py), which share one per-ray body
 (csrc/bounce.cuh). It imports torch, numpy and scipy, never jax. The
 public names are the JAX package's, for the parts that exist so far.
 """

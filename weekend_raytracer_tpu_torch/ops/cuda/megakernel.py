@@ -748,8 +748,9 @@ def trace_bounces_plain(o, d, tr, state, inp: KernelInputs, b_lo: int,
 
     o and d are (x, y, z) tuples of [n] f32, tr is [n, 3]. Paths that end
     leave the batch; a path's final state is written back at its index. A
-    path that ends keeps the ray it ended on, and one still alive after
-    b_hi keeps colour 0. ``counted`` = (CullStats, group [n], weight [n])
+    path that ends keeps the ray it ended on and the RNG state it had then
+    (after the draws of an emissive hit), as the kernel does, and one still
+    alive after b_hi keeps colour 0. ``counted`` = (CullStats, group [n], weight [n])
     records each bounce's live rays there."""
     n = o[0].shape[0]
     dev = o[0].device
@@ -796,6 +797,7 @@ def trace_bounces_plain(o, d, tr, state, inp: KernelInputs, b_lo: int,
             out_alive[idx] = False
             out_o[idx] = torch.stack([ox[miss], oy[miss], oz[miss]], dim=1)
             out_d[idx] = torch.stack([mdx, mdy, mdz], dim=1)
+            out_state[idx] = state[miss]
 
         (live, bt, bi, ox, oy, oz, dx, dy, dz, state) = (
             v[hit] for v in (live, bt, bi, ox, oy, oz, dx, dy, dz, state))
@@ -926,6 +928,7 @@ def trace_bounces_plain(o, d, tr, state, inp: KernelInputs, b_lo: int,
             out_alive[idx] = False
             out_o[idx] = torch.stack([ox[lit], oy[lit], oz[lit]], dim=1)
             out_d[idx] = torch.stack([dx[lit], dy[lit], dz[lit]], dim=1)
+            out_state[idx] = state[lit]
         scat = ~lit
         tr = tr[scat] * att[scat]
         live, state = live[scat], state[scat]

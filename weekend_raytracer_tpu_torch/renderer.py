@@ -17,6 +17,9 @@ the viewer are not ported yet (ROADMAP Queue 1).
 Backends: ``"pallas"`` is the fused CUDA megakernel (one launch per frame),
 ``"regroup"`` the lane-regrouped wavefront (K0, then PACK and K1 per cut,
 then COMBINE); ``"auto"`` picks between them by the JAX package's rule.
+``"wavefront"`` is the row-compacted wavefront, run as the JAX Renderer
+runs it: with no cuts, so each frame is one K0 launch; it is never picked
+by ``"auto"``.
 """
 from __future__ import annotations
 
@@ -34,13 +37,13 @@ from .models.sky import resolve_sky_state
 from .ops import tonemap
 from .ops.cuda.megakernel import render_image_megakernel
 from .ops.cuda.regroup import default_cuts, render_image_regrouped
+from .ops.cuda.wavefront import render_image_wavefront
 from .ops.tracer import Scene
 
 # Backends of the JAX package that this package does not have yet, and the
 # ROADMAP Queue 1 item that brings each. None is replaced by another.
 _NOT_PORTED = {
-    "xla": "ROADMAP Queue 1, item 3 (XLA tracer as the 'xla' backend)",
-    "wavefront": "ROADMAP Queue 1, item 8 (left out: an internal test oracle)",
+    "xla": "ROADMAP Queue 1, item 2 (XLA tracer as the 'xla' backend)",
 }
 
 
@@ -91,16 +94,18 @@ def resolve_backend(requested: str, params: RenderParams) -> str:
     """The JAX package's backend rule, with its validation, for the
     backends this package has (weekend_raytracer_tpu/renderer.py:184-192):
     ``"auto"`` is ``"regroup"`` for power-of-two spp <= 128 and at least 2
-    bounces, else ``"pallas"`` (the CUDA megakernel). Backends not ported
-    yet raise NotImplementedError; none is replaced by another."""
+    bounces, else ``"pallas"`` (the CUDA megakernel). ``"wavefront"`` is
+    taken as it is: its spp is checked when a frame renders, as in the JAX
+    package. Backends not ported yet raise NotImplementedError; none is
+    replaced by another."""
     spp = params.sampling.num_samples_per_pixel
     bounces = params.sampling.num_bounces
     pow2 = spp >= 1 and spp & (spp - 1) == 0
     regroup_ok = pow2 and spp <= 128 and bounces >= 2
     if requested == "auto":
         return "regroup" if regroup_ok else "pallas"
-    if requested == "pallas":
-        return "pallas"
+    if requested in ("pallas", "wavefront"):
+        return requested
     if requested == "regroup":
         if not regroup_ok:
             raise RenderParamsValidationError(
@@ -123,9 +128,9 @@ class Renderer:
     scene : SceneDesc or a prebuilt ops.tracer.Scene (moved to ``device``)
     params : RenderParams (validated on construction and on update)
     backend : "auto" | "pallas" (the CUDA megakernel) | "regroup" (the
-        lane-regrouped wavefront). "auto" follows the JAX package's rule.
-        "xla" and "wavefront" raise NotImplementedError until they are
-        ported.
+        lane-regrouped wavefront) | "wavefront" (the row-compacted
+        wavefront, with no cuts). "auto" follows the JAX package's rule.
+        "xla" raises NotImplementedError until it is ported.
     device : the torch device every tensor of this renderer lives on, e.g.
         "cuda" or "cpu". On a CUDA device each frame launches the backend's
         CUDA kernels; on the CPU it runs their plain PyTorch twins.
@@ -210,6 +215,8 @@ class Renderer:
             n_spheres = int(self._scene.spheres.centers.shape[0])
             fn = render_image_regrouped
             bt["cuts"] = default_cuts(gpu.num_bounces, n_spheres)
+        elif self.backend == "wavefront":
+            fn = render_image_wavefront
         else:
             fn = render_image_megakernel
         fn(self._accum, self._frame_number, gpu.clear_accumulated_samples,
