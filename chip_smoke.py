@@ -6,9 +6,9 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA libraries from the sources in the checkout (the
-megakernel, the regroup pipeline and the row-compacted wavefront, one nvcc
-each, in parallel), holds every kernel against its plain PyTorch version on
-the card, holds the regroup pipeline against the megakernel, and renders
+megakernel, the regroup pipeline, the row-compacted wavefront and the
+record reorder kernels, one nvcc each, in parallel), holds every kernel
+against its plain PyTorch version on the card, holds the regroup pipeline against the megakernel, and renders
 the RTiOW final scene at 1920x1080 (32 spp per frame, 96 spp, 8 bounces)
 three times: through ``Renderer(backend="auto", device="cuda")``, which
 resolves to the regroup pipeline (K0, PACK, K1, COMBINE), through
@@ -40,6 +40,17 @@ profiler saw beside the CUDA-event stage times. The ``kernels`` line gives
 every kernel its time, its twin's, its bound (the least time the card could
 take, from this run's live counts) and a library call's time where one
 computes the same function.
+
+``[reorder]`` runs probes/dma.py's record-DMA probes (benchmarks/probe_dma.py
+and probe_mosaic.py:143) at the TPU probes' shapes, each kernel against its
+twin bit for bit, and times dma_rate over the probe's (64800, 11, 128) pool
+beside its byte bound and index_select + sum. ``[binned]`` drives
+probes/binned.py (benchmarks/probe_binned.py's path): K0 and PACK to cut 3,
+then for every bin scheme a stable sort, the permutation (record_gather), K1
+timed on it, the scatter back (record_scatter) held in every bit to the
+home-order K1, and K1-stats held against its twin on the last dense tiles;
+RTiOW 1920x1080 x 4 spp with all eight schemes, random_spheres(10000) at
+3840x2160 with the quick five.
 
 Each phase prints one line; any failure exits non-zero without the final
 ``ok`` line. It needs a CUDA device and imports nothing of JAX. Options:
@@ -81,9 +92,11 @@ STATS_SUM_GATE_RANDOM = 0.03
 _RANDOM_SCENES = ("super", "random10k")
 REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
 WAVEFRONT_KERNELS = ("k0", "compact", "k1")
+REORDER_KERNELS = ("record_gather", "record_scatter", "dma_rate")
 # the wavefront's cut schedules held equal in every bit: none (the
 # Renderer's), the main path's first cut, its cuts, and a cut at every bounce
 _WF_SCHEDULES = ((), (2,), _CUTS, (1, 2, 3, 4, 5, 6, 7))
+BINNED_CUT = 3  # probe_binned.py's default cut (4 spp, 8 bounces)
 ALIVE_GATE = 0.99  # share of a K1's lanes whose alive flag must match the twin's
 # name, w, h, spp of the stats kernels' cases against their twins: RTiOW, and
 # random_spheres(1200) in 75 chunks of 16 and 5 super-chunks, seen through a
@@ -217,16 +230,17 @@ def _per_kernel(stages: dict, kernels=REGROUP_KERNELS) -> dict:
     return out
 
 
-def _launch_counts(mk, rg, wf) -> dict:
+def _launch_counts(mk, rg, wf, ro) -> dict:
     return {"megakernel": mk.render_image_megakernel.launches,
             **{k: getattr(rg, f"launch_{k}").launches for k in REGROUP_KERNELS},
             "megakernel_stats": mk.render_image_megakernel.stats_launches,
             "k1_stats": rg.launch_k1.stats_launches,
             **{f"wavefront_{k}": getattr(wf, f"launch_{k}").launches
-               for k in WAVEFRONT_KERNELS}}
+               for k in WAVEFRONT_KERNELS},
+            **{k: getattr(ro, k).launches for k in REORDER_KERNELS}}
 
 
-def _zero_launch_counts(mk, rg, wf) -> None:
+def _zero_launch_counts(mk, rg, wf, ro) -> None:
     mk.render_image_megakernel.launches = 0
     mk.render_image_megakernel.stats_launches = 0
     rg.launch_k1.stats_launches = 0
@@ -234,10 +248,13 @@ def _zero_launch_counts(mk, rg, wf) -> None:
         getattr(rg, f"launch_{k}").launches = 0
     for k in WAVEFRONT_KERNELS:
         getattr(wf, f"launch_{k}").launches = 0
+    for k in REORDER_KERNELS:
+        getattr(ro, k).launches = 0
 
 
-# launches of no wavefront kernel, for the other paths' counts
-_NO_WAVEFRONT = {f"wavefront_{k}": 0 for k in WAVEFRONT_KERNELS}
+# launches of no wavefront and no reorder kernel, for the other paths' counts
+_NO_WAVEFRONT = {**{f"wavefront_{k}": 0 for k in WAVEFRONT_KERNELS},
+                 **{k: 0 for k in REORDER_KERNELS}}
 
 
 def _bitwise_max_err(a, b, what) -> float:
@@ -519,7 +536,7 @@ def _summary(st, inp, lanes: int = 32 * 128) -> dict:
     }
 
 
-def _stats_path(mk, rg, wf) -> dict:
+def _stats_path(mk, rg, wf, ro) -> dict:
     """The counters' own path at full size, through the entry points:
     render_image_megakernel(stats=True) for each _STATS_MK case, and K0 ->
     PACK -> K1(stats) at the first cut of RTiOW 1080p x 32 spp. Each counter
@@ -537,7 +554,7 @@ def _stats_path(mk, rg, wf) -> dict:
     scene, sky, basis = _case("rtiow", k["width"], k["height"], dev)
     inp_k1 = mk.kernel_inputs(scene, sky, basis)
     torch.cuda.synchronize()
-    _zero_launch_counts(mk, rg, wf)
+    _zero_launch_counts(mk, rg, wf, ro)
     tables, images = {}, {}
     for name, (w, h, sc, sk, ba) in cases.items():
         images[name], tables[name] = mk.render_image_megakernel(
@@ -548,7 +565,7 @@ def _stats_path(mk, rg, wf) -> dict:
     rg.launch_k1(inp_k1, dense.clone(), torch.empty((3, t.cap), device=dev), counts, 1, t,
                  k["frame"], cuts[0], cuts[1], stats=st_k1)
     torch.cuda.synchronize()
-    launches = _launch_counts(mk, rg, wf)
+    launches = _launch_counts(mk, rg, wf, ro)
     want = {"megakernel": 0, "k0": 1, "pack": 1, "k1": 0, "combine": 0,
             "megakernel_stats": len(_STATS_MK), "k1_stats": 1, **_NO_WAVEFRONT}
     _check(launches == want, ("stats path launches", launches, want))
@@ -968,6 +985,210 @@ def _wavefront_device_ms(kernel_ms: dict) -> dict:
     return out
 
 
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _reorder_probes(ro, dma) -> dict:
+    """probes/dma.py's probes on the card, with their launches counted from
+    0: the four gathers and the scatter at the TPU probes' shapes (each
+    kernel against the probe's expectation and its twin, bit for bit) and
+    dma_rate over the probe's full (64800, 11, 128) pool, against its twin
+    in every bit and timed beside its bound and index_select + sum. Then,
+    outside the count, dma_rate on uniform data and the gather and scatter
+    at further record widths, each against its twin bit for bit, and the
+    library yardsticks."""
+    torch.cuda.synchronize()
+    for k in REORDER_KERNELS:
+        getattr(ro, k).launches = 0
+    out = {"probes": {}}
+    for name, fn in dma.PROBES[:6]:
+        out["probes"][name] = fn("cuda")
+    torch.cuda.synchronize()
+    launches = {k: getattr(ro, k).launches for k in REORDER_KERNELS}
+    want = {"record_gather": 4, "record_scatter": 1,
+            "dma_rate": 2 + dma.RATE_PROBE["reps"]}
+    _check(launches == want, ("reorder probe launches", launches, want))
+    out["launches"] = launches
+    # each small probe's kernel at its own shape, where a launch is all it
+    # costs: beside its twin, its byte bound and index_select / index_copy_
+    at_shape = {}
+    for name in ("single_dma_2d", "single_dma_3d", "gather32_pipelined", "scatter_dma",
+                 "manual_dma_gather_rows"):
+        src, idx, held = dma.probe_inputs(name, "cuda")
+        idx_long = idx.long()
+        if held is None:
+            dst = torch.empty((idx.numel(), *src.shape[1:]), device="cuda")
+            fns = (lambda: ro.record_gather(src, idx, dst),
+                   lambda: ro.gather_plain(src, idx, dst),
+                   lambda: src.index_select(0, idx_long))
+        else:
+            dst = held
+            fns = (lambda: ro.record_scatter(src, idx, dst),
+                   lambda: ro.scatter_plain(src, idx, dst),
+                   lambda: dst.index_copy_(0, idx_long, src))
+        moved = idx.numel() * (src.numel() // src.shape[0])
+        at_shape[name] = {**dict(zip(("ms", "plain_ms", "library_ms"),
+                                     (_time_ms(fn, 100) for fn in fns))),
+                          **_bound(0, 2 * moved * 4 + idx.numel() * 4)}
+    out["at_shape"] = at_shape
+    # the fixed sum order, where it matters: uniform values in [0, 1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pool = torch.rand((dma.RATE_PROBE["records"], dma.RATE_PROBE["comps"], dma.RATE_PROBE["width"]),
+                      generator=gen, device="cuda")
+    perm = torch.randperm(pool.shape[0], generator=gen, device="cuda").to(torch.int32)
+    _check(_same_bits(ro.dma_rate(pool, perm), ro.dma_rate_plain(pool, perm)),
+           "dma_rate against its twin on uniform data")
+    out["dma_rate_plain_ms"] = _time_ms(lambda: ro.dma_rate_plain(pool, perm), 2)
+    del pool
+    widths = {}
+    for shape in ((4099, 3), (2048, 128), (1024, 11, 128), (777, 5, 16)):
+        src = torch.randn(shape, generator=gen, device="cuda")
+        idx = torch.randperm(shape[0], generator=gen, device="cuda").to(torch.int32)[:shape[0] - 3]
+        got = ro.record_gather(src, idx)
+        _check(_same_bits(got, ro.gather_plain(src, idx, torch.empty_like(got))),
+               ("record_gather against its twin", shape))
+        dst = torch.randn(shape, generator=gen, device="cuda")
+        ref = dst.clone()
+        ro.record_scatter(got, idx, dst)
+        ro.scatter_plain(got, idx, ref)
+        _check(_same_bits(dst, ref), ("record_scatter against its twin", shape))
+        widths[str(shape)] = "bit-exact"
+    out["widths"] = widths
+    out["index_select_bw"] = dma.probe_index_select_bw("cuda")
+    out["sort_cost"] = dma.probe_sort_cost("cuda")
+    return out
+
+
+def _binned_run(mk, rg, wf, ro, binned, scene: str, quick: bool) -> dict:
+    """probes/binned.py's path through binned.run, with the launches
+    counted from 0: K0 and PACK to the cut, one K1, sort and gather to warm
+    up, then per scheme the sort, the
+    permutation (record_gather), K1 timed on it, the scatter back
+    (record_scatter, held to the home-order K1 in every bit inside run) and
+    K1-stats. On RTiOW each scheme's counters are also held against the
+    twin on the last dense tiles (equal per tile over one bounce, column
+    sums within STATS_SUM_GATE over [cut, 8)); the launches those
+    comparisons make are not counted."""
+    extra, vs_plain = {}, {}
+
+    def on_scheme(name, pool, counts, n, t, inp, st):
+        if scene != "rtiow":
+            return
+        torch.cuda.synchronize()
+        before = _launch_counts(mk, rg, wf, ro)
+        vs_plain[name] = _k1_span_vs_plain(rg, inp, pool, counts, n, t, 0, BINNED_CUT,
+                                           binned.BOUNCES, st)
+        torch.cuda.synchronize()
+        for k, v in _launch_counts(mk, rg, wf, ro).items():
+            extra[k] = extra.get(k, 0) + v - before[k]
+
+    torch.cuda.synchronize()
+    _zero_launch_counts(mk, rg, wf, ro)
+    head = []
+    rows = binned.run(BINNED_CUT, scene, quick, on_scheme=on_scheme, emit=head.append)
+    torch.cuda.synchronize()
+    launches = {k: v - extra.get(k, 0) for k, v in _launch_counts(mk, rg, wf, ro).items()}
+    n_s, reps = len(rows), (3 if quick else 5)
+    want = {**dict.fromkeys(launches, 0), "k0": 1, "pack": 1, "k1": 1 + n_s * reps,
+            "k1_stats": n_s, "record_gather": n_s, "record_scatter": 2 * (n_s - 1)}
+    _check(launches == want, ("binned launches", scene, launches, want))
+    _check(all(r["in_sum_rel_err"] < 1e-9 for r in rows), ("binned live sums", rows))
+    return {"pool": head[0], "live_records": head[1]["n"], "rows": rows,
+            "launches": launches, "vs_plain": vs_plain}
+
+
+def _binned_kernels(mk, rg, ro, binned) -> dict:
+    """Every kernel of the binned path at its own shape, RTiOW 1080p x 4
+    spp at cut 3: K0 and PACK to the cut, K1 and K1-stats over [3, 8) on the
+    dense pool, and the chunkxoct permutation (record_gather) and its
+    undoing (record_scatter), those two against their twins bit for bit
+    (the scatter gives back the dense pool). Each is timed (CUDA events)
+    beside its twin, its bound from this run's live counts (the shared
+    sweep model of _bounds: a live segment tests every sphere, a kStats
+    segment also the priors and the chunk boxes; every value moved once)
+    and, where one computes the same function, one PyTorch call (PACK:
+    nonzero + index_select; the gather: index_select; the scatter:
+    index_copy_)."""
+    w, h = binned.SHAPES["rtiow"]
+    cut, bounces = BINNED_CUT, binned.BOUNCES
+    inp, _ = binned.scene_inputs("rtiow", w, h, "cuda")
+    t, _ = rg.plan(w, h, binned.SPP, bounces, (cut,))
+    live_all, _ = _live_per_bounce(rg, inp, t, 0, cut + 1)
+    pool = torch.empty((rg.N_COMP, t.cap), device="cuda")
+    contrib = torch.empty((3, t.cap), device="cuda")
+    dense = torch.empty_like(pool)
+    inv = torch.empty((t.cap,), dtype=torch.int32, device="cuda")
+    block_sums = torch.empty((t.cap // 1024,), dtype=torch.int32, device="cuda")
+    counts = torch.tensor([t.cap, 0], dtype=torch.int32, device="cuda")
+    plain_ms, ms, library_ms = {}, {}, {}
+    # the twins first, so that the kernels' outputs are the ones kept
+    plain_ms["k0"] = _time_ms(lambda: rg.k0_plain(inp, pool, contrib, t, 0, cut), 1)
+    ms["k0"] = min(_time_ms(lambda: rg.launch_k0(inp, pool, contrib, t, 0, cut), 3)
+                   for _ in range(2))
+    plain_ms["pack"] = _time_ms(lambda: rg.pack_plain(pool, dense, inv, counts, 1), 1)
+    ms["pack"] = min(_time_ms(lambda: rg.launch_pack(pool, dense, inv, counts, 1, block_sums), 3)
+                     for _ in range(2))
+    library_ms["pack"] = _time_ms(lambda: pool.index_select(
+        1, torch.nonzero(pool[rg._AL] > 0.5).squeeze(1)), 3)
+    n = int(counts[1])
+    _check(n == live_all[cut], ("binned pool", n, live_all[cut]))
+    table = _k1_stats(rg, rg.launch_k1, inp, dense, counts, t, 0, cut, bounces)
+    segments = float(table[:, 1].sum())
+    for key, stats in (("k1", False), ("k1_stats", True)):
+        plain_ms[key] = _k1_ms(rg, inp, dense, counts, t, 0, cut, bounces, stats, 1,
+                               fn=rg.k1_plain)
+        ms[key] = min(_k1_ms(rg, inp, dense, counts, t, 0, cut, bounces, stats, 3)
+                      for _ in range(2))
+    library_ms.update(k0=None, k1=None, k1_stats=None)
+
+    order = binned.stable_order(binned.bin_keys(dense, n, inp, ("chunkxoct",))["chunkxoct"])
+    end = -(-n // 128) * 128
+    index = binned.with_tail(order, n, end)
+    order_long, index_long = order.long(), index.long()
+    perm, plain = torch.empty_like(dense), torch.empty_like(dense)
+    ro.record_gather(dense, index, perm, dim=1)
+    ro.gather_plain(dense, index, plain, dim=1)
+    torch.cuda.synchronize()
+    _check(_same_bits(perm[:, :end], plain[:, :end]), "record_gather against its twin, 1080p")
+    src = perm[:, :n].contiguous()
+    back, back_plain = torch.empty_like(src), torch.empty_like(src)
+    ro.record_scatter(src, order, back, dim=1)
+    ro.scatter_plain(src, order, back_plain, dim=1)
+    torch.cuda.synchronize()
+    _check(_same_bits(back, back_plain) and _same_bits(back, dense[:, :n]),
+           "record_scatter against its twin and the dense pool, 1080p")
+    reps = 10
+    ms["record_gather"] = min(_time_ms(lambda: ro.record_gather(dense, index, perm, dim=1),
+                                       reps) for _ in range(2))
+    ms["record_scatter"] = min(_time_ms(lambda: ro.record_scatter(src, order, back, dim=1),
+                                        reps) for _ in range(2))
+    plain_ms["record_gather"] = _time_ms(lambda: ro.gather_plain(dense, index, plain, dim=1),
+                                         reps)
+    plain_ms["record_scatter"] = _time_ms(
+        lambda: ro.scatter_plain(src, order, back_plain, dim=1), reps)
+    library_ms["record_gather"] = _time_ms(lambda: torch.index_select(dense, 1, index_long),
+                                           reps)
+    library_ms["record_scatter"] = _time_ms(
+        lambda: back_plain.index_copy_(1, order_long, src), reps)
+
+    sweep = SPHERE_TEST_OPS * inp.n_spheres
+    counted = sweep + SPHERE_TEST_OPS * mk.N_PRIORS + SLAB_TEST_OPS * (inp.n_tests + inp.n_super)
+    k1_bytes = n * (2 * RECORD_BYTES + 12)
+    value = rg.N_COMP * 4
+    bounds = {
+        "k0": _bound(sweep * sum(live_all[:cut]), t.cap * (RECORD_BYTES + 12)),
+        "pack": _bound(0, t.cap * 8 + n * 2 * RECORD_BYTES),
+        "k1": _bound(sweep * segments, k1_bytes),
+        "k1_stats": _bound(counted * segments, k1_bytes + table.numel() * 4),
+        "record_gather": _bound(0, end * (2 * value + 4)),
+        "record_scatter": _bound(0, n * (2 * value + 4)),
+    }
+    return {"records": n, "slots": t.cap, "live_per_bounce": live_all, "segments": segments,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bounds": bounds,
+            "share": {k: bounds[k]["bound_ms"] / ms[k] for k in ms}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png", default=os.path.join(tempfile.gettempdir(),
@@ -986,7 +1207,9 @@ def main(argv=None) -> int:
     from weekend_raytracer_tpu_torch.ops.cuda import build
     from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk
     from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg
+    from weekend_raytracer_tpu_torch.ops.cuda import reorder as ro
     from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf
+    from weekend_raytracer_tpu_torch.probes import binned, dma
 
     _check("jax" not in sys.modules, "the port imported jax")
     smi = _nvidia_smi()
@@ -999,14 +1222,15 @@ def main(argv=None) -> int:
 
     # 2. build the libraries, one nvcc each, in parallel
     t0 = time.perf_counter()
-    built = dict(zip(("megakernel", "regroup", "wavefront"),
-                     build.load_libraries([mk.LIBRARY, rg.LIBRARY, wf.LIBRARY])))
+    built = dict(zip(("megakernel", "regroup", "wavefront", "reorder"),
+                     build.load_libraries([mk.LIBRARY, rg.LIBRARY, wf.LIBRARY, ro.LIBRARY])))
     build_s = time.perf_counter() - t0
     ptxas = {k: b.ptxas_usage() for k, b in built.items()}
     attrs = {"megakernel": {("textured" if t else "plain") + ("_stats" if st else ""):
                             mk.kernel_attributes(t, st) for t in (False, True)
                             for st in (False, True)},
-             "regroup": rg.kernel_attributes(), "wavefront": wf.kernel_attributes()}
+             "regroup": rg.kernel_attributes(), "wavefront": wf.kernel_attributes(),
+             "reorder": ro.kernel_attributes()}
     _say("build", seconds=f"{build_s:.2f}",
          nvcc_seconds=json.dumps({k: round(b.build_seconds, 2) for k, b in built.items()}),
          ptxas=json.dumps(ptxas, sort_keys=True), attributes=json.dumps(attrs),
@@ -1119,9 +1343,9 @@ def main(argv=None) -> int:
         _check(renderer.backend == expect, (backend, renderer.backend))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _zero_launch_counts(mk, rg, wf)
+        _zero_launch_counts(mk, rg, wf, ro)
         stats = renderer.render()
-        counts = _launch_counts(mk, rg, wf)
+        counts = _launch_counts(mk, rg, wf, ro)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         frames = stats.frames
         _check(frames == mp["max_spp"] // mp["spp"], stats)
@@ -1225,9 +1449,9 @@ def main(argv=None) -> int:
     _check(renderer.backend == "wavefront", renderer.backend)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_launch_counts(mk, rg, wf)
+    _zero_launch_counts(mk, rg, wf, ro)
     stats = renderer.render()
-    counts = _launch_counts(mk, rg, wf)
+    counts = _launch_counts(mk, rg, wf, ro)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     frames = stats.frames
     want = {**dict.fromkeys(counts, 0), "wavefront_k0": frames}
@@ -1271,7 +1495,7 @@ def main(argv=None) -> int:
         rg.launch_regrouped(acc, inp, f, f == 0, cuts=_CUTS, **fkw)
         ref.append(acc.clone())
     torch.cuda.synchronize()
-    _zero_launch_counts(mk, rg, wf)
+    _zero_launch_counts(mk, rg, wf, ro)
     wf_rows, wf_peak = {}, {}
     for cuts in _WF_SCHEDULES[1:3]:
         acc = torch.zeros((w * h, 3), device="cuda")
@@ -1285,7 +1509,7 @@ def main(argv=None) -> int:
                 wf_rows[cuts] = [int(r) for r in rows]
             _check(torch.equal(acc, ref[f]), ("wavefront is not regroup", cuts, f,
                                               _compare(ref[f], acc, w, h)))
-    counts = _launch_counts(mk, rg, wf)
+    counts = _launch_counts(mk, rg, wf, ro)
     n_cuts = len(_WF_SCHEDULES[1]) + len(_CUTS)
     want = {**dict.fromkeys(counts, 0), "wavefront_k0": 4, "wavefront_compact": 2 * n_cuts,
             "wavefront_k1": 2 * n_cuts}
@@ -1334,7 +1558,7 @@ def main(argv=None) -> int:
          megakernel_sum_rel=json.dumps({k: [round(x, 5) for x in v]
                                         for k, v in sv["megakernel_sum_rel"].items()}),
          k1_sum_rel=json.dumps([round(v, 5) for v in sv["k1_sum_rel"]]))
-    sp = _stats_path(mk, rg, wf)
+    sp = _stats_path(mk, rg, wf, ro)
     for name, cmp in sp["vs_plain"].items():
         _say("stats", case=f"{name}_vs_plain_full_size", **{k: json.dumps(v)
                                                             for k, v in cmp.items()})
@@ -1509,6 +1733,54 @@ def main(argv=None) -> int:
          wavefront_rows=json.dumps(wf_rows[_CUTS]), card=repr(smi))
     record["bounds_1080p"] = {"live": live_big, "bounds": bounds_big, "ms": stage_big,
                               "wavefront_device_ms": wf_device}
+    torch.cuda.empty_cache()
+
+    # 10. the record-DMA probes (probes/dma.py) on the reorder kernels, with
+    # their launches counted from 0
+    rp = _reorder_probes(ro, dma)
+    for name, res in rp["probes"].items():
+        _say("reorder", probe=name, **{k: json.dumps(v) for k, v in res.items()})
+    rate = rp["probes"]["dma_rate"]
+    _say("reorder", case="dma_rate", ms=f"{rate['ms']:.4f}", bound_ms=f"{rate['bound_ms']:.4f}",
+         share=f"{rate['bound_ms'] / rate['ms']:.4f}",
+         records_per_s=f"{rate['records_per_s']:.4e}",
+         read_gb_per_s=f"{rate['read_gb_per_s']:.1f}", library_ms=f"{rate['library_ms']:.4f}",
+         plain_ms=f"{rp['dma_rate_plain_ms']:.4f}", launches=json.dumps(rp["launches"]),
+         card=repr(smi))
+    _say("reorder", case="probe_shapes", at_shape=json.dumps(rp["at_shape"]), card=repr(smi))
+    _say("reorder", case="widths_and_yardsticks", widths=json.dumps(rp["widths"]),
+         index_select_bw=json.dumps(rp["index_select_bw"]),
+         sort_ms=json.dumps(rp["sort_cost"]["ms"]), card=repr(smi))
+    record["reorder"] = rp
+    torch.cuda.empty_cache()
+
+    # 11. probe_binned.py's path on the port (probes/binned.py): K0 -> PACK
+    # to cut 3, then per bin scheme the sort, the permutation, K1 timed, the
+    # scatter back held to home-order K1 in every bit, and K1-stats; RTiOW
+    # 1080p x 4 spp with every scheme, random10k 4K with the quick set
+    bn = {}
+    for scene, quick in (("rtiow", False), ("random10k", True)):
+        res = _binned_run(mk, rg, wf, ro, binned, scene, quick)
+        _say("binned", scene=scene, case="pool", pool=json.dumps(res["pool"]),
+             live_records=res["live_records"], launches=json.dumps(res["launches"]))
+        for row in res["rows"]:
+            _say("binned", scene=scene, scheme=row["scheme"], row=json.dumps(row))
+        if res["vs_plain"]:
+            _say("binned", scene=scene, case="k1_stats_vs_plain",
+                 **{k: json.dumps(v) for k, v in res["vs_plain"].items()})
+        bn[scene] = res
+        torch.cuda.empty_cache()
+    shape = _binned_kernels(mk, rg, ro, binned)
+    _say("binned", case="kernels", shape=f"rtiow {binned.SHAPES['rtiow']} spp{binned.SPP} "
+         f"cut {BINNED_CUT} b{binned.BOUNCES}",
+         **{k: json.dumps(v) for k, v in shape.items()}, card=repr(smi))
+    record["binned"] = {**bn, "kernels": shape}
+    for key in ("record_gather", "record_scatter"):
+        ms[key], plain_ms[key] = shape["ms"][key], shape["plain_ms"][key]
+        bounds[key], library_ms[key] = shape["bounds"][key], shape["library_ms"][key]
+    ms["dma_rate"], plain_ms["dma_rate"] = rate["ms"], rp["dma_rate_plain_ms"]
+    bounds["dma_rate"] = {"bound_ms": rate["bound_ms"], "bound_by": "bytes"}
+    library_ms["dma_rate"] = rate["library_ms"]
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -1534,6 +1806,12 @@ def main(argv=None) -> int:
     kernels += [entry(f"wavefront_{k}", f"wavefront_{k}", wf.KERNEL_SOURCE, wf.REPLACES[k],
                       launches["wavefront" if k == "k0" else "wavefront_cuts"][f"wavefront_{k}"],
                       wf_err[k]) for k in WAVEFRONT_KERNELS]
+    # the gather's and the scatter's launches are the binned path's (RTiOW,
+    # every scheme), dma_rate's the probe's; all three equal their twins
+    # in every bit
+    kernels += [entry(k, k, ro.KERNEL_SOURCE, ro.REPLACES[k],
+                      (rp if k == "dma_rate" else bn["rtiow"])["launches"][k], 0.0)
+                for k in REORDER_KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

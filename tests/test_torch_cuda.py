@@ -15,7 +15,9 @@ regroup pipeline's PACK and COMBINE are held bit for bit; its K0 and K1
 run the megakernel's own per-ray body, so at one sample per pixel regroup
 and the megakernel give the same bits. The row-compacted wavefront runs the
 same body on the same slots: it gives regroup's image in every bit, and
-its COMPACT equals its twin bit for bit.
+its COMPACT equals its twin bit for bit. The record reorder kernels equal
+their twins bit for bit (dma_rate's twin repeats its sum order), and K1 on
+a binned pool, scattered back, equals home-order K1 in every bit.
 """
 import numpy as np
 import pytest
@@ -28,7 +30,9 @@ from weekend_raytracer_tpu_torch import (  # noqa: E402
 from weekend_raytracer_tpu_torch.ops import tonemap  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg  # noqa: E402
+from weekend_raytracer_tpu_torch.ops.cuda import reorder as ro  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf  # noqa: E402
+from weekend_raytracer_tpu_torch.probes import binned, dma  # noqa: E402
 
 
 @pytest.fixture
@@ -458,3 +462,97 @@ def test_wavefront_wrapper_raises_on_launch_error(monkeypatch, cuda):
         wf.launch_wavefront(torch.zeros((16 * 8, 3), device=cuda), inp, 0, True, width=16,
                             height=8, spp=1, num_bounces=4, phase_cuts=(2,))
     assert [getattr(wf, f"launch_{k}").launches for k in ("k0", "compact", "k1")] == before
+
+
+# --- the record reorder kernels (csrc/reorder.cu) -------------------------
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128), (300, 8, 128), (4099, 3), (777, 5, 16),
+                                   (64800, 11, 128)])
+def test_record_gather_and_scatter_match_plain(shape, cuda):
+    """Row records of every width the probes use (the 16-byte path) and of
+    odd widths (the 4-byte path), against the twins bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    src = torch.randn(shape, generator=gen, device=cuda)
+    idx = torch.randperm(shape[0], generator=gen, device=cuda).to(torch.int32)[:-5]
+    before = (ro.record_gather.launches, ro.record_scatter.launches)
+    got = ro.record_gather(src, idx)
+    dst = torch.randn(shape, generator=gen, device=cuda)
+    ref = dst.clone()
+    ro.record_scatter(got, idx, dst)
+    torch.cuda.synchronize()
+    assert _same_bits(got, ro.gather_plain(src, idx, torch.empty_like(got)))
+    assert _same_bits(dst, ro.scatter_plain(got, idx, ref))
+    assert (ro.record_gather.launches, ro.record_scatter.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_record_gather_and_scatter_match_plain_on_columns(cuda):
+    """The SoA form, the binned path's: columns of [16, cap] into a pool of
+    another capacity, and back."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    src = torch.randn((16, 50000), generator=gen, device=cuda)
+    idx = torch.randperm(50000, generator=gen, device=cuda).to(torch.int32)[:40001]
+    out = torch.full((16, 65536), 3.0, device=cuda)
+    ro.record_gather(src, idx, out, dim=1)
+    ref = ro.gather_plain(src, idx, torch.full_like(out, 3.0), dim=1)
+    back = ro.record_scatter(out, idx, torch.zeros_like(src), dim=1)
+    torch.cuda.synchronize()
+    assert _same_bits(out, ref)
+    assert _same_bits(back, ro.scatter_plain(out, idx, torch.zeros_like(src), dim=1))
+    assert _same_bits(back[:, idx.long()], src[:, idx.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["ones", "uniform"])
+def test_dma_rate_matches_plain(fill, cuda):
+    records = 4096
+    values = (None if fill == "ones" else
+              np.random.default_rng(6).random((records, 11, 128), dtype=np.float32))
+    pool, perm = dma.rate_inputs(cuda, records, values)
+    before = ro.dma_rate.launches
+    out = ro.dma_rate(pool, perm)
+    torch.cuda.synchronize()
+    assert _same_bits(out, ro.dma_rate_plain(pool, perm))
+    assert ro.dma_rate.launches == before + 1
+    if fill == "ones":
+        assert bool((out == 4096.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n, _ in dma.PROBES[:6]])
+def test_dma_probes_pass(name, cuda):
+    """probes/dma.py's probes at the TPU probes' shapes; each checks the
+    kernel against the probe's expectation and its twin, bit for bit."""
+    assert dict(dma.PROBES)[name](cuda)["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_binned_k1_scattered_back_equals_home_k1(cuda):
+    """probes/binned.py on the kernels, at a small size: every scheme's K1,
+    scattered back, equals home-order K1 in every bit (run raises if not),
+    through the counted wrappers."""
+    before = (ro.record_gather.launches, ro.record_scatter.launches, rg.launch_k1.launches,
+              rg.launch_k1.stats_launches)
+    rows = binned.run(2, "rtiow", device=cuda, width=256, height=128, reps=1)
+    assert [r["scheme"] for r in rows] == list(binned.SCHEMES)
+    assert all(r["scatter_back"] in ("home", "bit-exact") for r in rows)
+    after = (ro.record_gather.launches, ro.record_scatter.launches, rg.launch_k1.launches,
+             rg.launch_k1.stats_launches)
+    assert [a - b for a, b in zip(after, before)] == [1 + 7, 14, 1 + 8, 8]
+
+
+@pytest.mark.cuda
+def test_reorder_launch_error_raises(cuda):
+    """A launch the card refuses (70,000 planes: a grid's y dimension is at
+    most 65,535) raises, and is not counted."""
+    before = ro.record_gather.launches
+    src = torch.zeros((70000, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="record_gather launch failed: CUDA error"):
+        ro.record_gather(src, torch.arange(8, dtype=torch.int32, device=cuda), dim=1)
+    assert ro.record_gather.launches == before
