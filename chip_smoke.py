@@ -6,9 +6,10 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA libraries from the sources in the checkout (the
-megakernel, the regroup pipeline, the row-compacted wavefront and the
-record reorder kernels, one nvcc each, in parallel), holds every kernel
-against its plain PyTorch version on the card, holds the regroup pipeline against the megakernel, and renders
+megakernel, the regroup pipeline, the row-compacted wavefront, the record
+reorder kernels and the sweep probe kernels, one nvcc each, in parallel),
+holds every kernel against its plain PyTorch version on the card, holds
+the regroup pipeline against the megakernel, and renders
 the RTiOW final scene at 1920x1080 (32 spp per frame, 96 spp, 8 bounces)
 three times: through ``Renderer(backend="auto", device="cuda")``, which
 resolves to the regroup pipeline (K0, PACK, K1, COMBINE), through
@@ -52,6 +53,16 @@ home-order K1, and K1-stats held against its twin on the last dense tiles;
 RTiOW 1920x1080 x 4 spp with all eight schemes, random_spheres(10000) at
 3840x2160 with the quick five.
 
+``[sweep]`` runs probes/mxu_sweep.py (benchmarks/probe_mxu_sweep.py's nine
+kernels, each probe with its launches counted from 0 and held to exact
+counts): the closest-hit sweep as bounce.cuh's FMA sweep against the same
+sweep with its products on the tensor cores (TF32 and 3xTF32 mma.sync), at
+the probe's shapes (every ray as the twin's), past the first
+shared-memory window of sweep_mma (every ray) and at a card-filling shape
+(2,097,152 rays against RTiOW's 496 spheres; at most 1e-5 of the rays may
+part), the dot's precision (FP32 bit for bit with the probe's reference)
+and the layout kernels, each against its twin and its bound.
+
 Each phase prints one line; any failure exits non-zero without the final
 ``ok`` line. It needs a CUDA device and imports nothing of JAX. Options:
 ``--png PATH`` (default: chip_smoke_rtiow.png in the temporary directory)
@@ -69,6 +80,8 @@ import tempfile
 import time
 
 import torch
+
+from weekend_raytracer_tpu_torch.probes import FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS
 
 # name, w, h, frames, spp, bounces of the kernel-against-plain cases
 _PLAIN_CASES = (("first_hit", 64, 48, 1, 1, 1),
@@ -93,6 +106,7 @@ _RANDOM_SCENES = ("super", "random10k")
 REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
 WAVEFRONT_KERNELS = ("k0", "compact", "k1")
 REORDER_KERNELS = ("record_gather", "record_scatter", "dma_rate")
+SWEEP_KERNELS = ("sweep_fma", "sweep_mma_tf32", "sweep_mma_3xtf32", "dot_mma", "layout")
 # the wavefront's cut schedules held equal in every bit: none (the
 # Renderer's), the main path's first cut, its cuts, and a cut at every bounce
 _WF_SCHEDULES = ((), (2,), _CUTS, (1, 2, 3, 4, 5, 6, 7))
@@ -108,10 +122,6 @@ K1_SPAN_TILES = 32  # dense tiles of the 1080p pool held against k1_plain
 _STATS_MK = (("rtiow", 1920, 1080), ("random10k", 3840, 2160))
 _STATS_MK_RUN = dict(spp=4, bounces=8, frame=1)
 _STATS_K1 = dict(width=1920, height=1080, spp=32, bounces=8, frame=0)
-# H100 SXM peaks at 700 W (NVIDIA's published figures)
-FP32_PEAK = 67e12  # FP32 operations per second, outside the tensor cores
-HBM_RATE = 3.35e12  # bytes per second
-SPHERE_TEST_OPS = 21  # FP32 operations of one sphere test (bounce.cuh sweep_sphere)
 SLAB_TEST_OPS = 12  # per chunk or super-chunk box: 6 subtractions, 6 products
 RECORD_BYTES = 64  # a pool record: 16 f32 components
 WF_COMPONENTS = 15  # a wavefront row holds 15 components of 128 f32 lanes
@@ -230,17 +240,18 @@ def _per_kernel(stages: dict, kernels=REGROUP_KERNELS) -> dict:
     return out
 
 
-def _launch_counts(mk, rg, wf, ro) -> dict:
+def _launch_counts(mk, rg, wf, ro, sw) -> dict:
     return {"megakernel": mk.render_image_megakernel.launches,
             **{k: getattr(rg, f"launch_{k}").launches for k in REGROUP_KERNELS},
             "megakernel_stats": mk.render_image_megakernel.stats_launches,
             "k1_stats": rg.launch_k1.stats_launches,
             **{f"wavefront_{k}": getattr(wf, f"launch_{k}").launches
                for k in WAVEFRONT_KERNELS},
-            **{k: getattr(ro, k).launches for k in REORDER_KERNELS}}
+            **{k: getattr(ro, k).launches for k in REORDER_KERNELS},
+            **sw.launch_counts()}
 
 
-def _zero_launch_counts(mk, rg, wf, ro) -> None:
+def _zero_launch_counts(mk, rg, wf, ro, sw) -> None:
     mk.render_image_megakernel.launches = 0
     mk.render_image_megakernel.stats_launches = 0
     rg.launch_k1.stats_launches = 0
@@ -250,11 +261,12 @@ def _zero_launch_counts(mk, rg, wf, ro) -> None:
         getattr(wf, f"launch_{k}").launches = 0
     for k in REORDER_KERNELS:
         getattr(ro, k).launches = 0
+    sw.zero_launch_counts()
 
 
-# launches of no wavefront and no reorder kernel, for the other paths' counts
+# launches of no wavefront, reorder or sweep kernel, for the other paths' counts
 _NO_WAVEFRONT = {**{f"wavefront_{k}": 0 for k in WAVEFRONT_KERNELS},
-                 **{k: 0 for k in REORDER_KERNELS}}
+                 **{k: 0 for k in REORDER_KERNELS}, **{k: 0 for k in SWEEP_KERNELS}}
 
 
 def _bitwise_max_err(a, b, what) -> float:
@@ -536,7 +548,7 @@ def _summary(st, inp, lanes: int = 32 * 128) -> dict:
     }
 
 
-def _stats_path(mk, rg, wf, ro) -> dict:
+def _stats_path(mk, rg, wf, ro, sw) -> dict:
     """The counters' own path at full size, through the entry points:
     render_image_megakernel(stats=True) for each _STATS_MK case, and K0 ->
     PACK -> K1(stats) at the first cut of RTiOW 1080p x 32 spp. Each counter
@@ -554,7 +566,7 @@ def _stats_path(mk, rg, wf, ro) -> dict:
     scene, sky, basis = _case("rtiow", k["width"], k["height"], dev)
     inp_k1 = mk.kernel_inputs(scene, sky, basis)
     torch.cuda.synchronize()
-    _zero_launch_counts(mk, rg, wf, ro)
+    _zero_launch_counts(mk, rg, wf, ro, sw)
     tables, images = {}, {}
     for name, (w, h, sc, sk, ba) in cases.items():
         images[name], tables[name] = mk.render_image_megakernel(
@@ -565,7 +577,7 @@ def _stats_path(mk, rg, wf, ro) -> dict:
     rg.launch_k1(inp_k1, dense.clone(), torch.empty((3, t.cap), device=dev), counts, 1, t,
                  k["frame"], cuts[0], cuts[1], stats=st_k1)
     torch.cuda.synchronize()
-    launches = _launch_counts(mk, rg, wf, ro)
+    launches = _launch_counts(mk, rg, wf, ro, sw)
     want = {"megakernel": 0, "k0": 1, "pack": 1, "k1": 0, "combine": 0,
             "megakernel_stats": len(_STATS_MK), "k1_stats": 1, **_NO_WAVEFRONT}
     _check(launches == want, ("stats path launches", launches, want))
@@ -1060,7 +1072,7 @@ def _reorder_probes(ro, dma) -> dict:
     return out
 
 
-def _binned_run(mk, rg, wf, ro, binned, scene: str, quick: bool) -> dict:
+def _binned_run(mk, rg, wf, ro, sw, binned, scene: str, quick: bool) -> dict:
     """probes/binned.py's path through binned.run, with the launches
     counted from 0: K0 and PACK to the cut, one K1, sort and gather to warm
     up, then per scheme the sort, the
@@ -1076,19 +1088,19 @@ def _binned_run(mk, rg, wf, ro, binned, scene: str, quick: bool) -> dict:
         if scene != "rtiow":
             return
         torch.cuda.synchronize()
-        before = _launch_counts(mk, rg, wf, ro)
+        before = _launch_counts(mk, rg, wf, ro, sw)
         vs_plain[name] = _k1_span_vs_plain(rg, inp, pool, counts, n, t, 0, BINNED_CUT,
                                            binned.BOUNCES, st)
         torch.cuda.synchronize()
-        for k, v in _launch_counts(mk, rg, wf, ro).items():
+        for k, v in _launch_counts(mk, rg, wf, ro, sw).items():
             extra[k] = extra.get(k, 0) + v - before[k]
 
     torch.cuda.synchronize()
-    _zero_launch_counts(mk, rg, wf, ro)
+    _zero_launch_counts(mk, rg, wf, ro, sw)
     head = []
     rows = binned.run(BINNED_CUT, scene, quick, on_scheme=on_scheme, emit=head.append)
     torch.cuda.synchronize()
-    launches = {k: v - extra.get(k, 0) for k, v in _launch_counts(mk, rg, wf, ro).items()}
+    launches = {k: v - extra.get(k, 0) for k, v in _launch_counts(mk, rg, wf, ro, sw).items()}
     n_s, reps = len(rows), (3 if quick else 5)
     want = {**dict.fromkeys(launches, 0), "k0": 1, "pack": 1, "k1": 1 + n_s * reps,
             "k1_stats": n_s, "record_gather": n_s, "record_scatter": 2 * (n_s - 1)}
@@ -1189,6 +1201,71 @@ def _binned_kernels(mk, rg, ro, binned) -> dict:
             "share": {k: bounds[k]["bound_ms"] / ms[k] for k in ms}}
 
 
+def _sweep_launches(mxu, name: str) -> dict:
+    """The launches each probe of probes/mxu_sweep.py makes: a kernel held
+    against its twin once, then timed (time_mean: a warm call and ``reps``),
+    or timed in turns (twice); the sweep probes at the probe's shape and at
+    the card-filling one."""
+    def timed(reps):
+        return 1 + reps
+
+    def case(reps):
+        return 1 + timed(reps)
+
+    def turns(reps):
+        return 1 + 2 * timed(reps)
+
+    r, p8, fl = 20, mxu.P8["reps"], mxu.FILL["reps"]
+    probe = case(mxu.PROBE["reps"])
+    prec = "sweep_mma_" + ("tf32" if name.endswith("bf16") else "3xtf32")
+    want = dict.fromkeys(SWEEP_KERNELS, 0)
+    if name in ("p1", "p2"):
+        want["layout"] = 2 * case(r)
+    elif name == "p3":
+        want["dot_mma"] = len(mxu.sw.PRECISIONS) * turns(r)
+    elif name == "p4":
+        want["layout"] = (len(mxu.CHAIN_SHAPES) + 1) * 2 * case(r)
+    elif name.startswith("p5"):
+        want["sweep_fma"] = want[prec] = probe + case(fl)
+    elif name.startswith("p7"):
+        want[prec] = probe + case(fl)
+    elif name.startswith("p8"):
+        want["sweep_fma"] = want[prec] = case(p8) + case(fl)
+    elif name == "fill":
+        want.update(sweep_fma=2 * turns(fl), sweep_mma_tf32=turns(fl),
+                    sweep_mma_3xtf32=turns(fl))
+    elif name == "window":
+        want.update(sweep_mma_tf32=1, sweep_mma_3xtf32=1)
+    return want
+
+
+def _sweep_probes(mk, rg, wf, ro, sw, mxu) -> dict:
+    """probes/mxu_sweep.py's probes (benchmarks/probe_mxu_sweep.py's nine
+    pallas_calls, p6's yardstick, the card-filling ``fill`` and ``window``)
+    through their entry points, each with every launch counted from 0: each
+    kernel held against its twin inside its probe (layout remap and dot_mma
+    FP32 bit for bit, the chain and the TF32 products within their bounds,
+    the sweeps on every ray at the probe's shapes and at FILL_WRONG_SHARE at
+    the card-filling one) and timed beside its bound. Each probe must make
+    exactly the launches _sweep_launches counts, and no kernel of another
+    path launches."""
+    mxu.warm_up()
+    out, total = {}, dict.fromkeys(SWEEP_KERNELS, 0)
+    for name, fn in mxu.PROBES:
+        torch.cuda.synchronize()
+        _zero_launch_counts(mk, rg, wf, ro, sw)
+        out[name] = fn("cuda")
+        torch.cuda.synchronize()
+        launches = _launch_counts(mk, rg, wf, ro, sw)
+        want = {**dict.fromkeys(launches, 0), **_sweep_launches(mxu, name)}
+        _check(launches == want, ("sweep probe launches", name, launches, want))
+        for k in SWEEP_KERNELS:
+            total[k] += launches[k]
+    _check(all(total.values()), ("a sweep kernel never launched", total))
+    out["launches"] = total
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png", default=os.path.join(tempfile.gettempdir(),
@@ -1208,8 +1285,9 @@ def main(argv=None) -> int:
     from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk
     from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg
     from weekend_raytracer_tpu_torch.ops.cuda import reorder as ro
+    from weekend_raytracer_tpu_torch.ops.cuda import sweep as sw
     from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf
-    from weekend_raytracer_tpu_torch.probes import binned, dma
+    from weekend_raytracer_tpu_torch.probes import binned, dma, mxu_sweep
 
     _check("jax" not in sys.modules, "the port imported jax")
     smi = _nvidia_smi()
@@ -1222,15 +1300,17 @@ def main(argv=None) -> int:
 
     # 2. build the libraries, one nvcc each, in parallel
     t0 = time.perf_counter()
-    built = dict(zip(("megakernel", "regroup", "wavefront", "reorder"),
-                     build.load_libraries([mk.LIBRARY, rg.LIBRARY, wf.LIBRARY, ro.LIBRARY])))
+    _check(sw.KERNELS == SWEEP_KERNELS, ("sweep kernels", sw.KERNELS))
+    built = dict(zip(("megakernel", "regroup", "wavefront", "reorder", "sweep"),
+                     build.load_libraries([mk.LIBRARY, rg.LIBRARY, wf.LIBRARY, ro.LIBRARY,
+                                           sw.LIBRARY])))
     build_s = time.perf_counter() - t0
     ptxas = {k: b.ptxas_usage() for k, b in built.items()}
     attrs = {"megakernel": {("textured" if t else "plain") + ("_stats" if st else ""):
                             mk.kernel_attributes(t, st) for t in (False, True)
                             for st in (False, True)},
              "regroup": rg.kernel_attributes(), "wavefront": wf.kernel_attributes(),
-             "reorder": ro.kernel_attributes()}
+             "reorder": ro.kernel_attributes(), "sweep": sw.kernel_attributes()}
     _say("build", seconds=f"{build_s:.2f}",
          nvcc_seconds=json.dumps({k: round(b.build_seconds, 2) for k, b in built.items()}),
          ptxas=json.dumps(ptxas, sort_keys=True), attributes=json.dumps(attrs),
@@ -1343,9 +1423,9 @@ def main(argv=None) -> int:
         _check(renderer.backend == expect, (backend, renderer.backend))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _zero_launch_counts(mk, rg, wf, ro)
+        _zero_launch_counts(mk, rg, wf, ro, sw)
         stats = renderer.render()
-        counts = _launch_counts(mk, rg, wf, ro)
+        counts = _launch_counts(mk, rg, wf, ro, sw)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         frames = stats.frames
         _check(frames == mp["max_spp"] // mp["spp"], stats)
@@ -1449,9 +1529,9 @@ def main(argv=None) -> int:
     _check(renderer.backend == "wavefront", renderer.backend)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_launch_counts(mk, rg, wf, ro)
+    _zero_launch_counts(mk, rg, wf, ro, sw)
     stats = renderer.render()
-    counts = _launch_counts(mk, rg, wf, ro)
+    counts = _launch_counts(mk, rg, wf, ro, sw)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     frames = stats.frames
     want = {**dict.fromkeys(counts, 0), "wavefront_k0": frames}
@@ -1495,7 +1575,7 @@ def main(argv=None) -> int:
         rg.launch_regrouped(acc, inp, f, f == 0, cuts=_CUTS, **fkw)
         ref.append(acc.clone())
     torch.cuda.synchronize()
-    _zero_launch_counts(mk, rg, wf, ro)
+    _zero_launch_counts(mk, rg, wf, ro, sw)
     wf_rows, wf_peak = {}, {}
     for cuts in _WF_SCHEDULES[1:3]:
         acc = torch.zeros((w * h, 3), device="cuda")
@@ -1509,7 +1589,7 @@ def main(argv=None) -> int:
                 wf_rows[cuts] = [int(r) for r in rows]
             _check(torch.equal(acc, ref[f]), ("wavefront is not regroup", cuts, f,
                                               _compare(ref[f], acc, w, h)))
-    counts = _launch_counts(mk, rg, wf, ro)
+    counts = _launch_counts(mk, rg, wf, ro, sw)
     n_cuts = len(_WF_SCHEDULES[1]) + len(_CUTS)
     want = {**dict.fromkeys(counts, 0), "wavefront_k0": 4, "wavefront_compact": 2 * n_cuts,
             "wavefront_k1": 2 * n_cuts}
@@ -1558,7 +1638,7 @@ def main(argv=None) -> int:
          megakernel_sum_rel=json.dumps({k: [round(x, 5) for x in v]
                                         for k, v in sv["megakernel_sum_rel"].items()}),
          k1_sum_rel=json.dumps([round(v, 5) for v in sv["k1_sum_rel"]]))
-    sp = _stats_path(mk, rg, wf, ro)
+    sp = _stats_path(mk, rg, wf, ro, sw)
     for name, cmp in sp["vs_plain"].items():
         _say("stats", case=f"{name}_vs_plain_full_size", **{k: json.dumps(v)
                                                             for k, v in cmp.items()})
@@ -1760,7 +1840,7 @@ def main(argv=None) -> int:
     # 1080p x 4 spp with every scheme, random10k 4K with the quick set
     bn = {}
     for scene, quick in (("rtiow", False), ("random10k", True)):
-        res = _binned_run(mk, rg, wf, ro, binned, scene, quick)
+        res = _binned_run(mk, rg, wf, ro, sw, binned, scene, quick)
         _say("binned", scene=scene, case="pool", pool=json.dumps(res["pool"]),
              live_records=res["live_records"], launches=json.dumps(res["launches"]))
         for row in res["rows"]:
@@ -1781,6 +1861,38 @@ def main(argv=None) -> int:
     ms["dma_rate"], plain_ms["dma_rate"] = rate["ms"], rp["dma_rate_plain_ms"]
     bounds["dma_rate"] = {"bound_ms": rate["bound_ms"], "bound_by": "bytes"}
     library_ms["dma_rate"] = rate["library_ms"]
+
+    # 12. probe_mxu_sweep.py's probes on the sweep kernels (probes/mxu_sweep.py),
+    # each with its launches counted from 0: the FMA sweep against the TF32
+    # and 3xTF32 tensor-core sweep, the dot's precision, the layouts
+    sp7 = _sweep_probes(mk, rg, wf, ro, sw, mxu_sweep)
+    for name, _ in mxu_sweep.PROBES:
+        _say("sweep", probe=name, message=repr(sp7[name]["message"]))
+    fill = sp7["fill"]
+    _say("sweep", case="fill", rays=fill["rays"], spheres=fill["spheres"],
+         ms_bound_share=json.dumps({k: [round(v["ms"], 4), round(v["bound_ms"], 4), v["bound_by"],
+                                        round(v["share"], 4)]
+                                    for k, v in fill.items() if isinstance(v, dict)}),
+         agree=json.dumps({k: {g: round(v[g], 7) for g in ("mask_agree", "idx_agree", "t_agree",
+                                                            "parted")}
+                           for k, v in fill.items() if isinstance(v, dict)}),
+         wrong_share_gate=fill["wrong_share"], control=f"{fill['control']:.3g}",
+         launches=json.dumps(sp7["launches"]), card=repr(smi))
+    record["sweep"] = sp7
+    for key, case in (("sweep_fma", fill["fma"]), ("sweep_mma_tf32", fill["mma_tf32"]),
+                      ("sweep_mma_3xtf32", fill["mma_3xtf32"]), ("dot_mma", sp7["p3"]["fp32"]),
+                      ("layout", sp7["p1"]["big"])):
+        ms[key], plain_ms[key] = case["ms"], case["plain_ms"]
+        bounds[key] = {"bound_ms": case["bound_ms"], "bound_by": case["bound_by"]}
+    library_ms["dot_mma"] = sp7["p3"]["library_ms"]["fp32"]
+    library_ms["layout"] = sp7["p1"]["big"]["library_ms"]
+    _say("sweep", case="kernels", ms_bound_share=json.dumps(
+        {k: [round(ms[k], 4), round(bounds[k]["bound_ms"], 4), bounds[k]["bound_by"],
+             round(bounds[k]["bound_ms"] / ms[k], 4)] for k in SWEEP_KERNELS}),
+         plain_ms=json.dumps({k: round(plain_ms[k], 3) for k in SWEEP_KERNELS}),
+         library_ms=json.dumps({k: library_ms.get(k) for k in SWEEP_KERNELS}),
+         dot_tf32_library_ms=f"{sp7['p3']['library_ms']['tf32']:.4f}", card=repr(smi))
+    torch.cuda.empty_cache()
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -1812,6 +1924,14 @@ def main(argv=None) -> int:
     kernels += [entry(k, k, ro.KERNEL_SOURCE, ro.REPLACES[k],
                       (rp if k == "dma_rate" else bn["rtiow"])["launches"][k], 0.0)
                 for k in REORDER_KERNELS]
+    # the sweeps' numbers are the card-filling shape's (fill), dot_mma's its
+    # FP32 mode at p3's shape, layout's the remap of 2^24 values (p1)
+    sweep_err = {"sweep_fma": fill["fma"]["max_abs_err"],
+                 "sweep_mma_tf32": fill["mma_tf32"]["max_abs_err"],
+                 "sweep_mma_3xtf32": fill["mma_3xtf32"]["max_abs_err"],
+                 "dot_mma": sp7["p3"]["fp32"]["max_abs_err"], "layout": 0.0}
+    kernels += [entry(k, k, sw.KERNEL_SOURCE, sw.REPLACES[k], sp7["launches"][k], sweep_err[k])
+                for k in SWEEP_KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

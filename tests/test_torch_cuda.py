@@ -17,7 +17,14 @@ and the megakernel give the same bits. The row-compacted wavefront runs the
 same body on the same slots: it gives regroup's image in every bit, and
 its COMPACT equals its twin bit for bit. The record reorder kernels equal
 their twins bit for bit (dma_rate's twin repeats its sum order), and K1 on
-a binned pool, scattered back, equals home-order K1 in every bit.
+a binned pool, scattered back, equals home-order K1 in every bit. Of the
+sweep probe kernels, the layout remap and the FP32 dot equal their twins
+bit for bit; the TF32 and 3xTF32 dots are within probes/mxu_sweep.py's
+DOT_TOL of sum |a||b| of their twins (the products are exact, the tensor
+cores sum in their own order); the sweeps hit the same spheres as their
+twins with t within probes/mxu_sweep.py's t_tolerance on every ray at the
+TPU probe's shapes and past sweep_mma's first shared-memory window, and on
+all but FILL_WRONG_SHARE of the rays at the card-filling shape.
 """
 import numpy as np
 import pytest
@@ -31,8 +38,9 @@ from weekend_raytracer_tpu_torch.ops import tonemap  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import reorder as ro  # noqa: E402
+from weekend_raytracer_tpu_torch.ops.cuda import sweep as sw  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf  # noqa: E402
-from weekend_raytracer_tpu_torch.probes import binned, dma  # noqa: E402
+from weekend_raytracer_tpu_torch.probes import binned, dma, mxu_sweep  # noqa: E402
 
 
 @pytest.fixture
@@ -556,3 +564,143 @@ def test_reorder_launch_error_raises(cuda):
     with pytest.raises(RuntimeError, match="record_gather launch failed: CUDA error"):
         ro.record_gather(src, torch.arange(8, dtype=torch.int32, device=cuda), dim=1)
     assert ro.record_gather.launches == before
+
+
+# --- the sweep probe kernels (csrc/sweep.cu) -------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "tf32", "3xtf32"])
+def test_dot_mma_matches_plain(prec, cuda):
+    """p3's product: FP32 bit for bit (and the probe's FMA-order
+    reference); TF32 and 3xTF32 against their twins within DOT_TOL."""
+    an, bn, ref = mxu_sweep.dot_inputs()
+    a, b = torch.from_numpy(an).to(cuda), torch.from_numpy(bn).to(cuda)
+    before = sw.dot_mma.launches
+    got = sw.dot_mma(a, b, prec)
+    plain = sw.dot_plain(a, b, prec)
+    torch.cuda.synchronize()
+    assert sw.dot_mma.launches == before + 1
+    if prec == "fp32":
+        assert _same_bits(got, plain) and _same_bits(got.cpu(), torch.from_numpy(ref))
+    mag = (a.abs() @ b.abs()).cpu()
+    assert bool(((got - plain).abs().cpu() <= mxu_sweep.DOT_TOL * mag).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, reverse, affine", [((32, 128), False, (2.0, 1.0)),
+                                                    ((6, 4096), True, None),
+                                                    ((4096, 4096), False, (2.0, 1.0)),
+                                                    ((65535, 12), True, (-0.5, 3.0))])
+def test_layout_remap_bit_for_bit(shape, reverse, affine, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    before = sw.layout_remap.launches
+    got = sw.layout_remap(x, reverse, affine)
+    torch.cuda.synchronize()
+    assert _same_bits(got, sw.remap_plain(x, reverse, affine))
+    assert sw.layout_remap.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 4])
+def test_layout_chain_within_tolerance(chains, cuda):
+    """256 FMA steps against the twin's 256 multiply-then-add steps, within
+    CHAIN_RTOL, on values in [0.99, 1) and an odd count."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = 0.99 + 0.01 * torch.rand((1_000_003,), generator=gen, device=cuda)
+    got = sw.layout_chain(x, 256, chains)
+    torch.cuda.synchronize()
+    plain = sw.chain_plain(x, 256)
+    assert bool(((got - plain).abs() <= mxu_sweep.CHAIN_RTOL * plain.abs()).all())
+
+
+def _probe_case(name, cuda):
+    """(table, planes, amats, chunk) of p5 (32 spheres) or p8 (10 x 32)."""
+    n_chunks, cs = (1, 32) if name == "p5" else (10, 32)
+    c, r, o, d = mxu_sweep.scene(n_chunks * cs, 4096)
+    kq = mxu_sweep.sphere_kq(c, r)
+    table = mxu_sweep.probe_table(c, kq, cuda)
+    return (table, mxu_sweep.probe_planes(o, d, cuda),
+            torch.from_numpy(mxu_sweep.probe_amats(c, kq, n_chunks, cs)).to(cuda), cs)
+
+
+def _held_everywhere(got, want, table, planes, what):
+    held = mxu_sweep.hold_sweep(got, want, table, planes, what)
+    assert held["mask_agree"] == held["idx_agree"] == held["t_agree"] == 1.0, held
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p5", "p8"])
+def test_sweep_fma_matches_plain(name, cuda):
+    """At the TPU probe's shapes: every ray hits or misses as the twin
+    does, the same sphere, t within t_tolerance; several passes change no
+    bit."""
+    table, planes, _, cs = _probe_case(name, cuda)
+    before = sw.sweep_fma.launches
+    got = sw.sweep_fma(table, planes, cs)
+    again = sw.sweep_fma(table, planes, cs, iters=3)
+    torch.cuda.synchronize()
+    assert sw.sweep_fma.launches == before + 2
+    assert all(_same_bits(a, b) for a, b in zip(got, again))
+    _held_everywhere(got, sw.sweep_plain(table, planes, "fma"), table, planes, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p5", "p8"])
+@pytest.mark.parametrize("prec", ["tf32", "3xtf32"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_sweep_mma_matches_plain(name, prec, packed, cuda):
+    """The tensor-core sweep against its twin at its own precision (the
+    TF32 twin rounds operands as cvt.rna does), and 3xTF32 against the FP32
+    twin as well, from the planes and from the packed B."""
+    table, planes, amats, _ = _probe_case(name, cuda)
+    rays = sw.packed_b(planes) if packed else planes
+    got = sw.sweep_mma(amats, rays, prec)
+    torch.cuda.synchronize()
+    _held_everywhere(got, sw.sweep_plain(amats, rays, prec), table, planes, (name, prec))
+    if prec == "3xtf32":
+        _held_everywhere(got, sw.sweep_plain(amats, rays, "fp32"), table, planes, name)
+
+
+@pytest.mark.cuda
+def test_fill_probe_holds(cuda):
+    """The card-filling shape: every sweep form on all but FILL_WRONG_SHARE
+    of the rays, a share below the control (the fewest rays a tile holds)."""
+    before = sw.launch_counts()
+    out = mxu_sweep.fill(cuda, reps=2)
+    after = sw.launch_counts()
+    assert all(after[k] > before[k] for k in ("sweep_fma", "sweep_mma_tf32",
+                                                "sweep_mma_3xtf32"))
+    assert out["fma"]["bound_by"] == "operations"
+    assert out["control"] > mxu_sweep.FILL_WRONG_SHARE
+
+
+@pytest.mark.cuda
+def test_window_probe_holds_every_ray(cuda):
+    """sweep_mma over 64 tiles (three of 3xTF32's shared-memory windows,
+    two of TF32's): every ray as its twin's."""
+    before = sw.launch_counts()
+    out = mxu_sweep.window(cuda)
+    after = sw.launch_counts()
+    for prec in ("tf32", "3xtf32"):
+        assert after[f"sweep_mma_{prec}"] == before[f"sweep_mma_{prec}"] + 1
+        assert out[prec]["mask_agree"] == out[prec]["idx_agree"] == out[prec]["t_agree"] == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n, _ in mxu_sweep.PROBES if n not in ("fill", "window")])
+def test_mxu_sweep_probes_pass(name, cuda):
+    assert mxu_sweep.run(name, dict(mxu_sweep.PROBES)[name], cuda, reps=2)
+
+
+@pytest.mark.cuda
+def test_sweep_launch_error_raises(monkeypatch, cuda):
+    """A launch the library refuses raises, and is not counted: with the
+    wrapper's chunk limit lifted, a chunk of 4000 spheres (64 KB of shared
+    memory) reaches wrt_sweep_fma, which refuses it."""
+    table, planes, _, _ = _probe_case("p8", cuda)
+    monkeypatch.setattr(sw, "MAX_FMA_CHUNK", 4096)
+    before = sw.sweep_fma.launches
+    with pytest.raises(RuntimeError, match="sweep_fma launch failed: CUDA error"):
+        sw.sweep_fma(table.repeat(13, 1)[:4000].contiguous(), planes, 4000)
+    assert sw.sweep_fma.launches == before

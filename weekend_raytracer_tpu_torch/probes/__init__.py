@@ -3,11 +3,23 @@ scripts, asked of the port's own kernels on the card.
 
     python -m weekend_raytracer_tpu_torch.probes.dma [name ...]
     python -m weekend_raytracer_tpu_torch.probes.binned [cut] [rtiow|random10k] [quick] [dump]
+    python -m weekend_raytracer_tpu_torch.probes.mxu_sweep [p1 ... p8c16 fill]
 """
 from __future__ import annotations
 
 import subprocess
 import time
+
+# NVIDIA H100 SXM peaks at 700 W (NVIDIA's published figures), the bounds'
+# rates; a card set below its maximum power is slower, so every number is
+# printed with the card's name and power limit
+FP32_PEAK = 67e12  # FP32 operations per second, outside the tensor cores
+TF32_PEAK = 495e12  # dense TF32 tensor-core flops per second
+HBM_RATE = 3.35e12  # bytes per second
+# FP32 operations of one sphere test, an FMA as two (bounce.cuh sweep_sphere:
+# cd 5, co2 8, bq 1, cq 2, bq^2 - cq 2, sqrt 1, t0 and t1 2); compares and
+# selects are not counted
+SPHERE_TEST_OPS = 21
 
 
 def card() -> str:
@@ -50,6 +62,12 @@ def time_call(fn, device):
 
 def time_mean(fn, reps: int, device) -> float:
     """Mean milliseconds of ``fn`` over ``reps`` calls in a row, after one
-    warm call."""
+    warm call. Each call's result is dropped before the next call, so an
+    allocating ``fn`` reuses the caching allocator's block instead of
+    allocating ``reps`` new ones."""
+    def calls():
+        for _ in range(reps):
+            fn()
+
     fn()
-    return time_call(lambda: [fn() for _ in range(reps)], device)[1] / reps
+    return time_call(calls, device)[1] / reps

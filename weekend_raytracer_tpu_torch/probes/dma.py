@@ -34,14 +34,10 @@ import numpy as np
 import torch
 
 from ..ops.cuda import reorder as ro
-from . import card, same_bits, time_mean
+from . import HBM_RATE, card, same_bits, time_mean
 
 _F32 = torch.float32
 _I32 = torch.int32
-# NVIDIA H100 SXM at 700 W (NVIDIA's published figure); a card set below
-# its maximum power is slower, so every number is printed with the card's
-# name and power limit
-HBM_RATE = 3.35e12  # bytes per second
 RATE_PROBE = dict(records=64800, comps=11, width=128, reps=10)  # probe_dma.py:171, 216
 
 
