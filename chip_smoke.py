@@ -7,7 +7,8 @@ Run from the repository root, with no arguments:
 
 It builds the CUDA libraries from the sources in the checkout (the
 megakernel, the regroup pipeline, the row-compacted wavefront, the record
-reorder kernels and the sweep probe kernels, one nvcc each, in parallel),
+reorder kernels, the sweep probe kernels and the indexed-access probe
+kernels, one nvcc each, in parallel),
 holds every kernel against its plain PyTorch version on the card, holds
 the regroup pipeline against the megakernel, and renders
 the RTiOW final scene at 1920x1080 (32 spp per frame, 96 spp, 8 bounces)
@@ -63,6 +64,17 @@ shared-memory window of sweep_mma (every ray) and at a card-filling shape
 part), the dot's precision (FP32 bit for bit with the probe's reference)
 and the layout kernels, each against its twin and its bound.
 
+``[access]`` runs probes/place.py, probes/mosaic.py and probes/gather_cost.py
+(benchmarks/probe_place.py's, probe_mosaic.py's and probe_gather_cost.py's
+fifteen pallas_calls on csrc/access.cu's five kernels, each probe with its
+launches counted from 0 and held to exact counts): every route of
+table_gather, lane_gather, smem_rw, row_sort and lane_scan against its twin
+bit for bit, at the probes' shapes (with the profiler's device time beside
+the event time) and at card-filling shapes (2^24 values; the texture
+pools of textured_spheres at the LUT's budget and at full size), each
+beside its bound and a library call. It also gives the device time of the
+record-DMA probes' and p3's dot at their tiny shapes.
+
 Each phase prints one line; any failure exits non-zero without the final
 ``ok`` line. It needs a CUDA device and imports nothing of JAX. Options:
 ``--png PATH`` (default: chip_smoke_rtiow.png in the temporary directory)
@@ -107,6 +119,7 @@ REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
 WAVEFRONT_KERNELS = ("k0", "compact", "k1")
 REORDER_KERNELS = ("record_gather", "record_scatter", "dma_rate")
 SWEEP_KERNELS = ("sweep_fma", "sweep_mma_tf32", "sweep_mma_3xtf32", "dot_mma", "layout")
+ACCESS_KERNELS = ("table_gather", "lane_gather", "smem_rw", "row_sort", "lane_scan")
 # the wavefront's cut schedules held equal in every bit: none (the
 # Renderer's), the main path's first cut, its cuts, and a cut at every bounce
 _WF_SCHEDULES = ((), (2,), _CUTS, (1, 2, 3, 4, 5, 6, 7))
@@ -248,7 +261,7 @@ def _launch_counts(mk, rg, wf, ro, sw) -> dict:
             **{f"wavefront_{k}": getattr(wf, f"launch_{k}").launches
                for k in WAVEFRONT_KERNELS},
             **{k: getattr(ro, k).launches for k in REORDER_KERNELS},
-            **sw.launch_counts()}
+            **sw.launch_counts(), **_access().launch_counts()}
 
 
 def _zero_launch_counts(mk, rg, wf, ro, sw) -> None:
@@ -262,11 +275,20 @@ def _zero_launch_counts(mk, rg, wf, ro, sw) -> None:
     for k in REORDER_KERNELS:
         getattr(ro, k).launches = 0
     sw.zero_launch_counts()
+    _access().zero_launch_counts()
 
 
-# launches of no wavefront, reorder or sweep kernel, for the other paths' counts
+def _access():
+    from weekend_raytracer_tpu_torch.ops.cuda import access
+
+    return access
+
+
+# launches of no wavefront, reorder, sweep or access kernel, for the other
+# paths' counts
 _NO_WAVEFRONT = {**{f"wavefront_{k}": 0 for k in WAVEFRONT_KERNELS},
-                 **{k: 0 for k in REORDER_KERNELS}, **{k: 0 for k in SWEEP_KERNELS}}
+                 **{k: 0 for k in REORDER_KERNELS}, **{k: 0 for k in SWEEP_KERNELS},
+                 **{k: 0 for k in ACCESS_KERNELS}}
 
 
 def _bitwise_max_err(a, b, what) -> float:
@@ -1266,6 +1288,78 @@ def _sweep_probes(mk, rg, wf, ro, sw, mxu) -> dict:
     return out
 
 
+def _access_probes(mk, rg, wf, ro, sw, modules) -> dict:
+    """The probes of probes/place.py, probes/mosaic.py and
+    probes/gather_cost.py (the indexed-access probes' fifteen pallas_calls)
+    through their entry points, each with every launch counted from 0: each
+    route of each kernel held against its twin bit for bit inside its probe
+    and timed beside its bound. Each probe must make exactly the launches
+    its module's ``launches`` counts, and no kernel of another path
+    launches."""
+    out, total = {}, dict.fromkeys(ACCESS_KERNELS, 0)
+    for mod in modules:
+        for name, fn in mod.PROBES:
+            torch.cuda.synchronize()
+            _zero_launch_counts(mk, rg, wf, ro, sw)
+            out[name] = fn("cuda")
+            torch.cuda.synchronize()
+            launches = _launch_counts(mk, rg, wf, ro, sw)
+            want = {**dict.fromkeys(launches, 0), **mod.launches(name)}
+            _check(launches == want, ("access probe launches", name, launches, want))
+            out[name]["launches"] = {k: launches[k] for k in ACCESS_KERNELS}
+            for k in ACCESS_KERNELS:
+                total[k] += launches[k]
+    _check(all(total.values()), ("an access kernel never launched", total))
+    out["launches"] = total
+    return out
+
+
+def _tiny_device_ms(ro, sw, dma, mxu, reps: int = 20) -> dict:
+    """Rows 9a-9d, 10f and 13c at the TPU probes' tiny shapes: the CUDA-event
+    time of a call (time_mean over ``reps``) beside the kernel's device time
+    under the profiler (probes.device_times)."""
+    from weekend_raytracer_tpu_torch.probes import device_times, time_mean
+
+    fns = {}
+    for name in ("single_dma_2d", "single_dma_3d", "gather32_pipelined", "scatter_dma",
+                 "manual_dma_gather_rows"):
+        src, idx, held = dma.probe_inputs(name, "cuda")
+        if held is None:
+            dst = torch.empty((idx.numel(), *src.shape[1:]), device="cuda")
+            fns[name] = lambda src=src, idx=idx, dst=dst: ro.record_gather(src, idx, dst)
+        else:
+            fns[name] = lambda src=src, idx=idx, held=held: ro.record_scatter(src, idx, held)
+    an, bn, _ = mxu.dot_inputs()
+    a, b = torch.from_numpy(an).cuda(), torch.from_numpy(bn).cuda()
+    for prec in sw.PRECISIONS:
+        fns[f"dot_mma_{prec}"] = lambda prec=prec: sw.dot_mma(a, b, prec)
+    event = {k: time_mean(fn, reps, "cuda") for k, fn in fns.items()}
+    dev = device_times(fns, reps, "cuda")
+    return {k: {"event_ms": event[k], "device_ms": dev[k]} for k in fns}
+
+
+def _sig(x, digits: int = 4):
+    """x to ``digits`` significant digits (None stays None)."""
+    return None if x is None else float(f"{x:.{digits}g}")
+
+
+def _access_summary(res: dict) -> dict:
+    """{"case.route": [ms, device ms, bound ms, share, library ms]} of a
+    probe's result (None where a number was not taken)."""
+    out = {}
+
+    def walk(key, v):
+        if isinstance(v, dict) and "bound_ms" in v and "ms" in v:
+            out[key] = [_sig(v["ms"]), _sig(v.get("device_ms")), _sig(v["bound_ms"]),
+                        _sig(v["share"]), _sig(v["library_ms"])]
+        elif isinstance(v, dict):
+            for k, vv in v.items():
+                walk(f"{key}.{k}" if key else k, vv)
+
+    walk("", {k: v for k, v in res.items() if k not in ("launches", "smem_rate")})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png", default=os.path.join(tempfile.gettempdir(),
@@ -1282,12 +1376,14 @@ def main(argv=None) -> int:
     from weekend_raytracer_tpu_torch import (SCENES, RenderParams, Renderer,
                                              SamplingParams)
     from weekend_raytracer_tpu_torch.ops.cuda import build
+    from weekend_raytracer_tpu_torch.ops.cuda import access as ac
     from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk
     from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg
     from weekend_raytracer_tpu_torch.ops.cuda import reorder as ro
     from weekend_raytracer_tpu_torch.ops.cuda import sweep as sw
     from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf
-    from weekend_raytracer_tpu_torch.probes import binned, dma, mxu_sweep
+    from weekend_raytracer_tpu_torch.probes import (binned, dma, gather_cost, mosaic,
+                                                    mxu_sweep, place)
 
     _check("jax" not in sys.modules, "the port imported jax")
     smi = _nvidia_smi()
@@ -1301,16 +1397,18 @@ def main(argv=None) -> int:
     # 2. build the libraries, one nvcc each, in parallel
     t0 = time.perf_counter()
     _check(sw.KERNELS == SWEEP_KERNELS, ("sweep kernels", sw.KERNELS))
-    built = dict(zip(("megakernel", "regroup", "wavefront", "reorder", "sweep"),
+    _check(ac.KERNELS == ACCESS_KERNELS, ("access kernels", ac.KERNELS))
+    built = dict(zip(("megakernel", "regroup", "wavefront", "reorder", "sweep", "access"),
                      build.load_libraries([mk.LIBRARY, rg.LIBRARY, wf.LIBRARY, ro.LIBRARY,
-                                           sw.LIBRARY])))
+                                           sw.LIBRARY, ac.LIBRARY])))
     build_s = time.perf_counter() - t0
     ptxas = {k: b.ptxas_usage() for k, b in built.items()}
     attrs = {"megakernel": {("textured" if t else "plain") + ("_stats" if st else ""):
                             mk.kernel_attributes(t, st) for t in (False, True)
                             for st in (False, True)},
              "regroup": rg.kernel_attributes(), "wavefront": wf.kernel_attributes(),
-             "reorder": ro.kernel_attributes(), "sweep": sw.kernel_attributes()}
+             "reorder": ro.kernel_attributes(), "sweep": sw.kernel_attributes(),
+             "access": ac.kernel_attributes()}
     _say("build", seconds=f"{build_s:.2f}",
          nvcc_seconds=json.dumps({k: round(b.build_seconds, 2) for k, b in built.items()}),
          ptxas=json.dumps(ptxas, sort_keys=True), attributes=json.dumps(attrs),
@@ -1894,6 +1992,42 @@ def main(argv=None) -> int:
          dot_tf32_library_ms=f"{sp7['p3']['library_ms']['tf32']:.4f}", card=repr(smi))
     torch.cuda.empty_cache()
 
+    # 13. the indexed-access probes (probes/place.py, mosaic.py,
+    # gather_cost.py) on csrc/access.cu's kernels, each with its launches
+    # counted from 0; then the tiny probes' device time beside their event
+    # time (rows 9a-9d, 10f, 13c)
+    t0 = time.perf_counter()
+    access = _access_probes(mk, rg, wf, ro, sw, (place, mosaic, gather_cost))
+    for mod in (place, mosaic, gather_cost):
+        for name, _ in mod.PROBES:
+            _say("access", probe=name, row=mod.ROWS[name],
+                 launches=json.dumps({k: v for k, v in access[name]["launches"].items() if v}),
+                 ms_device_bound_share_library=json.dumps(_access_summary(access[name])))
+    tiny = _tiny_device_ms(ro, sw, dma, mxu_sweep)
+    rate = access["gather_cost"]["smem_rate"]
+    access_s = time.perf_counter() - t0
+    _say("access", case="tiny_shapes_event_vs_device_ms",
+         ms=json.dumps({k: [round(v["event_ms"], 5), round(v["device_ms"], 5)]
+                        for k, v in tiny.items()}), card=repr(smi))
+    picks = {"table_gather": access["gather_cost"]["span16"]["global"],
+             "lane_gather": access["take_along_lane_32"]["fill"]["shfl"],
+             "smem_rw": access["p2"]["fill"]["rotate"]["smem"],
+             "row_sort": access["p3"]["fill"]["shfl"],
+             "lane_scan": access["cumsum_lanes"]["fill"]["shfl"]}
+    for key, case in picks.items():
+        ms[key], plain_ms[key], library_ms[key] = case["ms"], case["plain_ms"], case["library_ms"]
+        bounds[key] = {"bound_ms": case["bound_ms"], "bound_by": case["bound_by"]}
+    _say("access", case="kernels", ms_bound_share=json.dumps(
+        {k: [round(ms[k], 5), round(bounds[k]["bound_ms"], 5), bounds[k]["bound_by"],
+             round(bounds[k]["bound_ms"] / ms[k], 4)] for k in ACCESS_KERNELS}),
+         plain_ms=json.dumps({k: round(plain_ms[k], 3) for k in ACCESS_KERNELS}),
+         library_ms=json.dumps({k: library_ms.get(k) for k in ACCESS_KERNELS}),
+         launches=json.dumps(access["launches"]), sms=rate["sms"], max_sm_mhz=rate["max_sm_mhz"],
+         smem_bytes_per_s=f"{rate['bytes_per_s']:.4e}", seconds=f"{access_s:.1f}",
+         card=repr(smi))
+    record["access"] = {**access, "tiny_shapes": tiny, "seconds": access_s}
+    torch.cuda.empty_cache()
+
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
@@ -1932,6 +2066,11 @@ def main(argv=None) -> int:
                  "dot_mma": sp7["p3"]["fp32"]["max_abs_err"], "layout": 0.0}
     kernels += [entry(k, k, sw.KERNEL_SOURCE, sw.REPLACES[k], sp7["launches"][k], sweep_err[k])
                 for k in SWEEP_KERNELS]
+    # the access kernels' numbers are a card-filling case of each (table_gather
+    # at the probe's 512 tiles, span 16, "global"; lane_gather 10c's lanes,
+    # smem_rw p2's rotated reads, "smem"); all equal their twins in every bit
+    kernels += [entry(k, k, ac.KERNEL_SOURCE, ac.REPLACES[k], access["launches"][k], 0.0)
+                for k in ACCESS_KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,624 @@
+// Indexed-access probes for Hopper (sm_90a): the counterparts of the fifteen
+// pallas_calls of benchmarks/probe_gather_cost.py, benchmarks/probe_place.py
+// and benchmarks/probe_mosaic.py (all but :143, which reorder.cu's
+// record_gather answers). Each asks what a per-lane indexed access costs:
+//
+//   table_gather   probe_gather_cost.py:66 (make_fn, :20): per lane, 16
+//                  fetches from a table of 128-wide rows over the span of
+//                  rows its (32, 128) tile touches, through the L1
+//                  (kGlobal), from the span staged in shared memory
+//                  (kShared), or the same index math with no load
+//                  (kArith, the probe's pure-arithmetic baseline).
+//   lane_gather    take_along_axis per (rows, 128) tile: along the lanes
+//                  (probe_mosaic.py:49, :66, :277, :296; probe_place.py:52,
+//                  :126) or the rows of a (32, 128) tile (probe_mosaic.py:33),
+//                  by warp shuffles (kShfl), a shared-memory row (kSmem) or
+//                  a per-thread array indexed at run time (kLocal).
+//   smem_rw        a scratch written and read at dynamic word offsets
+//                  (probe_place.py:72; probe_mosaic.py:83, :104, :231, :251),
+//                  held in shared memory (kSmem) or across a warp's
+//                  registers (kShfl, scratches of at most 1024 words).
+//   row_sort       probe_place.py:104: the probe's bitonic network along the
+//                  128 lanes of each row.
+//   lane_scan      probe_mosaic.py:213: an inclusive sum along the 128 lanes
+//                  of each row.
+//
+// Every kernel moves 32-bit words or adds floats in a fixed order: no route
+// passes a moved value through float arithmetic (a NaN keeps its payload,
+// -0.0 its sign), and each plain twin in ops/cuda/access.py repeats the
+// kernel's order of operations, so kernel and twin agree in every bit.
+// Indices are taken modulo what they index (a lane index modulo 128, a row
+// of a tile modulo 32, a scratch offset or a row pick modulo its size, as
+// floor modulo), so no input reads or writes out of bounds.
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWidth = 128;  // lanes of a row
+constexpr int kTileRows = 32;  // rows of a gather tile
+constexpr int kTileLanes = kTileRows * kWidth;  // 4096
+constexpr int kGatherThreads = 1024;  // table_gather: four lanes of a tile a thread
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kLocalColThreads = kWidth;  // axis-0 kLocal: a thread per column
+constexpr int kMaxSharedBytes = 232448;  // a block's shared memory on an H100
+constexpr int kDefaultSharedBytes = 48 * 1024;
+constexpr int kFetchStride = 37;  // probe_gather_cost.py:32
+constexpr unsigned kFull = 0xffffffffu;
+
+enum GatherRoute { kGlobal = 0, kShared = 1, kArith = 2 };
+enum Route { kShfl = 0, kSmem = 1, kLocal = 2 };
+
+__device__ __forceinline__ int floor_mod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// table_gather<kRoute>: out[lane] = sum over k < n_fetch, in k order from
+// 0.0, of tab[(flat >> 7) mod rows, flat & 127], flat = span_base +
+// (idx[lane] - span_base + 37 k) mod (span_rows * 128), span_base the
+// tile's smallest index rounded down to a row.
+//
+// Replaces benchmarks/probe_gather_cost.py:20 make_fn (pallas_call at :66).
+// Bound on an H100: the probe's bytes (indices in, sums out: 8 B a lane,
+// 16.8 MB over 512 tiles, 5 us at 3.35 TB/s) and 16 lookups a lane through
+// the L1 or shared memory (128 B a clock an SM: 4 us for 2,097,152 lanes);
+// the index math (two floor modulos by runtime divisors a fetch) costs
+// more than either. On the TPU a lane gathers only within the 128-lane row
+// held in a vreg, so the kernel walks every row of the span; here every
+// thread loads its own address, so the span costs nothing in kGlobal while
+// it fits the L1, and kShared pays for staging the whole span per tile
+// (span x 512 B, at most 453 rows beside the warp minima). Design: one
+// block per (32, 128) tile, 1024 threads of four lanes each (lanes t, t +
+// 1024, t + 2048, t + 3072: coalesced); the tile minimum is a warp
+// reduction (__reduce_min_sync), then one over the 32 warp minima.
+template <int kRoute>
+__global__ void __launch_bounds__(kGatherThreads)
+    table_gather(const float* __restrict__ tab, int table_rows, const int* __restrict__ idx,
+                 int span_rows, int n_fetch, float* __restrict__ out) {
+  extern __shared__ float staged[];  // span_rows * 128 (kShared)
+  __shared__ int warp_min[kGatherThreads / 32];
+  const long long tile = blockIdx.x;
+  const int* tidx = idx + tile * kTileLanes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int base[4];
+  int m = INT_MAX;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    base[q] = tidx[threadIdx.x + q * kGatherThreads];
+    m = min(m, base[q]);
+  }
+  m = __reduce_min_sync(kFull, m);
+  if (lane == 0) warp_min[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = __reduce_min_sync(kFull, warp_min[lane]);
+    if (lane == 0) warp_min[0] = w;
+  }
+  __syncthreads();
+  const int span_base = warp_min[0] & ~(kWidth - 1);  // (min >> 7) << 7
+  const int span_words = span_rows * kWidth;
+  if constexpr (kRoute == kShared) {
+    const int row0 = span_base >> 7;
+    for (int i = threadIdx.x; i < span_words; i += kGatherThreads) {
+      const int row = floor_mod(row0 + (i >> 7), table_rows);
+      staged[i] = tab[static_cast<long long>(row) * kWidth + (i & (kWidth - 1))];
+    }
+    __syncthreads();
+  }
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < n_fetch; ++k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int off = floor_mod(base[q] - span_base + kFetchStride * k, span_words);
+      float v;
+      if constexpr (kRoute == kShared) {
+        v = staged[off];  // staged row off >> 7 is table row (flat >> 7) mod rows
+      } else {
+        const int flat = span_base + off;
+        const int row = floor_mod(flat >> 7, table_rows);
+        const int col = flat & (kWidth - 1);
+        if constexpr (kRoute == kGlobal) {
+          v = __ldg(tab + static_cast<long long>(row) * kWidth + col);
+        } else {
+          v = static_cast<float>(row * kWidth + col);  // the probe's arange table
+        }
+      }
+      acc[q] = acc[q] + v;
+    }
+  }
+  float* tout = out + tile * kTileLanes;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) tout[threadIdx.x + q * kGatherThreads] = acc[q];
+}
+
+// The lane of row r that output (r, c) takes: idx[r, c] mod 128, or
+// (c - shift[r]) & 127 (probe_place.py p4's rotate).
+__device__ __forceinline__ int lane_source(const int* __restrict__ idx,
+                                           const int* __restrict__ shift, int r, int c) {
+  return idx != nullptr ? (idx[static_cast<long long>(r) * kWidth + c] & (kWidth - 1))
+                        : ((c - shift[r]) & (kWidth - 1));
+}
+
+// lane_gather_rows<kRoute>: out[r, c] = x[sr, lane_source(r, c)], sr =
+// rows[r] mod x_rows (a row picked at run time, probe_place.py p1) or r.
+//
+// Replaces benchmarks/probe_mosaic.py:49, :66, :277 and :296 (lane
+// take_along_axis of (8, 128), (32, 128), of i32 bit patterns, of one
+// row) and benchmarks/probe_place.py:52 (p1, x[r, j] at a dynamic (r, j))
+// and :126 (p4, each row rotated by its own shift). Bound on an H100 by
+// bytes: each word and index read once, each output written once. On the
+// TPU a lane gather moves data across a vreg's lanes; here it is a question
+// of where the row lives while it is read at run-time lanes. Design: kShfl
+// and kSmem give each row a warp that loads it coalesced, four words a
+// lane (lanes l, l + 32, l + 64, l + 96); kShfl answers each output with
+// four __shfl_sync and a select by j >> 5, kSmem stages the row in the
+// warp's 512 B of shared memory (a __syncwarp, then one load at j: lanes
+// that read one word are a broadcast, others a bank each). kLocal gives each
+// row a thread whose 128 words sit in an array indexed at run time, which
+// ptxas places in local memory (512 B a thread, cached in L1).
+template <int kRoute>
+__global__ void __launch_bounds__(kThreads)
+    lane_gather_rows(const uint32_t* __restrict__ x, int x_rows, const int* __restrict__ idx,
+                     const int* __restrict__ shift, const int* __restrict__ rows,
+                     int out_rows, uint32_t* __restrict__ out) {
+  if constexpr (kRoute == kLocal) {
+    const int r = blockIdx.x * kThreads + threadIdx.x;  // a thread per row
+    if (r >= out_rows) return;
+    const int sr = rows != nullptr ? floor_mod(rows[r], x_rows) : r;
+    const uint32_t* src = x + static_cast<long long>(sr) * kWidth;
+    uint32_t v[kWidth];
+#pragma unroll
+    for (int c = 0; c < kWidth; ++c) v[c] = src[c];
+    uint32_t* dst = out + static_cast<long long>(r) * kWidth;
+    for (int c = 0; c < kWidth; ++c) dst[c] = v[lane_source(idx, shift, r, c)];
+  } else {
+    __shared__ uint32_t rowbuf[kRoute == kSmem ? kWarps : 1][kWidth];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = blockIdx.x * kWarps + warp;  // a warp per row
+    if (r >= out_rows) return;  // the whole warp
+    const int sr = rows != nullptr ? floor_mod(rows[r], x_rows) : r;
+    const uint32_t* src = x + static_cast<long long>(sr) * kWidth;
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = src[lane + 32 * q];
+    if constexpr (kRoute == kSmem) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) rowbuf[warp][lane + 32 * q] = v[q];
+      __syncwarp();
+    }
+    uint32_t* dst = out + static_cast<long long>(r) * kWidth;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = lane + 32 * q;
+      const int j = lane_source(idx, shift, r, c);
+      uint32_t g;
+      if constexpr (kRoute == kSmem) {
+        g = rowbuf[warp][j];
+      } else {
+        const uint32_t g0 = __shfl_sync(kFull, v[0], j & 31);
+        const uint32_t g1 = __shfl_sync(kFull, v[1], j & 31);
+        const uint32_t g2 = __shfl_sync(kFull, v[2], j & 31);
+        const uint32_t g3 = __shfl_sync(kFull, v[3], j & 31);
+        const int s = j >> 5;
+        g = s == 0 ? g0 : s == 1 ? g1 : s == 2 ? g2 : g3;
+      }
+      dst[c] = g;
+    }
+  }
+}
+
+// lane_gather_cols<kRoute>: per (32, 128) tile t, out[32 t + r, c] =
+// x[32 t + (idx[32 t + r, c] mod 32), c].
+//
+// Replaces benchmarks/probe_mosaic.py:33 (take_along_axis along the
+// sublanes of (32, 128)). Bound on an H100 by bytes, as lane_gather_rows.
+// Design: kShfl gives a warp four columns of a tile with a lane per row
+// (one __shfl_sync an output; the loads are a row apart, 4 B of each 32 B
+// sector per load, the rest from L1); kSmem stages the tile's 16 KiB in
+// shared memory (coalesced) and reads row idx of the same column; kLocal
+// gives a thread a column whose 32 words sit in a run-time-indexed array.
+template <int kRoute>
+__global__ void __launch_bounds__(kThreads)
+    lane_gather_cols(const uint32_t* __restrict__ x, const int* __restrict__ idx, int n_tiles,
+                     uint32_t* __restrict__ out) {
+  if constexpr (kRoute == kShfl) {
+    const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    const int t = gw >> 5, g = gw & 31;  // tile, group of four columns
+    if (t >= n_tiles) return;  // the whole warp
+    const long long row = static_cast<long long>(t) * kTileRows + lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long at = row * kWidth + 4 * g + q;
+      const uint32_t v = x[at];
+      out[at] = __shfl_sync(kFull, v, idx[at] & 31);
+    }
+  } else if constexpr (kRoute == kSmem) {
+    __shared__ uint32_t tilebuf[kTileLanes];
+    const long long t0 = static_cast<long long>(blockIdx.x) * kTileLanes;
+    for (int i = threadIdx.x; i < kTileLanes; i += kThreads) tilebuf[i] = x[t0 + i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTileLanes; i += kThreads) {
+      out[t0 + i] = tilebuf[(idx[t0 + i] & 31) * kWidth + (i & (kWidth - 1))];
+    }
+  } else {
+    const long long t0 = static_cast<long long>(blockIdx.x) * kTileLanes;
+    const int c = threadIdx.x;  // a thread per column
+    uint32_t v[kTileRows];
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i) v[i] = x[t0 + i * kWidth + c];
+    for (int r = 0; r < kTileRows; ++r) {
+      const long long at = t0 + r * kWidth + c;
+      out[at] = v[idx[at] & 31];
+    }
+  }
+}
+
+// The word of output o of a scratch read: read_idx[o / width] + o % width.
+__device__ __forceinline__ int read_offset(const int* __restrict__ read_idx, long long o,
+                                           int width) {
+  if (width == 1) return read_idx[o];
+  const long long m = o / width;
+  return read_idx[m] + static_cast<int>(o - m * width);
+}
+
+// smem_rw_shared: per scratch b, its `words` words of base, then write k of
+// n_writes (in k order) puts vals[k, w] at (write_idx[k] + w) mod words for
+// w < write_width, then out[b, m, w] = scratch[(read_idx[m] + w) mod words].
+//
+// Replaces benchmarks/probe_place.py:72 (p2: four scalars written to an
+// SMEM scratch at dynamic indices and read back at others),
+// benchmarks/probe_mosaic.py:83 (one value at a traced index), :104 (an
+// (8, 128) slice at a traced row), :231 (a row stored at a traced leading
+// index) and :251 (a row read at one). Bound on an H100 by bytes (the
+// scratches in, the reads out); shared memory serves 32 banks of 4 B a
+// clock, so 32 lanes reading one bank at 32 addresses take 32 clocks.
+// Design: one block per scratch, staged coalesced; each write is a round
+// of threads over its words and a __syncthreads, so a later write wins
+// where two overlap, as in the probe's program order; the reads are spread
+// over the block, consecutive outputs on consecutive threads.
+__global__ void __launch_bounds__(kThreads)
+    smem_rw_shared(const uint32_t* __restrict__ base, int words,
+                   const uint32_t* __restrict__ vals, const int* __restrict__ write_idx,
+                   int n_writes, int write_width, const int* __restrict__ read_idx,
+                   int n_reads, int read_width, uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t scratch[];  // words
+  const long long b = blockIdx.x;
+  const uint32_t* src = base + b * words;
+  for (int i = threadIdx.x; i < words; i += kThreads) scratch[i] = src[i];
+  __syncthreads();
+  for (int k = 0; k < n_writes; ++k) {
+    for (int w = threadIdx.x; w < write_width; w += kThreads) {
+      scratch[floor_mod(write_idx[k] + w, words)] =
+          vals[static_cast<long long>(k) * write_width + w];
+    }
+    __syncthreads();
+  }
+  const long long total = static_cast<long long>(n_reads) * read_width;
+  uint32_t* dst = out + b * total;
+  for (long long o = threadIdx.x; o < total; o += kThreads) {
+    dst[o] = scratch[floor_mod(read_offset(read_idx, o, read_width), words)];
+  }
+}
+
+// smem_rw_shfl<kRegs>: smem_rw_shared's function with each scratch of
+// 32 kRegs words held in one warp's registers: word a in lane a & 31,
+// register a >> 5.
+//
+// Replaces the same pallas_calls as smem_rw_shared where the scratch fits
+// (probe_place.py:72's 128 words). Bound as smem_rw_shared, but each read
+// costs kRegs shuffles and a select, and each write word a compare over
+// the kRegs registers of its owning lane. Design: the warp walks the writes
+// in order (every lane sees every write, so a later one wins), then reads
+// 32 outputs a step, each lane shuffling every register from the lane
+// that owns its word and keeping register a >> 5.
+template <int kRegs>
+__global__ void __launch_bounds__(kThreads)
+    smem_rw_shfl(const uint32_t* __restrict__ base, int batch,
+                 const uint32_t* __restrict__ vals, const int* __restrict__ write_idx,
+                 int n_writes, int write_width, const int* __restrict__ read_idx, int n_reads,
+                 int read_width, uint32_t* __restrict__ out) {
+  constexpr int kWords = 32 * kRegs;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (b >= batch) return;  // the whole warp
+  const uint32_t* src = base + b * kWords;
+  uint32_t reg[kRegs];
+#pragma unroll
+  for (int q = 0; q < kRegs; ++q) reg[q] = src[lane + 32 * q];
+  for (int k = 0; k < n_writes; ++k) {
+    for (int w = 0; w < write_width; ++w) {
+      const int a = floor_mod(write_idx[k] + w, kWords);
+      const uint32_t val = vals[static_cast<long long>(k) * write_width + w];
+      if ((a & 31) == lane) {
+#pragma unroll
+        for (int q = 0; q < kRegs; ++q) reg[q] = q == (a >> 5) ? val : reg[q];
+      }
+    }
+  }
+  const long long total = static_cast<long long>(n_reads) * read_width;
+  uint32_t* dst = out + b * total;
+  for (long long o0 = 0; o0 < total; o0 += 32) {
+    const long long o = o0 + lane;
+    const bool live = o < total;
+    const int a = live ? floor_mod(read_offset(read_idx, o, read_width), kWords) : 0;
+    uint32_t g = 0;
+#pragma unroll
+    for (int q = 0; q < kRegs; ++q) {
+      const uint32_t t = __shfl_sync(kFull, reg[q], a & 31);
+      g = q == (a >> 5) ? t : g;
+    }
+    if (live) dst[o] = g;
+  }
+}
+
+// row_sort: each row of 128 floats through probe_place.py p3's bitonic
+// network (:88-99): for k = 2, 4, ..., 128 and j = k / 2, ..., 1, lane L
+// pairs with L ^ j; the pair is put in ascending order where L & k is 0
+// and in descending order elsewhere.
+//
+// Replaces benchmarks/probe_place.py:104. Bound on an H100 by bytes (a key
+// read and written once; the network's 28 compare-exchange stages are 28
+// min/max a key, a sixth of the byte time at the FP32 rate). The compare
+// form: the pair's lower-lane value lo and higher-lane value hi swap when
+// hi < lo (ascending) or lo < hi (descending), and both lanes of a pair
+// take the same decision, so every stage permutes its row: NaN never
+// swaps, and -0.0 and +0.0 compare equal and keep their places (the
+// probe's jnp.minimum / jnp.maximum would spread NaN, and its min and max
+// of two zeros depend on their order; the twin uses this form). Design: a
+// warp per row, four keys a lane (lanes t, t + 32, t + 64, t + 96); a
+// partner closer than 32 lanes comes by __shfl_xor_sync, a farther one is
+// the lane's own register q ^ (j >> 5). The network unrolls fully.
+__global__ void __launch_bounds__(kThreads)
+    row_sort(const float* __restrict__ x, int rows, float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (r >= rows) return;  // the whole warp
+  float v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = x[r * kWidth + lane + 32 * q];
+#pragma unroll
+  for (int ks = 1; ks <= 7; ++ks) {
+    const int k = 1 << ks;
+#pragma unroll
+    for (int js = ks - 1; js >= 0; --js) {
+      const int j = 1 << js;
+      float nv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int l = lane + 32 * q;
+        const float pv = j >= 32 ? v[q ^ (j >> 5)] : __shfl_xor_sync(kFull, v[q], j);
+        const bool lower = (l & j) == 0;
+        const float lo = lower ? v[q] : pv;
+        const float hi = lower ? pv : v[q];
+        const bool swap = (l & k) == 0 ? (hi < lo) : (lo < hi);
+        nv[q] = swap ? pv : v[q];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = nv[q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) out[r * kWidth + lane + 32 * q] = v[q];
+}
+
+// lane_scan: out[r, c] = x[r, 0] + ... + x[r, c], as a warp computes it:
+// lane t holds lanes 4t..4t+3 and sums them in order (s0 = a0, s1 = s0 +
+// a1, ...); the lanes' totals are scanned by shuffles (Kogge-Stone, offsets
+// 1, 2, 4, 8, 16: a lane at or past the offset adds the total from that
+// many lanes down); lane t > 0 then adds the inclusive total of lane t - 1
+// to each of its four sums.
+//
+// Replaces benchmarks/probe_mosaic.py:213 (jnp.cumsum along the lanes of
+// (32, 128)). Bound on an H100 by bytes (each value read and written once).
+// Design: a warp per row, one 16-byte load and store a lane, five shuffles
+// and an add each for the scan; on 0/1 values every sum is an exact
+// integer, so any order gives np.cumsum's bits.
+__global__ void __launch_bounds__(kThreads)
+    lane_scan(const float4* __restrict__ x, int rows, float4* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (r >= rows) return;  // the whole warp
+  const float4 a = x[r * (kWidth / 4) + lane];
+  const float s0 = a.x;
+  const float s1 = s0 + a.y;
+  const float s2 = s1 + a.z;
+  const float s3 = s2 + a.w;
+  float incl = s3;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl = incl + y;
+  }
+  const float pre = __shfl_up_sync(kFull, incl, 1);
+  float4 o;
+  if (lane == 0) {
+    o = make_float4(s0, s1, s2, s3);
+  } else {
+    o = make_float4(pre + s0, pre + s1, pre + s2, pre + s3);
+  }
+  out[r * (kWidth / 4) + lane] = o;
+}
+
+unsigned blocks_for(long long items, int per_block) {
+  return static_cast<unsigned>((items + per_block - 1) / per_block);
+}
+
+cudaError_t allow_shared(const void* fn, int bytes) {
+  if (bytes <= kDefaultSharedBytes) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every function launches on `stream` (a cudaStream_t), takes device
+// pointers to contiguous arrays of 32-bit words (float32 or int32; int32
+// for indices), and returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for a shape or route it does not take.
+
+// tab [table_rows, 128] f32, idx [n_tiles * 32, 128] i32 -> out, the same
+// shape f32; route 0 global, 1 shared (span_rows <= 453), 2 arith.
+int wrt_table_gather(const float* tab, int table_rows, const int* idx, int n_tiles,
+                     int span_rows, int n_fetch, int route, float* out, void* stream) {
+  const int max_span = (kMaxSharedBytes - kGatherThreads / 32 * 4) / (kWidth * 4);
+  if (table_rows <= 0 || n_tiles <= 0 || span_rows <= 0 || span_rows > INT_MAX / kWidth ||
+      n_fetch < 0 || route < kGlobal || route > kArith ||
+      (route == kShared && span_rows > max_span)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kGlobal) {
+    table_gather<kGlobal><<<n_tiles, kGatherThreads, 0, s>>>(tab, table_rows, idx, span_rows,
+                                                             n_fetch, out);
+  } else if (route == kShared) {
+    const int smem = span_rows * kWidth * 4;
+    const cudaError_t err = allow_shared(reinterpret_cast<const void*>(table_gather<kShared>),
+                                         smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    table_gather<kShared><<<n_tiles, kGatherThreads, smem, s>>>(tab, table_rows, idx,
+                                                                span_rows, n_fetch, out);
+  } else {
+    table_gather<kArith><<<n_tiles, kGatherThreads, 0, s>>>(tab, table_rows, idx, span_rows,
+                                                            n_fetch, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// axis 1: out [out_rows, 128] from x [x_rows, 128] by idx [out_rows, 128]
+// or shift [out_rows] (one of the two), rows [out_rows] or null; axis 0:
+// x, idx and out [x_rows, 128], x_rows a multiple of 32, shift and rows
+// null. route 0 shfl, 1 smem, 2 local.
+int wrt_lane_gather(const uint32_t* x, int x_rows, const int* idx, const int* shift,
+                    const int* rows, int out_rows, int axis, int route, uint32_t* out,
+                    void* stream) {
+  if (x_rows <= 0 || out_rows <= 0 || route < kShfl || route > kLocal || axis < 0 || axis > 1 ||
+      (idx == nullptr) == (shift == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (axis == 1) {
+    if (route == kShfl) {
+      lane_gather_rows<kShfl><<<blocks_for(out_rows, kWarps), kThreads, 0, s>>>(
+          x, x_rows, idx, shift, rows, out_rows, out);
+    } else if (route == kSmem) {
+      lane_gather_rows<kSmem><<<blocks_for(out_rows, kWarps), kThreads, 0, s>>>(
+          x, x_rows, idx, shift, rows, out_rows, out);
+    } else {
+      lane_gather_rows<kLocal><<<blocks_for(out_rows, kThreads), kThreads, 0, s>>>(
+          x, x_rows, idx, shift, rows, out_rows, out);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (idx == nullptr || rows != nullptr || out_rows != x_rows || x_rows % kTileRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = x_rows / kTileRows;
+  if (route == kShfl) {
+    lane_gather_cols<kShfl><<<blocks_for(static_cast<long long>(n_tiles) * 32, kWarps),
+                              kThreads, 0, s>>>(x, idx, n_tiles, out);
+  } else if (route == kSmem) {
+    lane_gather_cols<kSmem><<<n_tiles, kThreads, 0, s>>>(x, idx, n_tiles, out);
+  } else {
+    lane_gather_cols<kLocal><<<n_tiles, kLocalColThreads, 0, s>>>(x, idx, n_tiles, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// base [batch, words] -> out [batch, n_reads, read_width]; vals
+// [n_writes, write_width] and write_idx [n_writes] (null when n_writes is
+// 0), write_width <= words; read_idx [n_reads]. route 0 shfl (words 32,
+// 64, ..., 1024), 1 smem (words * 4 <= 232,448).
+int wrt_smem_rw(const uint32_t* base, int batch, int words, const uint32_t* vals,
+                const int* write_idx, int n_writes, int write_width, const int* read_idx,
+                int n_reads, int read_width, int route, uint32_t* out, void* stream) {
+  if (batch <= 0 || words <= 0 || n_writes < 0 || write_width <= 0 || write_width > words ||
+      n_reads <= 0 || read_width <= 0 || route < kShfl || route > kSmem ||
+      (n_writes > 0 && (vals == nullptr || write_idx == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kSmem) {
+    if (words > kMaxSharedBytes / 4) return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = words * 4;
+    const cudaError_t err = allow_shared(reinterpret_cast<const void*>(smem_rw_shared), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_rw_shared<<<batch, kThreads, smem, s>>>(base, words, vals, write_idx, n_writes,
+                                                 write_width, read_idx, n_reads, read_width,
+                                                 out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const unsigned blocks = blocks_for(batch, kWarps);
+#define WRT_SMEM_RW_SHFL(R)                                                                 \
+  smem_rw_shfl<R><<<blocks, kThreads, 0, s>>>(base, batch, vals, write_idx, n_writes,      \
+                                             write_width, read_idx, n_reads, read_width, out)
+  switch (words) {
+    case 32: WRT_SMEM_RW_SHFL(1); break;
+    case 64: WRT_SMEM_RW_SHFL(2); break;
+    case 128: WRT_SMEM_RW_SHFL(4); break;
+    case 256: WRT_SMEM_RW_SHFL(8); break;
+    case 512: WRT_SMEM_RW_SHFL(16); break;
+    case 1024: WRT_SMEM_RW_SHFL(32); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef WRT_SMEM_RW_SHFL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x and out [rows, 128] f32.
+int wrt_row_sort(const float* x, int rows, float* out, void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  row_sort<<<blocks_for(rows, kWarps), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, rows, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x and out [rows, 128] f32, 16-byte aligned.
+int wrt_lane_scan(const float* x, int rows, float* out, void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  lane_scan<<<blocks_for(rows, kWarps), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), rows, reinterpret_cast<float4*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, local-memory bytes a thread and static shared bytes
+// of kernel `which` (ops/cuda/access.py KERNEL_NAMES).
+int wrt_access_attributes(int which, int* num_regs, int* local_bytes, int* shared_bytes) {
+  const void* fns[] = {
+      reinterpret_cast<const void*>(table_gather<kGlobal>),
+      reinterpret_cast<const void*>(table_gather<kShared>),
+      reinterpret_cast<const void*>(table_gather<kArith>),
+      reinterpret_cast<const void*>(lane_gather_rows<kShfl>),
+      reinterpret_cast<const void*>(lane_gather_rows<kSmem>),
+      reinterpret_cast<const void*>(lane_gather_rows<kLocal>),
+      reinterpret_cast<const void*>(lane_gather_cols<kShfl>),
+      reinterpret_cast<const void*>(lane_gather_cols<kSmem>),
+      reinterpret_cast<const void*>(lane_gather_cols<kLocal>),
+      reinterpret_cast<const void*>(smem_rw_shfl<1>),
+      reinterpret_cast<const void*>(smem_rw_shfl<2>),
+      reinterpret_cast<const void*>(smem_rw_shfl<4>),
+      reinterpret_cast<const void*>(smem_rw_shfl<8>),
+      reinterpret_cast<const void*>(smem_rw_shfl<16>),
+      reinterpret_cast<const void*>(smem_rw_shfl<32>),
+      reinterpret_cast<const void*>(smem_rw_shared),
+      reinterpret_cast<const void*>(row_sort),
+      reinterpret_cast<const void*>(lane_scan),
+  };
+  if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0]))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *num_regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *shared_bytes = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
+}
+
+}  // extern "C"

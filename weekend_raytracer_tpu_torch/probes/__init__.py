@@ -4,6 +4,9 @@ scripts, asked of the port's own kernels on the card.
     python -m weekend_raytracer_tpu_torch.probes.dma [name ...]
     python -m weekend_raytracer_tpu_torch.probes.binned [cut] [rtiow|random10k] [quick] [dump]
     python -m weekend_raytracer_tpu_torch.probes.mxu_sweep [p1 ... p8c16 fill]
+    python -m weekend_raytracer_tpu_torch.probes.gather_cost [gather_cost texture]
+    python -m weekend_raytracer_tpu_torch.probes.place [p1 p2 p3 p4]
+    python -m weekend_raytracer_tpu_torch.probes.mosaic [take_along_sublane ...]
 """
 from __future__ import annotations
 
@@ -20,6 +23,12 @@ HBM_RATE = 3.35e12  # bytes per second
 # cd 5, co2 8, bq 1, cq 2, bq^2 - cq 2, sqrt 1, t0 and t1 2); compares and
 # selects are not counted
 SPHERE_TEST_OPS = 21
+# shared memory (and L1) serve 32 banks of 4 B, 128 B a clock an SM
+SMEM_BYTES_PER_CLOCK = 128
+# an H100 SXM's SMs and maximum SM clock (NVIDIA's published figures), the
+# shared-memory rate's factors where no card is present to read them from
+H100_SMS = 132
+H100_MAX_SM_MHZ = 1980
 
 
 def card() -> str:
@@ -34,6 +43,20 @@ def card() -> str:
         return out.strip().splitlines()[0].strip()
     except (OSError, subprocess.SubprocessError, IndexError):
         return torch.cuda.get_device_name(0)
+
+
+def check(ok: bool, what) -> None:
+    """Raise AssertionError("WRONG: what") unless ``ok``."""
+    if not ok:
+        raise AssertionError(f"WRONG: {what}")
+
+
+def sync(device) -> None:
+    """Wait for the card, where ``device`` is one."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def same_bits(a, b) -> bool:
@@ -71,3 +94,61 @@ def time_mean(fn, reps: int, device) -> float:
 
     fn()
     return time_call(calls, device)[1] / reps
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def smem_rate(device) -> dict:
+    """Shared-memory bytes per second: SMEM_BYTES_PER_CLOCK x SMs x the
+    maximum SM clock, read from the card (``multi_processor_count``,
+    nvidia-smi's clocks.max.sm); off the card, the H100 SXM's published
+    figures."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        mhz = max_sm_clock_mhz()
+    else:
+        sms, mhz = H100_SMS, H100_MAX_SM_MHZ
+    return {"sms": sms, "max_sm_mhz": mhz,
+            "bytes_per_s": SMEM_BYTES_PER_CLOCK * sms * mhz * 1e6}
+
+
+def device_times(fns: dict, reps: int, device):
+    """{label: mean device milliseconds of one call} for each function of
+    ``fns``, each of which launches one kernel: each is called ``reps``
+    times under its own utils.metrics.profiler_trace, and its time is the
+    mean of the device events the profiler records there (as chip_smoke's
+    [trace] reads them). A trace can miss a few of its events (one did
+    after earlier traces in the same process), so the mean is over those
+    it has; it must have one. None off the card."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from ..utils.metrics import profiler_trace
+
+    if torch.device(device).type != "cuda":
+        return None
+    out = {}
+    for label, fn in fns.items():
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as log_dir:
+            with profiler_trace(log_dir) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            us = [e.self_device_time_total for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if not us or len(us) > reps:
+            raise AssertionError(f"{label}: the profiler saw {len(us)} device events of "
+                                 f"{reps} calls")
+        out[label] = sum(us) / len(us) / 1e3
+    return out

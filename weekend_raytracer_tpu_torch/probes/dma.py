@@ -34,21 +34,11 @@ import numpy as np
 import torch
 
 from ..ops.cuda import reorder as ro
-from . import HBM_RATE, card, same_bits, time_mean
+from . import HBM_RATE, card, check, same_bits, sync, time_mean
 
 _F32 = torch.float32
 _I32 = torch.int32
 RATE_PROBE = dict(records=64800, comps=11, width=128, reps=10)  # probe_dma.py:171, 216
-
-
-def _check(ok: bool, what) -> None:
-    if not ok:
-        raise AssertionError(f"WRONG: {what}")
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
 
 
 def probe_inputs(name: str, device="cuda"):
@@ -84,10 +74,10 @@ def _gather_probe(name: str, what: str) -> dict:
         tab, idx, _ = probe_inputs(name, device)
         out = ro.record_gather(tab, idx)
         plain = ro.gather_plain(tab, idx, torch.empty_like(out))
-        _sync(device)
+        sync(device)
         expect = torch.from_numpy(tab.cpu().numpy()[idx.cpu().numpy()])
-        _check(same_bits(out.cpu(), expect), what)
-        _check(same_bits(out, plain), (what, "kernel against its twin"))
+        check(same_bits(out.cpu(), expect), what)
+        check(same_bits(out, plain), (what, "kernel against its twin"))
         return {"message": f"{what} works", "shape": list(out.shape), "max_abs_err": 0.0}
 
     run.__doc__ = f"{what} at the TPU probe's shape and indices (probe_inputs)."
@@ -106,14 +96,14 @@ def probe_scatter_dma(device="cuda") -> dict:
     src, idx, held = probe_inputs("scatter_dma", device)
     out = ro.record_scatter(src, idx, held.clone())
     plain = ro.scatter_plain(src, idx, held.clone())
-    _sync(device)
+    sync(device)
     named = np.zeros(held.shape[0], bool)
     named[idx.cpu().numpy()] = True
     host = out.cpu()
-    _check(all(same_bits(host[int(i)], src[j].cpu()) for j, i in enumerate(idx.tolist())),
+    check(all(same_bits(host[int(i)], src[j].cpu()) for j, i in enumerate(idx.tolist())),
            "record scatter")
-    _check(bool((host[torch.from_numpy(~named)] == -7.0).all()), "records not named changed")
-    _check(same_bits(out, plain), ("record scatter", "kernel against its twin"))
+    check(bool((host[torch.from_numpy(~named)] == -7.0).all()), "records not named changed")
+    check(same_bits(out, plain), ("record scatter", "kernel against its twin"))
     return {"message": "record scatter works", "shape": list(out.shape), "max_abs_err": 0.0}
 
 
@@ -150,9 +140,9 @@ def probe_dma_rate(device="cuda", reps: int = RATE_PROBE["reps"]) -> dict:
     pool, perm = rate_inputs(device)
     out = ro.dma_rate(pool, perm)
     plain = ro.dma_rate_plain(pool, perm)
-    _sync(device)
-    _check(same_bits(out, plain), ("dma_rate", "kernel against its twin"))
-    _check(bool((out == float(ro.RATE_RECORDS * RATE_PROBE["width"])).all()), "dma_rate sums")
+    sync(device)
+    check(same_bits(out, plain), ("dma_rate", "kernel against its twin"))
+    check(bool((out == float(ro.RATE_RECORDS * RATE_PROBE["width"])).all()), "dma_rate sums")
     ms = time_mean(lambda: ro.dma_rate(pool, perm, out), reps, device)
     library_ms = time_mean(lambda: rate_library(pool, perm), reps, device)
     bound = rate_bound(pool, perm)
@@ -178,7 +168,7 @@ def probe_index_select_bw(device="cuda", reps: int = 5) -> dict:
         lib = time_mean(lambda: src.index_select(0, idx_long), reps, device)
         dst = torch.empty_like(src)
         kern = time_mean(lambda: ro.record_gather(src, idx, dst), reps, device)
-        _check(torch.equal(dst, src.index_select(0, idx_long)), ("record_gather", rows))
+        check(torch.equal(dst, src.index_select(0, idx_long)), ("record_gather", rows))
         out[f"{rows}x{row_elems}"] = {"index_select_gb_per_s": gb / lib * 1e3,
                                       "record_gather_gb_per_s": gb / kern * 1e3,
                                       "index_select_ms": lib, "record_gather_ms": kern}

@@ -50,8 +50,8 @@ import numpy as np
 import torch
 
 from ..ops.cuda import sweep as sw
-from . import (FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS, TF32_PEAK, card, same_bits, time_call,
-               time_mean)
+from . import (FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS, TF32_PEAK, card, check, same_bits, sync,
+               time_call, time_mean)
 
 _F32 = torch.float32
 # what sweep_mma leaves on the FP32 units per pair (b, cq, b^2, - cq, sqrt,
@@ -80,16 +80,6 @@ T_EPS = 16 * 2.0 ** -24  # each term's rounding in t_tolerance: FMA contraction
 # moves a sum by a unit or two, 3xTF32's split by 3 * 2^-22 of a product
 CHAIN_RTOL = 5e-5  # 256 steps, each rounded once (FMA) or twice: 256 * 3 * 2^-24
 DOT_TOL = 2.0 ** -18  # of sum_k |a_k| |b_k|: the tensor cores' order of the 8 sums
-
-
-def _check(ok: bool, what) -> None:
-    if not ok:
-        raise AssertionError(f"WRONG: {what}")
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
 
 
 def _dev(x, device) -> torch.Tensor:
@@ -163,7 +153,7 @@ def fill_inputs(device, rays: int = FILL["rays"]):
     from .binned import scene_inputs
 
     inp, _ = scene_inputs(FILL["scene"], 64, 36, device)
-    _check(inp.chunk_size == FILL["cs"] and inp.sweep.shape[0] % FILL["cs"] == 0,
+    check(inp.chunk_size == FILL["cs"] and inp.sweep.shape[0] % FILL["cs"] == 0,
            ("RTiOW's chunks", inp.chunk_size, tuple(inp.sweep.shape)))
     table = inp.sweep.contiguous()
     _, _, o, d = scene(table.shape[0], rays)
@@ -257,7 +247,7 @@ def hold_sweep(got, want, table: torch.Tensor, rays: torch.Tensor, what,
     out = {"hit_share": float(hit_t.float().mean()), "mask_agree": mask, "idx_agree": idx,
            "t_agree": t_ok, "t_isclose_1e-5": rel_1e5, "max_abs_err": max_abs_err,
            "p999_abs_err": p999, "parted": float(parted.float().mean())}
-    _check(out["parted"] <= wrong_share, (what, wrong_share, out))
+    check(out["parted"] <= wrong_share, (what, wrong_share, out))
     return out
 
 
@@ -277,7 +267,7 @@ def _sweep_case(kernel, plain, bound: dict, pairs: int, table, rays, reps: int, 
     time beside the bound, Gtest/s, and the twin's time."""
     got = kernel()
     want, plain_ms = time_call(plain, device)
-    _sync(device)
+    sync(device)
     held = hold_sweep(got, want, table, rays, what, wrong_share)
     ms = time_mean(kernel, reps, device)
     return {"result": got, "ms": ms, "plain_ms": plain_ms, "gtest_per_s": pairs / ms / 1e6,
@@ -293,9 +283,9 @@ def _public(case: dict) -> dict:
 def _remap_case(x, reverse, affine, expect, library, reps, device) -> dict:
     out = sw.layout_remap(x, reverse, affine)
     plain = sw.remap_plain(x, reverse, affine)
-    _sync(device)
-    _check(same_bits(out.cpu(), expect), ("layout_remap against the probe", tuple(x.shape)))
-    _check(same_bits(out, plain), ("layout_remap against its twin", tuple(x.shape)))
+    sync(device)
+    check(same_bits(out.cpu(), expect), ("layout_remap against the probe", tuple(x.shape)))
+    check(same_bits(out, plain), ("layout_remap against its twin", tuple(x.shape)))
     return {"ms": time_mean(lambda: sw.layout_remap(x, reverse, affine), reps, device),
             "plain_ms": time_mean(lambda: sw.remap_plain(x, reverse, affine), 2, device),
             "library_ms": time_mean(library, reps, device), "max_abs_err": 0.0,
@@ -378,13 +368,13 @@ def p3(device="cuda", reps: int = 20) -> dict:
     for prec in sw.PRECISIONS:
         got = sw.dot_mma(a, b, prec)
         plain, plain_ms = time_call(lambda: sw.dot_plain(a, b, prec), device)
-        _sync(device)
+        sync(device)
         host = got.cpu()
         if prec == "fp32":
-            _check(same_bits(host, torch.from_numpy(ref)), "dot_mma fp32 against the reference")
-            _check(same_bits(got, plain), "dot_mma fp32 against its twin")
+            check(same_bits(host, torch.from_numpy(ref)), "dot_mma fp32 against the reference")
+            check(same_bits(got, plain), "dot_mma fp32 against its twin")
         diff = (host - plain.cpu()).abs()
-        _check(bool((diff <= DOT_TOL * mag).all()), ("dot_mma against its twin", prec,
+        check(bool((diff <= DOT_TOL * mag).all()), ("dot_mma against its twin", prec,
                                                     float((diff / mag.clamp_min(1e-30)).max())))
         err = (host - torch.from_numpy(ref)).abs()
         rel = err / torch.from_numpy(np.abs(ref)).clamp_min(1e-6)
@@ -418,9 +408,9 @@ def p4(device="cuda", big: int = BIG, reps: int = 20, steps: int = 256) -> dict:
         row = {"plain_ms": plain_ms}
         for chains in (1, 4):
             got = sw.layout_chain(x, steps, chains)
-            _sync(device)
+            sync(device)
             err = float(((got - plain).abs() / plain.abs()).max())
-            _check(err <= CHAIN_RTOL, ("layout_chain against its twin", shape, chains, err))
+            check(err <= CHAIN_RTOL, ("layout_chain against its twin", shape, chains, err))
             ms = time_mean(lambda: sw.layout_chain(x, steps, chains), reps, device)
             ops = 2 * steps * x.numel()
             row[f"chains{chains}"] = {"ms": ms, "tops": ops / ms / 1e9, "max_rel_err": err,
@@ -639,13 +629,13 @@ def fill(device="cuda", rays: int = FILL["rays"], reps: int = FILL["reps"]) -> d
         plain[prec], plain_ms[prec] = time_call(
             lambda: sw.sweep_plain(table if prec == "fma" else amats, planes, prec), device)
     control = tile_control(plain["fma"][1], n)
-    _check(control > FILL_WRONG_SHARE, ("the fill gate cannot see a lost tile", control))
+    check(control > FILL_WRONG_SHARE, ("the fill gate cannot see a lost tile", control))
     out = {"rays": rays, "spheres": n, "pairs": pairs, "wrong_share": FILL_WRONG_SHARE,
            "control": control}
     for name, fn in kernels.items():
         prec = "fma" if name.startswith("fma") else name.split("_")[1]
         got = fn()
-        _sync(device)
+        sync(device)
         held = hold_sweep(got, plain[prec], table, planes, f"fill {name}", FILL_WRONG_SHARE)
         bound = (fma_bound(n, rays, iters) if prec == "fma"
                  else mma_bound(n, rays, iters, prec, False))
@@ -671,7 +661,7 @@ def window(device="cuda", rays: int = WINDOW["rays"]) -> dict:
     for prec in ("tf32", "3xtf32"):
         got = sw.sweep_mma(amats, planes, prec)
         want = sw.sweep_plain(amats, planes, prec)
-        _sync(device)
+        sync(device)
         out[prec] = hold_sweep(got, want, table, planes, f"window sweep_mma {prec}")
     out["message"] = "; ".join(
         f"{p}: {s} spheres x {rays} rays, mask/idx/t agree {v['mask_agree']:.4f}/"
@@ -708,7 +698,7 @@ def warm_up(seconds: float = 1.0, device="cuda") -> None:
     while time.perf_counter() - t0 < seconds:
         for _ in range(20):
             sw.layout_chain(x, 256, 4)
-        _sync(device)
+        sync(device)
 
 
 def run(name, fn, device="cuda", **kw) -> bool:
