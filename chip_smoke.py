@@ -136,6 +136,12 @@ _STATS_MK = (("rtiow", 1920, 1080), ("random10k", 3840, 2160))
 _STATS_MK_RUN = dict(spp=4, bounces=8, frame=1)
 _STATS_K1 = dict(width=1920, height=1080, spp=32, bounces=8, frame=0)
 SLAB_TEST_OPS = 12  # per chunk or super-chunk box: 6 subtractions, 6 products
+# the [cull] phase: scene, width, height, spp, frames of regroup (K0 and K1
+# culled per warp) against the unculled wavefront; and the rows of the
+# frame whose rays rg.cull_census counts (None: all; random10k: the middle
+# row of tiles, since the twins' sweep of 10,016 spheres over 33M rays
+# would take minutes)
+_CULL_CASES = (("rtiow", 1920, 1080, 32, 2, None), ("random10k", 3840, 2160, 4, 1, 32))
 RECORD_BYTES = 64  # a pool record: 16 f32 components
 WF_COMPONENTS = 15  # a wavefront row holds 15 components of 128 f32 lanes
 ROW_PLANE_BYTES = 128 * 4  # one component of one wavefront row
@@ -659,12 +665,34 @@ def _k1_ms(rg, inp, dense, counts, t, frame, b_lo, b_hi, stats: bool, reps: int,
     return total / reps
 
 
-def _trace_frame(run, log_dir) -> dict:
-    """One frame, ``run(on_stage)``, under profiler_trace, with CUDA-event
-    stage times beside it: each kernel's device time as the profiler's
-    key_averages() report it, and how many device events it recorded."""
+def _frame_kernels(kind: str) -> dict:
+    """The CUDA kernels of the port that one frame with cuts _CUTS launches,
+    by name: a PACK or a COMPACT is three kernels (count, scan, scatter)."""
+    n = len(_CUTS)
+    if kind == "regroup":
+        return {"regroup_k0": 1, "pack_count": n, "pack_scan": n, "pack_scatter": n,
+                "regroup_k1": n, "combine_level": n - 1, "combine_home": 1}
+    return {"wavefront_k0": 1, "compact_count": n, "compact_scan": n, "compact_scatter": n,
+            "wavefront_k1": n}
+
+
+def _kernel_name(key: str) -> str:
+    """A kernel's function name in a profiler event's demangled name."""
     import re
 
+    m = re.search(r"(\w+)(<[^(]*>)?\(", key)
+    return m.group(1) if m else key[:40]
+
+
+def _trace_frame(run, log_dir, expect: dict) -> dict:
+    """One frame, ``run(on_stage)``, under profiler_trace, with CUDA-event
+    stage times beside it: each kernel's device time as the profiler's
+    key_averages() report it, and how many device events it recorded. The
+    port's kernels among those events are held against ``expect`` (the
+    frame's launches, by kernel name): the profiler can drop device events,
+    so the idle share (1 - kernel ms / stage ms) is given only when none of
+    the frame's kernels is missing, and ``missing_events`` says how many
+    are."""
     from torch.autograd import DeviceType
 
     from weekend_raytracer_tpu_torch.utils.metrics import profiler_trace
@@ -674,18 +702,112 @@ def _trace_frame(run, log_dir) -> dict:
     with profiler_trace(log_dir) as prof:
         stages = _stage_ms(run)
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seen = {}
+    for e in device_events:
+        name = _kernel_name(e.name)
+        if name in expect:
+            seen[name] = seen.get(name, 0) + 1
+    missing = sum(max(0, n - seen.get(name, 0)) for name, n in expect.items())
     kernels = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us and e.device_type == DeviceType.CUDA:
-            m = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
-            name = m.group(1) if m else e.key[:40]
+            name = _kernel_name(e.key)
             kernels[name] = kernels.get(name, 0.0) + us / 1e3
-    return {"device_events": len(device_events), "kernel_ms": kernels,
-            "kernel_total_ms": sum(kernels.values()), "stages_ms": stages,
-            "stage_total_ms": sum(stages.values())}
+    kernel_total, stage_total = sum(kernels.values()), sum(stages.values())
+    return {"device_events": len(device_events), "frame_kernels": sum(expect.values()),
+            "recorded_frame_kernels": seen, "missing_events": missing, "kernel_ms": kernels,
+            "kernel_total_ms": kernel_total, "stages_ms": stages,
+            "stage_total_ms": stage_total,
+            "idle_share": None if missing else 1.0 - kernel_total / stage_total}
+
+
+def _trace_fields(tr: dict) -> dict:
+    """The [trace] line's account of the events: the idle share where every
+    kernel of the frame was recorded, else how many events are missing."""
+    out = {"device_events": tr["device_events"], "frame_kernels": tr["frame_kernels"]}
+    if tr["missing_events"]:
+        out["missing_events"] = tr["missing_events"]
+        out["idle_share"] = "not given: the profiler dropped events"
+    else:
+        out["idle_share"] = f"{tr['idle_share']:.4f}"
+    return out
+
+
+def _census_lines(census) -> dict:
+    """Per kernel of the frame and per bounce: live segments, and sphere
+    tests (the priors' apart) and box tests per live segment under the
+    per-warp cull."""
+    out = {}
+    for (b_lo, b_hi), counts in census:
+        key = "k0" if b_lo == 0 else f"k1[{b_lo},{b_hi})"
+        out[key] = {str(b): [c.live, round(c.sphere_tests / max(c.live, 1), 2),
+                             round(c.prior_tests / max(c.live, 1), 2),
+                             round(c.box_tests / max(c.live, 1), 2)]
+                    for b, c in zip(range(b_lo, b_hi), counts)}
+    return out
+
+
+def _per_segment(spans) -> float:
+    """Sphere tests per live segment (the priors' included) over spans of
+    a census."""
+    live = sum(c.live for _, counts in spans for c in counts)
+    tests = sum(c.sphere_tests + c.prior_tests for _, counts in spans for c in counts)
+    return tests / max(live, 1)
+
+
+def _cull_paths(mk, rg, wf, ro, sw) -> dict:
+    """The per-warp cull of K0 and K1 at full size (_CULL_CASES): the
+    regroup accumulator, through launch_regrouped with its launches
+    counted from 0, equals the wavefront's (which sweeps every sphere) in
+    every bit over the case's frames, the second accumulated; at one sample
+    per pixel it equals the megakernel's. Then rg.cull_census counts the
+    work the cull leaves on the twins' rays of frame 0 (of one row of tiles
+    for random10k)."""
+    out = {}
+    for name, w, h, spp, frames, band in _CULL_CASES:
+        inp = mk.kernel_inputs(*_case(name, w, h, "cuda"))
+        kw = dict(width=w, height=h, spp=spp, num_bounces=8)
+        acc = torch.zeros((w * h, 3), device="cuda")
+        torch.cuda.synchronize()
+        _zero_launch_counts(mk, rg, wf, ro, sw)
+        for f in range(frames):
+            rg.launch_regrouped(acc, inp, f, f == 0, cuts=_CUTS, **kw)
+        torch.cuda.synchronize()
+        launches = _launch_counts(mk, rg, wf, ro, sw)
+        n = len(_CUTS) * frames
+        want = {**dict.fromkeys(launches, 0), "k0": frames, "pack": n, "k1": n, "combine": n}
+        _check(launches == want, ("cull launches", name, launches, want))
+        ref = torch.zeros_like(acc)
+        for f in range(frames):
+            wf.launch_wavefront(ref, inp, f, f == 0, **kw)
+        torch.cuda.synchronize()
+        _check(torch.equal(acc, ref), ("culled regroup is not the wavefront", name,
+                                       _compare(ref, acc, w, h)))
+        del ref
+        one = dict(kw, spp=1)
+        a, m = torch.zeros_like(acc), torch.zeros_like(acc)
+        rg.launch_regrouped(a, inp, 0, True, cuts=_CUTS, **one)
+        mk.launch_megakernel(m, inp, 0, True, **one)
+        torch.cuda.synchronize()
+        one_spp = int((a != m).any(dim=1).sum())
+        _check(one_spp == 0, ("culled regroup against the megakernel at 1 spp", name, one_spp))
+        del acc, a, m
+        torch.cuda.empty_cache()
+        rows = (0, h) if band is None else ((h // 2) // 32 * 32, (h // 2) // 32 * 32 + band)
+        t = rg.plan(w, rows[1] - rows[0], spp, 8, _CUTS, row_offset=rows[0], full_height=h)[0]
+        t0 = time.perf_counter()
+        census = rg.cull_census(inp, t, 0, _CUTS, 8)
+        out[name] = {"shape": f"{name} {w}x{h} spp{spp} b8", "frames": frames,
+                     "launches": launches, "vs_wavefront": "bit-exact",
+                     "one_spp_vs_megakernel_pixels_differing": one_spp,
+                     "census_rows": list(rows), "census_s": time.perf_counter() - t0,
+                     "census": census, "spheres": inp.n_spheres, "chunks": inp.n_chunks,
+                     "supers": inp.n_super, "smem_bytes": rg.cull_smem_bytes(inp)}
+        torch.cuda.empty_cache()
+    return out
 
 
 def _slot_pixels(t, dev):
@@ -723,11 +845,23 @@ def _bound(ops: float, nbytes: float) -> dict:
             "ops": ops, "bytes": nbytes}
 
 
-def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None) -> dict:
+def _culled_ops(spans) -> float:
+    """FP32 operations of the per-warp cull's work, counted by
+    rg.cull_census over some of its kernels' bounces: each sphere test of
+    the live lanes (the priors' included) and each box test."""
+    return float(sum(SPHERE_TEST_OPS * (c.sphere_tests + c.prior_tests)
+                     + SLAB_TEST_OPS * c.box_tests for _, counts in spans for c in counts))
+
+
+def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
+            census=None) -> dict:
     """Each kernel's bound at the [timing] shape, from this run's live
     counts: a live path segment (a path alive at the start of a bounce)
     tests every prepared sphere; a kStats segment also tests the priors and
-    every chunk and super-chunk box. The megakernels trace the real
+    every chunk and super-chunk box. K0 and K1 cull per warp: with
+    ``census`` (rg.cull_census of this frame) their bound counts the work
+    the cull leaves (``_culled_ops``), and ``bound_full_ms`` keeps the
+    full sweep's, the bound before the cull. The megakernels trace the real
     pixels' paths (the stats one counts the TPU's padded lanes without
     tracing them); K1 stats traces the segments of its table's col 1
     (``k1_stats``). Each record or value is read once and written once
@@ -743,11 +877,20 @@ def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None) -> di
     n_in = [t.cap] + [live_all[c] for c in cuts[:-1]]  # each PACK's input records
     n_out = [live_all[c] for c in cuts]  # and the live records it keeps
     k1_seg = sum(live_all[cuts[0]:])
+    k0_bytes = t.cap * (RECORD_BYTES + 12)
+    k1_bytes = sum(b * (2 * RECORD_BYTES + 12) for b in n_out)
+    full = {"k0": _bound(sweep * sum(live_all[:cuts[0]]), k0_bytes),
+            "k1": _bound(sweep * k1_seg, k1_bytes)}
+    if census is not None:
+        full = {"k0": {**_bound(_culled_ops(census[:1]), k0_bytes),
+                       "bound_full_ms": full["k0"]["bound_ms"]},
+                "k1": {**_bound(_culled_ops(census[1:]), k1_bytes),
+                       "bound_full_ms": full["k1"]["bound_ms"]}}
     out = {
         "megakernel": _bound(sweep * sum(live_real), pixels * 12),
-        "k0": _bound(sweep * (live_all[0] + live_all[1]), t.cap * (RECORD_BYTES + 12)),
+        "k0": full["k0"],
         "pack": _bound(0, sum(a * 8 + b * 2 * RECORD_BYTES for a, b in zip(n_in, n_out))),
-        "k1": _bound(sweep * k1_seg, sum(b * (2 * RECORD_BYTES + 12) for b in n_out)),
+        "k1": full["k1"],
         "combine": _bound(0, sum(a * 4 + b * 24 for a, b in zip(n_in[1:], n_out[1:]))
                           + t.cap * 16 + pixels * 12),
     }
@@ -1138,9 +1281,10 @@ def _binned_kernels(mk, rg, ro, binned) -> dict:
     dense pool, and the chunkxoct permutation (record_gather) and its
     undoing (record_scatter), those two against their twins bit for bit
     (the scatter gives back the dense pool). Each is timed (CUDA events)
-    beside its twin, its bound from this run's live counts (the shared
-    sweep model of _bounds: a live segment tests every sphere, a kStats
-    segment also the priors and the chunk boxes; every value moved once)
+    beside its twin, its bound from this run's live counts (the full
+    sweep's model: a live segment tests every sphere, which K0 and K1 now
+    cull; a kStats segment also the priors and the chunk boxes; every value
+    moved once)
     and, where one computes the same function, one PyTorch call (PACK:
     nonzero + index_select; the gather: index_select; the scatter:
     index_copy_)."""
@@ -1419,6 +1563,16 @@ def main(argv=None) -> int:
     spills = [u for lib in ptxas.values() for u in lib.values()
               if u.get("spill_stores") or u.get("spill_loads")]
     _check(not spills, ("register spills", spills))
+    # K0 and K1: the chosen launch bounds, registers, spills, static shared
+    # memory and the cull tables each block stages (RTiOW; random10k's in [cull])
+    k01 = ("k0", "k0_textured", "k1", "k1_textured")
+    _say("build", case="regroup_k0_k1", launch_bounds=json.dumps(rg.launch_bounds()),
+         attributes=json.dumps({k: attrs["regroup"][k] for k in k01}),
+         ptxas=json.dumps({k: v for k, v in ptxas["regroup"].items()
+                           if "regroup_k0" in k or "regroup_k1" in k}),
+         rtiow_cull_smem_bytes=rg.cull_smem_bytes(
+             mk.kernel_inputs(*_case("rtiow", 96, 64, "cuda"))))
+    record["build"]["regroup_k0_k1"] = {"launch_bounds": rg.launch_bounds()}
 
     # 3. megakernel against plain, both on the card
     record["plain"] = {}
@@ -1725,6 +1879,26 @@ def main(argv=None) -> int:
          **{k: json.dumps(v) for k, v in full.items()})
     torch.cuda.empty_cache()
 
+    # 6d. the per-warp cull of K0 and K1 at full size: regroup against the
+    # unculled wavefront and megakernel in every bit, and the work the cull
+    # leaves, per bounce, beside the full sweep's
+    cull = _cull_paths(mk, rg, wf, ro, sw)
+    for name, res in cull.items():
+        _say("cull", shape=res["shape"], frames=res["frames"], vs_wavefront="bit-exact",
+             one_spp_vs_megakernel_pixels_differing=res["one_spp_vs_megakernel_pixels_differing"],
+             launches=json.dumps(res["launches"]),
+             spheres=res["spheres"], chunks=res["chunks"], supers=res["supers"],
+             smem_bytes=res["smem_bytes"])
+        _say("cull", case=f"{name}_census", rows=json.dumps(res["census_rows"]),
+             full_sweep_tests_per_segment=res["spheres"],
+             k0_tests_per_segment=f"{_per_segment(res['census'][:1]):.2f}",
+             k1_tests_per_segment=f"{_per_segment(res['census'][1:]):.2f}",
+             live_spheres_priors_boxes_per_bounce=json.dumps(_census_lines(res["census"])),
+             seconds=f"{res['census_s']:.1f}", card=repr(smi))
+    record["cull"] = {k: {**v, "census": [[list(span), [c._asdict() for c in counts]]
+                                          for span, counts in v["census"]]}
+                      for k, v in cull.items()}
+
     # 7. the stats kernels against their twins, then the counters' own path
     # at full size, with its launches counted from 0 (after the main paths,
     # so that their numbers are taken as before)
@@ -1818,7 +1992,8 @@ def main(argv=None) -> int:
     mk_table = mega(True)[1]
     k1_table = _k1_stats(rg, rg.launch_k1, inp_t, dense_t, counts_t, t_t, 0, _CUTS[0],
                          _CUTS[1])
-    bounds = _bounds(mk, inp_t, t_t, live_all, live_real, mk_table, k1_table)
+    census_t = rg.cull_census(inp_t, t_t, 0, _CUTS, tm["bounces"])
+    bounds = _bounds(mk, inp_t, t_t, live_all, live_real, mk_table, k1_table, census_t)
     library_ms = _library_ms(rg, inp_t, t_t, 0, tm["bounces"], live_all)
     del dense_t
     # the wavefront's: its rows per cut at this shape, and the profiler's
@@ -1834,12 +2009,17 @@ def main(argv=None) -> int:
     wf_device_t = _wavefront_device_ms(_trace_frame(
         lambda mark: wf.launch_wavefront(acc, inp_t, 0, True, phase_cuts=_CUTS,
                                          on_stage=mark, **kw),
-        os.path.join(trace_root, "trace_wavefront_timing"))["kernel_ms"])
+        os.path.join(trace_root, "trace_wavefront_timing"),
+        _frame_kernels("wavefront"))["kernel_ms"])
     _say("bounds", shape=f"{tm['scene']} {tm['width']}x{tm['height']} spp{tm['spp']} "
          f"b{tm['bounces']}", live_per_bounce=json.dumps(live_all),
          live_real_per_bounce=json.dumps(live_real),
          bounds=json.dumps({k: [round(v["bound_ms"], 5), v["bound_by"]]
                             for k, v in bounds.items()}),
+         k0_k1_bound_full_ms=json.dumps({k: round(bounds[k]["bound_full_ms"], 5)
+                                         for k in ("k0", "k1")}),
+         k0_k1_tests_per_segment=json.dumps([round(_per_segment(census_t[:1]), 2),
+                                             round(_per_segment(census_t[1:]), 2)]),
          library_ms=json.dumps({k: round(v, 4) for k, v in library_ms.items()}),
          wavefront_rows=json.dumps(rows_t), card=repr(smi))
     # the 1080p frame, kernels only: regroup, megakernel, megakernel, regroup
@@ -1876,8 +2056,8 @@ def main(argv=None) -> int:
     # their times
     tr = _trace_frame(lambda mark: rg.launch_regrouped(big, inp, 0, True, cuts=_CUTS,
                                                        on_stage=mark, **fkw),
-                      os.path.join(trace_root, "trace"))
-    _say("trace", frame="regroup", device_events=tr["device_events"],
+                      os.path.join(trace_root, "trace"), _frame_kernels("regroup"))
+    _say("trace", frame="regroup", **_trace_fields(tr),
          kernel_ms=json.dumps({k: round(v, 3) for k, v in tr["kernel_ms"].items()}),
          kernel_total_ms=f"{tr['kernel_total_ms']:.3f}",
          stages_ms=json.dumps({k: round(v, 3) for k, v in tr["stages_ms"].items()}),
@@ -1885,9 +2065,10 @@ def main(argv=None) -> int:
     record["trace"] = tr
     tr_wf = _trace_frame(lambda mark: wf.launch_wavefront(big, inp, 0, True, phase_cuts=_CUTS,
                                                           on_stage=mark, **fkw),
-                         os.path.join(trace_root, "trace_wavefront"))
+                         os.path.join(trace_root, "trace_wavefront"),
+                         _frame_kernels("wavefront"))
     wf_device = _wavefront_device_ms(tr_wf["kernel_ms"])
-    _say("trace", frame="wavefront", phase_cuts=_CUTS, device_events=tr_wf["device_events"],
+    _say("trace", frame="wavefront", phase_cuts=_CUTS, **_trace_fields(tr_wf),
          kernel_ms=json.dumps({k: round(v, 3) for k, v in wf_device.items()}),
          kernel_total_ms=f"{tr_wf['kernel_total_ms']:.3f}",
          stages_ms=json.dumps({k: round(v, 3) for k, v in tr_wf["stages_ms"].items()}),
@@ -1895,7 +2076,7 @@ def main(argv=None) -> int:
     record["trace_wavefront"] = {**tr_wf, "per_kernel_ms": wf_device}
     t_big = rg.plan(mp["width"], mp["height"], mp["spp"], mp["bounces"], _CUTS)[0]
     live_big = _live_per_bounce(rg, inp, t_big, 0, mp["bounces"])
-    bounds_big = _bounds(mk, inp, t_big, *live_big)
+    bounds_big = _bounds(mk, inp, t_big, *live_big, census=cull["rtiow"]["census"])
     bounds_big.update(_wf_bounds(inp, t_big, live_big[0], wf_rows[_CUTS]))
     stage_big = {**_per_kernel(tr["stages_ms"]), "megakernel": min(frame_ms["megakernel"]),
                  **{f"wavefront_{k}": v for k, v in _per_kernel(
@@ -1908,6 +2089,9 @@ def main(argv=None) -> int:
                                         bounds_big[k]["bound_by"],
                                         round(bounds_big[k]["bound_ms"] / stage_big[k], 4)]
                                     for k in stage_big}),
+         k0_k1_bound_full_ms_share=json.dumps({
+             k: [round(bounds_big[k]["bound_full_ms"], 3),
+                 round(bounds_big[k]["bound_full_ms"] / stage_big[k], 4)] for k in ("k0", "k1")}),
          wavefront_rows=json.dumps(wf_rows[_CUTS]), card=repr(smi))
     record["bounds_1080p"] = {"live": live_big, "bounds": bounds_big, "ms": stage_big,
                               "wavefront_device_ms": wf_device}
@@ -2042,6 +2226,11 @@ def main(argv=None) -> int:
                      launches["pallas"]["megakernel"], max_abs_err)]
     kernels += [entry(f"regroup_{k}", k, rg.KERNEL_SOURCE, rg.REPLACES[k],
                       launches["regroup"][k], rg_err[k]) for k in REGROUP_KERNELS]
+    # K0 and K1 cull per warp: their bound counts the work the cull leaves
+    # (rg.cull_census), bound_full_ms the full sweep's
+    for e in kernels:
+        if e["name"] in ("regroup_k0", "regroup_k1"):
+            e["bound_full_ms"] = bounds[e["name"][len("regroup_"):]]["bound_full_ms"]
     kernels += [
         entry("megakernel_stats", "megakernel_stats", mk.KERNEL_SOURCE, mk.STATS_REPLACES,
               sp["launches"]["megakernel_stats"], sv["megakernel_err"]),

@@ -13,7 +13,10 @@ FMAs and the CUDA math library rounds sin/cos/exp differently from
 PyTorch's, so chaotic Monte-Carlo paths may diverge at silhouettes. The
 regroup pipeline's PACK and COMBINE are held bit for bit; its K0 and K1
 run the megakernel's own per-ray body, so at one sample per pixel regroup
-and the megakernel give the same bits. The row-compacted wavefront runs the
+and the megakernel give the same bits; K0 and K1 cull their sweep per
+warp, which changes no bit against the unculled wavefront and megakernel,
+the kStats K1 (which sweeps every sphere), or with a last warp part full.
+The row-compacted wavefront runs the
 same body on the same slots: it gives regroup's image in every bit, and
 its COMPACT equals its twin bit for bit. The record reorder kernels equal
 their twins bit for bit (dma_rate's twin repeats its sum order), and K1 on
@@ -302,6 +305,102 @@ def test_k1_stats_match_plain(cuda):
         else:
             torch.testing.assert_close(out[0].sum(0), out[1].sum(0), rtol=0.01, atol=0)
         assert bool((out[0][:live, 0] >= 1).all() and (out[0][:live, 1] > 0).all())
+
+
+# --- the per-warp cull of regroup K0 and K1 ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", [1, 4])
+@pytest.mark.parametrize("name", ["rtiow", "textured", "super"])
+def test_culled_regroup_equals_unculled_paths(name, spp, cuda):
+    """K0 and K1 sweep only the chunks some lane of a warp enters, and
+    change no bit: over two frames the regroup accumulator equals the
+    wavefront's, which sweeps every sphere, and at one sample per pixel
+    the megakernel's; a frame launches K0 once and PACK, K1 and COMBINE
+    once per cut. (textured has no chunks: the full sweep.)"""
+    w, h = 96, 64
+    inp = _stats_case(name, w, h, cuda)
+    assert (inp.n_chunks > 0) == (name != "textured") and (inp.n_super > 0) == (name == "super")
+    names = ("k0", "pack", "k1", "combine")
+    before = [getattr(rg, f"launch_{k}").launches for k in names]
+    got = _render(rg.launch_regrouped, inp, w, h, 2, spp, 8, cuda, cuts=(2, 4, 6))
+    after = [getattr(rg, f"launch_{k}").launches for k in names]
+    assert [a - b for a, b in zip(after, before)] == [2, 6, 6, 6]
+    ref = _render(wf.launch_wavefront, inp, w, h, 2, spp, 8, cuda)
+    assert torch.equal(got, ref)
+    if spp == 1:
+        a = _render(rg.launch_regrouped, inp, w, h, 1, 1, 8, cuda, cuts=(2, 4, 6))
+        m = _render(mk.launch_megakernel, inp, w, h, 1, 1, 8, cuda)
+        assert torch.equal(a, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rtiow", "super"])
+def test_culled_k1_with_a_ragged_count(name, cuda):
+    """K1 on a dense pool whose count is not a multiple of 32 (the last
+    warp part full): it leaves the records past the count alone, equals
+    the kStats instantiation (which sweeps every sphere) in every bit, and
+    its twin at the gates of chip_smoke's K1 checks over one bounce (alive
+    flags on 99% of the records; K1's radiance put on K0's contributions at
+    the records' home slots and folded, at tonemapped RMSE < 5e-3 and mean
+    radiance within 1e-3)."""
+    w, h, spp = (96, 64, 4) if name == "rtiow" else (256, 192, 4)
+    inp = _stats_case(name, w, h, cuda)
+    t, _ = rg.plan(w, h, spp, 8, (2, 4, 6))
+    pool = torch.empty((rg.N_COMP, t.cap), device=cuda)
+    contrib = torch.empty((3, t.cap), device=cuda)
+    rg.launch_k0(inp, pool, contrib, t, 0, 2)
+    dense = torch.empty_like(pool)
+    counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=cuda)
+    rg.launch_pack(pool, dense, torch.empty((t.cap,), dtype=torch.int32, device=cuda), counts,
+                   1, torch.empty((t.cap // 1024,), dtype=torch.int32, device=cuda))
+    n = int(counts[1]) // 32 * 32 - 5
+    assert n > 4096 and n % 32 == 27
+    counts[1] = n
+    runs = []
+    for k1, stats in ((rg.launch_k1, None), (rg.launch_k1, True), (rg.k1_plain, None)):
+        p, r8 = dense.clone(), torch.zeros((3, t.cap), device=cuda)
+        st = torch.empty((t.cap // rg.TILE_RECORDS, 8), device=cuda) if stats else None
+        k1(inp, p, r8, counts, 1, t, 0, 2, 3, stats=st)
+        runs.append((p, r8))
+    torch.cuda.synchronize()
+    (pk, rk), (ps, rs), (pp, rp) = runs
+    assert _same_bits(pk[:, n:], dense[:, n:]) and not bool(rk[:, n:].any())
+    assert _same_bits(pk, ps) and _same_bits(rk, rs)
+    same = pk[rg._AL, :n] == pp[rg._AL, :n]
+    assert float(same.float().mean()) >= 0.99
+    imgs = []
+    for r8 in (rk, rp):
+        slot = dense[rg._HHI, :n].long() * 4096 + dense[rg._HLO, :n].long()
+        per_slot = contrib.clone()
+        per_slot[:, slot] = r8[:, :n]
+        acc = torch.zeros((w * h, 3), device=cuda)
+        rg._fold_plain(per_slot, acc, t, True)
+        imgs.append(acc / spp)
+    a, b = imgs
+    rmse = float(((_tonemapped(a, w, h) - _tonemapped(b, w, h)) ** 2).mean().sqrt())
+    assert rmse < 5e-3, rmse
+    assert abs(float(a.mean()) - float(b.mean())) / float(b.mean()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_refused_culled_launch_raises(cuda):
+    """A cull table too large for a block's shared memory (232,448 bytes):
+    K0 and K1 are refused, the wrappers raise and count no launch."""
+    w, h = 64, 32
+    inp = _inputs("rtiow", w, h, cuda)
+    big = inp._replace(chunk_bounds=torch.zeros((6, 10000), device=cuda))
+    assert rg.cull_smem_bytes(big) > 232448
+    t, _ = rg.plan(w, h, 4, 8, (2,))
+    pool = torch.empty((rg.N_COMP, t.cap), device=cuda)
+    r8 = torch.empty((3, t.cap), device=cuda)
+    counts = torch.tensor([t.cap, t.cap], dtype=torch.int32, device=cuda)
+    before = (rg.launch_k0.launches, rg.launch_k1.launches)
+    with pytest.raises(RuntimeError, match="K0 launch failed"):
+        rg.launch_k0(big, pool, r8, t, 0, 2)
+    with pytest.raises(RuntimeError, match="K1 launch failed"):
+        rg.launch_k1(big, pool, r8, counts, 1, t, 0, 2, 8)
+    assert (rg.launch_k0.launches, rg.launch_k1.launches) == before
 
 
 # --- the row-compacted wavefront ---------------------------------------------

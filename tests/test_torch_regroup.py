@@ -656,9 +656,12 @@ def test_wrapper_launches_kernels_for_cuda_tensor(monkeypatch):
     t, _ = rg.plan(w, h, 4, 8)
     assert k0[4] is None and k0[5] == 5  # no textures; five spheres, unpadded
     assert k0[8:13] == (t.cap, w, h, t.tiles_x, 2)
-    assert k0[15:] == (5, 0, 2, 1234)  # frame, row offset, b_hi = first cut, stream
-    assert [c[1][-3:-1] for c in lib.calls if c[0] == "wrt_regroup_k1"] == [
+    assert k0[15:18] == (5, 0, 2)  # frame, row offset, b_hi = first cut
+    assert k0[-1] == 1234  # the stream, after the (empty) chunk hierarchy
+    assert [c[1][15:17] for c in lib.calls if c[0] == "wrt_regroup_k1"] == [
         (2, 4), (4, 6), (6, 8)]
+    assert all(c[1][-7:-2] == (0, 0, 0, 16, 16) and c[1][-2:] == (0.0, 1234) for c in lib.calls
+               if c[0] in ("wrt_regroup_k0", "wrt_regroup_k1"))
     home = lib.calls[-1][1]
     assert home[3] == acc.data_ptr() and home[-2] == 1  # clear
 

@@ -21,12 +21,16 @@
 //
 // Arithmetic mirrors the TPU kernel and the plain PyTorch version
 // (ops/cuda/megakernel.py) operation for operation, including the
-// polynomial acos/atan2. Built without --use_fast_math: the sweep relies on
-// sqrtf(negative) = NaN failing the sq > 0 test.
+// polynomial acos/atan2. Built without --use_fast_math (IEEE sqrtf,
+// accurate sinf/cosf/expf/powf).
 //
 // trace_bounces<kTextured, kStats = true> is the body of the kStats
 // instantiations: the same bounces, sweeping the same spheres in the same
-// order, plus the cull counters of stats.cuh.
+// order, plus the cull counters of stats.cuh. Given the staged cull tables
+// of a scene with chunks (CullView), the kStats = false body sweeps only
+// the chunks that some lane of its warp can enter (sweep_culled), which
+// gives the full sweep's (bt, bi) in every bit; the megakernel and the
+// wavefront pass none and sweep every sphere.
 
 #pragma once
 
@@ -203,6 +207,11 @@ __device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float 
 
 // One sphere of the closest-hit sweep (sphere_ts, megakernel.py:437-465):
 // sphere i with (cx, cy, cz, kq) = c takes (bt, bi) if it is hit closer.
+// The root and the two roots are taken only of a positive discriminant,
+// the one case in which the TPU's test (sq > 0 on sqrt(disc), NaN for
+// disc < 0) can pass, so every input keeps its (bt, bi); a miss, most
+// tests, never reaches sqrtf's slow path for a negative argument, and a
+// warp whose lanes all miss skips the root.
 __device__ __forceinline__ void sweep_sphere(const float4 c, int i, float ox, float oy, float oz,
                                              float dx, float dy, float dz, float od, float oo,
                                              float& bt, int& bi) {
@@ -210,13 +219,16 @@ __device__ __forceinline__ void sweep_sphere(const float4 c, int i, float ox, fl
   const float co2 = (c.x + c.x) * ox + (c.y + c.y) * oy + (c.z + c.z) * oz;
   const float bq = cd - od;
   const float cq = oo - co2 + c.w;
-  const float sq = sqrtf(bq * bq - cq);  // NaN for a negative discriminant
-  const float t0 = bq - sq;
-  const float t1 = bq + sq;
-  const float ts = t0 > kMinT ? t0 : t1;
-  if (sq > 0.0f && ts > kMinT && ts < bt) {
-    bt = ts;
-    bi = i;
+  const float disc = bq * bq - cq;
+  if (disc > 0.0f) {
+    const float sq = sqrtf(disc);
+    const float t0 = bq - sq;
+    const float t1 = bq + sq;
+    const float ts = t0 > kMinT ? t0 : t1;
+    if (ts > kMinT && ts < bt) {
+      bt = ts;
+      bi = i;
+    }
   }
 }
 
@@ -271,14 +283,99 @@ __device__ __forceinline__ void sweep_counted(const SceneRefs& sc, const RayCoun
   }
 }
 
+// The chunk hierarchy as K0 and K1 read it: the bound tables and the
+// priors' sweep rows staged in shared memory by stage_cull (regroup.cu),
+// the sphere table itself left in global memory.
+struct CullView {
+  const float4* prior;     // [kNPriors] (cx, cy, cz, kq) of the priors
+  const int* prior_index;  // [kNPriors] their sphere indices
+  const float* chunk;      // [6, n_tests] chunk boxes
+  const float* super;      // [6, n_super] super-chunk boxes
+  int n_chunks, n_tests, n_super, chunk_size, super_factor;
+};
+
+// The closest-hit sweep culled per warp. The priors' own closest hit
+// (pbt, pbi), least (t, index) first, is kept apart from the sweep's
+// (bt, bi). Before each super-chunk, then before each chunk of an entered
+// one, every lane runs the TPU's slab test against fminf(pbt, bt), and the
+// warp sweeps a chunk's spheres, in index order, iff some lane enters it
+// (__ballot_sync). Last, the priors' hit joins (bt, bi) by (t, index).
+// Exactness: a chunk that a lane does not enter holds no sphere the lane
+// hits closer than its bound, so the lane's bound before each chunk is
+// the full sweep's, and any superset of the chunks it enters, swept in
+// index order with the strict <, finds the full sweep's winner. Two cases
+// break the premise of the JAX kernel's slab test (that of sweep_counted)
+// and are answered here. (1) A computed hit lies off its sphere by a few
+// ulps of (|c| + r)^2 / r, so a ray leaving a sphere that sets a face of
+// its box can hit it again just past MIN_T where the exact box has it out
+// before MIN_T: the boxes are widened by the scene's cull margin when they
+// are staged (regroup.cu stage_cull). (2) A prior hit on its own box's face
+// (tnear == t, which the strict test skips when the prior sets the bound):
+// the final (t, index) merge gives that prior back, and keeps the first
+// index on ties as the full sweep does. A lane's own vote is always
+// in the ballot it reads, so this holds whichever lanes are converged at
+// the vote: lanes that died, broke out of the bounce loop or returned past
+// K1's count need no special case. No lane diverges inside: every branch
+// here follows a ballot. The sphere rows are read at warp-uniform
+// addresses through __ldg, one broadcast per row.
+__device__ __forceinline__ void sweep_culled(const SceneRefs& sc, const CullView& cv, float ox,
+                                             float oy, float oz, float dx, float dy, float dz,
+                                             float od, float oo, float& bt, int& bi) {
+  float pbt = kMaxT;
+  int pbi = -1;
+  for (int p = 0; p < kNPriors; ++p) {
+    float t = kMaxT;
+    int j = -1;
+    sweep_sphere(cv.prior[p], cv.prior_index[p], ox, oy, oz, dx, dy, dz, od, oo, t, j);
+    if (j >= 0 && (t < pbt || (t == pbt && j < pbi))) {
+      pbt = t;
+      pbi = j;
+    }
+  }
+  const float ix = slab_inverse(dx);
+  const float iy = slab_inverse(dy);
+  const float iz = slab_inverse(dz);
+  const int per = cv.n_super > 0 ? cv.super_factor : cv.n_chunks;
+  for (int c0 = 0; c0 < cv.n_chunks; c0 += per) {
+    bool mine = true;  // this lane enters the super-chunk
+    if (cv.n_super > 0) {
+      const float* b = cv.super;
+      const int s = c0 / per, k = cv.n_super;
+      mine = slab_box(b[s], b[k + s], b[2 * k + s], b[3 * k + s], b[4 * k + s], b[5 * k + s],
+                      ox, oy, oz, ix, iy, iz, fminf(pbt, bt));
+      if (__ballot_sync(__activemask(), mine) == 0u) continue;
+    }
+    const int c_end = min(c0 + per, cv.n_chunks);
+    for (int c = c0; c < c_end; ++c) {
+      const float* b = cv.chunk;
+      const int k = cv.n_tests;
+      const bool enters = mine && slab_box(b[c], b[k + c], b[2 * k + c], b[3 * k + c],
+                                           b[4 * k + c], b[5 * k + c], ox, oy, oz, ix, iy, iz,
+                                           fminf(pbt, bt));
+      if (__ballot_sync(__activemask(), enters) == 0u) continue;
+      const int i_end = (c + 1) * cv.chunk_size;
+      for (int i = c * cv.chunk_size; i < i_end; ++i) {
+        sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
+      }
+    }
+  }
+  if (pbi >= 0 && (pbt < bt || (pbt == bt && pbi < bi))) {
+    bt = pbt;
+    bi = pbi;
+  }
+}
+
 // Bounces [b_lo, b_hi) of one live path. A miss sets the sky colour and a
 // hit on an emissive sphere its light; either ends the path (alive = false,
 // the ray itself left as it was). A path still alive after b_hi keeps
 // colour 0. The kStats instantiation also counts the loop iterations in
 // rc->trips and, in a scene with chunks, the cull tests (sweep_counted).
+// The kStats = false one, given the cull tables of a scene with chunks
+// (cv), sweeps per warp what its lanes can enter (sweep_culled).
 template <bool kTextured, bool kStats = false>
 __device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int b_hi, Ray& r,
-                                              RayCounter* rc = nullptr) {
+                                              RayCounter* rc = nullptr,
+                                              const CullView* cv = nullptr) {
   const float* __restrict__ sky = sc.sky;
   const float* __restrict__ at = sc.attrs;
   const int n = sc.n;
@@ -287,7 +384,7 @@ __device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int
   float tr = r.tr, tg = r.tg, tb = r.tb;
   uint32_t state = r.state;
   for (int bounce = b_lo; bounce < b_hi; ++bounce) {
-    // Closest hit over every prepared sphere.
+    // Closest hit over the prepared spheres.
     const float od = ox * dx + oy * dy + oz * dz;
     const float oo = ox * ox + oy * oy + oz * oz;
     float bt = kMaxT;
@@ -301,6 +398,8 @@ __device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int
           sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
         }
       }
+    } else if (cv != nullptr && cv->n_chunks > 0) {
+      sweep_culled(sc, *cv, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
     } else {
       for (int i = 0; i < n; ++i) {
         sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);

@@ -24,13 +24,33 @@
 // stays two exact f32 integers (HLO = slot & 4095, HHI = slot >> 12).
 //
 // What bounds it on an H100: K0 and K1 are the megakernel's body
-// (bounce.cuh) and are bound the same way, by divergent FP32 work in the
-// sweep and the scatter; they are one thread per record, so after a cut
-// every warp runs 32 live paths. PACK and COMBINE are bound by memory: each
-// moves about 64 bytes per live record (16 f32 components), or 12 bytes
-// per slot of radiance, with coalesced reads and, since the compaction is
-// stable, mostly coalesced writes. Nothing here is staged through shared
-// memory, and no matrix unit is used.
+// (bounce.cuh), one thread per record, so after a cut every warp runs 32
+// live paths; they are bound by FP32 work in the closest-hit sweep. Their
+// design answers with less of it:
+//   - A per-warp cull (bounce.cuh sweep_culled) in scenes with chunks: a
+//     warp sweeps a chunk's spheres only if some lane's slab test enters
+//     its box (and its super-chunk's), widened by the scene's cull margin,
+//     closer than the lane's best-t or the priors' bound. The TPU culls
+//     per 4096-lane tile; a warp is 128 times finer, and in K0's layout
+//     (spp folded into lanes) a warp at 32 spp holds one pixel's samples,
+//     whose first rays are nearly one beam. The result is the full
+//     sweep's (bt, bi) in every bit.
+//   - The box tables in shared memory: every lane tests every box each
+//     bounce, so each block stages the chunk and super-chunk bounds and
+//     the priors' sweep rows once, before its first bounce, with
+//     cooperative loads (stage_cull: 824 B on RTiOW, 8,240 B on
+//     random_spheres(10000)). TMA buys nothing for a few KiB loaded once
+//     per block. The sphere table stays in global memory: the warp reads
+//     one row at a time at a warp-uniform address, which the L1
+//     broadcasts, and random_spheres(10000)'s 160 KiB would leave one
+//     block of 256 threads an SM.
+//   - One register budget, kTraceMinBlocks = 5 blocks of 256 threads an
+//     SM (48 registers), chosen on the card among 48, 56 and 64 registers
+//     with no spills.
+// PACK and COMBINE are bound by memory: each moves about 64 bytes per live
+// record (16 f32 components), or 12 bytes per slot of radiance, with
+// coalesced reads and, since the compaction is stable, mostly coalesced
+// writes. No matrix unit is used.
 //
 // Counts stay on the card: PACK writes the live count to device memory and
 // the launches that follow read it there and are sized by its upper bound
@@ -54,6 +74,16 @@ constexpr int kHomeRadix = 4096;                       // slot = hhi * 4096 + hl
 constexpr float kDeadHHI = static_cast<float>(1 << 16);  // pad records: slot 2^28
 
 constexpr int kThreads = 256;    // K0, K1, COMBINE: one thread per record
+// K0's and K1's register budget: __launch_bounds__(kThreads,
+// kTraceMinBlocks), five blocks of 256 threads an SM, holds them to 48
+// registers (65536 / (5 * 256) = 51, allocated in steps of 8). Measured on
+// an H100 against 52-56 (what ptxas takes when allowed 56 or 64) and
+// 48-register builds by tools/cull_variants.py: K1 runs 3% faster at 48,
+// K0 the same, with no spills. K1's kStats instantiation, which also
+// carries the counters, keeps four blocks (64 registers), as the stats
+// megakernel does: at 48 it spills.
+constexpr int kTraceMinBlocks = 5;
+constexpr int kStatsMinBlocks = 4;
 constexpr int kPackBlock = 1024;  // PACK: slots per block, one per thread
 
 // Image geometry of the tiles: width, height, tiles across, log2(spp).
@@ -82,9 +112,59 @@ __device__ __forceinline__ uint32_t seed_pixel(const Tiling& g, int x, int y,
   return y_g * static_cast<uint32_t>(g.width) + static_cast<uint32_t>(x);
 }
 
+// Shared-memory bytes of stage_cull's tables: the priors' sweep rows and
+// indices, then the chunk and super-chunk bounds; 0 without a chunk
+// hierarchy.
+inline size_t cull_smem_bytes(const CullRefs& cu) {
+  if (cu.n_chunks == 0) return 0;
+  return kNPriors * (sizeof(float4) + sizeof(int)) +
+         6 * sizeof(float) * (cu.n_tests + cu.n_super);
+}
+
+// Stage the cull tables of a scene with chunks into this block's shared
+// memory, once, before its first bounce; every thread of the block must
+// call it. Cooperative loads: a few KiB at most per block. Every box is
+// widened on all sides by `margin` (megakernel.py CULL_MARGIN_SCALE: the
+// computed hits of the expanded quadratic lie off their spheres by a few
+// ulps of (|c| + r)^2 / r, and a ray leaving a sphere that sets a box face
+// can so hit it again just past MIN_T outside the exact box).
+__device__ __forceinline__ CullView stage_cull(const CullRefs& cu, const float4* sweep,
+                                               float margin) {
+  extern __shared__ float4 cull_smem[];
+  int* prior_index = reinterpret_cast<int*>(cull_smem + kNPriors);
+  float* chunk = reinterpret_cast<float*>(prior_index + kNPriors);
+  float* super = chunk + 6 * cu.n_tests;
+  CullView v;
+  v.prior = cull_smem;
+  v.prior_index = prior_index;
+  v.chunk = chunk;
+  v.super = super;
+  v.n_chunks = cu.n_chunks;
+  v.n_tests = cu.n_tests;
+  v.n_super = cu.n_super;
+  v.chunk_size = cu.chunk_size;
+  v.super_factor = cu.super_factor;
+  if (cu.n_chunks == 0) return v;
+  for (int k = threadIdx.x; k < 6 * cu.n_tests; k += blockDim.x) {
+    chunk[k] = __ldg(cu.chunk_bounds + k) + (k < 3 * cu.n_tests ? -margin : margin);
+  }
+  for (int k = threadIdx.x; k < 6 * cu.n_super; k += blockDim.x) {
+    super[k] = __ldg(cu.super_bounds + k) + (k < 3 * cu.n_super ? -margin : margin);
+  }
+  if (threadIdx.x < kNPriors) {
+    const int i = __ldg(cu.priors + threadIdx.x);
+    prior_index[threadIdx.x] = i;
+    cull_smem[threadIdx.x] = __ldg(sweep + i);
+  }
+  __syncthreads();
+  return v;
+}
+
 struct K0Args {
   const float* cam;  // [20]
   SceneRefs scene;
+  CullRefs cull;
+  float cull_margin;  // widening of every box (stage_cull)
   float* pool;       // [16, cap]
   float* contrib;    // [3, cap]
   long long cap;
@@ -96,7 +176,8 @@ struct K0Args {
 
 // K0: camera ray and bounces [0, b_hi) of one slot; every slot is written.
 template <bool kTextured>
-__global__ void __launch_bounds__(kThreads) regroup_k0(const K0Args a) {
+__global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k0(const K0Args a) {
+  const CullView cv = stage_cull(a.cull, a.scene.sweep, a.cull_margin);
   const long long slot = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (slot >= a.cap) return;
   int x, y;
@@ -107,7 +188,7 @@ __global__ void __launch_bounds__(kThreads) regroup_k0(const K0Args a) {
   r.state = sample_seed(seed_pixel(a.g, x, y, a.row_offset), jenkins(a.frame), sample);
   camera_ray(a.cam, static_cast<float>(x), static_cast<float>(static_cast<int>(y_g)), a.inv_w,
              a.inv_h, r);
-  trace_bounces<kTextured>(a.scene, 0, a.b_hi, r);
+  trace_bounces<kTextured>(a.scene, 0, a.b_hi, r, nullptr, &cv);
 
   float* p = a.pool + slot;
   const long long c = a.cap;
@@ -135,6 +216,8 @@ __global__ void __launch_bounds__(kThreads) regroup_k0(const K0Args a) {
 
 struct K1Args {
   SceneRefs scene;
+  CullRefs cull;
+  float cull_margin;  // widening of every box (stage_cull)
   float* pool;       // [16, cap] dense, updated in place
   float* r8;         // [3, cap] base radiance tr * cr
   const int* count;  // live records in the pool
@@ -145,9 +228,8 @@ struct K1Args {
 };
 
 // What the kStats instantiation reads besides (the kStats = false one keeps
-// K1Args alone, so it compiles as it did before the counters).
+// K1Args alone, so it compiles without the counters).
 struct K1StatsArgs : K1Args {
-  CullRefs cull;
   StatsRefs st;
 };
 
@@ -160,11 +242,19 @@ constexpr int kTileRecords = 32 * 128;  // a dense TPU tile (regroup.py:679-721)
 // slot's seed advanced 4 * (b_lo + 1) draws (regroup.py:723-741). The
 // kStats instantiation also counts per dense tile of 4096 records, as
 // _make_k1(stats=True) at tsub1 = 32 (regroup.py:745-758): col 0 is then
-// the tile's loop trips from b_lo.
+// the tile's loop trips from b_lo; it sweeps every sphere (sweep_counted)
+// and stages nothing. A block wholly past the count returns before it
+// stages the cull tables.
 template <bool kTextured, bool kStats>
-__global__ void __launch_bounds__(kThreads) regroup_k1(const K1ArgsOf<kStats> a) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= *a.count) return;
+__global__ void __launch_bounds__(kThreads, kStats ? kStatsMinBlocks : kTraceMinBlocks)
+    regroup_k1(const K1ArgsOf<kStats> a) {
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads;
+  const int count = *a.count;
+  if (first >= count) return;
+  CullView cv{};
+  if constexpr (!kStats) cv = stage_cull(a.cull, a.scene.sweep, a.cull_margin);
+  const long long i = first + threadIdx.x;
+  if (i >= count) return;
   float* p = a.pool + i;
   const long long c = a.cap;
   const uint32_t slot = static_cast<uint32_t>(static_cast<int>(p[kHHI * c])) * kHomeRadix +
@@ -193,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) regroup_k1(const K1ArgsOf<kStats> a)
     trace_bounces<kTextured, true>(a.scene, a.b_lo, a.b_hi, r, &rc);
     count_trips(a.st, rc);
   } else {
-    trace_bounces<kTextured>(a.scene, a.b_lo, a.b_hi, r);
+    trace_bounces<kTextured>(a.scene, a.b_lo, a.b_hi, r, nullptr, &cv);
   }
 
   p[kOX * c] = r.ox;
@@ -406,12 +496,38 @@ Tiling tiling(int width, int height, int tiles_x, int spp_shift) {
   return g;
 }
 
+CullRefs cull_refs(const float* chunk_bounds, const float* super_bounds, const int* priors,
+                   int n_chunks, int n_tests, int n_super, int chunk_size, int super_factor) {
+  return CullRefs{chunk_bounds, super_bounds, priors, n_chunks, n_tests,
+                  n_super, chunk_size, super_factor};
+}
+
+// Launch a culling kernel (K0, K1) with its staged tables' dynamic shared
+// memory; above the 48 KiB default the kernel is first allowed the bytes,
+// and a refusal is returned as the launch's error (and cleared from the
+// runtime's last error, which the next launch would read otherwise).
+template <class Kernel, class KArgs>
+int launch_culled(Kernel kernel, const KArgs& a, long long cap, cudaStream_t s) {
+  const size_t smem = cull_smem_bytes(a.cull);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
+  }
+  kernel<<<blocks(cap, kThreads), kThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 K1StatsArgs k1_args(const float* sky, const float* sweep, const float* attrs, const int* tex_pool,
                int n_spheres, float* pool, float* r8, const int* count, long long cap, int width,
                int height, int tiles_x, int spp_shift, unsigned frame, unsigned row_offset,
-               int b_lo, int b_hi) {
+               int b_lo, int b_hi, const CullRefs& cull) {
   K1StatsArgs a = {};
   a.scene = scene_refs(sky, sweep, attrs, tex_pool, n_spheres);
+  a.cull = cull;
   a.pool = pool;
   a.r8 = r8;
   a.count = count;
@@ -430,16 +546,24 @@ extern "C" {
 
 // Every function launches on `stream` (a cudaStream_t), takes device
 // pointers, and returns cudaGetLastError() after its launches. `cap` is
-// the slot count, a multiple of 4096 below 2^28.
+// the slot count, a multiple of 4096 below 2^28. K0 and K1 take the cull
+// hierarchy of prepare_scene_arrays (n_chunks = 0: none, every sphere is
+// swept), as the kStats entry point does, and the margin by which they
+// widen its boxes.
 
 int wrt_regroup_k0(const float* cam, const float* sky, const float* sweep, const float* attrs,
                    const int* tex_pool, int n_spheres, float* pool, float* contrib,
                    long long cap, int width, int height, int tiles_x, int spp_shift,
                    float inv_w, float inv_h, unsigned frame, unsigned row_offset, int b_hi,
-                   void* stream) {
+                   const float* chunk_bounds, const float* super_bounds, const int* priors,
+                   int n_chunks, int n_tests, int n_super, int chunk_size, int super_factor,
+                   float cull_margin, void* stream) {
   K0Args a;
   a.cam = cam;
   a.scene = scene_refs(sky, sweep, attrs, tex_pool, n_spheres);
+  a.cull = cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests, n_super, chunk_size,
+                     super_factor);
+  a.cull_margin = cull_margin;
   a.pool = pool;
   a.contrib = contrib;
   a.cap = cap;
@@ -450,12 +574,8 @@ int wrt_regroup_k0(const float* cam, const float* sky, const float* sweep, const
   a.row_offset = row_offset;
   a.b_hi = b_hi;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tex_pool != nullptr) {
-    regroup_k0<true><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
-  } else {
-    regroup_k0<false><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tex_pool != nullptr ? launch_culled(regroup_k0<true>, a, cap, s)
+                             : launch_culled(regroup_k0<false>, a, cap, s);
 }
 
 // count_in: live records of `pool`; writes count_out, `dense` and `inv`.
@@ -477,16 +597,18 @@ int wrt_regroup_pack(const float* pool, float* dense, int* inv, const int* count
 int wrt_regroup_k1(const float* sky, const float* sweep, const float* attrs, const int* tex_pool,
                    int n_spheres, float* pool, float* r8, const int* count, long long cap,
                    int width, int height, int tiles_x, int spp_shift, unsigned frame,
-                   unsigned row_offset, int b_lo, int b_hi, void* stream) {
-  const K1Args a = k1_args(sky, sweep, attrs, tex_pool, n_spheres, pool, r8, count, cap, width,
-                           height, tiles_x, spp_shift, frame, row_offset, b_lo, b_hi);
+                   unsigned row_offset, int b_lo, int b_hi, const float* chunk_bounds,
+                   const float* super_bounds, const int* priors, int n_chunks, int n_tests,
+                   int n_super, int chunk_size, int super_factor, float cull_margin,
+                   void* stream) {
+  K1Args a = k1_args(sky, sweep, attrs, tex_pool, n_spheres, pool, r8, count, cap, width, height,
+                     tiles_x, spp_shift, frame, row_offset, b_lo, b_hi,
+                     cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests, n_super,
+                               chunk_size, super_factor));
+  a.cull_margin = cull_margin;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tex_pool != nullptr) {
-    regroup_k1<true, false><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
-  } else {
-    regroup_k1<false, false><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tex_pool != nullptr ? launch_culled(regroup_k1<true, false>, a, cap, s)
+                             : launch_culled(regroup_k1<false, false>, a, cap, s);
 }
 
 // K1 through the kStats instantiation: also writes the per-dense-tile
@@ -503,14 +625,14 @@ int wrt_regroup_k1_stats(const float* sky, const float* sweep, const float* attr
                          int super_factor, unsigned* scratch, long long scratch_words,
                          float* stats, void* stream) {
   K1StatsArgs a = k1_args(sky, sweep, attrs, tex_pool, n_spheres, pool, r8, count, cap, width,
-                          height, tiles_x, spp_shift, frame, row_offset, b_lo, b_hi);
+                          height, tiles_x, spp_shift, frame, row_offset, b_lo, b_hi,
+                          cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests,
+                                    n_super, chunk_size, super_factor));
   const int n_tiles = static_cast<int>(cap / kTileRecords);
   if (b_hi <= b_lo ||
       scratch_words != stats_scratch_words(n_tiles, b_hi - b_lo, n_tests, n_super)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  a.cull = CullRefs{chunk_bounds, super_bounds, priors, n_chunks, n_tests,
-                    n_super, chunk_size, super_factor};
   a.st = stats_refs(scratch, n_tiles, b_hi - b_lo, n_tests, n_super);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_counted(scratch, scratch_words, a.st, n_tests, n_super, super_factor, 1, n_tiles,
@@ -539,11 +661,11 @@ int wrt_regroup_combine_home(const int* inv, const float* src, const float* cont
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread and local (spill) bytes of one kernel, as the CUDA
-// runtime reports them; returns a cudaError_t. `which`: 0/1 K0 untextured/
-// textured, 2/3 K1, 4 pack_count, 5 pack_scan, 6 pack_scatter,
-// 7 combine_level, 8 combine_home, 9/10 K1 kStats.
-int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes) {
+// Registers per thread, local (spill) bytes and static shared bytes of one
+// kernel, as the CUDA runtime reports them; returns a cudaError_t.
+// `which`: 0/1 K0 untextured/textured, 2/3 K1, 4 pack_count, 5 pack_scan,
+// 6 pack_scatter, 7 combine_level, 8 combine_home, 9/10 K1 kStats.
+int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes, int* shared_bytes) {
   const void* fns[] = {
       reinterpret_cast<const void*>(regroup_k0<false>),
       reinterpret_cast<const void*>(regroup_k0<true>),
@@ -565,7 +687,24 @@ int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes) {
   if (err != cudaSuccess) return static_cast<int>(err);
   *num_regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *shared_bytes = static_cast<int>(attr.sharedSizeBytes);
   return 0;
+}
+
+// K0's and K1's launch bounds: threads a block and the blocks an SM that
+// fix their register budget.
+void wrt_regroup_launch_bounds(int* threads, int* min_blocks) {
+  *threads = kThreads;
+  *min_blocks = kTraceMinBlocks;
+}
+
+// Dynamic shared bytes K0 and K1 stage for a cull hierarchy (stage_cull).
+long long wrt_regroup_cull_smem(int n_chunks, int n_tests, int n_super) {
+  CullRefs cu = {};
+  cu.n_chunks = n_chunks;
+  cu.n_tests = n_tests;
+  cu.n_super = n_super;
+  return static_cast<long long>(cull_smem_bytes(cu));
 }
 
 }  // extern "C"

@@ -10,11 +10,11 @@
 // col 2 chunk bodies the whole-tile cull enters (inside entered
 // super-chunks), col 3 super-chunk bodies it enters, cols 4-7 zero.
 //
-// The port sweeps every sphere and skips nothing. It can still count what
-// the TPU's cull decides, because that cull never changes a winner: a chunk
-// is skipped only when no live lane of the tile can hit inside it, so at
-// chunk c each lane's best-t is min(priors, spheres before c) in the culled
-// sweep and in the full one alike. So a kStats ray, before each chunk of
+// The kStats instantiations sweep every sphere and skip nothing. They can
+// still count what the TPU's cull decides, because that cull never changes
+// a winner: a chunk is skipped only when no live lane of the tile can hit
+// inside it, so at chunk c each lane's best-t is min(priors, spheres
+// before c) in the culled sweep and in the full one alike. So a kStats ray, before each chunk of
 // its unchanged chunk-ordered sweep, runs the TPU's slab test
 // (bound_possible, megakernel.py:529-554) with min(prior best-t, best-t so
 // far), and before each super-chunk's first chunk the super test; the
@@ -28,7 +28,9 @@
 // to a sweep of 21 per sphere (so about 4% at 16 spheres a chunk), the
 // priors 4 sphere tests per bounce, and one aggregated atomic per warp per
 // 32 chunks; none of it is on the main path, whose instantiations have
-// kStats = false and compile without it.
+// kStats = false and compile without it. The main path's own cull, per
+// warp and skipping what no lane enters, is bounce.cuh's sweep_culled; it
+// shares the slab test (slab_box) and the priors with these counters.
 
 #pragma once
 
@@ -127,21 +129,30 @@ __device__ __forceinline__ void count_trips(const StatsRefs& st, const RayCounte
   }
 }
 
-// The TPU's slab test for box i of a [6, stride] bound table: can this ray
-// enter the box closer than bt? (slab_hit, megakernel.py:529-550; the
-// min/max swap folded into the signed inverse direction.)
-__device__ __forceinline__ bool slab_enters(const float* __restrict__ b, int stride, int i,
-                                            float ox, float oy, float oz, float ix, float iy,
-                                            float iz, float bt) {
-  const float tx0 = (__ldg(b + i) - ox) * ix;
-  const float tx1 = (__ldg(b + 3 * stride + i) - ox) * ix;
-  const float ty0 = (__ldg(b + stride + i) - oy) * iy;
-  const float ty1 = (__ldg(b + 4 * stride + i) - oy) * iy;
-  const float tz0 = (__ldg(b + 2 * stride + i) - oz) * iz;
-  const float tz1 = (__ldg(b + 5 * stride + i) - oz) * iz;
+// The TPU's slab test of the box (lo x, y, z, hi x, y, z): can this ray
+// enter it closer than bt? (slab_hit, megakernel.py:529-550; the min/max
+// swap folded into the signed inverse direction.)
+__device__ __forceinline__ bool slab_box(float lx, float ly, float lz, float hx, float hy,
+                                         float hz, float ox, float oy, float oz, float ix,
+                                         float iy, float iz, float bt) {
+  const float tx0 = (lx - ox) * ix;
+  const float tx1 = (hx - ox) * ix;
+  const float ty0 = (ly - oy) * iy;
+  const float ty1 = (hy - oy) * iy;
+  const float tz0 = (lz - oz) * iz;
+  const float tz1 = (hz - oz) * iz;
   const float tnear = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
   const float tfar = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
   return tfar >= tnear && tfar > kSlabMinT && tnear < bt;
+}
+
+// slab_box for box i of a [6, stride] bound table in global memory.
+__device__ __forceinline__ bool slab_enters(const float* __restrict__ b, int stride, int i,
+                                            float ox, float oy, float oz, float ix, float iy,
+                                            float iz, float bt) {
+  return slab_box(__ldg(b + i), __ldg(b + stride + i), __ldg(b + 2 * stride + i),
+                  __ldg(b + 3 * stride + i), __ldg(b + 4 * stride + i),
+                  __ldg(b + 5 * stride + i), ox, oy, oz, ix, iy, iz, bt);
 }
 
 __device__ __forceinline__ float slab_inverse(float d) {

@@ -116,13 +116,15 @@ __device__ __forceinline__ float ray_component(const float* __restrict__ rays, b
 // instruction throughput: 21 counted operations a test, but sweep_sphere
 // runs more instructions than that (the IEEE sqrtf's range check,
 // reciprocal square root and correction, three compares, two selects, the
-// c + c adds), and a miss, most tests, branches to the sqrtf's slow path
-// besides. Design: one thread per ray so that nothing crosses lanes; a
-// chunk's spheres are one shared-memory broadcast load (LDS.128) each; the
-// block stages the next chunk between two barriers, with a runtime chunk
-// size as the TPU kernel's fori over chunks. The pass index rides dx at
-// zero weight (x + 0 * it is not foldable without fast math).
-__global__ void __launch_bounds__(kThreads)
+// c + c adds) where it hits; a miss, most tests, skips the root. Design:
+// one thread per ray so that nothing crosses lanes; a chunk's spheres are
+// one shared-memory broadcast load (LDS.128) each; the block stages the
+// next chunk between two barriers, with a runtime chunk size as the TPU
+// kernel's fori over chunks. The pass index rides dx at
+// zero weight (x + 0 * it is not foldable without fast math). Four blocks
+// an SM: with sweep_sphere's branch around the root ptxas would otherwise
+// hold it to 48 registers and spill 8 bytes.
+__global__ void __launch_bounds__(kThreads, 4)
     sweep_fma(const float4* __restrict__ spheres, int n_spheres, int chunk,
               const float* __restrict__ rays, int n_rays, int iters, float* __restrict__ t_out,
               int* __restrict__ i_out) {

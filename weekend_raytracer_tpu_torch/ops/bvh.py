@@ -6,9 +6,10 @@ chunk (and each super-chunk of chunks) bounded by an AABB. Every step is
 elementwise f32 arithmetic, an exact min/max reduction, or a stable sort,
 so the arrays do not depend on the device they are built on.
 
-The CUDA kernel of this package sweeps every sphere and does not cull yet;
-the chunk layout is built all the same, so that culling can be added
-without touching the preparation (ROADMAP Queue 3).
+Regroup's K0 and K1 (csrc/regroup.cu) cull their sweep per warp with
+these chunk and super-chunk boxes and the priors; the megakernel and the
+wavefront sweep every sphere, and the kStats kernels count the TPU's
+whole-tile cull decisions on them (csrc/stats.cuh).
 """
 from __future__ import annotations
 

@@ -39,6 +39,14 @@ from ..tracer import Scene
 from .build import load_library
 
 N_PRIORS = 4  # largest-|radius| spheres (the TPU kernel seeds best-t with them)
+# Regroup K0's and K1's per-warp cull (csrc/regroup.cu, cull.py) tests each
+# chunk and super-chunk box widened on every side by KernelInputs.cull_margin.
+# The expanded quadratic puts a computed hit off its sphere by up to about
+# 2^-22 (|c| + r)^2 / r (random_spheres(10000) on an H100): a ray leaving
+# a sphere that sets a face of its chunk's box can hit it again just past
+# MIN_T, where the exact box's slab test has the ray out of the box before
+# MIN_T. The margin is 16 times that bound, over the scene's spheres.
+CULL_MARGIN_SCALE = 2.0 ** -18
 DEFAULT_TEXTURE_BUDGET = 8192  # texels per texture in the kernel's LUT
 
 EPS = 1.0e-3
@@ -155,8 +163,8 @@ def build_kernel_texture_pool(mat, budget_texels: int = DEFAULT_TEXTURE_BUDGET):
 
 def default_chunk_size(n_spheres: int) -> int:
     """The JAX package's chunk size: 16 up to 2048 spheres, 32 above
-    (chosen for its culled sweep; this package's kernel does not cull yet
-    and only keeps the layout)."""
+    (chosen for its culled sweep; regroup's K0 and K1 cull per warp on the
+    same chunks, the megakernel and the wavefront sweep every sphere)."""
     return 16 if n_spheres <= 2048 else 32
 
 
@@ -245,10 +253,11 @@ def prepare_scene_arrays(scene: Scene, basis: CameraBasis, chunk_size: int,
 class KernelInputs(NamedTuple):
     """What the kernel reads, laid out for it (shared with the plain twin).
 
-    The chunk hierarchy (the last seven fields) is read only by the kStats
+    The chunk hierarchy (the last seven fields) is read by regroup's K0 and
+    K1, which cull their sweep per warp with it, and by the kStats
     instantiations, which count the TPU kernel's cull decisions; it is a
     few KiB (RTiOW: 6 x 31 chunk bounds, 744 bytes; random_spheres(10000):
-    6 x 320 chunk and 6 x 20 super bounds, 8.2 KiB)."""
+    6 x 320 chunk and 6 x 20 super bounds, 8,160 bytes)."""
 
     cam: torch.Tensor  # [20] f32
     sky: torch.Tensor  # [33] f32
@@ -263,6 +272,7 @@ class KernelInputs(NamedTuple):
     n_super: int  # super-chunks of super_factor chunks; 0: one level
     chunk_size: int
     super_factor: int
+    cull_margin: float = 0.0  # f32: K0's and K1's widening of the boxes (CULL_MARGIN_SCALE)
 
     @property
     def n_tests(self) -> int:
@@ -284,12 +294,21 @@ def kernel_inputs(scene: Scene, sky: SkyState, basis: CameraBasis, *,
     sweep = torch.stack([a[0], a[1], a[2], a[-1]], dim=1).contiguous()
     attrs = torch.stack(a[:-1], dim=0).contiguous()
     pool = None if prep.tex_pool is None else prep.tex_pool.reshape(-1).contiguous()
+    margin = cull_margin(sweep[:, :3], a[3]) if prep.n_chunks else 0.0
     return KernelInputs(pack_camera(basis).contiguous(), pack_sky(sky).contiguous(),
                         sweep, attrs, pool, prep.n_spheres,
                         torch.stack(prep.chunk_arrays[:6]).contiguous(),
                         torch.stack(prep.super_arrays).contiguous(),
                         prep.chunk_arrays[6].contiguous(), prep.n_chunks, prep.n_super,
-                        chunk_size, super_factor)
+                        chunk_size, super_factor, margin)
+
+
+def cull_margin(centers: torch.Tensor, radii: torch.Tensor) -> float:
+    """CULL_MARGIN_SCALE * max over the spheres of (|c| + |r|)^2 / |r|,
+    rounded to f32: how far K0 and K1 widen the chunk boxes they cull with."""
+    r = torch.clamp(radii.double().abs(), min=1e-6)
+    reach = torch.linalg.vector_norm(centers.double(), dim=1) + r
+    return float(np.float32(CULL_MARGIN_SCALE * float((reach * reach / r).max())))
 
 
 # --------------------------------------------------------------------------

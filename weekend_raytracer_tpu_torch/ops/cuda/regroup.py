@@ -13,14 +13,18 @@ Counterpart of weekend_raytracer_tpu/ops/pallas/regroup.py. Per frame:
            samples into the scanline accumulator.
 
 The four kernels are CUDA C++ (csrc/regroup.cu), and K0 and K1 run the
-megakernel's own per-ray body (csrc/bounce.cuh); see regroup.cu for what
-bounds them on the card. Each has a plain PyTorch twin here (``k0_plain``,
-``pack_plain``, ``k1_plain``, ``combine_plain``) with the same contract on
-the same buffers, and ``render_image_regrouped_plain`` is the frame built
-from the twins. ``render_image_regrouped`` launches the kernels for a CUDA
-``accum`` (or raises) and runs the twins for a CPU one. ``launch_k1`` and
-``k1_plain`` also take a ``stats=`` table, ``_make_k1(stats=True)``'s
-counters per dense tile.
+megakernel's own per-ray body (csrc/bounce.cuh), with its closest-hit sweep
+culled per warp of 32 records in scenes with chunks (bounce.cuh
+``sweep_culled``; the full sweep's result in every bit); see regroup.cu for
+what bounds them on the card. Each has a plain PyTorch twin here
+(``k0_plain``, ``pack_plain``, ``k1_plain``, ``combine_plain``) with the
+same contract on the same buffers, and ``render_image_regrouped_plain`` is
+the frame built from the twins. ``render_image_regrouped`` launches the
+kernels for a CUDA ``accum`` (or raises) and runs the twins for a CPU one.
+``launch_k1`` and ``k1_plain`` also take a ``stats=`` table,
+``_make_k1(stats=True)``'s counters per dense tile. The cull's own twin is
+``cull.warp_cull_plain``; ``cull_census`` runs it over a frame's rays, to
+count the work K0 and K1 do (their bounds).
 
 Layout, as in the JAX package (regroup.py:76-127, 1072-1091): 32-row x
 128-lane tiles with spp folded into lanes (``block_w = 128 >> log2(spp)``
@@ -51,6 +55,7 @@ from .. import rng
 from ..tracer import Scene
 from . import megakernel as mk
 from .build import load_library
+from .cull import CullCount, warp_cull_plain
 
 # Pool record layout (regroup.py:77-85).
 _OX, _OY, _OZ, _DX, _DY, _DZ = 0, 1, 2, 3, 4, 5
@@ -188,38 +193,67 @@ KERNEL_NAMES = ("k0", "k0_textured", "k1", "k1_textured", "pack_count",
 def _library():
     """Build (first use) and load the kernel library; raises on failure."""
     built = load_library(*LIBRARY)
-    lib = built.lib
+    bind(built.lib)
+    return built
+
+
+def bind(lib) -> None:
+    """Give a loaded regroup.cu library's entry points their C types (once)."""
     if lib.wrt_regroup_k0.argtypes is None:
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
         ll = ctypes.c_longlong
         sigs = {
-            "wrt_regroup_k0": [vp] * 5 + [i, vp, vp, ll, i, i, i, i, f, f, u, u, i, vp],
+            "wrt_regroup_k0": ([vp] * 5 + [i, vp, vp, ll, i, i, i, i, f, f, u, u, i]
+                               + mk.CULL_ARGTYPES + [f, vp]),
             "wrt_regroup_pack": [vp] * 6 + [ll, vp],
-            "wrt_regroup_k1": [vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i, vp],
+            "wrt_regroup_k1": ([vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i]
+                               + mk.CULL_ARGTYPES + [f, vp]),
             "wrt_regroup_k1_stats": ([vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i]
                                      + mk.CULL_ARGTYPES + [vp, ll, vp, vp]),
             "wrt_regroup_combine": [vp] * 4 + [ll, vp],
             "wrt_regroup_combine_home": [vp] * 4 + [ll, i, i, i, i, i, vp],
-            "wrt_regroup_attributes": [i, ctypes.POINTER(i), ctypes.POINTER(i)],
+            "wrt_regroup_attributes": [i] + [ctypes.POINTER(i)] * 3,
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    return built
+        lib.wrt_regroup_cull_smem.argtypes = [i, i, i]
+        lib.wrt_regroup_cull_smem.restype = ll
+        lib.wrt_regroup_launch_bounds.argtypes = [ctypes.POINTER(i)] * 2
+        lib.wrt_regroup_launch_bounds.restype = None
+
+
+def launch_bounds() -> tuple:
+    """K0's and K1's __launch_bounds__: (threads a block, blocks an SM),
+    which fix their register budget (regroup.cu kTraceMinBlocks)."""
+    threads, min_blocks = ctypes.c_int(0), ctypes.c_int(0)
+    _library().lib.wrt_regroup_launch_bounds(ctypes.byref(threads), ctypes.byref(min_blocks))
+    return threads.value, min_blocks.value
 
 
 def kernel_attributes() -> dict:
-    """Registers per thread and local-memory bytes of each built kernel."""
+    """Registers per thread, local-memory bytes and static shared-memory
+    bytes of each built kernel."""
     lib = _library().lib
     out = {}
     for which, name in enumerate(KERNEL_NAMES):
-        regs, local = ctypes.c_int(0), ctypes.c_int(0)
-        err = lib.wrt_regroup_attributes(which, ctypes.byref(regs), ctypes.byref(local))
+        regs, local, shared = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        err = lib.wrt_regroup_attributes(which, ctypes.byref(regs), ctypes.byref(local),
+                                         ctypes.byref(shared))
         if err:
             raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
-        out[name] = {"registers": regs.value, "local_bytes": local.value}
+        out[name] = {"registers": regs.value, "local_bytes": local.value,
+                     "shared_bytes": shared.value}
     return out
+
+
+def cull_smem_bytes(inp: mk.KernelInputs) -> int:
+    """Dynamic shared-memory bytes a block of K0 or K1 stages for this
+    scene's cull tables (regroup.cu stage_cull): the priors' four sweep
+    rows and indices and the chunk and super-chunk boxes; 0 without
+    chunks."""
+    return int(_library().lib.wrt_regroup_cull_smem(inp.n_chunks, inp.n_tests, inp.n_super))
 
 
 def _stream_handle(device: torch.device) -> int:
@@ -275,8 +309,8 @@ def _raise_on(err: int, what: str) -> None:
 def launch_k0(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
               t: Tiling, frame, b_hi: int) -> None:
     """K0 on the current stream: every slot's record into ``pool`` [16, cap]
-    and its tr * cr into ``contrib`` [3, cap]. Counts one launch in
-    ``launch_k0.launches``."""
+    and its tr * cr into ``contrib`` [3, cap], the sweep culled per warp
+    where ``inp`` has chunks. Counts one launch in ``launch_k0.launches``."""
     dev = pool.device
     _expect_scene(inp, dev)
     _expect(pool, (N_COMP, t.cap), _F32, dev)
@@ -286,7 +320,7 @@ def launch_k0(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
         t.cap, t.width, t.height, t.tiles_x, t.spp_shift,
         mk._f32(1.0 / t.width), mk._f32(1.0 / t.full_height),
         int(frame) & rng.MASK32, t.row_offset & rng.MASK32, int(b_hi),
-        _stream_handle(dev))
+        *mk.cull_args(inp, dev), mk._f32(inp.cull_margin), _stream_handle(dev))
     _raise_on(err, "K0")
     launch_k0.launches += 1
 
@@ -325,7 +359,8 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
               b_hi: int, stats: Optional[torch.Tensor] = None) -> None:
     """K1 of phase k on the current stream: bounces [b_lo, b_hi) of the
     counts[k] dense records of ``pool``, in place, and their tr * cr into
-    ``r8`` [3, cap]. Counts one launch in ``launch_k1.launches``.
+    ``r8`` [3, cap], the sweep culled per warp where ``inp`` has chunks.
+    Counts one launch in ``launch_k1.launches``.
 
     With ``stats`` [cap / 4096, 8] f32 it launches the kStats
     instantiation instead (counted in ``launch_k1.stats_launches``), which
@@ -345,13 +380,15 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
     args = (*_scene_ptrs(inp), pool.data_ptr(), r8.data_ptr(), _count_ptr(counts, k, dev),
             t.cap, t.width, t.height, t.tiles_x, t.spp_shift, int(frame) & rng.MASK32,
             t.row_offset & rng.MASK32, int(b_lo), int(b_hi))
+    cull = mk.cull_args(inp, dev)
     if stats is None:
-        _raise_on(lib.wrt_regroup_k1(*args, _stream_handle(dev)), "K1")
+        _raise_on(lib.wrt_regroup_k1(*args, *cull, mk._f32(inp.cull_margin),
+                                     _stream_handle(dev)), "K1")
         launch_k1.launches += 1
         return
     words = mk.stats_scratch_words(t.cap // TILE_RECORDS, b_hi - b_lo, inp)
     scratch = torch.empty((words,), dtype=_I32, device=dev)
-    err = lib.wrt_regroup_k1_stats(*args, *mk.cull_args(inp, dev), scratch.data_ptr(), words,
+    err = lib.wrt_regroup_k1_stats(*args, *cull, scratch.data_ptr(), words,
                                    stats.data_ptr(), _stream_handle(dev))
     _raise_on(err, "K1 stats")
     launch_k1.stats_launches += 1
@@ -493,6 +530,64 @@ def k1_plain(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
         stats.copy_(counter.table(1))
 
 
+_CENSUS_BLOCK = 1 << 21  # rays per batch of cull_census (a multiple of 32)
+
+
+def _phases(cuts: tuple, num_bounces: int) -> list:
+    """[b_lo, b_hi) of K0 and of each phase's K1."""
+    ends = list(cuts[1:]) + [num_bounces]
+    return [(0, cuts[0])] + list(zip(cuts, ends))
+
+
+def cull_census(inp: mk.KernelInputs, t: Tiling, frame, cuts: tuple, num_bounces: int,
+                group: int = 32) -> list:
+    """The work of K0 and of each phase's K1 under the per-warp cull, on
+    the twins' rays of one frame: per kernel ((b_lo, b_hi), [CullCount of
+    each bounce]). K0's groups are 32 consecutive slots; each K1's are 32
+    consecutive records of its dense pool, the live records in slot order
+    as PACK leaves them. The rays come from ``trace_bounces_plain`` run one
+    bounce at a time, which gives a bounce's rays as a run over many does;
+    they differ from the kernels' by nvcc's FMA contraction alone."""
+    dev = inp.sweep.device
+    frame = int(frame) & rng.MASK32
+    cam = [mk._f32(v) for v in inp.cam.tolist()]
+    inv_w, inv_h = mk._f32(1.0 / t.width), mk._f32(1.0 / t.full_height)
+    o = torch.empty((3, t.cap), dtype=_F32, device=dev)
+    d = torch.empty_like(o)
+    state = torch.empty((t.cap,), dtype=torch.int64, device=dev)
+    for lo in range(0, t.cap, _CENSUS_BLOCK):
+        hi = min(t.cap, lo + _CENSUS_BLOCK)
+        st, x, y_g = _seeds(t, torch.arange(lo, hi, device=dev), frame)
+        st, ob, db = mk.camera_rays_plain(cam, x.to(_F32), y_g.to(torch.int32).to(_F32),
+                                          inv_w, inv_h, st)
+        o[:, lo:hi], d[:, lo:hi], state[lo:hi] = torch.stack(ob), torch.stack(db), st
+    tr = torch.ones((t.cap, 3), dtype=_F32, device=dev)
+    alive = torch.ones((t.cap,), dtype=torch.bool, device=dev)
+    out = []
+    for k, (b_lo, b_hi) in enumerate(_phases(cuts, num_bounces)):
+        if k:  # PACK: the live records, in slot order
+            keep = torch.nonzero(alive).squeeze(1)
+            o, d, tr, state = o[:, keep], d[:, keep], tr[keep], state[keep]
+            alive = torch.ones((keep.numel(),), dtype=torch.bool, device=dev)
+        counts = []
+        for b in range(b_lo, b_hi):
+            count = CullCount(0, 0, 0, 0)
+            for lo in range(0, alive.numel(), _CENSUS_BLOCK):
+                sl = slice(lo, lo + _CENSUS_BLOCK)
+                count = count.plus(warp_cull_plain(tuple(o[:, sl]), tuple(d[:, sl]),
+                                                   alive[sl], inp, group).count)
+            counts.append(count)
+            live = torch.nonzero(alive).squeeze(1)
+            for lo in range(0, live.numel(), _CENSUS_BLOCK):
+                idx = live[lo:lo + _CENSUS_BLOCK]
+                p = mk.trace_bounces_plain(tuple(o[:, idx]), tuple(d[:, idx]), tr[idx],
+                                           state[idx], inp, b, b + 1)
+                o[:, idx], d[:, idx], tr[idx] = p.o.T, p.d.T, p.tr
+                state[idx], alive[idx] = p.state, p.alive
+        out.append(((b_lo, b_hi), counts))
+    return out
+
+
 def _fold_plain(contrib: torch.Tensor, accum: torch.Tensor, t: Tiling,
                 clear) -> None:
     """Each pixel's spp contiguous lanes summed in sample order from 0,
@@ -632,7 +727,8 @@ def render_image_regrouped(
     place into ``accum``. A CUDA ``accum`` launches the CUDA kernels (each
     counted on its ``launch_*`` wrapper) or raises; a CPU ``accum`` runs the
     plain twins. ``k1_chunk_size`` picks the JAX package's cull granularity
-    for K1, and the port sweeps every sphere, so it changes nothing here.
+    for K1; the port's K1 culls the prepared chunks per warp, exactly, so
+    it changes nothing here.
     """
     knobs = dict(mxu_sweep=mxu_sweep, listed=listed, k1_subcull=k1_subcull,
                  rowsweep=rowsweep, rowsweep_k0=rowsweep_k0,
@@ -688,4 +784,5 @@ def render_image_regrouped_plain(
         full_height=full_height, debug_counts=debug_counts)
 
 
-__all__ = ["default_cuts", "render_image_regrouped", "render_image_regrouped_plain"]
+__all__ = ["cull_census", "default_cuts", "render_image_regrouped",
+           "render_image_regrouped_plain", "warp_cull_plain"]
