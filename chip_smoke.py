@@ -36,7 +36,14 @@ size, as benchmarks/kernel_stats.py and benchmarks/profile_regroup.py's
 K0 -> PACK -> K1(stats) at the first cut of RTiOW 1920x1080 x 32 spp. Each
 full-size table is held against the twin on a part of it (the last row of
 TPU tiles, the last dense tiles); the phase prints the summaries and times
-each stats kernel against its kStats = false twin. ``[trace]`` runs one regroup
+each stats kernel against its kStats = false twin. ``[cull]`` holds
+regroup, whose K0 and K1 cull their sweep per warp, against the unculled
+wavefront in every bit (RTiOW 1920x1080 x 32 spp over two frames,
+random_spheres(10000) at 3840x2160 x 4 spp, and random_spheres(60000),
+whose boxes K0 and K1 read from global memory, at 1920x1080 x 1 spp) and
+against the megakernel at one sample per pixel, and prints the sphere
+and box tests per live segment that each lane's own decisions need and
+that the warp vote runs. ``[trace]`` runs one regroup
 1080p frame under ``utils.metrics.profiler_trace`` and prints what the
 profiler saw beside the CUDA-event stage times. The ``kernels`` line gives
 every kernel its time, its twin's, its bound (the least time the card could
@@ -138,10 +145,12 @@ _STATS_K1 = dict(width=1920, height=1080, spp=32, bounces=8, frame=0)
 SLAB_TEST_OPS = 12  # per chunk or super-chunk box: 6 subtractions, 6 products
 # the [cull] phase: scene, width, height, spp, frames of regroup (K0 and K1
 # culled per warp) against the unculled wavefront; and the rows of the
-# frame whose rays rg.cull_census counts (None: all; random10k: the middle
-# row of tiles, since the twins' sweep of 10,016 spheres over 33M rays
-# would take minutes)
-_CULL_CASES = (("rtiow", 1920, 1080, 32, 2, None), ("random10k", 3840, 2160, 4, 1, 32))
+# frame whose rays rg.cull_census counts (None: all; the random scenes: the
+# middle row of tiles, since the twins' sweep of 10,016 spheres over 33M
+# rays would take minutes). random_spheres(60000)'s 48,144 bytes of boxes
+# pass what a block stages, so K0 and K1 read them from global memory.
+_CULL_CASES = (("rtiow", 1920, 1080, 32, 2, None), ("random10k", 3840, 2160, 4, 1, 32),
+               ("random60k", 1920, 1080, 1, 1, 32))
 RECORD_BYTES = 64  # a pool record: 16 f32 components
 WF_COMPONENTS = 15  # a wavefront row holds 15 components of 128 f32 lanes
 ROW_PLANE_BYTES = 128 * 4  # one component of one wavefront row
@@ -186,7 +195,12 @@ def _case(name, w, h, device):
                                              SceneDesc, SkyParams, SkyState, Sphere,
                                              to_sky_state)
 
-    if name == "first_hit":
+    if name == "random60k":
+        from weekend_raytracer_tpu_torch.models.scenes import random_spheres, random_spheres_camera
+
+        desc, cam = random_spheres(60000), random_spheres_camera()
+        sky = to_sky_state(SkyParams(), device=device)
+    elif name == "first_hit":
         desc = SceneDesc(materials=[Material.lambertian((0.3, 0.4, 0.5))],
                          spheres=[Sphere((0.0, 0.0, -3.0), 1.0, 0)])
         cam = Camera.look_at((0, 0, 1), (0, 0, -3), vfov_degrees=40.0, aperture=0.0)
@@ -737,24 +751,25 @@ def _trace_fields(tr: dict) -> dict:
 
 
 def _census_lines(census) -> dict:
-    """Per kernel of the frame and per bounce: live segments, and sphere
-    tests (the priors' apart) and box tests per live segment under the
-    per-warp cull."""
+    """Per kernel of the frame and per bounce: live segments; the sphere
+    tests (the priors' apart) and box tests per live segment that each
+    lane's own cull decisions need; and the same two under the warp vote."""
     out = {}
     for (b_lo, b_hi), counts in census:
         key = "k0" if b_lo == 0 else f"k1[{b_lo},{b_hi})"
-        out[key] = {str(b): [c.live, round(c.sphere_tests / max(c.live, 1), 2),
-                             round(c.prior_tests / max(c.live, 1), 2),
-                             round(c.box_tests / max(c.live, 1), 2)]
+        out[key] = {str(b): [c.live] + [round(v / max(c.live, 1), 2) for v in (
+            c.own_sphere_tests, c.prior_tests, c.own_box_tests, c.sphere_tests, c.box_tests)]
                     for b, c in zip(range(b_lo, b_hi), counts)}
     return out
 
 
-def _per_segment(spans) -> float:
+def _per_segment(spans, own: bool = True) -> float:
     """Sphere tests per live segment (the priors' included) over spans of
-    a census."""
+    a census: those each lane's own decisions need, or (own=False) those
+    the lanes run under the warp vote."""
     live = sum(c.live for _, counts in spans for c in counts)
-    tests = sum(c.sphere_tests + c.prior_tests for _, counts in spans for c in counts)
+    tests = sum((c.own_sphere_tests if own else c.sphere_tests) + c.prior_tests
+                for _, counts in spans for c in counts)
     return tests / max(live, 1)
 
 
@@ -763,9 +778,10 @@ def _cull_paths(mk, rg, wf, ro, sw) -> dict:
     regroup accumulator, through launch_regrouped with its launches
     counted from 0, equals the wavefront's (which sweeps every sphere) in
     every bit over the case's frames, the second accumulated; at one sample
-    per pixel it equals the megakernel's. Then rg.cull_census counts the
-    work the cull leaves on the twins' rays of frame 0 (of one row of tiles
-    for random10k)."""
+    per pixel it equals the megakernel's. Then rg.cull_census counts on
+    the twins' rays of frame 0 (of one row of tiles for random10k) the
+    tests each lane's own cull decisions need and those the warp vote
+    makes the lanes run."""
     out = {}
     for name, w, h, spp, frames, band in _CULL_CASES:
         inp = mk.kernel_inputs(*_case(name, w, h, "cuda"))
@@ -805,7 +821,7 @@ def _cull_paths(mk, rg, wf, ro, sw) -> dict:
                      "one_spp_vs_megakernel_pixels_differing": one_spp,
                      "census_rows": list(rows), "census_s": time.perf_counter() - t0,
                      "census": census, "spheres": inp.n_spheres, "chunks": inp.n_chunks,
-                     "supers": inp.n_super, "smem_bytes": rg.cull_smem_bytes(inp)}
+                     "supers": inp.n_super, "placement": rg.cull_placement(inp)}
         torch.cuda.empty_cache()
     return out
 
@@ -845,12 +861,30 @@ def _bound(ops: float, nbytes: float) -> dict:
             "ops": ops, "bytes": nbytes}
 
 
-def _culled_ops(spans) -> float:
-    """FP32 operations of the per-warp cull's work, counted by
-    rg.cull_census over some of its kernels' bounces: each sphere test of
-    the live lanes (the priors' included) and each box test."""
-    return float(sum(SPHERE_TEST_OPS * (c.sphere_tests + c.prior_tests)
-                     + SLAB_TEST_OPS * c.box_tests for _, counts in spans for c in counts))
+def _culled_ops(spans, own: bool = True) -> float:
+    """FP32 operations of the culled sweep, counted by rg.cull_census over
+    some of its kernels' bounces: each sphere test (the priors' included)
+    and each box test that each live lane's own decisions need, the work
+    the function needs; or (own=False) those the lanes run under the warp
+    vote, the design's work."""
+    return float(sum(
+        SPHERE_TEST_OPS * ((c.own_sphere_tests if own else c.sphere_tests) + c.prior_tests)
+        + SLAB_TEST_OPS * (c.own_box_tests if own else c.box_tests)
+        for _, counts in spans for c in counts))
+
+
+def _culled_bounds(census, k0_bytes: float, k1_bytes: float, full: dict) -> dict:
+    """K0's and K1's bounds from a census of their frame (K0 its first
+    span, K1 the rest): ``bound_ms`` from the work each lane's own cull
+    decisions need, ``vote_bound_ms`` the same bound on what the warp vote
+    makes the lanes do (the gap is what the vote costs), and
+    ``bound_full_ms`` the full sweep's, from ``full``."""
+    out = {}
+    for key, spans, nbytes in (("k0", census[:1], k0_bytes), ("k1", census[1:], k1_bytes)):
+        out[key] = {**_bound(_culled_ops(spans), nbytes),
+                    "vote_bound_ms": _bound(_culled_ops(spans, own=False), nbytes)["bound_ms"],
+                    "bound_full_ms": full[key]["bound_ms"]}
+    return out
 
 
 def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
@@ -860,8 +894,8 @@ def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
     tests every prepared sphere; a kStats segment also tests the priors and
     every chunk and super-chunk box. K0 and K1 cull per warp: with
     ``census`` (rg.cull_census of this frame) their bound counts the work
-    the cull leaves (``_culled_ops``), and ``bound_full_ms`` keeps the
-    full sweep's, the bound before the cull. The megakernels trace the real
+    each lane's own cull decisions need (``_culled_bounds``: beside it the
+    warp vote's work and the full sweep's). The megakernels trace the real
     pixels' paths (the stats one counts the TPU's padded lanes without
     tracing them); K1 stats traces the segments of its table's col 1
     (``k1_stats``). Each record or value is read once and written once
@@ -882,10 +916,7 @@ def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
     full = {"k0": _bound(sweep * sum(live_all[:cuts[0]]), k0_bytes),
             "k1": _bound(sweep * k1_seg, k1_bytes)}
     if census is not None:
-        full = {"k0": {**_bound(_culled_ops(census[:1]), k0_bytes),
-                       "bound_full_ms": full["k0"]["bound_ms"]},
-                "k1": {**_bound(_culled_ops(census[1:]), k1_bytes),
-                       "bound_full_ms": full["k1"]["bound_ms"]}}
+        full = _culled_bounds(census, k0_bytes, k1_bytes, full)
     out = {
         "megakernel": _bound(sweep * sum(live_real), pixels * 12),
         "k0": full["k0"],
@@ -1281,10 +1312,11 @@ def _binned_kernels(mk, rg, ro, binned) -> dict:
     dense pool, and the chunkxoct permutation (record_gather) and its
     undoing (record_scatter), those two against their twins bit for bit
     (the scatter gives back the dense pool). Each is timed (CUDA events)
-    beside its twin, its bound from this run's live counts (the full
-    sweep's model: a live segment tests every sphere, which K0 and K1 now
-    cull; a kStats segment also the priors and the chunk boxes; every value
-    moved once)
+    beside its twin, its bound from this run's live counts (K0 and K1: the
+    work each lane's own cull decisions need, rg.cull_census of this frame,
+    with the warp vote's and the full sweep's beside it; a kStats segment
+    tests every sphere, the priors and the chunk boxes; every value moved
+    once)
     and, where one computes the same function, one PyTorch call (PACK:
     nonzero + index_select; the gather: index_select; the scatter:
     index_copy_)."""
@@ -1352,19 +1384,25 @@ def _binned_kernels(mk, rg, ro, binned) -> dict:
 
     sweep = SPHERE_TEST_OPS * inp.n_spheres
     counted = sweep + SPHERE_TEST_OPS * mk.N_PRIORS + SLAB_TEST_OPS * (inp.n_tests + inp.n_super)
-    k1_bytes = n * (2 * RECORD_BYTES + 12)
+    k0_bytes, k1_bytes = t.cap * (RECORD_BYTES + 12), n * (2 * RECORD_BYTES + 12)
     value = rg.N_COMP * 4
+    census = rg.cull_census(inp, t, 0, (cut,), bounces)
     bounds = {
-        "k0": _bound(sweep * sum(live_all[:cut]), t.cap * (RECORD_BYTES + 12)),
+        **_culled_bounds(census, k0_bytes, k1_bytes,
+                         {"k0": _bound(sweep * sum(live_all[:cut]), k0_bytes),
+                          "k1": _bound(sweep * segments, k1_bytes)}),
         "pack": _bound(0, t.cap * 8 + n * 2 * RECORD_BYTES),
-        "k1": _bound(sweep * segments, k1_bytes),
         "k1_stats": _bound(counted * segments, k1_bytes + table.numel() * 4),
         "record_gather": _bound(0, end * (2 * value + 4)),
         "record_scatter": _bound(0, n * (2 * value + 4)),
     }
     return {"records": n, "slots": t.cap, "live_per_bounce": live_all, "segments": segments,
+            "census_segments": [sum(c.live for c in counts) for _, counts in census],
+            "tests_per_segment": [round(_per_segment(census[:1]), 2),
+                                  round(_per_segment(census[1:]), 2)],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bounds": bounds,
-            "share": {k: bounds[k]["bound_ms"] / ms[k] for k in ms}}
+            "share": {k: bounds[k]["bound_ms"] / ms[k] for k in ms},
+            "share_full": {k: bounds[k]["bound_full_ms"] / ms[k] for k in ("k0", "k1")}}
 
 
 def _sweep_launches(mxu, name: str) -> dict:
@@ -1564,14 +1602,16 @@ def main(argv=None) -> int:
               if u.get("spill_stores") or u.get("spill_loads")]
     _check(not spills, ("register spills", spills))
     # K0 and K1: the chosen launch bounds, registers, spills, static shared
-    # memory and the cull tables each block stages (RTiOW; random10k's in [cull])
-    k01 = ("k0", "k0_textured", "k1", "k1_textured")
+    # memory and the cull tables each block stages (RTiOW; random10k's in
+    # [cull]), in both placements of the boxes
+    k01 = ("k0", "k0_textured", "k1", "k1_textured", "k0_global", "k0_global_textured",
+           "k1_global", "k1_global_textured")
     _say("build", case="regroup_k0_k1", launch_bounds=json.dumps(rg.launch_bounds()),
          attributes=json.dumps({k: attrs["regroup"][k] for k in k01}),
          ptxas=json.dumps({k: v for k, v in ptxas["regroup"].items()
                            if "regroup_k0" in k or "regroup_k1" in k}),
-         rtiow_cull_smem_bytes=rg.cull_smem_bytes(
-             mk.kernel_inputs(*_case("rtiow", 96, 64, "cuda"))))
+         rtiow_cull=json.dumps(rg.cull_placement(
+             mk.kernel_inputs(*_case("rtiow", 96, 64, "cuda")))))
     record["build"]["regroup_k0_k1"] = {"launch_bounds": rg.launch_bounds()}
 
     # 3. megakernel against plain, both on the card
@@ -1880,20 +1920,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 6d. the per-warp cull of K0 and K1 at full size: regroup against the
-    # unculled wavefront and megakernel in every bit, and the work the cull
-    # leaves, per bounce, beside the full sweep's
+    # unculled wavefront and megakernel in every bit, and the tests each
+    # lane needs and those of the warp vote, per bounce, beside the full sweep's
     cull = _cull_paths(mk, rg, wf, ro, sw)
     for name, res in cull.items():
         _say("cull", shape=res["shape"], frames=res["frames"], vs_wavefront="bit-exact",
              one_spp_vs_megakernel_pixels_differing=res["one_spp_vs_megakernel_pixels_differing"],
              launches=json.dumps(res["launches"]),
              spheres=res["spheres"], chunks=res["chunks"], supers=res["supers"],
-             smem_bytes=res["smem_bytes"])
+             placement=json.dumps(res["placement"]))
         _say("cull", case=f"{name}_census", rows=json.dumps(res["census_rows"]),
              full_sweep_tests_per_segment=res["spheres"],
              k0_tests_per_segment=f"{_per_segment(res['census'][:1]):.2f}",
              k1_tests_per_segment=f"{_per_segment(res['census'][1:]):.2f}",
-             live_spheres_priors_boxes_per_bounce=json.dumps(_census_lines(res["census"])),
+             k0_vote_tests_per_segment=f"{_per_segment(res['census'][:1], own=False):.2f}",
+             k1_vote_tests_per_segment=f"{_per_segment(res['census'][1:], own=False):.2f}",
+             live_own_spheres_priors_boxes_vote_spheres_boxes_per_bounce=json.dumps(
+                 _census_lines(res["census"])),
              seconds=f"{res['census_s']:.1f}", card=repr(smi))
     record["cull"] = {k: {**v, "census": [[list(span), [c._asdict() for c in counts]]
                                           for span, counts in v["census"]]}
@@ -2018,6 +2061,8 @@ def main(argv=None) -> int:
                             for k, v in bounds.items()}),
          k0_k1_bound_full_ms=json.dumps({k: round(bounds[k]["bound_full_ms"], 5)
                                          for k in ("k0", "k1")}),
+         k0_k1_vote_bound_ms=json.dumps({k: round(bounds[k]["vote_bound_ms"], 5)
+                                         for k in ("k0", "k1")}),
          k0_k1_tests_per_segment=json.dumps([round(_per_segment(census_t[:1]), 2),
                                              round(_per_segment(census_t[1:]), 2)]),
          library_ms=json.dumps({k: round(v, 4) for k, v in library_ms.items()}),
@@ -2092,6 +2137,9 @@ def main(argv=None) -> int:
          k0_k1_bound_full_ms_share=json.dumps({
              k: [round(bounds_big[k]["bound_full_ms"], 3),
                  round(bounds_big[k]["bound_full_ms"] / stage_big[k], 4)] for k in ("k0", "k1")}),
+         k0_k1_vote_bound_ms_share=json.dumps({
+             k: [round(bounds_big[k]["vote_bound_ms"], 3),
+                 round(bounds_big[k]["vote_bound_ms"] / stage_big[k], 4)] for k in ("k0", "k1")}),
          wavefront_rows=json.dumps(wf_rows[_CUTS]), card=repr(smi))
     record["bounds_1080p"] = {"live": live_big, "bounds": bounds_big, "ms": stage_big,
                               "wavefront_device_ms": wf_device}
@@ -2226,11 +2274,13 @@ def main(argv=None) -> int:
                      launches["pallas"]["megakernel"], max_abs_err)]
     kernels += [entry(f"regroup_{k}", k, rg.KERNEL_SOURCE, rg.REPLACES[k],
                       launches["regroup"][k], rg_err[k]) for k in REGROUP_KERNELS]
-    # K0 and K1 cull per warp: their bound counts the work the cull leaves
-    # (rg.cull_census), bound_full_ms the full sweep's
+    # K0 and K1 cull per warp: their bound counts the work each lane's own
+    # cull decisions need (rg.cull_census), vote_bound_ms what the warp
+    # vote makes the lanes do, bound_full_ms the full sweep's
     for e in kernels:
         if e["name"] in ("regroup_k0", "regroup_k1"):
-            e["bound_full_ms"] = bounds[e["name"][len("regroup_"):]]["bound_full_ms"]
+            b = bounds[e["name"][len("regroup_"):]]
+            e.update(vote_bound_ms=b["vote_bound_ms"], bound_full_ms=b["bound_full_ms"])
     kernels += [
         entry("megakernel_stats", "megakernel_stats", mk.KERNEL_SOURCE, mk.STATS_REPLACES,
               sp["launches"]["megakernel_stats"], sv["megakernel_err"]),

@@ -14,7 +14,8 @@ PyTorch's, so chaotic Monte-Carlo paths may diverge at silhouettes. The
 regroup pipeline's PACK and COMBINE are held bit for bit; its K0 and K1
 run the megakernel's own per-ray body, so at one sample per pixel regroup
 and the megakernel give the same bits; K0 and K1 cull their sweep per
-warp, which changes no bit against the unculled wavefront and megakernel,
+warp, with the boxes in shared or (a large scene) global memory, which
+changes no bit against the unculled wavefront and megakernel,
 the kStats K1 (which sweeps every sphere), or with a last warp part full.
 The row-compacted wavefront runs the
 same body on the same slots: it gives regroup's image in every bit, and
@@ -321,6 +322,7 @@ def test_culled_regroup_equals_unculled_paths(name, spp, cuda):
     w, h = 96, 64
     inp = _stats_case(name, w, h, cuda)
     assert (inp.n_chunks > 0) == (name != "textured") and (inp.n_super > 0) == (name == "super")
+    assert rg.cull_placement(inp)["boxes"] == ("shared" if inp.n_chunks else "none")
     names = ("k0", "pack", "k1", "combine")
     before = [getattr(rg, f"launch_{k}").launches for k in names]
     got = _render(rg.launch_regrouped, inp, w, h, 2, spp, 8, cuda, cuts=(2, 4, 6))
@@ -384,22 +386,58 @@ def test_culled_k1_with_a_ragged_count(name, cuda):
 
 
 @pytest.mark.cuda
-def test_refused_culled_launch_raises(cuda):
-    """A cull table too large for a block's shared memory (232,448 bytes):
-    K0 and K1 are refused, the wrappers raise and count no launch."""
+@pytest.mark.parametrize("spp", [1, 4])
+def test_culled_regroup_with_boxes_in_global_memory(spp, cuda):
+    """random_spheres(60000) has 1,875 chunks of 32 in 118 super-chunks,
+    48,144 bytes of boxes: past regroup.cu's kStageBytes, so K0 and K1
+    stage only the priors' rows (80 bytes) and read the boxes from global
+    memory (kStaged = false). The accumulator still equals the wavefront's
+    in every bit over two frames, and at one sample per pixel the
+    megakernel's."""
+    from weekend_raytracer_tpu_torch.models.scenes import random_spheres, random_spheres_camera
+
+    w, h = 96, 64
+    inp = mk.kernel_inputs(random_spheres(60000).build(device=cuda),
+                           to_sky_state(SkyParams(), device=cuda),
+                           CameraBasis.create(random_spheres_camera(), (w, h), device=cuda))
+    assert (inp.n_chunks, inp.n_tests, inp.n_super) == (1875, 1888, 118)
+    assert rg.cull_placement(inp) == {"smem_bytes": 80, "boxes": "global"}
+    got = _render(rg.launch_regrouped, inp, w, h, 2, spp, 8, cuda, cuts=(2, 4, 6))
+    assert torch.equal(got, _render(wf.launch_wavefront, inp, w, h, 2, spp, 8, cuda))
+    if spp == 1:
+        a = _render(rg.launch_regrouped, inp, w, h, 1, 1, 8, cuda, cuts=(2, 4, 6))
+        assert torch.equal(a, _render(mk.launch_megakernel, inp, w, h, 1, 1, 8, cuda))
+
+
+class _Refusing:
+    """A loaded regroup library whose K0 and K1 entry points return
+    cudaErrorLaunchOutOfResources (701), as a refused launch does."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        if name in ("wrt_regroup_k0", "wrt_regroup_k1"):
+            return lambda *args: 701
+        return getattr(self._lib, name)
+
+
+@pytest.mark.cuda
+def test_refused_culled_launch_raises(monkeypatch, cuda):
+    """A refused K0 or K1 launch: the wrappers raise and count no launch."""
     w, h = 64, 32
     inp = _inputs("rtiow", w, h, cuda)
-    big = inp._replace(chunk_bounds=torch.zeros((6, 10000), device=cuda))
-    assert rg.cull_smem_bytes(big) > 232448
+    built = type("Built", (), {"lib": _Refusing(rg._library().lib)})()
+    monkeypatch.setattr(rg, "_library", lambda: built)
     t, _ = rg.plan(w, h, 4, 8, (2,))
     pool = torch.empty((rg.N_COMP, t.cap), device=cuda)
     r8 = torch.empty((3, t.cap), device=cuda)
     counts = torch.tensor([t.cap, t.cap], dtype=torch.int32, device=cuda)
     before = (rg.launch_k0.launches, rg.launch_k1.launches)
-    with pytest.raises(RuntimeError, match="K0 launch failed"):
-        rg.launch_k0(big, pool, r8, t, 0, 2)
-    with pytest.raises(RuntimeError, match="K1 launch failed"):
-        rg.launch_k1(big, pool, r8, counts, 1, t, 0, 2, 8)
+    with pytest.raises(RuntimeError, match="K0 launch failed: CUDA error 701"):
+        rg.launch_k0(inp, pool, r8, t, 0, 2)
+    with pytest.raises(RuntimeError, match="K1 launch failed: CUDA error 701"):
+        rg.launch_k1(inp, pool, r8, counts, 1, t, 0, 2, 8)
     assert (rg.launch_k0.launches, rg.launch_k1.launches) == before
 
 

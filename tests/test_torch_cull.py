@@ -10,7 +10,12 @@ makes the same decisions in PyTorch; here it is held to
   and a last group shorter than 32;
 - a brute-force count of the same votes from the TPU kernel's per-lane
   cull decisions (``megakernel._cull_tests``, which takes the full sweep's
-  running best-t), on the boxes as K0 and K1 widen them;
+  running best-t), on the boxes as K0 and K1 widen them per lane
+  (``cull.lane_margin``), and of what each lane's own decisions need;
+- the full sweep on rays built to part from a cull on the exact boxes
+  (a far cluster of small spheres, grazing exits at their box faces),
+  where each winner's offset from its sphere stays inside the first-order
+  bound that megakernel.py's CULL_MARGIN_ULPS is derived from;
 - the TPU's whole-tile cull: a tile of 4096 records enters the union of
   what its 128 warps enter, so a warp's entered chunks, averaged over a
   tile's warps, never exceed the tile's count from ``k1_plain(stats=...)``
@@ -156,12 +161,21 @@ def _brute_force(inp, o, d, alive, group=32):
     lane's cull decisions as the TPU kernel's counters take them
     (megakernel._cull_tests: slab tests against min(priors' best-t, the
     full sweep's best-t before the chunk)), on the boxes as K0 and K1 widen
-    them (cull_bounds)."""
-    chunk_bounds, super_bounds = cull.cull_bounds(inp)
+    them (each lane's cull.lane_margin); and the tests each lane's own
+    decisions need: (sphere, box, entered per group, own sphere, own box)."""
     chunk_hit, super_hit = (None if x is None else x.numpy() for x in mk._cull_tests(
-        o, d, inp._replace(chunk_bounds=chunk_bounds, super_bounds=super_bounds)))
+        o, d, inp, margin=cull.lane_margin(o, inp)))
     alive = alive.numpy()
     n = alive.shape[0]
+    live = np.nonzero(alive)[0]
+    own_box = own_sphere = 0
+    per = inp.super_factor if inp.n_super else inp.n_chunks
+    for c0 in range(0, inp.n_chunks, per):
+        mine = super_hit[live, c0 // per] if inp.n_super else np.ones(len(live), bool)
+        own_box += len(live) if inp.n_super else 0
+        for c in range(c0, min(c0 + per, inp.n_chunks)):
+            own_box += int(mine.sum())
+            own_sphere += inp.chunk_size * int((mine & chunk_hit[live, c]).sum())
     sphere = box = 0
     entered = []
     per = inp.super_factor if inp.n_super else inp.n_chunks
@@ -182,24 +196,39 @@ def _brute_force(inp, o, d, alive, group=32):
                     got += 1
                     sphere += inp.chunk_size * len(lanes)
         entered.append(got)
-    return sphere, box, np.asarray(entered)
+    return sphere, box, np.asarray(entered), own_sphere, own_box
 
 
 @pytest.mark.parametrize("name", list(_SCENES))
 def test_counts_match_brute_force(name, culled):
     inp, o, d, alive, wc, _ = culled[name]
-    sphere, box, entered = _brute_force(inp, o, d, alive)
+    sphere, box, entered, own_sphere, own_box = _brute_force(inp, o, d, alive)
     assert (wc.count.sphere_tests, wc.count.box_tests) == (sphere, box)
+    assert (wc.count.own_sphere_tests, wc.count.own_box_tests) == (own_sphere, own_box)
     assert wc.count.prior_tests == mk.N_PRIORS * wc.count.live
     np.testing.assert_array_equal(wc.entered.numpy(), entered)
     assert len(entered) == -(-alive.numel() // 32)
+
+
+@pytest.mark.parametrize("name", list(_SCENES))
+def test_own_counts_are_the_lanes_alone(name, culled):
+    """A lane's own decisions do not depend on its group: the own counts
+    under the vote of 32 are the counts of groups of one, and the vote
+    makes its lanes test more, never less."""
+    inp, o, d, alive, wc, _ = culled[name]
+    one = cull.warp_cull_plain(o, d, alive, inp, group=1).count
+    assert (one.sphere_tests, one.box_tests) == (one.own_sphere_tests, one.own_box_tests)
+    assert (wc.count.own_sphere_tests, wc.count.own_box_tests) == (
+        one.sphere_tests, one.box_tests)
+    assert wc.count.own_sphere_tests < wc.count.sphere_tests
+    assert wc.count.own_box_tests <= wc.count.box_tests
 
 
 # Rays of random_spheres(10000) (4K camera) that leave a small sphere near
 # the pole on its chunk box's bottom face and hit the same sphere again just
 # past MIN_T, outside the exact box (found by a search of the twins' rays
 # of rows 1024-1279 of a 3840x2160 x 4 spp frame): (origin, direction,
-# sphere). Without the cull margin the chunk is skipped and the ground wins.
+# sphere). On the exact boxes the chunk is skipped and the ground wins.
 _REHITS = (
     ((24.967369079589844, 0.0003611519932746887, -16.987592697143555),
      (0.3939213752746582, -0.4025239646434784, -0.8263173699378967), 6234),
@@ -217,24 +246,116 @@ _REHITS = (
 
 
 def test_margin_keeps_rehits_at_box_faces():
-    """The widened boxes keep the full sweep's hit for rays that hit their
-    own sphere again just outside its exact chunk box; with the exact boxes
-    (cull_margin 0) the cull skips the chunk."""
+    """Each lane's widened boxes keep the full sweep's hit for rays that
+    hit their own sphere again just outside its exact chunk box; with the
+    exact boxes (cull_scale 0) the cull skips the chunk."""
     from weekend_raytracer_tpu_torch import SCENES, CameraBasis, SkyParams, to_sky_state
 
     build, cam = SCENES["random10k"]
     inp = mk.kernel_inputs(build().build(device="cpu"), to_sky_state(SkyParams(), device="cpu"),
                            CameraBasis.create(cam(), (3840, 2160), device="cpu"))
-    assert inp.n_super and 0.1 < inp.cull_margin < 0.2
     o = tuple(torch.tensor([r[0][k] for r in _REHITS], dtype=torch.float32) for k in range(3))
     d = tuple(torch.tensor([r[1][k] for r in _REHITS], dtype=torch.float32) for k in range(3))
+    assert inp.n_super and bool((cull.lane_margin(o, inp) > 0.1).all())
     alive = torch.ones((len(_REHITS),), dtype=torch.bool)
     bt, bi = mk._closest_hit(o, d, inp.sweep)
     assert bi.tolist() == [r[2] for r in _REHITS] and bool((bt < 0.002).all())
     wc = cull.warp_cull_plain(o, d, alive, inp, group=1)
     assert torch.equal(wc.bi, bi) and torch.equal(_bits(wc.bt), _bits(bt))
-    exact = cull.warp_cull_plain(o, d, alive, inp._replace(cull_margin=0.0), group=1)
+    exact = cull.warp_cull_plain(o, d, alive, inp._replace(cull_scale=0.0), group=1)
     assert not bool((exact.bi == bi).any())
+
+
+def _far_cluster():
+    """A scene built against the slab test: 120 small spheres (r 0.02-0.08)
+    about 400 from the origin, where the expanded quadratic's rounding is
+    largest against r, with a ground and three larger spheres as the
+    priors (16 a chunk: 8 chunks)."""
+    from weekend_raytracer_tpu_torch import CameraBasis, SkyParams, to_sky_state
+    from weekend_raytracer_tpu_torch.models.camera import Camera
+    from weekend_raytracer_tpu_torch.models.materials import Material
+    from weekend_raytracer_tpu_torch.models.scenes import SceneDesc
+    from weekend_raytracer_tpu_torch.models.spheres import Sphere
+
+    far = (300.0, 40.0, -250.0)
+    r = np.random.RandomState(11)
+    spheres = [Sphere((0.0, -1000.0, 0.0), 1000.0, 0)]
+    spheres += [Sphere((far[0] + 20.0 * k, far[1], far[2] - 30.0), 5.0, 0) for k in range(3)]
+    c = np.asarray(far) + r.uniform(-6.0, 6.0, (120, 3))
+    rad = r.uniform(0.02, 0.08, 120)
+    spheres += [Sphere(tuple(map(float, c[i])), float(rad[i]), 0) for i in range(120)]
+    desc = SceneDesc(materials=[Material.lambertian((0.5, 0.5, 0.5))], spheres=spheres)
+    cam = Camera.look_at((280.0, 45.0, -220.0), far, vfov_degrees=30.0, aperture=0.0)
+    return mk.kernel_inputs(desc.build(device="cpu"), to_sky_state(SkyParams(), device="cpu"),
+                            CameraBasis.create(cam, (64, 32), device="cpu"))
+
+
+def _grazing_rays(inp, per_pole=24):
+    """From the pole of every non-prior sphere that sets a face of its
+    chunk's box: rays leaving the pole along the tangent plane tipped out
+    of (or into) the sphere by 1e-5 to 3e-2, and rays from 2 to 40 away
+    aimed at the pole along that plane."""
+    r = np.random.RandomState(5)
+    cs = inp.chunk_size
+    c = inp.sweep[:, :3].numpy().astype(np.float64)
+    rad = np.abs(inp.attrs[3].numpy()).astype(np.float64)
+    priors = set(inp.prior_idx.tolist())
+    origins, dirs = [], []
+    for ch in range(inp.n_chunks):
+        lanes = np.arange(ch * cs, (ch + 1) * cs)
+        for axis in range(3):
+            for side, pick in ((-1.0, np.argmin), (1.0, np.argmax)):
+                j = lanes[pick(c[lanes, axis] + side * rad[lanes])]
+                if j in priors:
+                    continue
+                pole = c[j].copy()
+                pole[axis] += side * rad[j]
+                out = np.eye(3)[axis] * side
+                t1 = np.eye(3)[(axis + 1) % 3]
+                t2 = np.cross(out, t1)
+                for _ in range(per_pole):
+                    th = r.uniform(0.0, 2.0 * np.pi)
+                    tangent = np.cos(th) * t1 + np.sin(th) * t2
+                    tip = 10.0 ** r.uniform(-5.0, -1.5) * r.choice([-1.0, 1.0])
+                    origins.append(pole)
+                    dirs.append(tangent + tip * out)
+                    start = pole - r.uniform(2.0, 40.0) * tangent + r.uniform(-1e-3, 1e-3, 3)
+                    origins.append(start)
+                    dirs.append(pole - start)
+    dirs = np.asarray(dirs)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return (tuple(torch.from_numpy(np.asarray(origins, np.float32).T.copy())),
+            tuple(torch.from_numpy(dirs.astype(np.float32).T.copy())))
+
+
+def test_margin_holds_on_an_adversarial_scene():
+    """Small spheres far from the origin, whose poles set box faces, and
+    grazing exits and approaches at those poles: lanes alone (group 1) on
+    each lane's widened boxes give the full sweep's hit in every bit, where
+    the exact boxes part; and every non-prior winner's computed hit point
+    lies within megakernel.py's first-order bound, 15u (|o| + |c| + r)^2 / r,
+    of its sphere, which the margin (32u ...) covers with the slab test's
+    own rounding."""
+    inp = _far_cluster()
+    assert inp.n_chunks == 8
+    o, d = _grazing_rays(inp)
+    alive = torch.ones((o[0].numel(),), dtype=torch.bool)
+    bt, bi = mk._closest_hit(o, d, inp.sweep)
+    wc = cull.warp_cull_plain(o, d, alive, inp, group=1)
+    assert torch.equal(wc.bi, bi) and torch.equal(_bits(wc.bt), _bits(bt))
+    exact = cull.warp_cull_plain(o, d, alive, inp._replace(cull_scale=0.0), group=1)
+    parted = (exact.bi != bi) | (_bits(exact.bt) != _bits(bt))
+    assert int(parted.sum()) >= 10
+    prior = torch.zeros((inp.sweep.shape[0],), dtype=torch.bool)
+    prior[inp.prior_idx.long()] = True
+    won = (bi >= 0) & ~prior[bi.clamp(min=0)]
+    assert int(won.sum()) > 100
+    ov, dv = torch.stack(o, 1).double()[won], torch.stack(d, 1).double()[won]
+    c, rad = inp.sweep[bi[won], :3].double(), inp.attrs[3][bi[won]].double().abs()
+    off = torch.linalg.vector_norm(ov + bt[won].double()[:, None] * dv - c, dim=1) - rad
+    reach = torch.linalg.vector_norm(ov, dim=1) + torch.linalg.vector_norm(c, dim=1) + rad
+    assert bool((off > 1e-3).any())  # hits well off their spheres
+    assert bool((off <= 15 * 2.0 ** -24 * reach ** 2 / rad).all())
 
 
 def test_counts_without_chunks():
@@ -252,7 +373,8 @@ def test_counts_without_chunks():
     bt, bi = mk._closest_hit(o, d, inp.sweep)
     assert torch.equal(wc.bi, bi) and torch.equal(_bits(wc.bt), _bits(bt))
     live = int(alive.sum())
-    assert wc.count == cull.CullCount(live, live * inp.n_spheres, 0, 0)
+    full = live * inp.n_spheres
+    assert wc.count == cull.CullCount(live, full, 0, 0, full, 0)
     assert wc.entered.tolist() == [0, 0, 0]
 
 
@@ -332,8 +454,8 @@ def test_census_follows_the_frame():
     for _, counts in census:
         for c in counts:
             assert c.prior_tests == mk.N_PRIORS * c.live
-            assert c.box_tests == inp.n_chunks * c.live  # RTiOW: no super level
-            assert 0 < c.sphere_tests < c.live * inp.n_spheres
+            assert c.box_tests == c.own_box_tests == inp.n_chunks * c.live  # no supers
+            assert 0 < c.own_sphere_tests < c.sphere_tests < c.live * inp.n_spheres
 
 
 def test_regroup_frame_matches_jax():
@@ -357,15 +479,16 @@ def test_regroup_frame_matches_jax():
 
 def test_wrappers_pass_the_cull_hierarchy(monkeypatch):
     """K0 and K1 hand their kernels prepare_scene_arrays' chunk hierarchy
-    (cull_args) and the margin that widens its boxes, before the stream:
-    RTiOW's 31 chunks of 16."""
+    (cull_args) and the two scene terms of each lane's box margin, before
+    the stream: RTiOW's 31 chunks of 16."""
     w, h = 64, 32
     lib = trg._stubbed(monkeypatch)
     rg.render_image_regrouped(torch.zeros((w * h, 3)), 0, True, *trg._setup("rtiow", w, h)[1],
                               width=w, height=h, spp=4, num_bounces=8, cuts=_CUTS)
     calls = [args for name, args in lib.calls if name in ("wrt_regroup_k0", "wrt_regroup_k1")]
     assert len(calls) == 4
-    margin = mk.kernel_inputs(*trg._setup("rtiow", w, h)[1]).cull_margin
-    assert margin > 0
+    inp = mk.kernel_inputs(*trg._setup("rtiow", w, h)[1])
+    terms = (inp.cull_reach, inp.cull_scale)
+    assert terms == mk.cull_terms(inp.sweep, inp.attrs[3], inp.prior_idx) and min(terms) > 0
     for args in calls:
-        assert args[-10:-2][3:] == (31, 31, 0, 16, 16) and args[-2:] == (margin, 1234)
+        assert args[-11:-3][3:] == (31, 31, 0, 16, 16) and args[-3:] == (*terms, 1234)

@@ -660,8 +660,8 @@ def test_wrapper_launches_kernels_for_cuda_tensor(monkeypatch):
     assert k0[-1] == 1234  # the stream, after the (empty) chunk hierarchy
     assert [c[1][15:17] for c in lib.calls if c[0] == "wrt_regroup_k1"] == [
         (2, 4), (4, 6), (6, 8)]
-    assert all(c[1][-7:-2] == (0, 0, 0, 16, 16) and c[1][-2:] == (0.0, 1234) for c in lib.calls
-               if c[0] in ("wrt_regroup_k0", "wrt_regroup_k1"))
+    assert all(c[1][-8:-3] == (0, 0, 0, 16, 16) and c[1][-3:] == (0.0, 0.0, 1234)
+               for c in lib.calls if c[0] in ("wrt_regroup_k0", "wrt_regroup_k1"))
     home = lib.calls[-1][1]
     assert home[3] == acc.data_ptr() and home[-2] == 1  # clear
 

@@ -163,7 +163,8 @@ def test_table_counts_chunks_only_inside_entered_supers():
     is entered too, as the JAX loops nest them; supers count on their own."""
     inp = mk.KernelInputs(*([None] * 6), chunk_bounds=torch.zeros((6, 8)),
                           super_bounds=torch.zeros((6, 2)), prior_idx=None, n_chunks=7,
-                          n_super=2, chunk_size=16, super_factor=4)
+                          n_super=2, chunk_size=16, super_factor=4, cull_reach=0.0,
+                          cull_scale=0.0)
     c = mk.CullStats(inp, n_groups=2, n_iters=1, device="cpu")
     c.ran[0] = True
     c.chunks[0, 0] = torch.tensor([1, 1, 0, 0, 1, 1, 1, 0])  # 3 inside super 1

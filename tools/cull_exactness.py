@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Search a frame's rays for lanes whose per-warp cull parts from the full
-sweep, with the boxes widened by the scene's cull margin and with the
+sweep, with each lane's boxes widened by its cull margin and with the
 exact boxes.
 
 Run from the repository root, on a machine with an NVIDIA GPU (or on the
@@ -15,8 +15,9 @@ twins (``trace_bounces_plain``, one bounce at a time), the rays of
 ``--rows`` rows of 32-pixel tiles from the middle of random_spheres(10000)
 at 3840x2160 x 4 spp, 8 bounces, frame 0, and at every bounce holds each
 live lane alone (``warp_cull_plain`` with groups of one) against the full
-sweep (``megakernel._closest_hit``) in every bit: once with the scene's
-``cull_margin``, once with the exact boxes of the JAX slab test. It prints
+sweep (``megakernel._closest_hit``) in every bit: once with each lane's
+margin (``cull.lane_margin``, megakernel.py CULL_MARGIN_ULPS), once with
+the exact boxes of the JAX slab test (``cull_scale`` 0). It prints
 one JSON line per row of tiles and a summary with the card's name, and
 the first parting rays of each kind (origin, direction, the full sweep's
 sphere and t).
@@ -53,7 +54,7 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     w, h, spp, bounces = 3840, 2160, 4, 8
     inp = mk.kernel_inputs(*cs._case("random10k", w, h, dev))
-    cases = {"margin": inp, "exact": inp._replace(cull_margin=0.0)}
+    cases = {"margin": inp, "exact": inp._replace(cull_scale=0.0)}
     card = cs._nvidia_smi() if dev.type == "cuda" else "cpu"
     cam = [mk._f32(v) for v in inp.cam.tolist()]
     first = h // 2 // 32 * 32 - args.rows // 2 * 32
@@ -99,7 +100,8 @@ def main(argv=None) -> int:
             total[k] += row[k]
         print(json.dumps(row), flush=True)
     summary = {"scene": "random10k", "size": [w, h], "spp": spp, "bounces": bounces,
-               "cull_margin": inp.cull_margin, "lanes_parting": total,
+               "cull_reach": inp.cull_reach, "cull_scale": inp.cull_scale,
+               "lanes_parting": total,
                "first_parting": parting, "seconds": round(time.perf_counter() - t0, 1),
                "card": card}
     print(json.dumps(summary), flush=True)

@@ -26,8 +26,8 @@
 //
 // trace_bounces<kTextured, kStats = true> is the body of the kStats
 // instantiations: the same bounces, sweeping the same spheres in the same
-// order, plus the cull counters of stats.cuh. Given the staged cull tables
-// of a scene with chunks (CullView), the kStats = false body sweeps only
+// order, plus the cull counters of stats.cuh. Given the cull tables of a
+// scene with chunks (CullView), the kStats = false body sweeps only
 // the chunks that some lane of its warp can enter (sweep_culled), which
 // gives the full sweep's (bt, bi) in every bit; the megakernel and the
 // wavefront pass none and sweep every sphere.
@@ -283,41 +283,61 @@ __device__ __forceinline__ void sweep_counted(const SceneRefs& sc, const RayCoun
   }
 }
 
-// The chunk hierarchy as K0 and K1 read it: the bound tables and the
-// priors' sweep rows staged in shared memory by stage_cull (regroup.cu),
-// the sphere table itself left in global memory.
+// The chunk hierarchy as K0 and K1 read it (regroup.cu stage_cull): the
+// priors' sweep rows staged in shared memory, the exact chunk and
+// super-chunk boxes of prepare_scene_arrays staged there too where they fit
+// (kStaged) or else read from global memory, the sphere table itself left
+// in global memory; and the two scene terms of each lane's box margin.
 struct CullView {
   const float4* prior;     // [kNPriors] (cx, cy, cz, kq) of the priors
   const int* prior_index;  // [kNPriors] their sphere indices
   const float* chunk;      // [6, n_tests] chunk boxes
   const float* super;      // [6, n_super] super-chunk boxes
   int n_chunks, n_tests, n_super, chunk_size, super_factor;
+  float reach, margin_scale;  // KernelInputs.cull_reach, cull_scale
 };
+
+// A box bound of a CullView table: from shared memory, or read-only
+// through the L1 from global memory.
+template <bool kStaged>
+__device__ __forceinline__ float box_bound(const float* b, int k) {
+  if constexpr (kStaged) {
+    return b[k];
+  } else {
+    return __ldg(b + k);
+  }
+}
 
 // The closest-hit sweep culled per warp. The priors' own closest hit
 // (pbt, pbi), least (t, index) first, is kept apart from the sweep's
 // (bt, bi). Before each super-chunk, then before each chunk of an entered
-// one, every lane runs the TPU's slab test against fminf(pbt, bt), and the
-// warp sweeps a chunk's spheres, in index order, iff some lane enters it
-// (__ballot_sync). Last, the priors' hit joins (bt, bi) by (t, index).
-// Exactness: a chunk that a lane does not enter holds no sphere the lane
-// hits closer than its bound, so the lane's bound before each chunk is
-// the full sweep's, and any superset of the chunks it enters, swept in
-// index order with the strict <, finds the full sweep's winner. Two cases
-// break the premise of the JAX kernel's slab test (that of sweep_counted)
-// and are answered here. (1) A computed hit lies off its sphere by a few
-// ulps of (|c| + r)^2 / r, so a ray leaving a sphere that sets a face of
-// its box can hit it again just past MIN_T where the exact box has it out
-// before MIN_T: the boxes are widened by the scene's cull margin when they
-// are staged (regroup.cu stage_cull). (2) A prior hit on its own box's face
-// (tnear == t, which the strict test skips when the prior sets the bound):
-// the final (t, index) merge gives that prior back, and keeps the first
-// index on ties as the full sweep does. A lane's own vote is always
-// in the ballot it reads, so this holds whichever lanes are converged at
-// the vote: lanes that died, broke out of the bounce loop or returned past
-// K1's count need no special case. No lane diverges inside: every branch
-// here follows a ballot. The sphere rows are read at warp-uniform
-// addresses through __ldg, one broadcast per row.
+// one, every lane runs the TPU's slab test against fminf(pbt, bt) on the
+// box widened by its own margin m, and the warp sweeps a chunk's spheres,
+// in index order, iff some lane enters it (__ballot_sync). Last, the
+// priors' hit joins (bt, bi) by (t, index).
+// Exactness: a chunk that a lane does not enter holds no non-prior sphere
+// the lane hits closer than its bound, so the lane's bound before each
+// chunk is the full sweep's, and any superset of the chunks it enters,
+// swept in index order with the strict <, finds the full sweep's winner
+// among the non-priors; the final merge adds the priors', and keeps the
+// first index on ties as the full sweep does (it also gives back a prior
+// hit on its own box's face, tnear == t, which the strict test skips when
+// that prior sets the bound). The premise of the JAX kernel's slab test,
+// that a computed hit lies in its sphere's exact box, fails by rounding:
+// the expanded quadratic puts a hit off its sphere by up to about
+// 15 * 2^-24 (|o| + |c| + r)^2 / r (megakernel.py CULL_MARGIN_ULPS), so a ray
+// leaving a small sphere that sets a face of its box can hit it again just
+// past MIN_T where the exact box has the ray out before MIN_T. Each lane
+// therefore widens every box by m = cull_scale (|o| + cull_reach)^2, which
+// bounds that offset for every non-prior sphere, plus the slab test's own
+// rounding: m is one register, and each bound it moves one add.
+// A lane's own vote is always in the ballot it reads, so this holds
+// whichever lanes are converged at the vote: lanes that died, broke out of
+// the bounce loop or returned past K1's count need no special case. No
+// lane diverges inside: every branch here follows a ballot. The sphere
+// rows are read at warp-uniform addresses through __ldg, one broadcast per
+// row.
+template <bool kStaged>
 __device__ __forceinline__ void sweep_culled(const SceneRefs& sc, const CullView& cv, float ox,
                                              float oy, float oz, float dx, float dy, float dz,
                                              float od, float oo, float& bt, int& bi) {
@@ -335,13 +355,17 @@ __device__ __forceinline__ void sweep_culled(const SceneRefs& sc, const CullView
   const float ix = slab_inverse(dx);
   const float iy = slab_inverse(dy);
   const float iz = slab_inverse(dz);
+  const float reach = sqrtf(oo) + cv.reach;
+  const float m = cv.margin_scale * reach * reach;  // this lane's widening of every box
   const int per = cv.n_super > 0 ? cv.super_factor : cv.n_chunks;
   for (int c0 = 0; c0 < cv.n_chunks; c0 += per) {
     bool mine = true;  // this lane enters the super-chunk
     if (cv.n_super > 0) {
       const float* b = cv.super;
       const int s = c0 / per, k = cv.n_super;
-      mine = slab_box(b[s], b[k + s], b[2 * k + s], b[3 * k + s], b[4 * k + s], b[5 * k + s],
+      mine = slab_box(box_bound<kStaged>(b, s) - m, box_bound<kStaged>(b, k + s) - m,
+                      box_bound<kStaged>(b, 2 * k + s) - m, box_bound<kStaged>(b, 3 * k + s) + m,
+                      box_bound<kStaged>(b, 4 * k + s) + m, box_bound<kStaged>(b, 5 * k + s) + m,
                       ox, oy, oz, ix, iy, iz, fminf(pbt, bt));
       if (__ballot_sync(__activemask(), mine) == 0u) continue;
     }
@@ -349,9 +373,12 @@ __device__ __forceinline__ void sweep_culled(const SceneRefs& sc, const CullView
     for (int c = c0; c < c_end; ++c) {
       const float* b = cv.chunk;
       const int k = cv.n_tests;
-      const bool enters = mine && slab_box(b[c], b[k + c], b[2 * k + c], b[3 * k + c],
-                                           b[4 * k + c], b[5 * k + c], ox, oy, oz, ix, iy, iz,
-                                           fminf(pbt, bt));
+      const bool enters =
+          mine &&
+          slab_box(box_bound<kStaged>(b, c) - m, box_bound<kStaged>(b, k + c) - m,
+                   box_bound<kStaged>(b, 2 * k + c) - m, box_bound<kStaged>(b, 3 * k + c) + m,
+                   box_bound<kStaged>(b, 4 * k + c) + m, box_bound<kStaged>(b, 5 * k + c) + m,
+                   ox, oy, oz, ix, iy, iz, fminf(pbt, bt));
       if (__ballot_sync(__activemask(), enters) == 0u) continue;
       const int i_end = (c + 1) * cv.chunk_size;
       for (int i = c * cv.chunk_size; i < i_end; ++i) {
@@ -371,8 +398,9 @@ __device__ __forceinline__ void sweep_culled(const SceneRefs& sc, const CullView
 // colour 0. The kStats instantiation also counts the loop iterations in
 // rc->trips and, in a scene with chunks, the cull tests (sweep_counted).
 // The kStats = false one, given the cull tables of a scene with chunks
-// (cv), sweeps per warp what its lanes can enter (sweep_culled).
-template <bool kTextured, bool kStats = false>
+// (cv, in shared memory if kStaged), sweeps per warp what its lanes can
+// enter (sweep_culled).
+template <bool kTextured, bool kStats = false, bool kStaged = true>
 __device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int b_hi, Ray& r,
                                               RayCounter* rc = nullptr,
                                               const CullView* cv = nullptr) {
@@ -399,7 +427,7 @@ __device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int
         }
       }
     } else if (cv != nullptr && cv->n_chunks > 0) {
-      sweep_culled(sc, *cv, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
+      sweep_culled<kStaged>(sc, *cv, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
     } else {
       for (int i = 0; i < n; ++i) {
         sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);

@@ -29,8 +29,8 @@
 // design answers with less of it:
 //   - A per-warp cull (bounce.cuh sweep_culled) in scenes with chunks: a
 //     warp sweeps a chunk's spheres only if some lane's slab test enters
-//     its box (and its super-chunk's), widened by the scene's cull margin,
-//     closer than the lane's best-t or the priors' bound. The TPU culls
+//     its box (and its super-chunk's), widened by the lane's own rounding
+//     margin, closer than the lane's best-t or the priors' bound. The TPU culls
 //     per 4096-lane tile; a warp is 128 times finer, and in K0's layout
 //     (spp folded into lanes) a warp at 32 spp holds one pixel's samples,
 //     whose first rays are nearly one beam. The result is the full
@@ -40,10 +40,15 @@
 //     the priors' sweep rows once, before its first bounce, with
 //     cooperative loads (stage_cull: 824 B on RTiOW, 8,240 B on
 //     random_spheres(10000)). TMA buys nothing for a few KiB loaded once
-//     per block. The sphere table stays in global memory: the warp reads
-//     one row at a time at a warp-uniform address, which the L1
-//     broadcasts, and random_spheres(10000)'s 160 KiB would leave one
-//     block of 256 threads an SM.
+//     per block. Boxes above kStageBytes (about 1,800 chunk and super
+//     boxes, some 57,000 spheres at 32 a chunk) would cost blocks an SM,
+//     so such a scene reads them from global memory through __ldg at the
+//     same warp-uniform addresses (the kStaged = false instantiations);
+//     the launch picks the placement from the table's size. The sphere
+//     table stays in global memory: the warp reads one row at a time at a
+//     warp-uniform address, which the L1 broadcasts, and
+//     random_spheres(10000)'s 160 KiB would leave one block of 256
+//     threads an SM.
 //   - One register budget, kTraceMinBlocks = 5 blocks of 256 threads an
 //     SM (48 registers), chosen on the card among 48, 56 and 64 registers
 //     with no spills.
@@ -84,6 +89,10 @@ constexpr int kThreads = 256;    // K0, K1, COMBINE: one thread per record
 // megakernel does: at 48 it spills.
 constexpr int kTraceMinBlocks = 5;
 constexpr int kStatsMinBlocks = 4;
+// The most dynamic shared memory a block of K0 or K1 stages: five blocks
+// an SM, each with the 1 KiB the runtime reserves, fit an H100 SM's
+// 228 KiB, and the 48 KiB a launch gets without opting in.
+constexpr size_t kStageBytes = 44 * 1024;
 constexpr int kPackBlock = 1024;  // PACK: slots per block, one per thread
 
 // Image geometry of the tiles: width, height, tiles across, log2(spp).
@@ -112,24 +121,36 @@ __device__ __forceinline__ uint32_t seed_pixel(const Tiling& g, int x, int y,
   return y_g * static_cast<uint32_t>(g.width) + static_cast<uint32_t>(x);
 }
 
-// Shared-memory bytes of stage_cull's tables: the priors' sweep rows and
-// indices, then the chunk and super-chunk bounds; 0 without a chunk
-// hierarchy.
+// The two scene terms of each lane's box margin in sweep_culled
+// (KernelInputs.cull_reach and cull_scale).
+struct CullMargin {
+  float reach, scale;
+};
+
+// Whether K0 and K1 stage a scene's chunk and super-chunk boxes in shared
+// memory: while they and the priors' rows fit kStageBytes.
+inline bool cull_staged(const CullRefs& cu) {
+  return kNPriors * (sizeof(float4) + sizeof(int)) +
+             6 * sizeof(float) * (cu.n_tests + cu.n_super) <=
+         kStageBytes;
+}
+
+// Dynamic shared bytes of a block of K0 or K1 (stage_cull): the priors'
+// sweep rows and indices, then the chunk and super-chunk boxes where
+// cull_staged; 0 without a chunk hierarchy.
 inline size_t cull_smem_bytes(const CullRefs& cu) {
   if (cu.n_chunks == 0) return 0;
   return kNPriors * (sizeof(float4) + sizeof(int)) +
-         6 * sizeof(float) * (cu.n_tests + cu.n_super);
+         (cull_staged(cu) ? 6 * sizeof(float) * (cu.n_tests + cu.n_super) : 0);
 }
 
-// Stage the cull tables of a scene with chunks into this block's shared
-// memory, once, before its first bounce; every thread of the block must
-// call it. Cooperative loads: a few KiB at most per block. Every box is
-// widened on all sides by `margin` (megakernel.py CULL_MARGIN_SCALE: the
-// computed hits of the expanded quadratic lie off their spheres by a few
-// ulps of (|c| + r)^2 / r, and a ray leaving a sphere that sets a box face
-// can so hit it again just past MIN_T outside the exact box).
+// The cull view of a block of K0 or K1, staged once before its first
+// bounce; every thread of the block must call it. The priors' rows go to
+// shared memory, and the exact boxes too where kStaged (the launch's
+// choice, cull_staged), with cooperative loads: a few KiB at most.
+template <bool kStaged>
 __device__ __forceinline__ CullView stage_cull(const CullRefs& cu, const float4* sweep,
-                                               float margin) {
+                                               const CullMargin& margin) {
   extern __shared__ float4 cull_smem[];
   int* prior_index = reinterpret_cast<int*>(cull_smem + kNPriors);
   float* chunk = reinterpret_cast<float*>(prior_index + kNPriors);
@@ -137,19 +158,28 @@ __device__ __forceinline__ CullView stage_cull(const CullRefs& cu, const float4*
   CullView v;
   v.prior = cull_smem;
   v.prior_index = prior_index;
-  v.chunk = chunk;
-  v.super = super;
+  if constexpr (kStaged) {
+    v.chunk = chunk;
+    v.super = super;
+  } else {
+    v.chunk = cu.chunk_bounds;
+    v.super = cu.super_bounds;
+  }
   v.n_chunks = cu.n_chunks;
   v.n_tests = cu.n_tests;
   v.n_super = cu.n_super;
   v.chunk_size = cu.chunk_size;
   v.super_factor = cu.super_factor;
+  v.reach = margin.reach;
+  v.margin_scale = margin.scale;
   if (cu.n_chunks == 0) return v;
-  for (int k = threadIdx.x; k < 6 * cu.n_tests; k += blockDim.x) {
-    chunk[k] = __ldg(cu.chunk_bounds + k) + (k < 3 * cu.n_tests ? -margin : margin);
-  }
-  for (int k = threadIdx.x; k < 6 * cu.n_super; k += blockDim.x) {
-    super[k] = __ldg(cu.super_bounds + k) + (k < 3 * cu.n_super ? -margin : margin);
+  if constexpr (kStaged) {
+    for (int k = threadIdx.x; k < 6 * cu.n_tests; k += blockDim.x) {
+      chunk[k] = __ldg(cu.chunk_bounds + k);
+    }
+    for (int k = threadIdx.x; k < 6 * cu.n_super; k += blockDim.x) {
+      super[k] = __ldg(cu.super_bounds + k);
+    }
   }
   if (threadIdx.x < kNPriors) {
     const int i = __ldg(cu.priors + threadIdx.x);
@@ -164,7 +194,7 @@ struct K0Args {
   const float* cam;  // [20]
   SceneRefs scene;
   CullRefs cull;
-  float cull_margin;  // widening of every box (stage_cull)
+  CullMargin margin;
   float* pool;       // [16, cap]
   float* contrib;    // [3, cap]
   long long cap;
@@ -175,9 +205,9 @@ struct K0Args {
 };
 
 // K0: camera ray and bounces [0, b_hi) of one slot; every slot is written.
-template <bool kTextured>
+template <bool kTextured, bool kStaged>
 __global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k0(const K0Args a) {
-  const CullView cv = stage_cull(a.cull, a.scene.sweep, a.cull_margin);
+  const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
   const long long slot = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (slot >= a.cap) return;
   int x, y;
@@ -188,7 +218,7 @@ __global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k0(const K0
   r.state = sample_seed(seed_pixel(a.g, x, y, a.row_offset), jenkins(a.frame), sample);
   camera_ray(a.cam, static_cast<float>(x), static_cast<float>(static_cast<int>(y_g)), a.inv_w,
              a.inv_h, r);
-  trace_bounces<kTextured>(a.scene, 0, a.b_hi, r, nullptr, &cv);
+  trace_bounces<kTextured, false, kStaged>(a.scene, 0, a.b_hi, r, nullptr, &cv);
 
   float* p = a.pool + slot;
   const long long c = a.cap;
@@ -217,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k0(const K0
 struct K1Args {
   SceneRefs scene;
   CullRefs cull;
-  float cull_margin;  // widening of every box (stage_cull)
+  CullMargin margin;  // read by the kStats = false instantiations
   float* pool;       // [16, cap] dense, updated in place
   float* r8;         // [3, cap] base radiance tr * cr
   const int* count;  // live records in the pool
@@ -245,14 +275,14 @@ constexpr int kTileRecords = 32 * 128;  // a dense TPU tile (regroup.py:679-721)
 // the tile's loop trips from b_lo; it sweeps every sphere (sweep_counted)
 // and stages nothing. A block wholly past the count returns before it
 // stages the cull tables.
-template <bool kTextured, bool kStats>
+template <bool kTextured, bool kStats, bool kStaged = true>
 __global__ void __launch_bounds__(kThreads, kStats ? kStatsMinBlocks : kTraceMinBlocks)
     regroup_k1(const K1ArgsOf<kStats> a) {
   const long long first = static_cast<long long>(blockIdx.x) * kThreads;
   const int count = *a.count;
   if (first >= count) return;
   CullView cv{};
-  if constexpr (!kStats) cv = stage_cull(a.cull, a.scene.sweep, a.cull_margin);
+  if constexpr (!kStats) cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
   const long long i = first + threadIdx.x;
   if (i >= count) return;
   float* p = a.pool + i;
@@ -283,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, kStats ? kStatsMinBlocks : kTraceMin
     trace_bounces<kTextured, true>(a.scene, a.b_lo, a.b_hi, r, &rc);
     count_trips(a.st, rc);
   } else {
-    trace_bounces<kTextured>(a.scene, a.b_lo, a.b_hi, r, nullptr, &cv);
+    trace_bounces<kTextured, false, kStaged>(a.scene, a.b_lo, a.b_hi, r, nullptr, &cv);
   }
 
   p[kOX * c] = r.ox;
@@ -502,22 +532,12 @@ CullRefs cull_refs(const float* chunk_bounds, const float* super_bounds, const i
                   n_super, chunk_size, super_factor};
 }
 
-// Launch a culling kernel (K0, K1) with its staged tables' dynamic shared
-// memory; above the 48 KiB default the kernel is first allowed the bytes,
-// and a refusal is returned as the launch's error (and cleared from the
-// runtime's last error, which the next launch would read otherwise).
+// Launch K0 or K1 with its dynamic shared memory (cull_smem_bytes), as
+// `staged` (kStaged = true) where cull_staged and as `global` otherwise.
 template <class Kernel, class KArgs>
-int launch_culled(Kernel kernel, const KArgs& a, long long cap, cudaStream_t s) {
-  const size_t smem = cull_smem_bytes(a.cull);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return static_cast<int>(err);
-    }
-  }
-  kernel<<<blocks(cap, kThreads), kThreads, smem, s>>>(a);
+int launch_culled(Kernel staged, Kernel global, const KArgs& a, long long cap, cudaStream_t s) {
+  const Kernel kernel = cull_staged(a.cull) ? staged : global;
+  kernel<<<blocks(cap, kThreads), kThreads, cull_smem_bytes(a.cull), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -548,8 +568,8 @@ extern "C" {
 // pointers, and returns cudaGetLastError() after its launches. `cap` is
 // the slot count, a multiple of 4096 below 2^28. K0 and K1 take the cull
 // hierarchy of prepare_scene_arrays (n_chunks = 0: none, every sphere is
-// swept), as the kStats entry point does, and the margin by which they
-// widen its boxes.
+// swept), as the kStats entry point does, and the two scene terms of each
+// lane's box margin (KernelInputs.cull_reach, cull_scale).
 
 int wrt_regroup_k0(const float* cam, const float* sky, const float* sweep, const float* attrs,
                    const int* tex_pool, int n_spheres, float* pool, float* contrib,
@@ -557,13 +577,13 @@ int wrt_regroup_k0(const float* cam, const float* sky, const float* sweep, const
                    float inv_w, float inv_h, unsigned frame, unsigned row_offset, int b_hi,
                    const float* chunk_bounds, const float* super_bounds, const int* priors,
                    int n_chunks, int n_tests, int n_super, int chunk_size, int super_factor,
-                   float cull_margin, void* stream) {
+                   float cull_reach, float cull_scale, void* stream) {
   K0Args a;
   a.cam = cam;
   a.scene = scene_refs(sky, sweep, attrs, tex_pool, n_spheres);
   a.cull = cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests, n_super, chunk_size,
                      super_factor);
-  a.cull_margin = cull_margin;
+  a.margin = CullMargin{cull_reach, cull_scale};
   a.pool = pool;
   a.contrib = contrib;
   a.cap = cap;
@@ -574,8 +594,9 @@ int wrt_regroup_k0(const float* cam, const float* sky, const float* sweep, const
   a.row_offset = row_offset;
   a.b_hi = b_hi;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tex_pool != nullptr ? launch_culled(regroup_k0<true>, a, cap, s)
-                             : launch_culled(regroup_k0<false>, a, cap, s);
+  return tex_pool != nullptr
+             ? launch_culled(regroup_k0<true, true>, regroup_k0<true, false>, a, cap, s)
+             : launch_culled(regroup_k0<false, true>, regroup_k0<false, false>, a, cap, s);
 }
 
 // count_in: live records of `pool`; writes count_out, `dense` and `inv`.
@@ -599,16 +620,18 @@ int wrt_regroup_k1(const float* sky, const float* sweep, const float* attrs, con
                    int width, int height, int tiles_x, int spp_shift, unsigned frame,
                    unsigned row_offset, int b_lo, int b_hi, const float* chunk_bounds,
                    const float* super_bounds, const int* priors, int n_chunks, int n_tests,
-                   int n_super, int chunk_size, int super_factor, float cull_margin,
-                   void* stream) {
+                   int n_super, int chunk_size, int super_factor, float cull_reach,
+                   float cull_scale, void* stream) {
   K1Args a = k1_args(sky, sweep, attrs, tex_pool, n_spheres, pool, r8, count, cap, width, height,
                      tiles_x, spp_shift, frame, row_offset, b_lo, b_hi,
                      cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests, n_super,
                                chunk_size, super_factor));
-  a.cull_margin = cull_margin;
+  a.margin = CullMargin{cull_reach, cull_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tex_pool != nullptr ? launch_culled(regroup_k1<true, false>, a, cap, s)
-                             : launch_culled(regroup_k1<false, false>, a, cap, s);
+  return tex_pool != nullptr ? launch_culled(regroup_k1<true, false, true>,
+                                             regroup_k1<true, false, false>, a, cap, s)
+                             : launch_culled(regroup_k1<false, false, true>,
+                                             regroup_k1<false, false, false>, a, cap, s);
 }
 
 // K1 through the kStats instantiation: also writes the per-dense-tile
@@ -664,11 +687,12 @@ int wrt_regroup_combine_home(const int* inv, const float* src, const float* cont
 // Registers per thread, local (spill) bytes and static shared bytes of one
 // kernel, as the CUDA runtime reports them; returns a cudaError_t.
 // `which`: 0/1 K0 untextured/textured, 2/3 K1, 4 pack_count, 5 pack_scan,
-// 6 pack_scatter, 7 combine_level, 8 combine_home, 9/10 K1 kStats.
+// 6 pack_scatter, 7 combine_level, 8 combine_home, 9/10 K1 kStats, 11/12
+// K0 and 13/14 K1 with the box tables in global memory (kStaged = false).
 int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes, int* shared_bytes) {
   const void* fns[] = {
-      reinterpret_cast<const void*>(regroup_k0<false>),
-      reinterpret_cast<const void*>(regroup_k0<true>),
+      reinterpret_cast<const void*>(regroup_k0<false, true>),
+      reinterpret_cast<const void*>(regroup_k0<true, true>),
       reinterpret_cast<const void*>(regroup_k1<false, false>),
       reinterpret_cast<const void*>(regroup_k1<true, false>),
       reinterpret_cast<const void*>(pack_count),
@@ -678,6 +702,10 @@ int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes, int* shar
       reinterpret_cast<const void*>(combine_home),
       reinterpret_cast<const void*>(regroup_k1<false, true>),
       reinterpret_cast<const void*>(regroup_k1<true, true>),
+      reinterpret_cast<const void*>(regroup_k0<false, false>),
+      reinterpret_cast<const void*>(regroup_k0<true, false>),
+      reinterpret_cast<const void*>(regroup_k1<false, false, false>),
+      reinterpret_cast<const void*>(regroup_k1<true, false, false>),
   };
   if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0]))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -698,12 +726,14 @@ void wrt_regroup_launch_bounds(int* threads, int* min_blocks) {
   *min_blocks = kTraceMinBlocks;
 }
 
-// Dynamic shared bytes K0 and K1 stage for a cull hierarchy (stage_cull).
-long long wrt_regroup_cull_smem(int n_chunks, int n_tests, int n_super) {
+// Dynamic shared bytes of a block of K0 or K1 for a cull hierarchy
+// (stage_cull), and in `staged` whether its boxes are among them.
+long long wrt_regroup_cull_smem(int n_chunks, int n_tests, int n_super, int* staged) {
   CullRefs cu = {};
   cu.n_chunks = n_chunks;
   cu.n_tests = n_tests;
   cu.n_super = n_super;
+  *staged = n_chunks > 0 && cull_staged(cu);
   return static_cast<long long>(cull_smem_bytes(cu));
 }
 

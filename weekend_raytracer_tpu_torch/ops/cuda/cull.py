@@ -4,14 +4,15 @@
 ``sweep_culled``: rays in groups of ``group`` consecutive lanes (a warp of
 K0's slots or of K1's dense records), the priors' bound ``pbt`` first, then
 per super-chunk and per chunk of an entered one the TPU's slab test of each
-live lane, on the box widened by ``cull_margin`` (``cull_bounds``), against
-min(pbt, best-t), and a group sweeps a chunk's spheres,
-in index order, iff one of its live lanes enters it; last, the priors' own
-closest hit joins the result by (t, index). It returns the closest hit
-computed that way, which is the full sweep's in every bit, and the work
-the live lanes do under the vote: the counted bounds of K0 and K1
-(``regroup.cull_census`` runs it over a frame). It is used by the tests and
-by chip_smoke's bounds, never by the main path.
+live lane, on the box widened by the lane's own margin (``lane_margin``,
+megakernel.py CULL_MARGIN_ULPS), against min(pbt, best-t), and a group
+sweeps a chunk's spheres, in index order, iff one of its live lanes enters
+it; last, the priors' own closest hit joins the result by (t, index). It
+returns the closest hit computed that way, which is the full sweep's in
+every bit, and two counts of work: what each live lane's own decisions
+need (K0's and K1's bounds) and what the lanes do under the warp vote
+(the design's work). ``regroup.cull_census`` runs it over a frame. It is
+used by the tests and by chip_smoke's bounds, never by the main path.
 """
 from __future__ import annotations
 
@@ -26,12 +27,15 @@ _F32 = torch.float32
 
 
 class CullCount(NamedTuple):
-    """Work of the live lanes of one bounce under the warp vote."""
+    """Work of the live lanes of one bounce: under the warp vote, and what
+    each lane's own decisions need."""
 
     live: int  # live lanes: path segments
     sphere_tests: int  # sphere tests in the chunks their groups sweep
     prior_tests: int  # the priors' sphere tests (N_PRIORS a segment; 0 unculled)
-    box_tests: int  # super-chunk and chunk slab tests
+    box_tests: int  # super-chunk and chunk slab tests their groups run
+    own_sphere_tests: int  # sphere tests in the chunks each lane enters itself
+    own_box_tests: int  # super-chunk boxes, and chunk boxes of the supers it enters
 
     def plus(self, other: "CullCount") -> "CullCount":
         return CullCount(*(a + b for a, b in zip(self, other)))
@@ -58,13 +62,13 @@ def _lanes(per_group: torch.Tensor, n: int, group: int) -> torch.Tensor:
     return per_group.repeat_interleave(group)[:n]
 
 
-def cull_bounds(inp: mk.KernelInputs):
-    """The chunk and super-chunk boxes as K0 and K1 test them (regroup.cu
-    stage_cull): each widened on every side by inp.cull_margin, in f32."""
-    m = inp.cull_margin
-    widen = torch.tensor([-m, -m, -m, m, m, m], dtype=_F32,
-                         device=inp.chunk_bounds.device)[:, None]
-    return inp.chunk_bounds + widen, inp.super_bounds + widen
+def lane_margin(o, inp: mk.KernelInputs) -> torch.Tensor:
+    """[n] f32: how far each lane at origin o widens the boxes it tests,
+    cull_scale * (|o| + cull_reach)^2, as csrc/bounce.cuh sweep_culled
+    computes it (megakernel.py CULL_MARGIN_ULPS)."""
+    ox, oy, oz = o
+    reach = torch.sqrt(ox * ox + oy * oy + oz * oz) + mk._f32(inp.cull_reach)
+    return mk._f32(inp.cull_scale) * reach * reach
 
 
 def warp_cull_plain(o, d, alive, inp: mk.KernelInputs, group: int = 32) -> WarpCull:
@@ -73,8 +77,10 @@ def warp_cull_plain(o, d, alive, inp: mk.KernelInputs, group: int = 32) -> WarpC
     o and d are (x, y, z) tuples of [n] f32 in lane order, ``alive`` [n]
     bool the lanes that sweep (dead lanes never vote; the last group may be
     short). Lanes swept along by their group get their hit too; a live
-    lane's (bt, bi) is the full sweep's. Without a chunk hierarchy every
-    live lane tests every sphere, as the kernels then do."""
+    lane's (bt, bi) is the full sweep's. A lane's own decisions do not
+    depend on its group (its bound before each chunk is the full sweep's),
+    so the ``own_*`` counts are those of ``group = 1``. Without a chunk
+    hierarchy every live lane tests every sphere, as the kernels then do."""
     n = o[0].shape[0]
     dev = o[0].device
     alive = alive.to(torch.bool)
@@ -83,7 +89,8 @@ def warp_cull_plain(o, d, alive, inp: mk.KernelInputs, group: int = 32) -> WarpC
     entered = torch.zeros((groups,), dtype=torch.int64, device=dev)
     if not inp.n_chunks:
         bt, bi = mk._closest_hit(o, d, inp.sweep)
-        return WarpCull(bt, bi, CullCount(live, live * inp.n_spheres, 0, 0), entered)
+        full = live * inp.n_spheres
+        return WarpCull(bt, bi, CullCount(live, full, 0, 0, full, 0), entered)
     od, oo = mk._od_oo(o, d)
     # the priors' closest hit, least (t, index) first
     pbt = torch.full((n,), MAX_T, dtype=_F32, device=dev)
@@ -95,10 +102,10 @@ def warp_cull_plain(o, d, alive, inp: mk.KernelInputs, group: int = 32) -> WarpC
         pbi = torch.where(take, p, pbi)
     inv = [1.0 / (torch.where(v >= 0.0, 1.0, -1.0).to(_F32)
                   * torch.clamp(torch.abs(v), min=1.0e-12)) for v in d]
-    chunk_bounds, super_bounds = cull_bounds(inp)
+    m = lane_margin(o, inp)
     bt = torch.full((n,), MAX_T, dtype=_F32, device=dev)
     bi = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    sphere_tests = box_tests = 0
+    sphere_tests = box_tests = own_sphere = own_box = 0
     cs = inp.chunk_size
     per = inp.super_factor if inp.n_super else inp.n_chunks
     for c0 in range(0, inp.n_chunks, per):
@@ -106,17 +113,21 @@ def warp_cull_plain(o, d, alive, inp: mk.KernelInputs, group: int = 32) -> WarpC
         testing = live  # live lanes that run the chunk tests of this span
         if inp.n_super:
             s = c0 // per
-            mine = alive & mk._slab_enters(super_bounds[:, s:s + 1], o, inv,
-                                           torch.minimum(pbt, bt)[:, None])[:, 0]
+            mine = alive & mk._slab_enters(inp.super_bounds[:, s:s + 1], o, inv,
+                                           torch.minimum(pbt, bt)[:, None], m)[:, 0]
             box_tests += live
+            own_box += live
             in_super = _group_any(mine, group)
             if not bool(in_super.any()):
                 continue
             testing = int((alive & _lanes(in_super, n, group)).sum())
+        own_testing = int(mine.sum())
         for c in range(c0, min(c0 + per, inp.n_chunks)):
-            enters = mine & mk._slab_enters(chunk_bounds[:, c:c + 1], o, inv,
-                                            torch.minimum(pbt, bt)[:, None])[:, 0]
+            enters = mine & mk._slab_enters(inp.chunk_bounds[:, c:c + 1], o, inv,
+                                            torch.minimum(pbt, bt)[:, None], m)[:, 0]
             box_tests += testing
+            own_box += own_testing
+            own_sphere += cs * int(enters.sum())
             vote = _group_any(enters, group)
             if not bool(vote.any()):
                 continue
@@ -133,8 +144,8 @@ def warp_cull_plain(o, d, alive, inp: mk.KernelInputs, group: int = 32) -> WarpC
     take = (pbi >= 0) & ((pbt < bt) | ((pbt == bt) & (pbi < bi)))
     bt = torch.where(take, pbt, bt)
     bi = torch.where(take, pbi, bi)
-    return WarpCull(bt, bi, CullCount(live, sphere_tests, mk.N_PRIORS * live, box_tests),
-                    entered)
+    count = CullCount(live, sphere_tests, mk.N_PRIORS * live, box_tests, own_sphere, own_box)
+    return WarpCull(bt, bi, count, entered)
 
 
-__all__ = ["CullCount", "WarpCull", "cull_bounds", "warp_cull_plain"]
+__all__ = ["CullCount", "WarpCull", "lane_margin", "warp_cull_plain"]

@@ -39,14 +39,31 @@ from ..tracer import Scene
 from .build import load_library
 
 N_PRIORS = 4  # largest-|radius| spheres (the TPU kernel seeds best-t with them)
-# Regroup K0's and K1's per-warp cull (csrc/regroup.cu, cull.py) tests each
-# chunk and super-chunk box widened on every side by KernelInputs.cull_margin.
-# The expanded quadratic puts a computed hit off its sphere by up to about
-# 2^-22 (|c| + r)^2 / r (random_spheres(10000) on an H100): a ray leaving
-# a sphere that sets a face of its chunk's box can hit it again just past
-# MIN_T, where the exact box's slab test has the ray out of the box before
-# MIN_T. The margin is 16 times that bound, over the scene's spheres.
-CULL_MARGIN_SCALE = 2.0 ** -18
+# Regroup K0's and K1's per-warp cull (csrc/bounce.cuh sweep_culled,
+# cull.py) tests each box widened by a margin of the lane's own,
+#     m = cull_scale * (|o| + cull_reach)^2, where
+#     cull_reach = max(|c| + |r|), cull_scale = CULL_MARGIN_ULPS * u / min |r|
+# over the spheres that are not priors (a prior's hit joins after the
+# sweep, whatever the cull skips), u = 2^-24. Why that holds, to first
+# order in u, for a ray (o, d) and a sphere (c, r), with L = |o| + |c| + |r|:
+#  - cq = oo - co2 + kq carries the rounding of two dot products, two sums
+#    and kq = |c|^2 - r^2: |dcq| <= 6u L^2. bq = cd - od: |dbq| <= 4u L.
+#    d = v / sqrtf(|v|^2) has |d|^2 = 1 within 10u.
+#  - The computed root t (t <= L) solves t^2 - 2 bq t + cq = 0 up to a
+#    residual of 6u L^2 (the rounding of disc, sqrtf and bq +- sq). So the
+#    point p = o + t d of the exact ray has |p - c|^2 - r^2 = E with
+#    |E| <= |dcq| + 2t |dbq| + t^2 ||d|^2 - 1| + 6u L^2 <= 30u L^2.
+#  - Outside the sphere |p - c| >= r, so p lies within E / 2r <= 15u L^2 / r
+#    of it, and so of its chunk's box, whose f32 faces are off by uL at most.
+#  - The slab test's rounding ((b -+ m - o) * inv, inv) moves its tnear
+#    and tfar by 3u t at most, and the widened face by u (|b| + m).
+# So a box widened by 20u L^2 / r (each uL is at most uL^2 / r) holds, with
+# room for the slab test, every hit the full sweep can take: there tfar >
+# MIN_T and tnear < the lane's bound. 32 leaves 60% for the terms of higher
+# order. With the exact boxes (scale 0) the cull parts from the full sweep
+# on random_spheres(10000), on rays that leave a small sphere at its box's
+# face and hit it again just past MIN_T (tests/test_torch_cull.py).
+CULL_MARGIN_ULPS = 32.0
 DEFAULT_TEXTURE_BUDGET = 8192  # texels per texture in the kernel's LUT
 
 EPS = 1.0e-3
@@ -253,11 +270,13 @@ def prepare_scene_arrays(scene: Scene, basis: CameraBasis, chunk_size: int,
 class KernelInputs(NamedTuple):
     """What the kernel reads, laid out for it (shared with the plain twin).
 
-    The chunk hierarchy (the last seven fields) is read by regroup's K0 and
+    The chunk hierarchy (the last nine fields) is read by regroup's K0 and
     K1, which cull their sweep per warp with it, and by the kStats
     instantiations, which count the TPU kernel's cull decisions; it is a
     few KiB (RTiOW: 6 x 31 chunk bounds, 744 bytes; random_spheres(10000):
-    6 x 320 chunk and 6 x 20 super bounds, 8,160 bytes)."""
+    6 x 320 chunk and 6 x 20 super bounds, 8,160 bytes). Its boxes are the
+    exact ones of the JAX package; K0 and K1 widen them per lane by the
+    margin of CULL_MARGIN_ULPS, from cull_reach and cull_scale."""
 
     cam: torch.Tensor  # [20] f32
     sky: torch.Tensor  # [33] f32
@@ -272,7 +291,8 @@ class KernelInputs(NamedTuple):
     n_super: int  # super-chunks of super_factor chunks; 0: one level
     chunk_size: int
     super_factor: int
-    cull_margin: float = 0.0  # f32: K0's and K1's widening of the boxes (CULL_MARGIN_SCALE)
+    cull_reach: float  # f32: max |c| + |r| of the non-prior spheres (cull_terms)
+    cull_scale: float  # f32: CULL_MARGIN_ULPS * 2^-24 / their least |r|
 
     @property
     def n_tests(self) -> int:
@@ -294,21 +314,36 @@ def kernel_inputs(scene: Scene, sky: SkyState, basis: CameraBasis, *,
     sweep = torch.stack([a[0], a[1], a[2], a[-1]], dim=1).contiguous()
     attrs = torch.stack(a[:-1], dim=0).contiguous()
     pool = None if prep.tex_pool is None else prep.tex_pool.reshape(-1).contiguous()
-    margin = cull_margin(sweep[:, :3], a[3]) if prep.n_chunks else 0.0
+    prior_idx = prep.chunk_arrays[6].contiguous()
+    terms = cull_terms(sweep, a[3], prior_idx) if prep.n_chunks else (0.0, 0.0)
     return KernelInputs(pack_camera(basis).contiguous(), pack_sky(sky).contiguous(),
                         sweep, attrs, pool, prep.n_spheres,
                         torch.stack(prep.chunk_arrays[:6]).contiguous(),
                         torch.stack(prep.super_arrays).contiguous(),
-                        prep.chunk_arrays[6].contiguous(), prep.n_chunks, prep.n_super,
-                        chunk_size, super_factor, margin)
+                        prior_idx, prep.n_chunks, prep.n_super, chunk_size, super_factor,
+                        *terms)
 
 
-def cull_margin(centers: torch.Tensor, radii: torch.Tensor) -> float:
-    """CULL_MARGIN_SCALE * max over the spheres of (|c| + |r|)^2 / |r|,
-    rounded to f32: how far K0 and K1 widen the chunk boxes they cull with."""
-    r = torch.clamp(radii.double().abs(), min=1e-6)
-    reach = torch.linalg.vector_norm(centers.double(), dim=1) + r
-    return float(np.float32(CULL_MARGIN_SCALE * float((reach * reach / r).max())))
+def _f32_up(x: float) -> float:
+    """x rounded to an f32 no smaller than it."""
+    v = np.float32(x)
+    return float(np.nextafter(v, np.float32(np.inf)) if float(v) < x else v)
+
+
+def cull_terms(sweep: torch.Tensor, radii: torch.Tensor, prior_idx: torch.Tensor) -> tuple:
+    """(cull_reach, cull_scale) of a scene with chunks, each rounded up to
+    f32: the reach max(|c| + |r|) and CULL_MARGIN_ULPS * 2^-24 / min |r|
+    over the spheres that are not priors ((0, 0) if every sphere is one;
+    an infinite scale, which enters every box, for a zero radius)."""
+    rest = torch.ones((sweep.shape[0],), dtype=torch.bool, device=sweep.device)
+    rest[prior_idx.long()] = False
+    if not bool(rest.any()):
+        return 0.0, 0.0
+    r = radii[rest].double().abs()
+    reach = float((torch.linalg.vector_norm(sweep[rest, :3].double(), dim=1) + r).max())
+    r_min = float(r.min())
+    scale = CULL_MARGIN_ULPS * 2.0 ** -24 / r_min if r_min > 0.0 else float("inf")
+    return _f32_up(reach), _f32_up(scale)
 
 
 # --------------------------------------------------------------------------
@@ -654,11 +689,16 @@ def _closest_hit(o, d, sweep):
     return bt, bi
 
 
-def _slab_enters(bounds, o, inv, bt):
+def _slab_enters(bounds, o, inv, bt, margin=None):
     """The TPU's slab test (slab_hit, megakernel.py:529-550) of each ray
     against each box of bounds [6, m]: [n, m] bool, can the ray enter the
-    box closer than bt [n, m]?"""
-    t = [((bounds[a + k][None, :] - o[a][:, None]) * inv[a][:, None])
+    box closer than bt [n, m]? With ``margin`` [n] f32 each ray tests the
+    boxes widened by its own margin, as csrc/bounce.cuh sweep_culled does
+    ((lo - m - o) * inv, (hi + m - o) * inv)."""
+    lo, hi = bounds[:3][:, None, :], bounds[3:][:, None, :]
+    if margin is not None:
+        lo, hi = lo - margin[:, None], hi + margin[:, None]
+    t = [(((lo, hi)[k // 3][a]) - o[a][:, None]) * inv[a][:, None]
          for k in (0, 3) for a in range(3)]
     tnear = torch.maximum(torch.maximum(torch.minimum(t[0], t[3]), torch.minimum(t[1], t[4])),
                           torch.minimum(t[2], t[5]))
@@ -667,13 +707,14 @@ def _slab_enters(bounds, o, inv, bt):
     return (tfar >= tnear) & (tfar > MIN_T) & (tnear < bt)
 
 
-def _cull_tests(o, d, inp: KernelInputs):
+def _cull_tests(o, d, inp: KernelInputs, margin=None):
     """Each ray's outcome of the TPU's whole-tile cull tests at one bounce
     (megakernel.py:615-660, 826-848): chunk tests [n, n_tests] and super
     tests [n, n_super] bool. The test before chunk c uses min(best-t of the
     priors, best-t of the spheres before c), which is the culled sweep's
     best-t at c for every live ray, since culling never skips a chunk that
-    holds a closer hit (csrc/stats.cuh)."""
+    holds a closer hit (csrc/stats.cuh). ``margin`` [n] f32 widens each
+    ray's boxes as regroup K0 and K1 do (cull.lane_margin)."""
     od, oo = _od_oo(o, d)
     n = o[0].shape[0]
     dev = o[0].device
@@ -695,8 +736,8 @@ def _cull_tests(o, d, inp: KernelInputs):
     inv = [1.0 / (torch.where(v >= 0.0, 1.0, -1.0).to(_F32) * torch.clamp(torch.abs(v),
                                                                            min=1.0e-12))
            for v in d]
-    chunk_hit = _slab_enters(inp.chunk_bounds, o, inv, bt)
-    super_hit = (_slab_enters(inp.super_bounds, o, inv, bt[:, ::inp.super_factor])
+    chunk_hit = _slab_enters(inp.chunk_bounds, o, inv, bt, margin)
+    super_hit = (_slab_enters(inp.super_bounds, o, inv, bt[:, ::inp.super_factor], margin)
                  if inp.n_super else None)
     return chunk_hit, super_hit
 

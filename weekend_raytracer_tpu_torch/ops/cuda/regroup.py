@@ -187,27 +187,23 @@ def _workspace(device, cap: int, phases: int) -> Workspace:
 # regroup.cu wrt_regroup_attributes index -> kernel
 KERNEL_NAMES = ("k0", "k0_textured", "k1", "k1_textured", "pack_count",
                 "pack_scan", "pack_scatter", "combine_level", "combine_home",
-                "k1_stats", "k1_stats_textured")
+                "k1_stats", "k1_stats_textured", "k0_global", "k0_global_textured",
+                "k1_global", "k1_global_textured")
 
 
 def _library():
     """Build (first use) and load the kernel library; raises on failure."""
     built = load_library(*LIBRARY)
-    bind(built.lib)
-    return built
-
-
-def bind(lib) -> None:
-    """Give a loaded regroup.cu library's entry points their C types (once)."""
+    lib = built.lib
     if lib.wrt_regroup_k0.argtypes is None:
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
         ll = ctypes.c_longlong
         sigs = {
             "wrt_regroup_k0": ([vp] * 5 + [i, vp, vp, ll, i, i, i, i, f, f, u, u, i]
-                               + mk.CULL_ARGTYPES + [f, vp]),
+                               + mk.CULL_ARGTYPES + [f, f, vp]),
             "wrt_regroup_pack": [vp] * 6 + [ll, vp],
             "wrt_regroup_k1": ([vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i]
-                               + mk.CULL_ARGTYPES + [f, vp]),
+                               + mk.CULL_ARGTYPES + [f, f, vp]),
             "wrt_regroup_k1_stats": ([vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i]
                                      + mk.CULL_ARGTYPES + [vp, ll, vp, vp]),
             "wrt_regroup_combine": [vp] * 4 + [ll, vp],
@@ -218,10 +214,11 @@ def bind(lib) -> None:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.wrt_regroup_cull_smem.argtypes = [i, i, i]
+        lib.wrt_regroup_cull_smem.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.wrt_regroup_cull_smem.restype = ll
         lib.wrt_regroup_launch_bounds.argtypes = [ctypes.POINTER(i)] * 2
         lib.wrt_regroup_launch_bounds.restype = None
+    return built
 
 
 def launch_bounds() -> tuple:
@@ -248,12 +245,23 @@ def kernel_attributes() -> dict:
     return out
 
 
-def cull_smem_bytes(inp: mk.KernelInputs) -> int:
-    """Dynamic shared-memory bytes a block of K0 or K1 stages for this
-    scene's cull tables (regroup.cu stage_cull): the priors' four sweep
-    rows and indices and the chunk and super-chunk boxes; 0 without
-    chunks."""
-    return int(_library().lib.wrt_regroup_cull_smem(inp.n_chunks, inp.n_tests, inp.n_super))
+def cull_placement(inp: mk.KernelInputs) -> dict:
+    """Where K0 and K1 read this scene's cull tables (regroup.cu
+    stage_cull): ``smem_bytes``, the dynamic shared memory of a block (the
+    priors' four sweep rows and indices, and the chunk and super-chunk
+    boxes where they fit; 0 without chunks), and ``boxes``, "shared",
+    "global" or "none"."""
+    staged = ctypes.c_int(0)
+    smem = _library().lib.wrt_regroup_cull_smem(inp.n_chunks, inp.n_tests, inp.n_super,
+                                                ctypes.byref(staged))
+    boxes = ("shared" if staged.value else "global") if inp.n_chunks else "none"
+    return {"smem_bytes": int(smem), "boxes": boxes}
+
+
+def _cull_args(inp: mk.KernelInputs, device) -> tuple:
+    """K0's and K1's cull arguments: the chunk hierarchy (mk.cull_args) and
+    the two scene terms of each lane's box margin."""
+    return (*mk.cull_args(inp, device), mk._f32(inp.cull_reach), mk._f32(inp.cull_scale))
 
 
 def _stream_handle(device: torch.device) -> int:
@@ -320,7 +328,7 @@ def launch_k0(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
         t.cap, t.width, t.height, t.tiles_x, t.spp_shift,
         mk._f32(1.0 / t.width), mk._f32(1.0 / t.full_height),
         int(frame) & rng.MASK32, t.row_offset & rng.MASK32, int(b_hi),
-        *mk.cull_args(inp, dev), mk._f32(inp.cull_margin), _stream_handle(dev))
+        *_cull_args(inp, dev), _stream_handle(dev))
     _raise_on(err, "K0")
     launch_k0.launches += 1
 
@@ -380,15 +388,13 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
     args = (*_scene_ptrs(inp), pool.data_ptr(), r8.data_ptr(), _count_ptr(counts, k, dev),
             t.cap, t.width, t.height, t.tiles_x, t.spp_shift, int(frame) & rng.MASK32,
             t.row_offset & rng.MASK32, int(b_lo), int(b_hi))
-    cull = mk.cull_args(inp, dev)
     if stats is None:
-        _raise_on(lib.wrt_regroup_k1(*args, *cull, mk._f32(inp.cull_margin),
-                                     _stream_handle(dev)), "K1")
+        _raise_on(lib.wrt_regroup_k1(*args, *_cull_args(inp, dev), _stream_handle(dev)), "K1")
         launch_k1.launches += 1
         return
     words = mk.stats_scratch_words(t.cap // TILE_RECORDS, b_hi - b_lo, inp)
     scratch = torch.empty((words,), dtype=_I32, device=dev)
-    err = lib.wrt_regroup_k1_stats(*args, *cull, scratch.data_ptr(), words,
+    err = lib.wrt_regroup_k1_stats(*args, *mk.cull_args(inp, dev), scratch.data_ptr(), words,
                                    stats.data_ptr(), _stream_handle(dev))
     _raise_on(err, "K1 stats")
     launch_k1.stats_launches += 1
@@ -541,9 +547,10 @@ def _phases(cuts: tuple, num_bounces: int) -> list:
 
 def cull_census(inp: mk.KernelInputs, t: Tiling, frame, cuts: tuple, num_bounces: int,
                 group: int = 32) -> list:
-    """The work of K0 and of each phase's K1 under the per-warp cull, on
-    the twins' rays of one frame: per kernel ((b_lo, b_hi), [CullCount of
-    each bounce]). K0's groups are 32 consecutive slots; each K1's are 32
+    """The work of K0 and of each phase's K1 under the per-warp cull (what
+    each live lane's own decisions need, and what the lanes do under the
+    warp vote), on the twins' rays of one frame: per kernel ((b_lo, b_hi),
+    [CullCount of each bounce]). K0's groups are 32 consecutive slots; each K1's are 32
     consecutive records of its dense pool, the live records in slot order
     as PACK leaves them. The rays come from ``trace_bounces_plain`` run one
     bounce at a time, which gives a bounce's rays as a run over many does;
@@ -571,7 +578,7 @@ def cull_census(inp: mk.KernelInputs, t: Tiling, frame, cuts: tuple, num_bounces
             alive = torch.ones((keep.numel(),), dtype=torch.bool, device=dev)
         counts = []
         for b in range(b_lo, b_hi):
-            count = CullCount(0, 0, 0, 0)
+            count = CullCount(0, 0, 0, 0, 0, 0)
             for lo in range(0, alive.numel(), _CENSUS_BLOCK):
                 sl = slice(lo, lo + _CENSUS_BLOCK)
                 count = count.plus(warp_cull_plain(tuple(o[:, sl]), tuple(d[:, sl]),
