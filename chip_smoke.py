@@ -145,12 +145,15 @@ _STATS_K1 = dict(width=1920, height=1080, spp=32, bounces=8, frame=0)
 SLAB_TEST_OPS = 12  # per chunk or super-chunk box: 6 subtractions, 6 products
 # the [cull] phase: scene, width, height, spp, frames of regroup (K0 and K1
 # culled per warp) against the unculled wavefront; and the rows of the
-# frame whose rays rg.cull_census counts (None: all; the random scenes: the
-# middle row of tiles, since the twins' sweep of 10,016 spheres over 33M
-# rays would take minutes). random_spheres(60000)'s 48,144 bytes of boxes
-# pass what a block stages, so K0 and K1 read them from global memory.
+# frame whose rays rg.cull_census counts (None: all; random10k: the middle
+# row of tiles, since the twins' sweep of 10,016 spheres over 33M rays
+# would take minutes; 0: none). random_spheres(60000)'s 48,144 bytes of
+# boxes pass what a block stages, so K0 and K1 read them from global
+# memory. Its census (some 10^5 small launches of the twins) is left out:
+# with it, later profiler traces of the [access] phase in this process
+# lost all their device events (three runs of three on an H100).
 _CULL_CASES = (("rtiow", 1920, 1080, 32, 2, None), ("random10k", 3840, 2160, 4, 1, 32),
-               ("random60k", 1920, 1080, 1, 1, 32))
+               ("random60k", 1920, 1080, 1, 1, 0))
 RECORD_BYTES = 64  # a pool record: 16 f32 components
 WF_COMPONENTS = 15  # a wavefront row holds 15 components of 128 f32 lanes
 ROW_PLANE_BYTES = 128 * 4  # one component of one wavefront row
@@ -778,8 +781,8 @@ def _cull_paths(mk, rg, wf, ro, sw) -> dict:
     regroup accumulator, through launch_regrouped with its launches
     counted from 0, equals the wavefront's (which sweeps every sphere) in
     every bit over the case's frames, the second accumulated; at one sample
-    per pixel it equals the megakernel's. Then rg.cull_census counts on
-    the twins' rays of frame 0 (of one row of tiles for random10k) the
+    per pixel it equals the megakernel's. Then, where the case asks,
+    rg.cull_census counts on the twins' rays of frame 0 the
     tests each lane's own cull decisions need and those the warp vote
     makes the lanes run."""
     out = {}
@@ -812,16 +815,19 @@ def _cull_paths(mk, rg, wf, ro, sw) -> dict:
         _check(one_spp == 0, ("culled regroup against the megakernel at 1 spp", name, one_spp))
         del acc, a, m
         torch.cuda.empty_cache()
+        out[name] = {"shape": f"{name} {w}x{h} spp{spp} b8", "frames": frames,
+                     "launches": launches, "vs_wavefront": "bit-exact",
+                     "one_spp_vs_megakernel_pixels_differing": one_spp,
+                     "spheres": inp.n_spheres, "chunks": inp.n_chunks, "supers": inp.n_super,
+                     "placement": rg.cull_placement(inp)}
+        if band == 0:
+            continue
         rows = (0, h) if band is None else ((h // 2) // 32 * 32, (h // 2) // 32 * 32 + band)
         t = rg.plan(w, rows[1] - rows[0], spp, 8, _CUTS, row_offset=rows[0], full_height=h)[0]
         t0 = time.perf_counter()
         census = rg.cull_census(inp, t, 0, _CUTS, 8)
-        out[name] = {"shape": f"{name} {w}x{h} spp{spp} b8", "frames": frames,
-                     "launches": launches, "vs_wavefront": "bit-exact",
-                     "one_spp_vs_megakernel_pixels_differing": one_spp,
-                     "census_rows": list(rows), "census_s": time.perf_counter() - t0,
-                     "census": census, "spheres": inp.n_spheres, "chunks": inp.n_chunks,
-                     "supers": inp.n_super, "placement": rg.cull_placement(inp)}
+        out[name].update(census_rows=list(rows), census_s=time.perf_counter() - t0,
+                         census=census)
         torch.cuda.empty_cache()
     return out
 
@@ -1929,6 +1935,8 @@ def main(argv=None) -> int:
              launches=json.dumps(res["launches"]),
              spheres=res["spheres"], chunks=res["chunks"], supers=res["supers"],
              placement=json.dumps(res["placement"]))
+        if "census" not in res:
+            continue
         _say("cull", case=f"{name}_census", rows=json.dumps(res["census_rows"]),
              full_sweep_tests_per_segment=res["spheres"],
              k0_tests_per_segment=f"{_per_segment(res['census'][:1]):.2f}",
@@ -1939,7 +1947,7 @@ def main(argv=None) -> int:
                  _census_lines(res["census"])),
              seconds=f"{res['census_s']:.1f}", card=repr(smi))
     record["cull"] = {k: {**v, "census": [[list(span), [c._asdict() for c in counts]]
-                                          for span, counts in v["census"]]}
+                                          for span, counts in v.get("census", ())]}
                       for k, v in cull.items()}
 
     # 7. the stats kernels against their twins, then the counters' own path

@@ -120,9 +120,6 @@ def smem_rate(device) -> dict:
             "bytes_per_s": SMEM_BYTES_PER_CLOCK * sms * mhz * 1e6}
 
 
-TRACE_TRIES = 3  # device_times: traces of one function before it gives up
-
-
 def device_times(fns: dict, reps: int, device):
     """{label: mean device milliseconds of one call} for each function of
     ``fns``, each of which launches one kernel: each is called ``reps``
@@ -130,9 +127,7 @@ def device_times(fns: dict, reps: int, device):
     mean of the device events the profiler records there (as chip_smoke's
     [trace] reads them). A trace can miss a few of its events (one did
     after earlier traces in the same process), so the mean is over those
-    it has; it must have one. A trace that records none of them (one did
-    after some hundred traces in one process) is taken again, up to
-    TRACE_TRIES times in all. None off the card."""
+    it has; it must have one. None off the card."""
     import tempfile
 
     import torch
@@ -144,17 +139,14 @@ def device_times(fns: dict, reps: int, device):
         return None
     out = {}
     for label, fn in fns.items():
-        for _ in range(TRACE_TRIES):
-            torch.cuda.synchronize()
-            with tempfile.TemporaryDirectory() as log_dir:
-                with profiler_trace(log_dir) as prof:
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda.synchronize()
-                us = [e.self_device_time_total for e in prof.events()
-                      if e.device_type == DeviceType.CUDA]
-            if us:
-                break
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as log_dir:
+            with profiler_trace(log_dir) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            us = [e.self_device_time_total for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
         if not us or len(us) > reps:
             raise AssertionError(f"{label}: the profiler saw {len(us)} device events of "
                                  f"{reps} calls")
