@@ -100,7 +100,8 @@ import time
 
 import torch
 
-from weekend_raytracer_tpu_torch.probes import FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS
+from weekend_raytracer_tpu_torch.probes import (FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS,
+                                                TRACE_PAD_S)
 
 # name, w, h, frames, spp, bounces of the kernel-against-plain cases
 _PLAIN_CASES = (("first_hit", 64, 48, 1, 1, 1),
@@ -703,13 +704,14 @@ def _kernel_name(key: str) -> str:
 
 def _trace_frame(run, log_dir, expect: dict) -> dict:
     """One frame, ``run(on_stage)``, under profiler_trace, with CUDA-event
-    stage times beside it: each kernel's device time as the profiler's
-    key_averages() report it, and how many device events it recorded. The
-    port's kernels among those events are held against ``expect`` (the
-    frame's launches, by kernel name): the profiler can drop device events,
-    so the idle share (1 - kernel ms / stage ms) is given only when none of
-    the frame's kernels is missing, and ``missing_events`` says how many
-    are."""
+    stage times beside it (the frame padded on both sides by
+    probes.TRACE_PAD_S of idle host time, as the probes' traces are): each
+    kernel's device time as the profiler's key_averages() report it, and
+    how many device events it recorded. The port's kernels among those
+    events are held against ``expect`` (the frame's launches, by kernel
+    name): the profiler can drop device events, so the idle share
+    (1 - kernel ms / stage ms) is given only when none of the frame's
+    kernels is missing, and ``missing_events`` says how many are."""
     from torch.autograd import DeviceType
 
     from weekend_raytracer_tpu_torch.utils.metrics import profiler_trace
@@ -717,7 +719,9 @@ def _trace_frame(run, log_dir, expect: dict) -> dict:
     run(None)  # warm
     torch.cuda.synchronize()
     with profiler_trace(log_dir) as prof:
+        time.sleep(TRACE_PAD_S)
         stages = _stage_ms(run)
+        time.sleep(TRACE_PAD_S)
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     seen = {}
     for e in device_events:
@@ -1523,7 +1527,7 @@ def _tiny_device_ms(ro, sw, dma, mxu, reps: int = 20) -> dict:
         fns[f"dot_mma_{prec}"] = lambda prec=prec: sw.dot_mma(a, b, prec)
     event = {k: time_mean(fn, reps, "cuda") for k, fn in fns.items()}
     dev = device_times(fns, reps, "cuda")
-    return {k: {"event_ms": event[k], "device_ms": dev[k]} for k in fns}
+    return {k: {"event_ms": event[k], **dev[k]} for k in fns}
 
 
 def _sig(x, digits: int = 4):
@@ -1545,6 +1549,22 @@ def _access_summary(res: dict) -> dict:
                 walk(f"{key}.{k}" if key else k, vv)
 
     walk("", {k: v for k, v in res.items() if k not in ("launches", "smem_rate")})
+    return out
+
+
+def _by_events(res: dict) -> list:
+    """The cases of a probe's result whose device ms are CUDA-event times,
+    because their profiler trace recorded no device event."""
+    out = []
+
+    def walk(key, v):
+        if isinstance(v, dict) and v.get("device_ms_by") == "cuda_events":
+            out.append(key)
+        elif isinstance(v, dict):
+            for k, vv in v.items():
+                walk(f"{key}.{k}" if key else k, vv)
+
+    walk("", res)
     return out
 
 
@@ -2242,13 +2262,15 @@ def main(argv=None) -> int:
         for name, _ in mod.PROBES:
             _say("access", probe=name, row=mod.ROWS[name],
                  launches=json.dumps({k: v for k, v in access[name]["launches"].items() if v}),
-                 ms_device_bound_share_library=json.dumps(_access_summary(access[name])))
+                 ms_device_bound_share_library=json.dumps(_access_summary(access[name])),
+                 device_ms_by_cuda_events=json.dumps(_by_events(access[name])))
     tiny = _tiny_device_ms(ro, sw, dma, mxu_sweep)
     rate = access["gather_cost"]["smem_rate"]
     access_s = time.perf_counter() - t0
     _say("access", case="tiny_shapes_event_vs_device_ms",
          ms=json.dumps({k: [round(v["event_ms"], 5), round(v["device_ms"], 5)]
-                        for k, v in tiny.items()}), card=repr(smi))
+                        for k, v in tiny.items()}),
+         device_ms_by_cuda_events=json.dumps(_by_events(tiny)), card=repr(smi))
     picks = {"table_gather": access["gather_cost"]["span16"]["global"],
              "lane_gather": access["take_along_lane_32"]["fill"]["shfl"],
              "smem_rw": access["p2"]["fill"]["rotate"]["smem"],

@@ -41,6 +41,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from weekend_raytracer_tpu_torch.ops.cuda import access as ac  # noqa: E402
+from weekend_raytracer_tpu_torch import probes  # noqa: E402
 from weekend_raytracer_tpu_torch.probes import gather_cost, mosaic, place  # noqa: E402
 
 _BENCH = pathlib.Path(__file__).resolve().parents[1] / "benchmarks"
@@ -359,6 +360,14 @@ def test_fill_patterns_are_permutations_on_the_banks_they_name():
     assert len(set(pats["stride32"][warp] % 32)) == 1
 
 
+def test_device_times_is_none_off_the_card():
+    """The profiler's device times need the card: on the CPU no function is
+    called and there is no result."""
+    calls = []
+    assert probes.device_times({"f": lambda: calls.append(1)}, 3, "cpu") is None
+    assert calls == []
+
+
 def test_the_port_never_imports_jax():
     for module in (ac, place, mosaic, gather_cost):
         text = pathlib.Path(module.__file__).read_text()
@@ -523,3 +532,35 @@ def test_probe_holds_every_route_on_the_card(module, name, cuda, capsys):
     assert mod.run(name, dict(mod.PROBES)[name], cuda, **kw), capsys.readouterr().out
     torch.cuda.synchronize()
     assert ac.launch_counts() == mod.launches(name, reps=kw["reps"])
+
+
+class _NoDeviceEvents:
+    """A profiler whose trace recorded no device event."""
+
+    def events(self):
+        return []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recorded", [True, False])
+def test_device_times_calls_each_function_reps_times(recorded, cuda, monkeypatch):
+    """Each function is called ``reps`` times and no more, whether the
+    profiler recorded its device events (their mean) or none of them (the
+    CUDA events of the same calls)."""
+    if not recorded:
+        @contextlib.contextmanager
+        def empty_trace(log_dir):
+            yield _NoDeviceEvents()
+
+        monkeypatch.setattr("weekend_raytracer_tpu_torch.utils.metrics.profiler_trace",
+                            empty_trace)
+    x = place.arange_table(8, cuda)
+    idx = torch.zeros((8, 128), dtype=_I32, device=cuda)
+    fns = {route: (lambda route=route: ac.lane_gather(x, idx, route=route))
+           for route in ac.LANE_ROUTES}
+    ac.zero_launch_counts()
+    out = probes.device_times(fns, 4, cuda)
+    torch.cuda.synchronize()
+    assert ac.launch_counts()["lane_gather"] == 4 * len(fns)
+    by = "profiler" if recorded else "cuda_events"
+    assert all(v["device_ms_by"] == by and v["device_ms"] > 0 for v in out.values()), out

@@ -120,14 +120,25 @@ def smem_rate(device) -> dict:
             "bytes_per_s": SMEM_BYTES_PER_CLOCK * sms * mhz * 1e6}
 
 
+# idle host time at each end of a probe's profiler trace: a device event
+# whose converted timestamp falls outside the trace's window is dropped, and
+# a trace of a few tiny kernels is not much longer than that offset
+TRACE_PAD_S = 0.05
+
+
 def device_times(fns: dict, reps: int, device):
-    """{label: mean device milliseconds of one call} for each function of
+    """{label: {"device_ms": ms, "device_ms_by": by}} for each function of
     ``fns``, each of which launches one kernel: each is called ``reps``
-    times under its own utils.metrics.profiler_trace, and its time is the
-    mean of the device events the profiler records there (as chip_smoke's
-    [trace] reads them). A trace can miss a few of its events (one did
-    after earlier traces in the same process), so the mean is over those
-    it has; it must have one. None off the card."""
+    times under its own utils.metrics.profiler_trace, the calls padded on
+    both sides by TRACE_PAD_S of idle host time, with a pair of CUDA events
+    around each call. By "profiler", the time is the mean of the device
+    events the profiler records there (as chip_smoke's [trace] reads them);
+    a trace can miss a few of its events, so the mean is over those it has.
+    A trace that records none of them (one did after some hundred traces in
+    one process) gives by "cuda_events" the mean of the event pairs of the
+    same calls instead, which also counts each launch's host side: no call
+    is made again, so the launches stay ``reps`` a function. More events
+    than calls is an error. None off the card."""
     import tempfile
 
     import torch
@@ -139,16 +150,26 @@ def device_times(fns: dict, reps: int, device):
         return None
     out = {}
     for label, fn in fns.items():
+        pairs = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+                 for _ in range(reps)]
         torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as log_dir:
             with profiler_trace(log_dir) as prof:
-                for _ in range(reps):
+                time.sleep(TRACE_PAD_S)
+                for start, end in pairs:
+                    start.record()
                     fn()
+                    end.record()
                 torch.cuda.synchronize()
+                time.sleep(TRACE_PAD_S)
             us = [e.self_device_time_total for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-        if not us or len(us) > reps:
+        if len(us) > reps:
             raise AssertionError(f"{label}: the profiler saw {len(us)} device events of "
                                  f"{reps} calls")
-        out[label] = sum(us) / len(us) / 1e3
+        if us:
+            out[label] = {"device_ms": sum(us) / len(us) / 1e3, "device_ms_by": "profiler"}
+        else:
+            out[label] = {"device_ms": sum(s.elapsed_time(e) for s, e in pairs) / reps,
+                          "device_ms_by": "cuda_events"}
     return out

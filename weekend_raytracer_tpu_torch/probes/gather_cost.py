@@ -129,8 +129,8 @@ def gather_cost(device="cuda", n_tiles: int = PROBE["n_tiles"], reps: int = REPS
         for route in routes_for(span):
             timed[(span, route)] = (lambda idx=idx, span=span, route=route:
                                     ac.table_gather(tab, idx, span, route=route))
-    for (span, route), ms in (device_times(timed, DEVICE_REPS, device) or {}).items():
-        out[f"span{span}"][route]["device_ms"] = ms
+    for (span, route), dev_ms in (device_times(timed, DEVICE_REPS, device) or {}).items():
+        out[f"span{span}"][route].update(dev_ms)
     out["message"] = "; ".join(
         f"span {s}: " + ", ".join(f"{r} {c['ms'] * 1e3:.1f} us" for r, c in
                                   out[f"span{s}"].items()) for s in PROBE["spans"])

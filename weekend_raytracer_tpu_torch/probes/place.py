@@ -108,8 +108,8 @@ def routes_case(kernels: dict, plain, expect, bound: dict, device, reps: int, li
                    "share": bound["bound_ms"] / ms[route] if ms[route] else None,
                    "max_abs_err": 0.0, **bound} for route in kernels}
     if device_reps:
-        for route, ms in (device_times(kernels, device_reps, device) or {}).items():
-            out[route]["device_ms"] = ms
+        for route, dev_ms in (device_times(kernels, device_reps, device) or {}).items():
+            out[route].update(dev_ms)
     return out
 
 
