@@ -363,62 +363,101 @@ def _k0_k1_vs_plain(mk, rg) -> dict:
     return out
 
 
+def _pack_vs_plain(rg, pool, n_in: int, what) -> tuple:
+    """PACK (one launch) against pack_plain on the first ``n_in`` records
+    of ``pool``, both writing over poisoned buffers: the live count, the
+    dense pool up to its padded last row (+-0 equal) and the inverse map
+    must agree in every bit. Returns (max error, live count, inverse map,
+    the kernel's dense pool)."""
+    dev = pool.device
+    cap = pool.shape[1]
+    res = []
+    for pack in (rg.launch_pack, rg.pack_plain):
+        counts = torch.tensor([n_in, 0], dtype=torch.int32, device=dev)
+        dst = torch.full((rg.N_COMP, cap), 7.0, device=dev)
+        inv = torch.full((cap,), -7, dtype=torch.int32, device=dev)
+        pack(pool, dst, inv, counts, 1, rg.pack_scratch(cap, dev))
+        res.append((counts, dst, inv))
+    torch.cuda.synchronize()
+    n = int(res[1][0][1])
+    _check(int(res[0][0][1]) == n, (what, "pack count", int(res[0][0][1]), n))
+    end = -(-n // 128) * 128
+    err = _bitwise_max_err(res[0][1][:, :end], res[1][1][:, :end], (what, "dense pool"))
+    _check(torch.equal(res[0][2], res[1][2]), (what, "inverse map"))
+    return err, n, res[0][2], res[0][1]
+
+
+def _combine_vs_plain(rg, t, inv, r8, contrib, gen, what) -> float:
+    """COMBINE (one launch) against combine_chain_plain on one chain of
+    inverse maps, onto a random accumulator and with clear: the
+    accumulators must agree in every bit, and the inputs stay as they
+    were."""
+    dev = contrib.device
+    kept = [x.clone() for x in (inv, r8, contrib)]
+    err = 0.0
+    for clear in (False, True):
+        accum = torch.rand((t.width * t.height, 3), device=dev, generator=gen)
+        out = [accum.clone(), accum.clone()]
+        rg.launch_combine(inv, r8, contrib, out[0], t, clear)
+        rg.combine_chain_plain(inv, r8, contrib, out[1], t, clear)
+        torch.cuda.synchronize()
+        err = max(err, _bitwise_max_err(out[0], out[1], (what, "combine", clear)))
+    _check(all(_same_bits(a, b) for a, b in zip(kept, (inv, r8, contrib))),
+           (what, "COMBINE changed its inputs"))
+    return err
+
+
 def _pack_combine_vs_plain(rg, inp, t, seed: int) -> dict:
-    """PACK and COMBINE against their twins, bit for bit, on the K0 pool of
-    tiling ``t`` with its own, a random, an all-live and an all-dead alive
-    mask: the live count, the dense pool (+-0 equal), the inverse map, a
-    combine level, and the home level's fold into the accumulator (which
-    must leave K0's contributions untouched)."""
+    """PACK and COMBINE against their twins, bit for bit, at tiling ``t``:
+    a frame's chain (K0, then PACK and K1 at each of _CUTS, so that PACK 2
+    and 3 take a live count that is no multiple of the tile, then COMBINE
+    over the frame's inverse maps and radiance), and PACK of K0's pool with
+    a random, a ragged (the random mask over an input count that is no
+    multiple of the tile nor of 4), an all-live and an all-dead mask, each
+    followed by a one-phase COMBINE through its inverse map."""
     dev = torch.device("cuda")
-    pool = torch.empty((rg.N_COMP, t.cap), device=dev)
-    contrib = torch.empty((3, t.cap), device=dev)
-    rg.launch_k0(inp, pool, contrib, t, 0, _CUTS[0])
     gen = torch.Generator(device=dev).manual_seed(seed)
-    masks = {"k0": pool[rg._AL].clone(),
-             "random": (torch.rand(t.cap, device=dev, generator=gen) < 0.3).float(),
+    pools = [torch.empty((rg.N_COMP, t.cap), device=dev) for _ in range(2)]
+    contrib = torch.empty((3, t.cap), device=dev)
+    rg.launch_k0(inp, pools[0], contrib, t, 0, _CUTS[0])
+    inv = torch.empty((len(_CUTS), t.cap), dtype=torch.int32, device=dev)
+    r8 = torch.empty((len(_CUTS), 3, t.cap), device=dev)
+    pack_err, combine_err, live = 0.0, 0.0, {}
+    n_in = t.cap
+    for k, b_lo in enumerate(_CUTS, 1):
+        err, n, inv_k, dense = _pack_vs_plain(rg, pools[(k - 1) % 2], n_in, f"cut{k}")
+        pack_err = max(pack_err, err)
+        live[f"cut{k}"] = [n_in, n]
+        pools[k % 2].copy_(dense)
+        inv[k - 1] = inv_k
+        del dense, inv_k
+        counts = torch.tensor([n_in, n], dtype=torch.int32, device=dev)
+        b_hi = _CUTS[k] if k < len(_CUTS) else 8
+        rg.launch_k1(inp, pools[k % 2], r8[k - 1], counts, 1, t, 0, b_lo, b_hi)
+        n_in = n
+    combine_err = _combine_vs_plain(rg, t, inv, r8, contrib, gen, "frame")
+    rg.launch_k0(inp, pools[0], contrib, t, 0, _CUTS[0])
+    del pools[1], inv, r8
+    pool = pools[0]
+    ragged = t.cap * 3 // 4 - 1237  # odd: no multiple of the tile nor of 4
+    masks = {"random": (torch.rand(t.cap, device=dev, generator=gen) < 0.3).float(),
              "all_live": torch.ones(t.cap, device=dev),
              "all_dead": torch.zeros(t.cap, device=dev)}
-    del contrib
-    pack_err, combine_err, live = 0.0, 0.0, {}
-    block_sums = torch.empty((t.cap // 1024,), dtype=torch.int32, device=dev)
-    for label, mask in masks.items():
+    for label, mask, count in (("random", masks["random"], t.cap),
+                               ("ragged", masks["random"], ragged),
+                               ("all_live", masks["all_live"], t.cap),
+                               ("all_dead", masks["all_dead"], t.cap)):
         pool[rg._AL] = mask
-        res = []
-        for pack in (rg.launch_pack, rg.pack_plain):
-            counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=dev)
-            dst = torch.full((rg.N_COMP, t.cap), 7.0, device=dev)
-            inv = torch.full((t.cap,), -7, dtype=torch.int32, device=dev)
-            pack(pool, dst, inv, counts, 1, block_sums)
-            res.append((counts, dst, inv))
-        torch.cuda.synchronize()
-        n = int(res[1][0][1])
-        live[label] = n
-        _check(int(res[0][0][1]) == n, (label, "pack count", int(res[0][0][1]), n))
-        end = -(-n // 128) * 128
-        pack_err = max(pack_err, _bitwise_max_err(res[0][1][:, :end], res[1][1][:, :end],
-                                                  (label, "dense pool")))
-        _check(torch.equal(res[0][2], res[1][2]), (label, "inverse map"))
-        counts, inv = res[1][0], res[1][2]
-        del res
-        # COMBINE through this inverse map: a level (k = 2) and the home level
-        src = torch.rand((3, t.cap), device=dev, generator=gen)
+        err, n, inv_k, dense = _pack_vs_plain(rg, pool, count, label)
+        pack_err = max(pack_err, err)
+        live[label] = [count, n]
+        del dense
+        if count < t.cap:  # COMBINE reads every home slot's entry
+            inv_k[count:] = rg.DEAD
+        one = torch.rand((1, 3, t.cap), device=dev, generator=gen)
         base = torch.rand((3, t.cap), device=dev, generator=gen)
-        accum = torch.rand((t.width * t.height, 3), device=dev, generator=gen)
-        level = [base.clone(), base.clone()]
-        counts2 = torch.tensor([t.cap, t.cap], dtype=torch.int32, device=dev)
-        rg.launch_combine(inv, src, level[0], counts2, 2)
-        rg.combine_plain(inv, src, level[1], counts2, 2)
-        combine_err = max(combine_err, _bitwise_max_err(level[0], level[1],
-                                                        (label, "combine level")))
-        del level
-        home, home_base = [accum.clone(), accum.clone()], [base.clone(), base.clone()]
-        rg.launch_combine(inv, src, home_base[0], counts, 1, accum=home[0], t=t)
-        rg.combine_plain(inv, src, home_base[1], counts, 1, accum=home[1], t=t)
-        torch.cuda.synchronize()
-        combine_err = max(combine_err, _bitwise_max_err(home[0], home[1],
-                                                        (label, "home fold")))
-        _check(torch.equal(home_base[0], base) and torch.equal(home_base[1], base),
-               (label, "the home level changed K0's contributions"))
+        combine_err = max(combine_err, _combine_vs_plain(rg, t, inv_k[None], one, base, gen,
+                                                         label))
     return {"pack": pack_err, "combine": combine_err, "live": live}
 
 
@@ -446,7 +485,7 @@ def _dense_pool(rg, inp, t, frame, cut):
     dense = torch.empty_like(pool)
     counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=dev)
     rg.launch_pack(pool, dense, torch.empty((t.cap,), dtype=torch.int32, device=dev), counts, 1,
-                   torch.empty((t.cap // 1024,), dtype=torch.int32, device=dev))
+                   rg.pack_scratch(t.cap, dev))
     del pool
     return dense, counts, int(counts[1])
 
@@ -685,11 +724,11 @@ def _k1_ms(rg, inp, dense, counts, t, frame, b_lo, b_hi, stats: bool, reps: int,
 
 def _frame_kernels(kind: str) -> dict:
     """The CUDA kernels of the port that one frame with cuts _CUTS launches,
-    by name: a PACK or a COMPACT is three kernels (count, scan, scatter)."""
+    by name: a COMPACT is three kernels (count, scan, scatter), a PACK one,
+    and COMBINE one a frame."""
     n = len(_CUTS)
     if kind == "regroup":
-        return {"regroup_k0": 1, "pack_count": n, "pack_scan": n, "pack_scatter": n,
-                "regroup_k1": n, "combine_level": n - 1, "combine_home": 1}
+        return {"regroup_k0": 1, "regroup_pack": n, "regroup_k1": n, "regroup_combine": 1}
     return {"wavefront_k0": 1, "compact_count": n, "compact_scan": n, "compact_scatter": n,
             "wavefront_k1": n}
 
@@ -801,7 +840,8 @@ def _cull_paths(mk, rg, wf, ro, sw) -> dict:
         torch.cuda.synchronize()
         launches = _launch_counts(mk, rg, wf, ro, sw)
         n = len(_CUTS) * frames
-        want = {**dict.fromkeys(launches, 0), "k0": frames, "pack": n, "k1": n, "combine": n}
+        want = {**dict.fromkeys(launches, 0), "k0": frames, "pack": n, "k1": n,
+                "combine": frames}
         _check(launches == want, ("cull launches", name, launches, want))
         ref = torch.zeros_like(acc)
         for f in range(frames):
@@ -932,8 +972,12 @@ def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
         "k0": full["k0"],
         "pack": _bound(0, sum(a * 8 + b * 2 * RECORD_BYTES for a, b in zip(n_in, n_out))),
         "k1": full["k1"],
-        "combine": _bound(0, sum(a * 4 + b * 24 for a, b in zip(n_in[1:], n_out[1:]))
-                          + t.cap * 16 + pixels * 12),
+        # COMBINE, on the slots of real pixels only (it skips the padding
+        # lanes): each slot's first inverse-map entry, one more entry per
+        # record that lived into a later phase, one radiance triple a slot,
+        # the accumulator read and written
+        "combine": _bound(0, live_real[0] * 16 + sum(live_real[c] for c in cuts[:-1]) * 4
+                          + pixels * 24),
     }
     if mk_stats is not None:
         out["megakernel_stats"] = _bound(counted * sum(live_real),
@@ -946,8 +990,8 @@ def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
 
 def _library_ms(rg, inp, t, frame, num_bounces, live_all, reps: int = 5) -> dict:
     """One PyTorch call per kernel's function, where one computes it, on
-    this frame's own inputs at the [timing] shape (a manual K0 -> PACK ->
-    K1 chain of the kernels gives them): PACK as torch.nonzero +
+    this frame's own inputs at tiling ``t`` (a manual K0 -> PACK -> K1
+    chain of the kernels gives them): PACK as torch.nonzero +
     index_select of the live records (the inverse map left out), COMBINE as
     an index_put_ per level and one index_add_ of every slot's radiance
     into its pixel (the home level's fold); the indices are computed
@@ -959,7 +1003,7 @@ def _library_ms(rg, inp, t, frame, num_bounces, live_all, reps: int = 5) -> dict
     counts = torch.full((len(_CUTS) + 1,), t.cap, dtype=torch.int32, device=dev)
     pools = [pool, torch.empty_like(pool)]
     invs, r8s = [], []
-    block_sums = torch.empty((t.cap // 1024,), dtype=torch.int32, device=dev)
+    status = rg.pack_scratch(t.cap, dev)
     pack_ms = 0.0
     for k, b_lo in enumerate(_CUTS, 1):
         src, dst = pools[(k - 1) % 2], pools[k % 2]
@@ -971,7 +1015,7 @@ def _library_ms(rg, inp, t, frame, num_bounces, live_all, reps: int = 5) -> dict
 
         pack_ms += _time_ms(lib_pack, reps)
         invs.append(torch.empty((t.cap,), dtype=torch.int32, device=dev))
-        rg.launch_pack(src, dst, invs[-1], counts, k, block_sums)
+        rg.launch_pack(src, dst, invs[-1], counts, k, status)
         r8s.append(torch.empty((3, t.cap), device=dev))
         b_hi = _CUTS[k] if k < len(_CUTS) else num_bounces
         rg.launch_k1(inp, dst, r8s[-1], counts, k, t, frame, b_lo, b_hi)
@@ -1339,7 +1383,7 @@ def _binned_kernels(mk, rg, ro, binned) -> dict:
     contrib = torch.empty((3, t.cap), device="cuda")
     dense = torch.empty_like(pool)
     inv = torch.empty((t.cap,), dtype=torch.int32, device="cuda")
-    block_sums = torch.empty((t.cap // 1024,), dtype=torch.int32, device="cuda")
+    status = rg.pack_scratch(t.cap, "cuda")
     counts = torch.tensor([t.cap, 0], dtype=torch.int32, device="cuda")
     plain_ms, ms, library_ms = {}, {}, {}
     # the twins first, so that the kernels' outputs are the ones kept
@@ -1347,7 +1391,7 @@ def _binned_kernels(mk, rg, ro, binned) -> dict:
     ms["k0"] = min(_time_ms(lambda: rg.launch_k0(inp, pool, contrib, t, 0, cut), 3)
                    for _ in range(2))
     plain_ms["pack"] = _time_ms(lambda: rg.pack_plain(pool, dense, inv, counts, 1), 1)
-    ms["pack"] = min(_time_ms(lambda: rg.launch_pack(pool, dense, inv, counts, 1, block_sums), 3)
+    ms["pack"] = min(_time_ms(lambda: rg.launch_pack(pool, dense, inv, counts, 1, status), 3)
                      for _ in range(2))
     library_ms["pack"] = _time_ms(lambda: pool.index_select(
         1, torch.nonzero(pool[rg._AL] > 0.5).squeeze(1)), 3)
@@ -1661,15 +1705,27 @@ def main(argv=None) -> int:
 
     # 4. regroup kernels against their twins, then the pipeline
     rg_err = _k0_k1_vs_plain(mk, rg)
-    w, h = 96, 64
-    t = rg.plan(w, h, 4, 8, _CUTS)[0]
-    small = _pack_combine_vs_plain(rg, mk.kernel_inputs(*_case("rtiow", w, h, "cuda")),
+    w, h, spp = _TIMING["width"], _TIMING["height"], _TIMING["spp"]
+    t = rg.plan(w, h, spp, _TIMING["bounces"], _CUTS)[0]
+    small = _pack_combine_vs_plain(rg, mk.kernel_inputs(*_case(_TIMING["scene"], w, h, "cuda")),
                                    t, seed=0)
     rg_err.update(pack=small["pack"], combine=small["combine"])
+    # COMBINE's other staging layouts (spp 1: no padding; spp 2: stride 3;
+    # spp 128: 16 tiles a block, stride 129) on a ragged image
+    ragged = {}
+    for r_spp in (1, 2, 128):
+        r_t = rg.plan(100, 70, r_spp, _TIMING["bounces"], _CUTS)[0]
+        r = _pack_combine_vs_plain(rg, mk.kernel_inputs(*_case(_TIMING["scene"], 100, 70,
+                                                               "cuda")), r_t, seed=r_spp)
+        rg_err.update(pack=max(rg_err["pack"], r["pack"]),
+                      combine=max(rg_err["combine"], r["combine"]))
+        ragged[f"100x70_spp{r_spp}"] = r["live"]
     _say("regroup_plain", case="kernels", k0_max_abs_err=f"{rg_err['k0']:.3e}",
          k1_max_abs_err=f"{rg_err['k1']:.3e}", pack="bit-exact",
-         combine="bit-exact", size=f"{w}x{h}", spp=4, pack_live=json.dumps(small["live"]))
-    record["regroup_plain"] = {"kernels": {**rg_err, "pack_live": small["live"]}}
+         combine="bit-exact", size=f"{w}x{h}", spp=spp,
+         pack_in_live=json.dumps(small["live"]), ragged_pack_in_live=json.dumps(ragged))
+    record["regroup_plain"] = {"kernels": {**rg_err, "pack_live": small["live"],
+                                           "ragged_pack_live": ragged}}
     for name, w, h, frames, spp, bounces in _REGROUP_CASES:
         scene, sky, basis = _case(name, w, h, "cuda")
         inp = mk.kernel_inputs(scene, sky, basis)
@@ -1749,7 +1805,7 @@ def main(argv=None) -> int:
         _check(frames == mp["max_spp"] // mp["spp"], stats)
         if expect == "regroup":
             want = {"megakernel": 0, "k0": frames, "pack": 3 * frames,
-                    "k1": 3 * frames, "combine": 3 * frames}
+                    "k1": 3 * frames, "combine": frames}
         else:
             want = {"megakernel": frames, "k0": 0, "pack": 0, "k1": 0, "combine": 0}
         want.update(megakernel_stats=0, k1_stats=0, **_NO_WAVEFRONT)
@@ -1811,14 +1867,14 @@ def main(argv=None) -> int:
             extra = dict(stages_ms=json.dumps({k: round(v, 3) for k, v in stages.items()}),
                          rows=json.dumps(rows))
             # PACK and COMBINE bit for bit at the main path's size, where the
-            # scan runs over 64 block totals a thread and a pixel folds 32 lanes
+            # look-back runs over 16,320 tiles and a pixel folds 32 lanes
             big = _pack_combine_vs_plain(
                 rg, inp, rg.plan(w, h, mp["spp"], mp["bounces"], _CUTS)[0], seed=1)
             rg_err["pack"] = max(rg_err["pack"], big["pack"])
             rg_err["combine"] = max(rg_err["combine"], big["combine"])
             rec["pack_combine_vs_plain"] = big
             _say("main", case="pack_combine_vs_plain", size=f"{w}x{h}", spp=mp["spp"],
-                 pack="bit-exact", combine="bit-exact", pack_live=json.dumps(big["live"]))
+                 pack="bit-exact", combine="bit-exact", pack_in_live=json.dumps(big["live"]))
         else:
             rec["frame_kernel_ms"] = _time_ms(lambda: mk.launch_megakernel(
                 scratch, inp, 0, True, **fkw), 3)
@@ -2151,6 +2207,7 @@ def main(argv=None) -> int:
     live_big = _live_per_bounce(rg, inp, t_big, 0, mp["bounces"])
     bounds_big = _bounds(mk, inp, t_big, *live_big, census=cull["rtiow"]["census"])
     bounds_big.update(_wf_bounds(inp, t_big, live_big[0], wf_rows[_CUTS]))
+    library_big = _library_ms(rg, inp, t_big, 0, mp["bounces"], live_big[0], reps=3)
     stage_big = {**_per_kernel(tr["stages_ms"]), "megakernel": min(frame_ms["megakernel"]),
                  **{f"wavefront_{k}": v for k, v in _per_kernel(
                      tr_wf["stages_ms"], WAVEFRONT_KERNELS + ("fold",)).items() if k != "fold"}}
@@ -2168,9 +2225,10 @@ def main(argv=None) -> int:
          k0_k1_vote_bound_ms_share=json.dumps({
              k: [round(bounds_big[k]["vote_bound_ms"], 3),
                  round(bounds_big[k]["vote_bound_ms"] / stage_big[k], 4)] for k in ("k0", "k1")}),
+         library_ms=json.dumps({k: round(v, 4) for k, v in library_big.items()}),
          wavefront_rows=json.dumps(wf_rows[_CUTS]), card=repr(smi))
     record["bounds_1080p"] = {"live": live_big, "bounds": bounds_big, "ms": stage_big,
-                              "wavefront_device_ms": wf_device}
+                              "library_ms": library_big, "wavefront_device_ms": wf_device}
     torch.cuda.empty_cache()
 
     # 10. the record-DMA probes (probes/dma.py) on the reorder kernels, with

@@ -11,7 +11,8 @@ gates (tonemapped RMSE < 5e-3, mean radiance within a relative 1e-3; < 1%
 of first-hit pixels may differ): the kernel contracts multiply-adds into
 FMAs and the CUDA math library rounds sin/cos/exp differently from
 PyTorch's, so chaotic Monte-Carlo paths may diverge at silhouettes. The
-regroup pipeline's PACK and COMBINE are held bit for bit; its K0 and K1
+regroup pipeline's PACK and COMBINE (one launch a cut, one a frame) are
+held bit for bit with their twins; its K0 and K1
 run the megakernel's own per-ray body, so at one sample per pixel regroup
 and the megakernel give the same bits; K0 and K1 cull their sweep per
 warp, with the boxes in shared or (a large scene) global memory, which
@@ -147,9 +148,47 @@ def test_regroup_matches_plain(name, cuda):
     assert abs(float(a.mean()) - float(b.mean())) / float(b.mean()) < 1e-3
 
 
+def _pack_both(pool, n_in, cuda):
+    """PACK and its twin on the first n_in records of pool, onto poisoned
+    buffers; asserts that they agree in every bit and returns the kernel's
+    (live count, dense pool, inverse map)."""
+    out = []
+    for pack in (rg.launch_pack, rg.pack_plain):
+        counts = torch.tensor([n_in, 0], dtype=torch.int32, device=cuda)
+        dst = torch.full((rg.N_COMP, pool.shape[1]), 7.0, device=cuda)
+        inv = torch.full((pool.shape[1],), -7, dtype=torch.int32, device=cuda)
+        pack(pool, dst, inv, counts, 1, rg.pack_scratch(pool.shape[1], cuda))
+        out.append((int(counts[1]), dst, inv))
+    torch.cuda.synchronize()
+    n = out[1][0]
+    end = -(-n // 128) * 128
+    assert out[0][0] == n
+    assert torch.equal(out[0][1][:, :end] + 0.0, out[1][1][:, :end] + 0.0)
+    assert torch.equal(out[0][2], out[1][2])
+    return out[0]
+
+
+def _combine_both(inv, r8, contrib, t, gen, cuda):
+    """COMBINE and its twin onto one random accumulator, with clear off and
+    on: equal in every bit, and the inputs left as they were."""
+    kept = [x.clone() for x in (inv, r8, contrib)]
+    for clear in (False, True):
+        accum = torch.rand((t.width * t.height, 3), device=cuda, generator=gen)
+        got, ref = accum.clone(), accum.clone()
+        rg.launch_combine(inv, r8, contrib, got, t, clear)
+        rg.combine_chain_plain(inv, r8, contrib, ref, t, clear)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), clear
+    assert all(_same_bits(a, b) for a, b in zip(kept, (inv, r8, contrib)))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("alive", ["k0", "random", "all_live", "all_dead"])
+@pytest.mark.parametrize("alive", ["k0", "random", "all_live", "all_dead", "ragged"])
 def test_pack_and_combine_bit_for_bit(alive, cuda):
+    """PACK (one launch) against pack_plain on K0's pool with K0's alive
+    mask, a random one, all live and all dead, and the random mask over an
+    input count that is no multiple of the tile or of 4; then COMBINE
+    through that inverse map against its twin."""
     w, h = 96, 64
     inp = _inputs("rtiow", w, h, cuda)
     t, _ = rg.plan(w, h, 4, 8, (2, 4, 6))
@@ -157,37 +196,42 @@ def test_pack_and_combine_bit_for_bit(alive, cuda):
     rg.launch_k0(inp, pool, torch.empty((3, t.cap), device=cuda), t, 0, 2)
     gen = torch.Generator(device=cuda).manual_seed(1)
     if alive != "k0":
-        pool[rg._AL] = {"random": (torch.rand(t.cap, device=cuda, generator=gen) < 0.3).float(),
-                        "all_live": torch.ones(t.cap, device=cuda),
-                        "all_dead": torch.zeros(t.cap, device=cuda)}[alive]
-    out = []
-    for pack in (rg.launch_pack, rg.pack_plain):
-        counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=cuda)
-        dst = torch.full((rg.N_COMP, t.cap), 7.0, device=cuda)
-        inv = torch.full((t.cap,), -7, dtype=torch.int32, device=cuda)
-        pack(pool, dst, inv, counts, 1, torch.empty((t.cap // 1024,), dtype=torch.int32,
-                                                    device=cuda))
-        out.append((counts, dst, inv))
-    torch.cuda.synchronize()
-    n = int(out[1][0][1])
-    end = -(-n // 128) * 128
-    assert int(out[0][0][1]) == n
-    assert torch.equal(out[0][1][:, :end] + 0.0, out[1][1][:, :end] + 0.0)
-    assert torch.equal(out[0][2], out[1][2])
-    src = torch.rand((3, t.cap), device=cuda, generator=gen)
-    base = torch.rand((3, t.cap), device=cuda, generator=gen)
-    accum = torch.rand((w * h, 3), device=cuda, generator=gen)
-    level = [base.clone(), base.clone()]
-    counts2 = torch.tensor([t.cap, t.cap], dtype=torch.int32, device=cuda)
-    home = [accum.clone(), accum.clone()]
-    home_base = [base.clone(), base.clone()]
-    for i, combine in enumerate((rg.launch_combine, rg.combine_plain)):
-        combine(out[1][2], src, level[i], counts2, 2)
-        combine(out[1][2], src, home_base[i], out[1][0], 1, accum=home[i], t=t)
-    torch.cuda.synchronize()
-    assert torch.equal(level[0], level[1])
-    assert torch.equal(home[0], home[1])
-    assert torch.equal(home_base[0], base) and torch.equal(home_base[1], base)
+        pool[rg._AL] = {"all_live": torch.ones(t.cap, device=cuda),
+                        "all_dead": torch.zeros(t.cap, device=cuda)}.get(
+            alive, (torch.rand(t.cap, device=cuda, generator=gen) < 0.3).float())
+    n_in = t.cap - 4096 - 1234 - 3 if alive == "ragged" else t.cap
+    n, _, inv = _pack_both(pool, n_in, cuda)
+    assert n == {"all_live": t.cap, "all_dead": 0}.get(alive, n)
+    inv[n_in:] = rg.DEAD
+    _combine_both(inv[None], torch.rand((1, 3, t.cap), device=cuda, generator=gen),
+                  torch.rand((3, t.cap), device=cuda, generator=gen), t, gen, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", [1, 2, 32, 128])
+def test_pack_chain_and_combine_bit_for_bit(spp, cuda):
+    """A frame's chain at cuts (2, 4, 6) on a ragged image (100 x 70): each
+    PACK against its twin (PACK 2 and 3 take a live count below the
+    capacity, no multiple of the tile), then COMBINE over the frame's
+    inverse maps and radiance against its twin, with clear off and on."""
+    w, h = 100, 70
+    inp = _inputs("rtiow", w, h, cuda)
+    t, cuts = rg.plan(w, h, spp, 8, (2, 4, 6))
+    pools = [torch.empty((rg.N_COMP, t.cap), device=cuda) for _ in range(2)]
+    contrib = torch.empty((3, t.cap), device=cuda)
+    rg.launch_k0(inp, pools[0], contrib, t, 0, cuts[0])
+    inv = torch.empty((len(cuts), t.cap), dtype=torch.int32, device=cuda)
+    r8 = torch.empty((len(cuts), 3, t.cap), device=cuda)
+    n_in = t.cap
+    for k, b_lo in enumerate(cuts, 1):
+        n, dense, inv[k - 1] = _pack_both(pools[(k - 1) % 2], n_in, cuda)
+        assert 0 < n < n_in
+        pools[k % 2] = dense
+        counts = torch.tensor([n_in, n], dtype=torch.int32, device=cuda)
+        rg.launch_k1(inp, dense, r8[k - 1], counts, 1, t, 0, b_lo,
+                     cuts[k] if k < len(cuts) else 8)
+        n_in = n
+    _combine_both(inv, r8, contrib, t, torch.Generator(device=cuda).manual_seed(2), cuda)
 
 
 @pytest.mark.cuda
@@ -216,7 +260,7 @@ def test_renderer_auto_counts_regroup_launches(cuda):
     mk_before = mk.render_image_megakernel.launches
     assert r.render().frames == 3
     after = [getattr(rg, f"launch_{k}").launches for k in names]
-    assert [a - b for a, b in zip(after, before)] == [3, 9, 9, 9]
+    assert [a - b for a, b in zip(after, before)] == [3, 9, 9, 3]
     assert mk.render_image_megakernel.launches == mk_before
     assert r.image().shape == (36, 64, 3)
 
@@ -290,7 +334,7 @@ def test_k1_stats_match_plain(cuda):
     dense = torch.empty_like(pool)
     counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=cuda)
     rg.launch_pack(pool, dense, torch.empty((t.cap,), dtype=torch.int32, device=cuda), counts,
-                   1, torch.empty((t.cap // 1024,), dtype=torch.int32, device=cuda))
+                   1, rg.pack_scratch(t.cap, cuda))
     live = -(-int(counts[1]) // rg.TILE_RECORDS)
     for b_hi in (3, 4):
         out = []
@@ -317,8 +361,8 @@ def test_culled_regroup_equals_unculled_paths(name, spp, cuda):
     """K0 and K1 sweep only the chunks some lane of a warp enters, and
     change no bit: over two frames the regroup accumulator equals the
     wavefront's, which sweeps every sphere, and at one sample per pixel
-    the megakernel's; a frame launches K0 once and PACK, K1 and COMBINE
-    once per cut. (textured has no chunks: the full sweep.)"""
+    the megakernel's; a frame launches K0 and COMBINE once and PACK and
+    K1 once per cut. (textured has no chunks: the full sweep.)"""
     w, h = 96, 64
     inp = _stats_case(name, w, h, cuda)
     assert (inp.n_chunks > 0) == (name != "textured") and (inp.n_super > 0) == (name == "super")
@@ -327,7 +371,7 @@ def test_culled_regroup_equals_unculled_paths(name, spp, cuda):
     before = [getattr(rg, f"launch_{k}").launches for k in names]
     got = _render(rg.launch_regrouped, inp, w, h, 2, spp, 8, cuda, cuts=(2, 4, 6))
     after = [getattr(rg, f"launch_{k}").launches for k in names]
-    assert [a - b for a, b in zip(after, before)] == [2, 6, 6, 6]
+    assert [a - b for a, b in zip(after, before)] == [2, 6, 6, 2]
     ref = _render(wf.launch_wavefront, inp, w, h, 2, spp, 8, cuda)
     assert torch.equal(got, ref)
     if spp == 1:
@@ -355,7 +399,7 @@ def test_culled_k1_with_a_ragged_count(name, cuda):
     dense = torch.empty_like(pool)
     counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=cuda)
     rg.launch_pack(pool, dense, torch.empty((t.cap,), dtype=torch.int32, device=cuda), counts,
-                   1, torch.empty((t.cap // 1024,), dtype=torch.int32, device=cuda))
+                   1, rg.pack_scratch(t.cap, cuda))
     n = int(counts[1]) // 32 * 32 - 5
     assert n > 4096 and n % 32 == 27
     counts[1] = n

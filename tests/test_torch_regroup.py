@@ -628,7 +628,8 @@ def _stubbed(monkeypatch, rc=0):
     def _no_plain(*a, **k):
         raise AssertionError("a plain twin ran for a CUDA tensor")
 
-    for name in ("k0_plain", "pack_plain", "k1_plain", "combine_plain"):
+    for name in ("k0_plain", "pack_plain", "k1_plain", "combine_plain",
+                 "combine_chain_plain"):
         monkeypatch.setattr(rg, name, _no_plain)
     return lib
 
@@ -646,12 +647,11 @@ def test_wrapper_launches_kernels_for_cuda_tensor(monkeypatch):
     out = rg.render_image_regrouped(acc, 5, True, scene, sky, basis, width=w, height=h,
                                     spp=4, num_bounces=8, cuts=(2, 4, 6))
     assert out is acc
-    assert [a - b for a, b in zip(_launch_counts(), before)] == [1, 3, 3, 3]
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [1, 3, 3, 1]
     names = [n for n, _ in lib.calls]
     assert names == ["wrt_regroup_k0", "wrt_regroup_pack", "wrt_regroup_k1",
                      "wrt_regroup_pack", "wrt_regroup_k1", "wrt_regroup_pack",
-                     "wrt_regroup_k1", "wrt_regroup_combine", "wrt_regroup_combine",
-                     "wrt_regroup_combine_home"]
+                     "wrt_regroup_k1", "wrt_regroup_combine"]
     k0 = lib.calls[0][1]
     t, _ = rg.plan(w, h, 4, 8)
     assert k0[4] is None and k0[5] == 5  # no textures; five spheres, unpadded
@@ -663,7 +663,7 @@ def test_wrapper_launches_kernels_for_cuda_tensor(monkeypatch):
     assert all(c[1][-8:-3] == (0, 0, 0, 16, 16) and c[1][-3:] == (0.0, 0.0, 1234)
                for c in lib.calls if c[0] in ("wrt_regroup_k0", "wrt_regroup_k1"))
     home = lib.calls[-1][1]
-    assert home[3] == acc.data_ptr() and home[-2] == 1  # clear
+    assert home[3] == acc.data_ptr() and home[4] == 3 and home[-2] == 1  # phases, clear
 
 
 def test_wrapper_raises_on_launch_error(monkeypatch):

@@ -183,7 +183,7 @@ def test_cpu_auto_render_runs_the_regroup_twins(monkeypatch):
     """On the CPU, 'auto' at a power-of-two spp runs the regroup pipeline's
     plain twins, with the scene's default cuts (three spheres: one cut, 3)."""
     calls = []
-    for name in ("k0_plain", "pack_plain", "k1_plain", "combine_plain"):
+    for name in ("k0_plain", "pack_plain", "k1_plain", "combine_chain_plain"):
         real = getattr(rg, name)
 
         def spy(*args, _real=real, _name=name, **kw):
@@ -193,7 +193,7 @@ def test_cpu_auto_render_runs_the_regroup_twins(monkeypatch):
         monkeypatch.setattr(rg, name, spy)
     r = _renderer(max_spp=4, spp=2, bounces=6)
     assert r.render().frames == 2
-    assert calls == ["k0_plain", "pack_plain", "k1_plain", "combine_plain"] * 2
+    assert calls == ["k0_plain", "pack_plain", "k1_plain", "combine_chain_plain"] * 2
     assert np.isfinite(r.mean_radiance().numpy()).all()
 
 

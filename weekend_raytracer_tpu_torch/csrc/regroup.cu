@@ -52,16 +52,19 @@
 //   - One register budget, kTraceMinBlocks = 5 blocks of 256 threads an
 //     SM (48 registers), chosen on the card among 48, 56 and 64 registers
 //     with no spills.
-// PACK and COMBINE are bound by memory: each moves about 64 bytes per live
-// record (16 f32 components), or 12 bytes per slot of radiance, with
-// coalesced reads and, since the compaction is stable, mostly coalesced
-// writes. No matrix unit is used.
+// PACK and COMBINE are bound by memory: PACK moves 64 bytes per live record
+// (16 f32 components) and COMBINE 12 bytes of radiance per slot. PACK is one
+// launch a cut (a single-pass scan by decoupled look-back) and COMBINE one
+// launch a frame (it follows the inverse maps to each home slot); see their
+// sections. No matrix unit is used.
 //
 // Counts stay on the card: PACK writes the live count to device memory and
-// the launches that follow read it there and are sized by its upper bound
-// (the record capacity); threads past the count return at once. So a frame
+// the launches that follow read it there. K1 is sized by its upper bound
+// (the record capacity), and threads past the count return at once; PACK's
+// persistent blocks stop at the first tile past its input count. So a frame
 // has no host synchronisation between its kernels.
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -78,7 +81,7 @@ enum Comp {
 constexpr int kHomeRadix = 4096;                       // slot = hhi * 4096 + hlo
 constexpr float kDeadHHI = static_cast<float>(1 << 16);  // pad records: slot 2^28
 
-constexpr int kThreads = 256;    // K0, K1, COMBINE: one thread per record
+constexpr int kThreads = 256;    // K0, K1: one thread per record
 // K0's and K1's register budget: __launch_bounds__(kThreads,
 // kTraceMinBlocks), five blocks of 256 threads an SM, holds them to 48
 // registers (65536 / (5 * 256) = 51, allocated in steps of 8). Measured on
@@ -93,7 +96,6 @@ constexpr int kStatsMinBlocks = 4;
 // an SM, each with the 1 KiB the runtime reserves, fit an H100 SM's
 // 228 KiB, and the 48 KiB a launch gets without opting in.
 constexpr size_t kStageBytes = 44 * 1024;
-constexpr int kPackBlock = 1024;  // PACK: slots per block, one per thread
 
 // Image geometry of the tiles: width, height, tiles across, log2(spp).
 struct Tiling {
@@ -335,173 +337,354 @@ __global__ void __launch_bounds__(kThreads, kStats ? kStatsMinBlocks : kTraceMin
   q[2 * c] = r.tb * r.cb;
 }
 
-// --- PACK: count -> scan -> scatter --------------------------------------
+// --- PACK: one launch, a single-pass stable compaction -------------------
 //
 // The TPU pack carries a partial row from one grid step to the next, which
-// needs the TPU's in-order grid (regroup.py:20-26). CUDA blocks run in no
-// order, so the same stable compaction is three launches: each block counts
-// its live slots, one block scans the block totals, and each block scatters
-// its live records to (its block's offset + its rank in the block). The
+// needs the TPU's in-order grid (regroup.py:20-26). Here one launch does
+// the same stable compaction by decoupled look-back (Merrill and Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// 2016): a block takes tiles of kPackTile slots in order from an atomic
+// ticket, so every earlier tile is taken by a block already running and
+// the look-back cannot deadlock; it publishes its live count, then its
+// inclusive prefix, as one 64-bit status word (flag << 32 | value, release
+// store, acquire load), and sums its predecessors' words back to the first
+// inclusive one. The grid is persistent (the blocks that fit the card at
+// once), and a block stops at the first tile past the input count, so a
+// PACK costs what its live input does. Within a tile each warp owns 256
+// consecutive slots, read as two full lines of 16-byte loads; a record's
+// rank is a count of warp ballots, and each of the 16 component planes is
+// compacted through shared memory so that its stores to the dense pool are
+// contiguous, with the loads of the next planes in flight meanwhile. The
+// tile and the depth of those loads were chosen by tools/pack_tiles.py,
+// which times other values of both. The alive plane is read once. The
 // dense order, the inverse map and the count are those of the JAX pack.
 // Left out: _INV_FIRST and the spare tile, which serve the TPU's windowed
-// combine and its clamped row DMAs; a gather needs neither, and every write
-// here lies below ceil(live / 128) * 128 <= cap.
+// combine and its clamped row DMAs; a gather needs neither, and every
+// write here lies below ceil(live / 128) * 128 <= cap.
 
-__device__ __forceinline__ bool live_slot(const float* __restrict__ alive, int slot, int n_in) {
-  return slot < n_in && alive[slot] > 0.5f;
+constexpr int kPackThreads = 256;
+constexpr int kPackWarps = kPackThreads / 32;
+constexpr int kPackItems = 2;  // float4 loads a thread makes per plane of a tile
+constexpr int kPackWarpSlots = 32 * 4 * kPackItems;  // 256
+constexpr int kPackTile = kPackWarps * kPackWarpSlots;  // 2048 slots
+constexpr int kPackDepth = 2;  // planes whose loads are in flight at once
+constexpr unsigned long long kTileAggregate = 1ull << 32;  // status flags
+constexpr unsigned long long kTilePrefix = 2ull << 32;
+
+__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__global__ void __launch_bounds__(kPackBlock) pack_count(const float* __restrict__ alive,
-                                                         const int* __restrict__ count_in,
-                                                         int* __restrict__ block_sums) {
-  const int slot = blockIdx.x * kPackBlock + threadIdx.x;
-  const int n = __syncthreads_count(live_slot(alive, slot, *count_in));
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = n;
+__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// Exclusive scan of the block totals in place, by one block: each thread
-// sums a contiguous run, the runs are scanned across the block, and each
-// thread writes its run's prefixes. The total is the new live count.
-__global__ void __launch_bounds__(kPackBlock) pack_scan(int* __restrict__ block_sums,
-                                                        int n_blocks,
-                                                        int* __restrict__ count_out) {
-  __shared__ int warp_sums[32];
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+struct PackArgs {
+  const float* pool;    // [16, cap], count_in live records
+  float* dense;         // [16, cap]
+  int* inv;             // [cap]
+  const int* count_in;
+  int* count_out;
+  unsigned long long* status;  // [cap / kPackTile] tile status words, then the ticket
+  long long cap;
+};
+
+// The sum of its predecessors' live counts, for a tile that has published
+// its own aggregate: warp 0 reads 32 status words at a time, nearest first,
+// waits until each has a flag, and sums back to the nearest inclusive
+// prefix (tile -1 reads as an inclusive prefix of 0).
+__device__ int look_back(const unsigned long long* status, int tile) {
+  const int lane = threadIdx.x & 31;
+  int excl = 0;
+  for (int j = tile - 1;; j -= 32) {
+    unsigned long long s;
+    do {
+      s = j - lane >= 0 ? load_acquire(status + j - lane) : kTilePrefix;
+    } while (__any_sync(0xffffffffu, (s >> 32) == 0));
+    const unsigned prefixes = __ballot_sync(0xffffffffu, (s >> 32) == 2);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    int v = lane <= stop ? static_cast<int>(s & 0xffffffffu) : 0;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (prefixes) return excl;
+  }
+}
+
+// Plane k of a thread's items, a 16-byte load for each item with a live
+// slot (the alive plane is already in registers).
+__device__ __forceinline__ void load_plane(float4 (&v)[kPackItems], const PackArgs& a, int k,
+                                           int first, unsigned live,
+                                           const float4 (&alive)[kPackItems]) {
+#pragma unroll
+  for (int i = 0; i < kPackItems; ++i) {
+    if ((live >> (4 * i)) & 15u) {
+      v[i] = k == kAL ? alive[i]
+                      : __ldg(reinterpret_cast<const float4*>(a.pool + k * a.cap + first +
+                                                               128 * i));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPackThreads) regroup_pack(const PackArgs a) {
+  __shared__ float stage[2][kPackTile];
+  __shared__ int warp_count[kPackWarps];
+  __shared__ int tile_at, tile_prefix;
+  const int n_in = *a.count_in;
+  if (n_in == 0) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) *a.count_out = 0;
+    return;
+  }
+  const int n_tiles = (n_in + kPackTile - 1) / kPackTile;
+  unsigned long long* ticket = a.status + a.cap / kPackTile;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int per = (n_blocks + kPackBlock - 1) / kPackBlock;
-  const int lo = min(t * per, n_blocks);
-  const int hi = min(lo + per, n_blocks);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += block_sums[i];
-  int incl = sum;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = warp_sums[lane];
-    int wi = w;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, wi, o);
-      if (lane >= o) wi += v;
+  const unsigned below = (1u << lane) - 1u;
+  const long long cap = a.cap;
+  for (;;) {
+    if (t == 0) tile_at = static_cast<int>(atomicAdd(ticket, 1ull));
+    __syncthreads();
+    const int tile = tile_at;
+    if (tile >= n_tiles) return;
+    // slot of this thread's item i: first + 128 i (+ e for its e-th float)
+    const int first = tile * kPackTile + warp * kPackWarpSlots + lane * 4;
+    float4 alive[kPackItems];
+    unsigned live = 0;  // bit 4 i + e: the slot is below n_in and alive
+#pragma unroll
+    for (int i = 0; i < kPackItems; ++i) {
+      const int s = first + 128 * i;
+      alive[i] = s < n_in ? __ldg(reinterpret_cast<const float4*>(a.pool + kAL * cap + s))
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (s + e < n_in && lane_of(alive[i], e) > 0.5f) live |= 1u << (4 * i + e);
+      }
     }
-    warp_sums[lane] = wi - w;
+    // the first kPackDepth planes' loads go out now, ahead of the ranks and
+    // the look-back
+    float4 v[kPackDepth][kPackItems];
+#pragma unroll
+    for (int d = 0; d < kPackDepth; ++d) load_plane(v[d], a, d, first, live, alive);
+    // rank within the warp, in slot order (item, lane, element): the warp's
+    // live slots in earlier items, then in this item's lower lanes
+    int rank[kPackItems];
+    int count = 0;
+#pragma unroll
+    for (int i = 0; i < kPackItems; ++i) {
+      int lower = 0, total = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned m = __ballot_sync(0xffffffffu, (live >> (4 * i + e)) & 1u);
+        lower += __popc(m & below);
+        total += __popc(m);
+      }
+      rank[i] = count + lower;
+      count += total;
+    }
+    if (lane == 0) warp_count[warp] = count;
+    __syncthreads();
+    int tile_count = 0, warp_first = 0;
+#pragma unroll
+    for (int w = 0; w < kPackWarps; ++w) {
+      const int c = warp_count[w];
+      warp_first += w < warp ? c : 0;
+      tile_count += c;
+    }
+    if (warp == 0) {
+      if (tile == 0) {
+        if (lane == 0) {
+          store_release(a.status, kTilePrefix | static_cast<unsigned>(tile_count));
+          tile_prefix = 0;
+        }
+      } else {
+        if (lane == 0) {
+          store_release(a.status + tile, kTileAggregate | static_cast<unsigned>(tile_count));
+        }
+        const int excl = look_back(a.status, tile);
+        if (lane == 0) {
+          store_release(a.status + tile,
+                        kTilePrefix | static_cast<unsigned>(excl + tile_count));
+          tile_prefix = excl;
+        }
+      }
+    }
+    __syncthreads();
+    const int prefix = tile_prefix;
+    // the inverse map: each input slot's dense position, or -1
+#pragma unroll
+    for (int i = 0; i < kPackItems; ++i) {
+      const int s = first + 128 * i;
+      int pos[4];
+      int r = prefix + warp_first + rank[i];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool on = (live >> (4 * i + e)) & 1u;
+        pos[e] = on ? r : -1;
+        r += on ? 1 : 0;
+      }
+      if (s + 3 < n_in) {
+        *reinterpret_cast<int4*>(a.inv + s) = make_int4(pos[0], pos[1], pos[2], pos[3]);
+      } else {
+        for (int e = 0; e < 4 && s + e < n_in; ++e) a.inv[s + e] = pos[e];
+      }
+    }
+    // the 16 planes, each compacted through shared memory (two buffers, one
+    // barrier a plane), with the loads of the next kPackDepth - 1 planes
+    // in flight meanwhile
+#pragma unroll
+    for (int k = 0; k < kNComp; ++k) {
+      float* buf = stage[k & 1];
+      float4(&cur)[kPackItems] = v[k % kPackDepth];
+#pragma unroll
+      for (int i = 0; i < kPackItems; ++i) {
+        int r = warp_first + rank[i];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if ((live >> (4 * i + e)) & 1u) buf[r++] = lane_of(cur[i], e);
+        }
+      }
+      if (k + kPackDepth < kNComp) load_plane(cur, a, k + kPackDepth, first, live, alive);
+      __syncthreads();
+      float* out = a.dense + k * cap + prefix;
+      for (int j = t; j < tile_count; j += kPackThreads) out[j] = buf[j];
+    }
+    // the tile that holds the last input slot writes the count and pads the
+    // last dense row with dead records (alive 0, HHI = 2^16, the rest 0), as
+    // the JAX pack's final flush does (regroup.py:595-613)
+    if (tile == n_tiles - 1) {
+      const int total = prefix + tile_count;
+      if (t == 0) *a.count_out = total;
+      const int p = total + t;
+      if (t < 128 && p < ((total + 127) & ~127)) {
+        for (int k = 0; k < kNComp; ++k) a.dense[k * cap + p] = k == kHHI ? kDeadHHI : 0.0f;
+      }
+    }
   }
-  __syncthreads();
-  int run = warp_sums[warp] + incl - sum;
-  for (int i = lo; i < hi; ++i) {
-    const int v = block_sums[i];
-    block_sums[i] = run;
-    run += v;
-  }
-  if (t == kPackBlock - 1) *count_out = run;
 }
 
-// Scatter: rank in the block by warp ballots, then copy the 16 components
-// of each live record and write the inverse map (dense position, or -1 for
-// a record that ended). Block 0 also pads the last dense row with dead
-// records (alive 0, HHI = 2^16, the rest 0), as the JAX pack's final flush
-// does (regroup.py:595-613).
-__global__ void __launch_bounds__(kPackBlock) pack_scatter(
-    const float* __restrict__ pool, float* __restrict__ dense, int* __restrict__ inv,
-    const int* __restrict__ count_in, const int* __restrict__ block_offsets,
-    const int* __restrict__ count_out, long long cap) {
-  __shared__ int warp_off[32];
-  const int n_in = *count_in;
-  if (blockIdx.x != 0 && static_cast<int>(blockIdx.x) * kPackBlock >= n_in) return;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int slot = blockIdx.x * kPackBlock + t;
-  const bool alive = live_slot(pool + kAL * cap, slot, n_in);
-  const unsigned mask = __ballot_sync(0xffffffffu, alive);
-  if (lane == 0) warp_off[warp] = __popc(mask);
-  __syncthreads();
-  if (warp == 0) {
-    const int w = warp_off[lane];
-    int wi = w;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, wi, o);
-      if (lane >= o) wi += v;
-    }
-    warp_off[lane] = wi - w;
-  }
-  __syncthreads();
-  const int pos = block_offsets[blockIdx.x] + warp_off[warp] + __popc(mask & ((1u << lane) - 1u));
-  if (slot < n_in) inv[slot] = alive ? pos : -1;
-  if (alive) {
-    for (int k = 0; k < kNComp; ++k) dense[k * cap + pos] = pool[k * cap + slot];
-  }
-  if (blockIdx.x == 0 && t < 128) {
-    const int total = *count_out;
-    const int p = total + t;
-    if (p < ((total + 127) & ~127)) {
-      for (int k = 0; k < kNComp; ++k) dense[k * cap + p] = k == kHHI ? kDeadHHI : 0.0f;
-    }
-  }
-}
-
-// --- COMBINE --------------------------------------------------------------
+// --- COMBINE: one launch, the inverse maps followed to the home slot ------
 //
 // Walking the phases last to first, R_i[p] = R_{i+1}[inv_{i+1}[p]] if the
 // record at position p of phase i lived on, else its own base radiance
-// (regroup.py:1396-1483). On the GPU a level is a plain per-slot gather
-// through the inverse map, written over the base pool in place; it is not
-// the TPU's one-hot window matmul, which exists because a TPU core cannot
-// gather across rows. Positions past the destination count, and inverse-map
-// entries of dead records, are never read.
+// (regroup.py:1396-1483). The TPU writes each level out because a core
+// cannot gather across rows; a CUDA thread follows the inverse maps from a
+// home slot down to the phase its record ended in (j1 = inv[0][s], else
+// contrib[:, s]; j2 = inv[1][j1], else r8[0][:, j1]; ...) and reads that
+// phase's radiance: the value the reverse-composed levels leave at the home
+// level, bit for bit, with no level written to device memory. A block owns
+// `group` tiles across x (a scanline run of 32 pixels or more where the
+// image allows) and walks their 32 rows kCombineUnit slots at a time:
+// consecutive threads take consecutive slots, so the inverse maps and
+// contributions are read in full lines, and the later maps and radiance
+// pools nearly so (PACK is stable, so a run of slots keeps its order among
+// the dense positions). The three channels go to shared memory, each
+// pixel's samples padded to an odd stride so that a thread per pixel reads
+// them without bank conflicts, and that thread sums them in sample order
+// from 0 and adds the sum to the accumulator (or writes it over it), as the
+// megakernel sums a pixel's samples. Bound by bytes: a slot's inverse-map
+// entry, an entry per phase its record lived into, one radiance triple, and
+// the accumulator.
 
-__global__ void __launch_bounds__(kThreads) combine_level(const int* __restrict__ inv,
-                                                          const float* __restrict__ src,
-                                                          float* __restrict__ base,
-                                                          const int* __restrict__ dest_count,
-                                                          long long cap) {
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= *dest_count) return;
-  const int j = inv[p];
-  if (j < 0) return;
-  base[p] = src[j];
-  base[cap + p] = src[cap + j];
-  base[2 * cap + p] = src[2 * cap + j];
+constexpr int kCombineThreads = 256;
+constexpr int kCombineUnit = 2048;  // slots staged at once
+constexpr int kCombinePer = kCombineUnit / kCombineThreads;
+constexpr int kCombineStage = kCombineUnit + kCombineUnit / 2;  // spp 2: stride 3 a pixel
+
+struct CombineArgs {
+  const int* inv;        // [phases, cap]: inverse map of each PACK
+  const float* r8;       // [phases, 3, cap]: each phase's base radiance, dense order
+  const float* contrib;  // [3, cap]: K0's contributions, slot order
+  float* acc;            // [height * width, 3]
+  long long cap;
+  Tiling g;
+  int phases, group, clear;
+};
+
+// Tiles across x of a COMBINE block: 32 pixels of a row where the spp allows
+// (1 << (spp_shift - 2) tiles of 128 >> spp_shift pixels), at most 16 tiles.
+inline int combine_group(int spp_shift) {
+  return spp_shift < 2 ? 1 : std::min(16, 1 << (spp_shift - 2));
 }
 
-// The home level fused with the fold: one thread per pixel takes R_0 of
-// its spp contiguous lanes (through the first inverse map, else K0's
-// contribution) and sums them in sample order from 0, as the megakernel
-// sums a pixel's samples, then adds the sum to the accumulator or writes
-// it over it (regroup.py:1487-1495).
-__global__ void __launch_bounds__(kThreads) combine_home(const int* __restrict__ inv,
-                                                         const float* __restrict__ src,
-                                                         const float* __restrict__ contrib,
-                                                         float* __restrict__ acc, long long cap,
-                                                         Tiling g, int clear) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= g.width * g.height) return;
-  const int x = i % g.width;
-  const int y = i / g.width;
-  const int bw_shift = 7 - g.spp_shift;
-  const int tile = (y >> 5) * g.tiles_x + (x >> bw_shift);
-  const long long slot0 = (static_cast<long long>(tile * 32 + (y & 31)) << 7) +
-                          ((x & ((1 << bw_shift) - 1)) << g.spp_shift);
-  float tot_r = 0.0f, tot_g = 0.0f, tot_b = 0.0f;
-  for (int s = 0; s < (1 << g.spp_shift); ++s) {
-    const long long slot = slot0 + s;
-    const int j = inv[slot];
-    const float* v = j >= 0 ? src + j : contrib + slot;
-    tot_r = tot_r + v[0];
-    tot_g = tot_g + v[cap];
-    tot_b = tot_b + v[2 * cap];
+__global__ void __launch_bounds__(kCombineThreads) regroup_combine(const CombineArgs a) {
+  __shared__ float stage[3][kCombineStage];
+  const Tiling& g = a.g;
+  const int shift = g.spp_shift;
+  const int spp = 1 << shift;
+  const int block_w = 128 >> shift;
+  const int row_slots = a.group * 128;
+  const int rows = kCombineUnit / row_slots;  // rows a unit stages
+  const int row_px = a.group * block_w;
+  const int unit_px = kCombineUnit >> shift;
+  const int stride = spp == 1 ? 1 : spp + 1;  // odd: a warp's pixels on distinct banks
+  const int groups_x = (g.tiles_x + a.group - 1) / a.group;
+  const int ty = blockIdx.x / groups_x;
+  const int tx0 = (blockIdx.x % groups_x) * a.group;
+  const long long cap = a.cap;
+  for (int r0 = 0; r0 < 32 && ty * 32 + r0 < g.height; r0 += rows) {
+    int slot[kCombinePer], j[kCombinePer], level[kCombinePer];
+#pragma unroll
+    for (int i = 0; i < kCombinePer; ++i) {
+      const int u = threadIdx.x + i * kCombineThreads;
+      const int row = r0 + u / row_slots;
+      const int tx = tx0 + (u % row_slots >> 7);
+      const int lane = u & 127;
+      const int x = tx * block_w + (lane >> shift);
+      slot[i] = ((ty * g.tiles_x + tx) * 32 + row) * 128 + lane;
+      const bool real = x < g.width && ty * 32 + row < g.height;
+      j[i] = real ? __ldg(a.inv + slot[i]) : -1;
+      level[i] = real ? (j[i] >= 0 ? 0 : -1) : -2;  // -1: K0's contribution; -2: no pixel
+    }
+    for (int k = 1; k < a.phases; ++k) {
+#pragma unroll
+      for (int i = 0; i < kCombinePer; ++i) {
+        if (level[i] == k - 1) {
+          const int next = __ldg(a.inv + k * cap + j[i]);
+          if (next >= 0) {
+            j[i] = next;
+            level[i] = k;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCombinePer; ++i) {
+      if (level[i] == -2) continue;
+      const float* src = level[i] < 0 ? a.contrib + slot[i] : a.r8 + level[i] * 3 * cap + j[i];
+      const int u = threadIdx.x + i * kCombineThreads;
+      const int at = spp == 1 ? u : u + (u >> shift);
+      stage[0][at] = __ldg(src);
+      stage[1][at] = __ldg(src + cap);
+      stage[2][at] = __ldg(src + 2 * cap);
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < unit_px; q += kCombineThreads) {
+      const int x = tx0 * block_w + q % row_px;
+      const int y = ty * 32 + r0 + q / row_px;
+      if (x >= g.width || y >= g.height) continue;
+      float tot_r = 0.0f, tot_g = 0.0f, tot_b = 0.0f;
+      const int at = q * stride;
+      for (int s = 0; s < spp; ++s) {
+        tot_r = tot_r + stage[0][at + s];
+        tot_g = tot_g + stage[1][at + s];
+        tot_b = tot_b + stage[2][at + s];
+      }
+      float* out = a.acc + (static_cast<size_t>(y) * g.width + x) * 3;
+      const float base_r = a.clear ? 0.0f : out[0];
+      const float base_g = a.clear ? 0.0f : out[1];
+      const float base_b = a.clear ? 0.0f : out[2];
+      out[0] = base_r + tot_r;
+      out[1] = base_g + tot_g;
+      out[2] = base_b + tot_b;
+    }
+    __syncthreads();
   }
-  float* out = acc + static_cast<size_t>(i) * 3;
-  const float base_r = clear ? 0.0f : out[0];
-  const float base_g = clear ? 0.0f : out[1];
-  const float base_b = clear ? 0.0f : out[2];
-  out[0] = base_r + tot_r;
-  out[1] = base_g + tot_g;
-  out[2] = base_b + tot_b;
 }
 
 unsigned blocks(long long n, int per) { return static_cast<unsigned>((n + per - 1) / per); }
@@ -600,18 +783,25 @@ int wrt_regroup_k0(const float* cam, const float* sky, const float* sweep, const
 }
 
 // count_in: live records of `pool`; writes count_out, `dense` and `inv`.
-// block_sums holds cap / 1024 ints of scratch.
+// status holds cap / 2048 + 1 u64 words of scratch (the tiles' status
+// words and the ticket), cleared here on the stream before the launch.
 int wrt_regroup_pack(const float* pool, float* dense, int* inv, const int* count_in,
-                     int* count_out, int* block_sums, long long cap, void* stream) {
+                     int* count_out, unsigned long long* status, long long cap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks(cap, kPackBlock);
-  pack_count<<<nb, kPackBlock, 0, s>>>(pool + kAL * cap, count_in, block_sums);
-  cudaError_t err = cudaGetLastError();
+  const long long tiles = cap / kPackTile;
+  cudaError_t err = cudaMemsetAsync(status, 0, (tiles + 1) * sizeof(unsigned long long), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pack_scan<<<1, kPackBlock, 0, s>>>(block_sums, static_cast<int>(nb), count_out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pack_scatter<<<nb, kPackBlock, 0, s>>>(pool, dense, inv, count_in, block_sums, count_out, cap);
+  int device = 0, per_sm = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, regroup_pack, kPackThreads,
+                                                           0)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  PackArgs a{pool, dense, inv, count_in, count_out, status, cap};
+  const long long grid = std::max(1LL, std::min(static_cast<long long>(per_sm) * sms, tiles));
+  regroup_pack<<<static_cast<unsigned>(grid), kPackThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -668,38 +858,33 @@ int wrt_regroup_k1_stats(const float* sky, const float* sweep, const float* attr
                      });
 }
 
-int wrt_regroup_combine(const int* inv, const float* src, float* base, const int* dest_count,
-                        long long cap, void* stream) {
-  combine_level<<<blocks(cap, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      inv, src, base, dest_count, cap);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int wrt_regroup_combine_home(const int* inv, const float* src, const float* contrib, float* acc,
-                             long long cap, int width, int height, int tiles_x, int spp_shift,
-                             int clear, void* stream) {
-  combine_home<<<blocks(static_cast<long long>(width) * height, kThreads), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      inv, src, contrib, acc, cap, tiling(width, height, tiles_x, spp_shift), clear);
+// inv [phases, cap] i32 and r8 [phases, 3, cap] f32: each PACK's inverse
+// map and each phase's base radiance; contrib [3, cap] K0's contributions;
+// acc [height * width, 3], added to, or written over when `clear`.
+int wrt_regroup_combine(const int* inv, const float* r8, const float* contrib, float* acc,
+                        int phases, long long cap, int width, int height, int tiles_x,
+                        int spp_shift, int clear, void* stream) {
+  CombineArgs a{inv, r8, contrib, acc, cap, tiling(width, height, tiles_x, spp_shift),
+                phases, combine_group(spp_shift), clear};
+  const unsigned grid = static_cast<unsigned>(((height + 31) / 32) *
+                                              ((tiles_x + a.group - 1) / a.group));
+  regroup_combine<<<grid, kCombineThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers per thread, local (spill) bytes and static shared bytes of one
 // kernel, as the CUDA runtime reports them; returns a cudaError_t.
-// `which`: 0/1 K0 untextured/textured, 2/3 K1, 4 pack_count, 5 pack_scan,
-// 6 pack_scatter, 7 combine_level, 8 combine_home, 9/10 K1 kStats, 11/12
-// K0 and 13/14 K1 with the box tables in global memory (kStaged = false).
+// `which`: 0/1 K0 untextured/textured, 2/3 K1, 4 PACK, 5 COMBINE, 6/7 K1
+// kStats, 8/9 K0 and 10/11 K1 with the box tables in global memory
+// (kStaged = false).
 int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes, int* shared_bytes) {
   const void* fns[] = {
       reinterpret_cast<const void*>(regroup_k0<false, true>),
       reinterpret_cast<const void*>(regroup_k0<true, true>),
       reinterpret_cast<const void*>(regroup_k1<false, false>),
       reinterpret_cast<const void*>(regroup_k1<true, false>),
-      reinterpret_cast<const void*>(pack_count),
-      reinterpret_cast<const void*>(pack_scan),
-      reinterpret_cast<const void*>(pack_scatter),
-      reinterpret_cast<const void*>(combine_level),
-      reinterpret_cast<const void*>(combine_home),
+      reinterpret_cast<const void*>(regroup_pack),
+      reinterpret_cast<const void*>(regroup_combine),
       reinterpret_cast<const void*>(regroup_k1<false, true>),
       reinterpret_cast<const void*>(regroup_k1<true, true>),
       reinterpret_cast<const void*>(regroup_k0<false, false>),

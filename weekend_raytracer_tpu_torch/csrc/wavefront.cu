@@ -232,10 +232,9 @@ __global__ void __launch_bounds__(kCompactThreads) compact_count(
   if (threadIdx.x == 0) tile_sums[blockIdx.x] = n;
 }
 
-// Exclusive scan of the tile totals in place, by one block (regroup.cu's
-// pack_scan): each thread sums a contiguous run, the runs are scanned
-// across the block, and each thread writes its run's prefixes. The total
-// is the new row count.
+// Exclusive scan of the tile totals in place, by one block: each thread
+// sums a contiguous run, the runs are scanned across the block, and each
+// thread writes its run's prefixes. The total is the new row count.
 constexpr int kScanThreads = 1024;
 
 __global__ void __launch_bounds__(kScanThreads) compact_scan(int* __restrict__ tile_sums,

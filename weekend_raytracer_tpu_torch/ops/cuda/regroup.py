@@ -8,18 +8,21 @@ Counterpart of weekend_raytracer_tpu/ops/pallas/regroup.py. Per frame:
            the inverse map (slot -> dense position, or -1) and the count.
   K1       bounces [b_lo, b_hi) on the dense pool, in place, plus the
            base-radiance pool tr * cr. PACK and K1 repeat once per cut.
-  COMBINE  the reverse-composed levels, last phase first, each a gather
-           through one inverse map; the home level folds each pixel's
-           samples into the scanline accumulator.
+  COMBINE  once per frame: each home slot's radiance, found by following
+           the inverse maps to the phase its record ended in (the value
+           the JAX package's reverse-composed levels leave at the home
+           level), folded pixel by pixel into the scanline accumulator.
 
 The four kernels are CUDA C++ (csrc/regroup.cu), and K0 and K1 run the
 megakernel's own per-ray body (csrc/bounce.cuh), with its closest-hit sweep
 culled per warp of 32 records in scenes with chunks (bounce.cuh
 ``sweep_culled``; the full sweep's result in every bit); see regroup.cu for
 what bounds them on the card. Each has a plain PyTorch twin here
-(``k0_plain``, ``pack_plain``, ``k1_plain``, ``combine_plain``) with the
-same contract on the same buffers, and ``render_image_regrouped_plain`` is
-the frame built from the twins. ``render_image_regrouped`` launches the
+(``k0_plain``, ``pack_plain``, ``k1_plain``, ``combine_chain_plain``) with
+the same contract on the same buffers, and ``render_image_regrouped_plain``
+is the frame built from the twins. ``combine_plain`` is one reverse-combine
+level of the JAX package (regroup.py:1396-1483), held against it in the
+tests; a chain of it gives ``combine_chain_plain``'s result. ``render_image_regrouped`` launches the
 kernels for a CUDA ``accum`` (or raises) and runs the twins for a CPU one.
 ``launch_k1`` and ``k1_plain`` also take a ``stats=`` table,
 ``_make_k1(stats=True)``'s counters per dense tile. The cull's own twin is
@@ -32,8 +35,9 @@ pixels per tile row), slot = (tile * 32 + row) * 128 + lane; a pool is SoA
 [N_COMP, cap] f32 in slot order, so pools, counts and inverse maps compare
 element for element with the JAX pipeline. A record's home slot is two
 exact f32 integers (HLO, HHI). Counts stay on the device: each launch
-after PACK reads its count there and is sized by the capacity, so a frame
-needs no host synchronisation.
+after PACK reads its count there (K1 is sized by the capacity, PACK's
+persistent blocks stop at the input count), so a frame needs no host
+synchronisation.
 
 Knobs of the JAX function that only choose a TPU mechanism, and that its
 own tests show bit-identical (``pack_v2``, ``combine_v2``, ``skip_dead``,
@@ -71,7 +75,7 @@ DEAD = -1  # inverse-map entry of a record that ended before the pack
 _F32 = torch.float32
 _I32 = torch.int32
 _BLOCK = 1 << 16  # slots per batch of the plain twins (bounds their memory)
-_PACK_BLOCK = 1024  # slots per block of the CUDA pack (regroup.cu)
+PACK_TILE = 2048  # slots per tile of the CUDA pack (regroup.cu kPackTile)
 
 KERNEL_SOURCE = "weekend_raytracer_tpu_torch/csrc/regroup.cu"
 # (name, compiled sources) for build.load_library
@@ -156,10 +160,10 @@ class Workspace(NamedTuple):
 
     pools: tuple  # two [N_COMP, cap] f32: K0's pool, then the dense pools in turn
     contrib: torch.Tensor  # [3, cap] f32: K0's tr * cr per slot
-    r8: tuple  # per phase, [3, cap] f32: K1's tr * cr per dense record
-    inv: tuple  # per phase, [cap] i32: the pack's inverse map
+    r8: torch.Tensor  # [phases, 3, cap] f32: each K1's tr * cr per dense record
+    inv: torch.Tensor  # [phases, cap] i32: each PACK's inverse map
     counts: torch.Tensor  # [phases + 1] i32: counts[0] = cap, then live records
-    block_sums: torch.Tensor  # [cap / 1024] i32: the CUDA pack's scan scratch
+    pack_status: torch.Tensor  # the CUDA pack's scratch (pack_scratch)
 
 
 def _workspace(device, cap: int, phases: int) -> Workspace:
@@ -173,11 +177,17 @@ def _workspace(device, cap: int, phases: int) -> Workspace:
 
     return Workspace(
         pools=(f32(N_COMP, cap), f32(N_COMP, cap)), contrib=f32(3, cap),
-        r8=tuple(f32(3, cap) for _ in range(phases)),
-        inv=tuple(torch.empty((cap,), dtype=_I32, device=device)
-                  for _ in range(phases)),
+        r8=f32(phases, 3, cap),
+        inv=torch.empty((phases, cap), dtype=_I32, device=device),
         counts=torch.full((phases + 1,), cap, dtype=_I32, device=device),
-        block_sums=torch.empty((cap // _PACK_BLOCK,), dtype=_I32, device=device))
+        pack_status=pack_scratch(cap, device))
+
+
+def pack_scratch(cap: int, device) -> torch.Tensor:
+    """The CUDA pack's scratch for a pool of ``cap`` slots: a u64 status
+    word per tile of PACK_TILE slots and the tile ticket (i64 here); the
+    kernel clears it on the stream before each launch."""
+    return torch.empty((cap // PACK_TILE + 1,), dtype=torch.int64, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -185,8 +195,7 @@ def _workspace(device, cap: int, phases: int) -> Workspace:
 # --------------------------------------------------------------------------
 
 # regroup.cu wrt_regroup_attributes index -> kernel
-KERNEL_NAMES = ("k0", "k0_textured", "k1", "k1_textured", "pack_count",
-                "pack_scan", "pack_scatter", "combine_level", "combine_home",
+KERNEL_NAMES = ("k0", "k0_textured", "k1", "k1_textured", "pack", "combine",
                 "k1_stats", "k1_stats_textured", "k0_global", "k0_global_textured",
                 "k1_global", "k1_global_textured")
 
@@ -206,8 +215,7 @@ def _library():
                                + mk.CULL_ARGTYPES + [f, f, vp]),
             "wrt_regroup_k1_stats": ([vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i]
                                      + mk.CULL_ARGTYPES + [vp, ll, vp, vp]),
-            "wrt_regroup_combine": [vp] * 4 + [ll, vp],
-            "wrt_regroup_combine_home": [vp] * 4 + [ll, i, i, i, i, i, vp],
+            "wrt_regroup_combine": [vp] * 4 + [i, ll, i, i, i, i, i, vp],
             "wrt_regroup_attributes": [i] + [ctypes.POINTER(i)] * 3,
         }
         for name, argtypes in sigs.items():
@@ -309,6 +317,13 @@ def _expect_cap(cap: int) -> None:
         raise ValueError(f"pool capacity {cap} is not whole tiles below 2^28 slots")
 
 
+def _expect_aligned(*tensors) -> None:
+    """The CUDA pack reads and writes 16 bytes at a time."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"kernel input at {t.data_ptr():#x} is not 16-byte aligned")
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"regroup {what} launch failed: CUDA error {err}")
@@ -334,22 +349,24 @@ def launch_k0(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
 
 
 def launch_pack(src: torch.Tensor, dst: torch.Tensor, inv: torch.Tensor,
-                counts: torch.Tensor, k: int, block_sums: torch.Tensor) -> None:
-    """PACK number k (1-based) on the current stream: the counts[k - 1]
-    records of ``src`` whose alive component is set go to ``dst`` in slot
-    order; ``inv`` gets each input record's dense position (or DEAD) and
-    counts[k] the live count. The last dense row is padded with dead
-    records. Counts one launch in ``launch_pack.launches``."""
+                counts: torch.Tensor, k: int, status: torch.Tensor) -> None:
+    """PACK number k (1-based) on the current stream, one launch: the
+    counts[k - 1] records of ``src`` whose alive component is set go to
+    ``dst`` in slot order; ``inv`` gets each input record's dense position
+    (or DEAD) and counts[k] the live count. The last dense row is padded
+    with dead records. ``status`` is ``pack_scratch(cap)``. Counts one
+    launch in ``launch_pack.launches``."""
     dev = src.device
     cap = src.shape[1]
     _expect_cap(cap)
     _expect(src, (N_COMP, cap), _F32, dev)
     _expect(dst, (N_COMP, cap), _F32, dev)
     _expect(inv, (cap,), _I32, dev)
-    _expect(block_sums, (cap // _PACK_BLOCK,), _I32, dev)
+    _expect(status, (cap // PACK_TILE + 1,), torch.int64, dev)
+    _expect_aligned(src, inv)
     err = _library().lib.wrt_regroup_pack(
         src.data_ptr(), dst.data_ptr(), inv.data_ptr(), _count_ptr(counts, k - 1, dev),
-        _count_ptr(counts, k, dev), block_sums.data_ptr(), cap, _stream_handle(dev))
+        _count_ptr(counts, k, dev), status.data_ptr(), cap, _stream_handle(dev))
     _raise_on(err, "PACK")
     launch_pack.launches += 1
 
@@ -400,33 +417,35 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
     launch_k1.stats_launches += 1
 
 
-def launch_combine(inv: torch.Tensor, src: torch.Tensor, base: torch.Tensor,
-                   counts: torch.Tensor, k: int, *, accum: torch.Tensor = None,
-                   t: Tiling = None, clear=False) -> None:
-    """COMBINE level k on the current stream: for each of the counts[k - 1]
-    positions p of phase k's input space whose record lived on,
-    base[:, p] = src[:, inv[p]]. Level 1 is the home level, fused with the
-    fold: it needs ``accum`` [H*W, 3] and ``t``, leaves ``base`` (K0's
-    contributions) as it is, and sums each pixel's samples in sample order
-    into ``accum`` (written over it when ``clear``). Counts one launch in
-    ``launch_combine.launches``."""
-    dev = base.device
-    cap = base.shape[1]
-    _expect_cap(cap)
-    _expect(inv, (cap,), _I32, dev)
-    _expect(src, (3, cap), _F32, dev)
-    _expect(base, (3, cap), _F32, dev)
-    lib = _library().lib
-    if k == 1:
-        _expect(accum, (t.width * t.height, 3), _F32, dev)
-        err = lib.wrt_regroup_combine_home(
-            inv.data_ptr(), src.data_ptr(), base.data_ptr(), accum.data_ptr(), cap,
-            t.width, t.height, t.tiles_x, t.spp_shift, int(bool(clear)),
-            _stream_handle(dev))
-    else:
-        err = lib.wrt_regroup_combine(inv.data_ptr(), src.data_ptr(), base.data_ptr(),
-                                      _count_ptr(counts, k - 1, dev), cap,
-                                      _stream_handle(dev))
+def _expect_chain(inv: torch.Tensor, r8: torch.Tensor, contrib: torch.Tensor,
+                  accum: torch.Tensor, t: Tiling, device) -> None:
+    phases = inv.shape[0] if inv.dim() == 2 else 0
+    if phases < 1:
+        raise ValueError(f"COMBINE needs the inverse maps of one PACK or more, got "
+                         f"{tuple(inv.shape)}")
+    _expect(inv, (phases, t.cap), _I32, device)
+    _expect(r8, (phases, 3, t.cap), _F32, device)
+    _expect(contrib, (3, t.cap), _F32, device)
+    _expect(accum, (t.width * t.height, 3), _F32, device)
+
+
+def launch_combine(inv: torch.Tensor, r8: torch.Tensor, contrib: torch.Tensor,
+                   accum: torch.Tensor, t: Tiling, clear=False) -> None:
+    """COMBINE on the current stream, one launch a frame: each home slot's
+    radiance, found by following the inverse maps ``inv`` [phases, cap]
+    from the slot (inv[0][slot], then inv[1] at that position, ...) to the
+    phase its record ended in and read there (``contrib`` [3, cap], K0's,
+    where it ended before the first PACK; else ``r8`` [phases, 3, cap]),
+    summed per pixel in sample order from 0 into ``accum`` [H*W, 3]
+    (written over it when ``clear``). Nothing else is written. Counts one
+    launch in ``launch_combine.launches``."""
+    dev = accum.device
+    _expect_cap(t.cap)
+    _expect_chain(inv, r8, contrib, accum, t, dev)
+    err = _library().lib.wrt_regroup_combine(
+        inv.data_ptr(), r8.data_ptr(), contrib.data_ptr(), accum.data_ptr(), inv.shape[0],
+        t.cap, t.width, t.height, t.tiles_x, t.spp_shift, int(bool(clear)),
+        _stream_handle(dev))
     _raise_on(err, "COMBINE")
     launch_combine.launches += 1
 
@@ -491,9 +510,9 @@ def k0_plain(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
 
 
 def pack_plain(src: torch.Tensor, dst: torch.Tensor, inv: torch.Tensor,
-               counts: torch.Tensor, k: int, block_sums=None) -> None:
-    """``launch_pack``'s twin (``block_sums`` is the kernel's scratch and
-    not used)."""
+               counts: torch.Tensor, k: int, status=None) -> None:
+    """``launch_pack``'s twin (``status`` is the kernel's scratch and not
+    used)."""
     n_in = int(counts[k - 1])
     alive = src[_AL, :n_in] > 0.5
     pos = torch.cumsum(alive.to(torch.int64), 0) - 1
@@ -613,9 +632,13 @@ def _fold_plain(contrib: torch.Tensor, accum: torch.Tensor, t: Tiling,
 def combine_plain(inv: torch.Tensor, src: torch.Tensor, base: torch.Tensor,
                   counts: torch.Tensor, k: int, *, accum: torch.Tensor = None,
                   t: Tiling = None, clear=False) -> None:
-    """``launch_combine``'s twin. At the home level (k = 1) it combines
-    into a copy and folds that, leaving ``base`` (K0's contributions) as it
-    is, as the kernel does."""
+    """One reverse-combine level of the JAX package (regroup.py:1396-1483):
+    for each of the counts[k - 1] positions p of phase k's input space
+    whose record lived on, base[:, p] = src[:, inv[p]]. At the home level
+    (k = 1) it combines into a copy and folds that into ``accum`` (written
+    over it when ``clear``), leaving ``base`` (K0's contributions) as it
+    is. The levels from the last phase to the home level give
+    ``combine_chain_plain``'s result, the frame's COMBINE."""
     n = int(counts[k - 1])
     j = inv[:n].to(torch.int64)
     live = j >= 0
@@ -630,14 +653,31 @@ def combine_plain(inv: torch.Tensor, src: torch.Tensor, base: torch.Tensor,
 # One frame
 # --------------------------------------------------------------------------
 
+def combine_chain_plain(inv: torch.Tensor, r8: torch.Tensor, contrib: torch.Tensor,
+                        accum: torch.Tensor, t: Tiling, clear=False) -> None:
+    """``launch_combine``'s twin: the inverse maps followed with gathers,
+    then ``_fold_plain``."""
+    _expect_chain(inv, r8, contrib, accum, t, accum.device)
+    per_slot = contrib.clone()
+    sel = torch.nonzero(inv[0] >= 0).squeeze(1)  # slots whose record reached phase 1
+    pos = inv[0][sel].long()  # and its position there
+    for k in range(1, inv.shape[0]):
+        nxt = inv[k][pos].long()
+        ended = nxt < 0
+        per_slot[:, sel[ended]] = r8[k - 1][:, pos[ended]]
+        sel, pos = sel[~ended], nxt[~ended]
+    per_slot[:, sel] = r8[-1][:, pos]
+    _fold_plain(per_slot, accum, t, clear)
+
+
 def _frame(kernels: bool, accum: torch.Tensor, inp: mk.KernelInputs, frame,
            clear, t: Tiling, cuts: tuple, num_bounces: int, on_stage=None,
            debug_counts: bool = False):
-    """K0, then PACK and K1 per cut, then the COMBINE levels from the last
-    phase to the home level, on the kernels or on their twins."""
+    """K0, then PACK and K1 per cut, then COMBINE, on the kernels or on
+    their twins."""
     k0, pack, k1, combine = ((launch_k0, launch_pack, launch_k1, launch_combine)
                              if kernels else
-                             (k0_plain, pack_plain, k1_plain, combine_plain))
+                             (k0_plain, pack_plain, k1_plain, combine_chain_plain))
     mark = on_stage or (lambda name: None)
     ws = _workspace(accum.device, t.cap, len(cuts))
     k0(inp, ws.pools[0], ws.contrib, t, frame, cuts[0])
@@ -645,18 +685,12 @@ def _frame(kernels: bool, accum: torch.Tensor, inp: mk.KernelInputs, frame,
     for k, b_lo in enumerate(cuts, 1):
         b_hi = cuts[k] if k < len(cuts) else num_bounces
         src, dst = ws.pools[(k - 1) % 2], ws.pools[k % 2]
-        pack(src, dst, ws.inv[k - 1], ws.counts, k, ws.block_sums)
+        pack(src, dst, ws.inv[k - 1], ws.counts, k, ws.pack_status)
         mark(f"pack{k}")
         k1(inp, dst, ws.r8[k - 1], ws.counts, k, t, frame, b_lo, b_hi)
         mark(f"k1_{k}")
-    radiance = ws.r8[-1]
-    for k in range(len(cuts), 1, -1):
-        combine(ws.inv[k - 1], radiance, ws.r8[k - 2], ws.counts, k)
-        mark(f"combine{k}")
-        radiance = ws.r8[k - 2]
-    combine(ws.inv[0], radiance, ws.contrib, ws.counts, 1, accum=accum, t=t,
-            clear=clear)
-    mark("combine1_fold")
+    combine(ws.inv, ws.r8, ws.contrib, accum, t, clear)
+    mark("combine")
     if debug_counts:
         live = ws.counts.tolist()
         return accum, (t.cap // 128,) + tuple(-(-c // 128) for c in live[1:])
@@ -670,8 +704,7 @@ def launch_regrouped(accum: torch.Tensor, inp: mk.KernelInputs, frame, clear, *,
                      debug_counts: bool = False):
     """One frame of the CUDA kernels on prepared inputs, on the current
     stream. ``on_stage(name)`` is called after each launch ("k0", "pack1",
-    "k1_1", ..., "combine2", "combine1_fold"), e.g. to record a CUDA
-    event."""
+    "k1_1", ..., "combine"), e.g. to record a CUDA event."""
     t, cuts = plan(width, height, spp, num_bounces, cuts, row_offset=row_offset,
                    full_height=full_height)
     mk._check_accum(accum, width, height, spp, num_bounces)

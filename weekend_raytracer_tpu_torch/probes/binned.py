@@ -84,7 +84,7 @@ def dense_pool(inp: mk.KernelInputs, t: rg.Tiling, cut: int, device):
     dense = torch.empty_like(pool)
     counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=device)
     pack(pool, dense, torch.empty((t.cap,), dtype=torch.int32, device=device), counts, 1,
-         torch.empty((t.cap // 1024,), dtype=torch.int32, device=device))
+         rg.pack_scratch(t.cap, device))
     return dense, counts, int(counts[1])
 
 
