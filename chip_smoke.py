@@ -82,6 +82,20 @@ pools of textured_spheres at the LUT's budget and at full size), each
 beside its bound and a library call. It also gives the device time of the
 record-DMA probes' and p3's dot at their tiny shapes.
 
+``[xla]`` drives the ``"xla"`` backend, the JAX package's XLA tracer in
+plain PyTorch, through ``Renderer(backend="xla", device="cuda")``: RTiOW at
+1920x1080, three frames of 4 spp (an eager 4-spp frame took 5.5 s on an
+NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 5, so 32 would take eight
+times that), 8 bounces, with every launch count of the six libraries set to 0
+before and required 0 after; its image against regroup's on the same
+params at the statistical gates; one pixel batch of one sample under the
+profiler (PyTorch's launches, their device time, the idle share); the
+textured scene at 1920x1080, regroup at texture budgets 512, 8192 and the
+largest texture's texels against the full-resolution xla frame, whose
+tonemapped RMSE must not rise with the budget; and a regroup checkpoint
+saved after two 1080p frames, resumed in a fresh renderer, equal in every
+bit.
+
 Each phase prints one line; any failure exits non-zero without the final
 ``ok`` line. It needs a CUDA device and imports nothing of JAX. Options:
 ``--png PATH`` (default: chip_smoke_rtiow.png in the temporary directory)
@@ -111,6 +125,10 @@ _REGROUP_CASES = (("rtiow", 96, 64, 4, 4, 8), ("textured", 96, 64, 4, 4, 8))
 _CUTS = (2, 4, 6)  # default_cuts(8, 486), the main path's schedule
 _MAIN = dict(width=1920, height=1080, spp=32, max_spp=96, bounces=8)
 _TIMING = dict(scene="rtiow", width=480, height=270, spp=4, bounces=8)
+# the xla backend's 1080p frames take 4 spp each: an eager 4-spp frame took
+# 5.5 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5)
+_XLA = dict(width=1920, height=1080, spp=4, frames=3, bounces=8)
+_XLA_BUDGETS = (512, 8192)  # and the largest texture's texels
 RMSE_GATE = 5e-3  # tonemapped RMSE (tests/test_pallas.py's gate)
 MEAN_REL_GATE = 1e-3  # relative linear mean radiance
 FIRST_HIT_GATE = 0.01  # fraction of first-hit pixels allowed to differ
@@ -1612,6 +1630,145 @@ def _by_events(res: dict) -> list:
     return out
 
 
+def _xla_renderer(name, backend, spp, frames, budget_texels=None):
+    """A 1080p Renderer of the ``[xla]`` phase on the card."""
+    from weekend_raytracer_tpu_torch import SCENES, RenderParams, Renderer, SamplingParams
+
+    x = _XLA
+    params = RenderParams(
+        camera=SCENES[name][1](), viewport_size=(x["width"], x["height"]),
+        sampling=SamplingParams(max_samples_per_pixel=spp * frames,
+                                num_samples_per_pixel=spp, num_bounces=x["bounces"]))
+    return Renderer(SCENES[name][0](), params, backend=backend, device="cuda",
+                    budget_texels=budget_texels)
+
+
+def _xla_eager(r, log_dir) -> dict:
+    """One pixel batch of one sample of the xla frame, as the Renderer runs
+    it (render_pixels), under the profiler: how many kernels PyTorch
+    launches for it, their device time, and the host-clock time of the
+    same batch run alone; idle share = 1 - device ms / wall ms."""
+    from torch.autograd import DeviceType
+
+    from weekend_raytracer_tpu_torch.ops.tracer import render_pixels
+    from weekend_raytracer_tpu_torch.renderer import _default_pixel_batch
+    from weekend_raytracer_tpu_torch.utils.metrics import profiler_trace
+
+    x = _XLA
+    w, h = x["width"], x["height"]
+    batch = _default_pixel_batch(w * h)
+    idx = torch.arange(batch, device="cuda")
+
+    def run():
+        render_pixels(idx, 0, r._scene, r._sky, r._basis, w, h, 1, x["bounces"])
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profiler_trace(log_dir) as prof:
+        run()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    return {"pixels": batch, "spp": 1, "bounces": x["bounces"], "kernels": len(events),
+            "kernels_per_bounce": len(events) / x["bounces"], "device_ms": device_ms,
+            "wall_ms": wall_ms, "idle_share": 1.0 - device_ms / wall_ms,
+            "batches_per_sample": -(-w * h // batch)}
+
+
+def _xla_paths(mk, rg, wf, ro, sw, log_dir) -> dict:
+    """The ``"xla"`` backend on the card (plain PyTorch, no kernel of the
+    port): RTiOW at 1920x1080 through Renderer(backend="xla") with every
+    launch count of the six libraries set to 0 before and required 0 after,
+    its image against regroup's on the same params at RMSE_GATE and
+    MEAN_REL_GATE; the textured scene's ladder, regroup at three texture
+    budgets against the full-resolution xla frame, whose tonemapped RMSE
+    must not rise with the budget; and a regroup checkpoint saved after two
+    1080p frames, resumed in a fresh renderer, equal in every bit."""
+    x = _XLA
+    w, h, spp, frames = x["width"], x["height"], x["spp"], x["frames"]
+    t_phase = time.perf_counter()
+    out = {}
+    r = _xla_renderer("rtiow", "xla", spp, frames)
+    _check(r.backend == "xla", r.backend)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(mk, rg, wf, ro, sw)
+    stats = r.render()
+    counts = _launch_counts(mk, rg, wf, ro, sw)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check(stats.frames == frames and not any(counts.values()),
+           ("the xla frames launched a kernel of the port", stats.frames, counts))
+    xla_mean = r.mean_radiance().reshape(-1, 3)
+    img = r.image()
+    _check(bool(torch.isfinite(xla_mean).all()) and 20 < img.mean() < 235, img.mean())
+    out["rtiow"] = {"frames": frames, "spp_per_frame": spp, "launches": counts,
+                    "warmup_s": stats.warmup_seconds,
+                    "warm_frame_s": (stats.seconds - stats.warmup_seconds) / (frames - 1),
+                    "rays_per_s": stats.rays_per_sec, "peak_gb": peak_gb,
+                    "image_mean": float(img.mean()), "eager": _xla_eager(r, log_dir)}
+    del r
+    torch.cuda.empty_cache()
+    # regroup on the same params: the same draws, statistically the same image
+    g = _xla_renderer("rtiow", "auto", spp, frames)
+    _check(g.backend == "regroup", g.backend)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gstats = g.render()
+    st = _compare(g.mean_radiance().reshape(-1, 3), xla_mean, w, h)
+    _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE,
+           ("xla against regroup", st))
+    out["rtiow"]["vs_regroup"] = st
+    out["rtiow"]["regroup"] = {
+        "warm_frame_s": (gstats.seconds - gstats.warmup_seconds) / (frames - 1),
+        "rays_per_s": gstats.rays_per_sec,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del g, xla_mean
+    torch.cuda.empty_cache()
+    # the textured ladder: one frame, the full-resolution xla reference
+    # against regroup's mipped, quantized LUT at three budgets
+    r = _xla_renderer("textured", "xla", spp, 1)
+    r.render()
+    ref = r.mean_radiance().reshape(-1, 3)
+    meta = r._scene.materials.tex_meta
+    whole = max(d[0] * d[1] for pair in meta for d in pair)
+    ladder = {}
+    for budget in _XLA_BUDGETS + (whole,):
+        g = _xla_renderer("textured", "regroup", spp, 1, budget_texels=budget)
+        g.render()
+        ladder[budget] = _compare(g.mean_radiance().reshape(-1, 3), ref, w, h)["rmse"]
+    rmse = list(ladder.values())
+    _check(all(b <= a for a, b in zip(rmse, rmse[1:])),
+           ("the textured RMSE rose with the budget", ladder))
+    out["textured_ladder"] = {"largest_texture_texels": whole, "tonemapped_rmse": ladder}
+    del r, g, ref
+    torch.cuda.empty_cache()
+    # a checkpoint of the main path, saved after two frames on the card
+    ck = dict(spp=_MAIN["spp"], frames=4)
+    a = _xla_renderer("rtiow", "regroup", **ck)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        a.render_frame()
+        a.render_frame()
+        a.save_checkpoint(path)
+        while a.render_frame():
+            pass
+        b = _xla_renderer("rtiow", "regroup", **ck)
+        b.load_checkpoint(path)
+        _check(b.accumulated_samples() == 2 * ck["spp"], b.accumulated_samples())
+        while b.render_frame():
+            pass
+    _check(torch.equal(a._accum, b._accum), "the resumed regroup render is not bit-equal")
+    out["checkpoint"] = {"backend": "regroup", "spp_per_frame": ck["spp"],
+                         "frames": ck["frames"], "saved_after": 2, "resumed": "bit-exact"}
+    del a, b
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png", default=os.path.join(tempfile.gettempdir(),
@@ -2025,6 +2182,28 @@ def main(argv=None) -> int:
     record["cull"] = {k: {**v, "census": [[list(span), [c._asdict() for c in counts]]
                                           for span, counts in v.get("census", ())]}
                       for k, v in cull.items()}
+
+    # 6e. the xla backend on the card: no kernel of the port launches; its
+    # image against regroup's; the textured ladder; a checkpoint resumed
+    xla = _xla_paths(mk, rg, wf, ro, sw, os.path.join(
+        args.out or tempfile.mkdtemp(prefix="chip_smoke_trace_"), "trace_xla_batch"))
+    xr, eager = xla["rtiow"], xla["rtiow"]["eager"]
+    _say("xla", shape=f"rtiow {_XLA['width']}x{_XLA['height']} spp{_XLA['spp']}x"
+         f"{_XLA['frames']} b{_XLA['bounces']}", launches=json.dumps(xr["launches"]),
+         warmup_s=f"{xr['warmup_s']:.3f}", warm_frame_s=f"{xr['warm_frame_s']:.4f}",
+         rays_per_s=f"{xr['rays_per_s']:.4e}", peak_gb=f"{xr['peak_gb']:.3f}",
+         vs_regroup=json.dumps({k: float(f"{v:.4g}") for k, v in xr["vs_regroup"].items()}),
+         regroup_same_params=json.dumps({k: float(f"{v:.4g}") for k, v in xr["regroup"].items()}),
+         image_mean=f"{xr['image_mean']:.1f}", card=repr(smi))
+    _say("xla", case="eager_batch", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                       for k, v in eager.items()})
+    _say("xla", case="textured_ladder", size=f"{_XLA['width']}x{_XLA['height']}",
+         spp=_XLA["spp"], largest_texture_texels=xla["textured_ladder"]["largest_texture_texels"],
+         tonemapped_rmse_by_budget=json.dumps(
+             {k: float(f"{v:.5g}") for k, v in xla["textured_ladder"]["tonemapped_rmse"].items()}),
+         never_rises=True)
+    _say("xla", case="checkpoint", **xla["checkpoint"], seconds=f"{xla['seconds']:.1f}")
+    record["xla"] = xla
 
     # 7. the stats kernels against their twins, then the counters' own path
     # at full size, with its launches counted from 0 (after the main paths,

@@ -29,7 +29,11 @@ DOT_TOL of sum |a||b| of their twins (the products are exact, the tensor
 cores sum in their own order); the sweeps hit the same spheres as their
 twins with t within probes/mxu_sweep.py's t_tolerance on every ray at the
 TPU probe's shapes and past sweep_mma's first shared-memory window, and on
-all but FILL_WRONG_SHARE of the rays at the card-filling shape.
+all but FILL_WRONG_SHARE of the rays at the card-filling shape. The
+``"xla"`` backend, which is plain PyTorch on the card, is held to the same
+frames on the CPU at the statistical gates and launches no kernel of the
+port; a checkpoint saved on the card resumes there in every bit, for
+regroup and for xla.
 """
 import numpy as np
 import pytest
@@ -885,3 +889,71 @@ def test_sweep_launch_error_raises(monkeypatch, cuda):
     with pytest.raises(RuntimeError, match="sweep_fma launch failed: CUDA error"):
         sw.sweep_fma(table.repeat(13, 1)[:4000].contiguous(), planes, 4000)
     assert sw.sweep_fma.launches == before
+
+
+# --- the "xla" backend (plain PyTorch on the card) and checkpoints ----------
+
+def _every_launch():
+    """Every launch count of the port's six CUDA libraries."""
+    from weekend_raytracer_tpu_torch.ops.cuda import access
+
+    return {"megakernel": mk.render_image_megakernel.launches,
+            "megakernel_stats": mk.render_image_megakernel.stats_launches,
+            **{f"regroup_{k}": getattr(rg, f"launch_{k}").launches
+               for k in ("k0", "pack", "k1", "combine")},
+            "k1_stats": rg.launch_k1.stats_launches,
+            **{f"wavefront_{k}": getattr(wf, f"launch_{k}").launches
+               for k in ("k0", "compact", "k1")},
+            **{k: getattr(ro, k).launches for k in ("record_gather", "record_scatter",
+                                                    "dma_rate")},
+            **sw.launch_counts(), **access.launch_counts()}
+
+
+def _xla_renderer(name, device, w=64, h=48, spp=4, frames=2, bounces=8, backend="xla"):
+    params = RenderParams(camera=SCENES[name][1](), viewport_size=(w, h),
+                          sampling=SamplingParams(max_samples_per_pixel=frames * spp,
+                                                  num_samples_per_pixel=spp,
+                                                  num_bounces=bounces))
+    return Renderer(SCENES[name][0](), params, backend=backend, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rtiow", "textured"])
+def test_xla_frame_on_the_card_matches_the_cpu(name, cuda):
+    """The xla backend on the card against the same frames on the CPU, at
+    tests/test_pallas.py's statistical gates (tonemapped RMSE < 5e-3, mean
+    within a relative 1e-3): the card's math library rounds sin, cos and
+    acos differently, so paths fork at a few silhouettes. No library of the
+    port launches."""
+    before = _every_launch()
+    g = _xla_renderer(name, cuda)
+    g.render()
+    assert _every_launch() == before
+    c = _xla_renderer(name, "cpu")
+    c.render()
+    a, b = g.mean_radiance().cpu().numpy(), c.mean_radiance().numpy()
+    assert np.isfinite(a).all()
+    ta = g.image().astype(np.float32) / 255
+    tb = c.image().astype(np.float32) / 255
+    assert float(np.sqrt(((ta - tb) ** 2).mean())) < 5e-3
+    assert abs(a.mean() - b.mean()) / b.mean() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["regroup", "xla"])
+def test_checkpoint_resume_on_the_card(backend, cuda, tmp_path):
+    """Save after two frames on the card, resume in a fresh renderer on the
+    card, converge to the same accumulator in every bit."""
+    a = _xla_renderer("rtiow", cuda, spp=4, frames=4, backend=backend)
+    a.render_frame()
+    a.render_frame()
+    path = str(tmp_path / "ckpt.npz")
+    a.save_checkpoint(path)
+    while a.render_frame():
+        pass
+    b = _xla_renderer("rtiow", cuda, spp=4, frames=4, backend=backend)
+    b.load_checkpoint(path)
+    assert b._accum.device.type == "cuda" and b.accumulated_samples() == 8
+    while b.render_frame():
+        pass
+    assert torch.equal(a._accum, b._accum)

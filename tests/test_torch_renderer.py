@@ -88,12 +88,6 @@ def test_auto_resolves_to_pallas(spp, bounces):
     assert r.backend == jr.backend == ("regroup" if (spp, bounces) == (2, 4) else "pallas")
 
 
-@pytest.mark.parametrize("backend", ["xla"])
-def test_unported_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _renderer(backend=backend)
-
-
 def test_regroup_backend_matches_wavefront_through_renderer():
     """The counterpart of tests/test_renderer.py's test of the same name:
     'auto' (regroup, with its default cuts) gives the image of the

@@ -6,8 +6,10 @@ kernel backends rewritten as hand-written CUDA kernels for NVIDIA Hopper:
 the fused megakernel (csrc/megakernel.cu), the lane-regrouped wavefront
 (csrc/regroup.cu, ops/cuda/regroup.py) and the row-compacted wavefront
 (csrc/wavefront.cu, ops/cuda/wavefront.py), which share one per-ray body
-(csrc/bounce.cuh). It imports torch, numpy and scipy, never jax. The
-public names are the JAX package's, for the parts that exist so far.
+(csrc/bounce.cuh), and the JAX package's XLA tracer in plain PyTorch
+(ops/tracer.py, the ``"xla"`` backend). It imports torch, numpy and scipy,
+never jax. The public names are the JAX package's, for the parts that exist
+so far.
 """
 
 from .models.angle import Angle
@@ -18,12 +20,19 @@ from .models.scenes import SCENES, SceneDesc
 from .models.sky import SkyParams, SkyState, to_sky_state
 from .models.spheres import Sphere, SphereSoA
 from .models.textures import Texture, TexturePool
-from .ops.tracer import Scene
-from .renderer import GpuSamplingParams, Renderer, RenderProgress, RenderStats
+from .ops.tracer import Scene, render_image, render_pixels, trace_paths
+from .renderer import (
+    CheckpointMismatchError,
+    GpuSamplingParams,
+    Renderer,
+    RenderProgress,
+    RenderStats,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "CheckpointMismatchError",
     "Angle",
     "Camera",
     "CameraBasis",
@@ -45,5 +54,8 @@ __all__ = [
     "SphereSoA",
     "Texture",
     "TexturePool",
+    "render_image",
+    "render_pixels",
     "to_sky_state",
+    "trace_paths",
 ]

@@ -2,13 +2,14 @@
 
 Counterpart of weekend_raytracer_tpu/models/camera.py (reference Camera,
 src/raytracer/mod.rs:487-541, and GpuCamera::new, mod.rs:699-741). The basis
-is derived in float64 numpy on the host and stored as f32 tensors; the
-fused kernel generates its own rays (ops/cuda/megakernel.py), so the XLA
-path's ``make_rays`` is not part of this package yet.
+is derived in float64 numpy on the host and stored as f32 tensors. The fused
+kernels generate their own rays (csrc/bounce.cuh); ``make_rays`` generates
+them for the ``"xla"`` backend (ops/tracer.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -116,3 +117,37 @@ class CameraBasis:
         return CameraBasis.from_numpy(
             eye, horizontal, vertical, u, v, lens_radius, lower_left,
             device=device)
+
+
+def make_rays(
+    basis: CameraBasis,
+    su: torch.Tensor,
+    sv: torch.Tensor,
+    disk_r: torch.Tensor,
+    disk_alpha: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Thin-lens camera rays for a batch of screen samples.
+
+    Parity with cameraMakeRay (reference raytracer.wgsl:456-464) plus the
+    unit-disk lens sample (wgsl:466-478). ``su``/``sv`` in [0, 1] are screen
+    coordinates (sv already flipped by the caller, as wgsl:117 passes
+    1 - v); ``disk_r``/``disk_alpha`` are uniform [0, 1) draws.
+
+    Returns (origins [N, 3], directions [N, 3]); directions are normalized
+    (the reference divides by dot(d, d) in the quadratic instead).
+    """
+    r = torch.sqrt(disk_r)
+    alpha = (2.0 * math.pi) * disk_alpha
+    lens_x = basis.lens_radius * r * torch.cos(alpha)
+    lens_y = basis.lens_radius * r * torch.sin(alpha)
+
+    offset = lens_x[:, None] * basis.u[None, :] + lens_y[:, None] * basis.v[None, :]
+    origin = basis.eye[None, :] + offset
+    direction = (
+        basis.lower_left_corner[None, :]
+        + su[:, None] * basis.horizontal[None, :]
+        + sv[:, None] * basis.vertical[None, :]
+        - origin
+    )
+    direction = direction / torch.linalg.vector_norm(direction, dim=-1, keepdim=True)
+    return origin, direction

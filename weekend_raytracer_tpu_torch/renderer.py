@@ -11,19 +11,24 @@ src/raytracer/mod.rs:20-394, and ``RenderProgress``, mod.rs:615-679):
    re-derives the camera basis + sky state and resets accumulation;
  - progress = accumulated / max samples.
 
-Every renderer names its device. Checkpoints, mesh sharding, the CLI and
-the viewer are not ported yet (ROADMAP Queue 1).
+Every renderer names its device. The render state (the accumulator and
+the sample count) is saved and resumed by ``save_checkpoint`` and
+``load_checkpoint``, which refuse a checkpoint of another estimator. Mesh
+sharding, the CLI and the viewer are not ported yet (ROADMAP Queue 1).
 
 Backends: ``"pallas"`` is the fused CUDA megakernel (one launch per frame),
 ``"regroup"`` the lane-regrouped wavefront (K0, then PACK and K1 per cut,
 then COMBINE); ``"auto"`` picks between them by the JAX package's rule.
 ``"wavefront"`` is the row-compacted wavefront, run as the JAX Renderer
-runs it: with no cuts, so each frame is one K0 launch; it is never picked
-by ``"auto"``.
+runs it: with no cuts, so each frame is one K0 launch. ``"xla"`` is the JAX
+package's XLA tracer in plain PyTorch (ops/tracer.py), which launches none
+of the port's kernels and samples textures at full resolution. ``"auto"``
+picks neither of the last two.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Optional
 
@@ -35,16 +40,24 @@ from .models.params import RenderParams, RenderParamsValidationError
 from .models.scenes import SceneDesc
 from .models.sky import resolve_sky_state
 from .ops import tonemap
-from .ops.cuda.megakernel import render_image_megakernel
+from .ops.cuda.megakernel import DEFAULT_TEXTURE_BUDGET, render_image_megakernel
 from .ops.cuda.regroup import default_cuts, render_image_regrouped
 from .ops.cuda.wavefront import render_image_wavefront
-from .ops.tracer import Scene
+from .ops.tracer import Scene, render_image
 
-# Backends of the JAX package that this package does not have yet, and the
-# ROADMAP Queue 1 item that brings each. None is replaced by another.
-_NOT_PORTED = {
-    "xla": "ROADMAP Queue 1, item 2 (XLA tracer as the 'xla' backend)",
-}
+# Hashed into every checkpoint's estimator family: the two packages' draws
+# agree only statistically (FMA contraction, math libraries), so a
+# checkpoint of the JAX package is refused here, and one of this package
+# there.
+PACKAGE_TAG = "torch"
+
+
+class CheckpointMismatchError(ValueError):
+    """A checkpoint's scene/params fingerprint doesn't match the renderer.
+
+    Raised by Renderer.load_checkpoint instead of silently blending samples
+    rendered under different scene data, camera, sky, viewport, bounce
+    depth, estimator or package into the accumulator."""
 
 
 @dataclasses.dataclass
@@ -90,21 +103,28 @@ class RenderProgress:
         return self._accumulated
 
 
+def _default_pixel_batch(n_pixels: int) -> Optional[int]:
+    """The ``"xla"`` backend's pixel batch, bounding the [lanes x
+    sphere_chunk] intersection intermediates (the JAX package's rule)."""
+    if n_pixels <= (1 << 17):
+        return None
+    return 1 << 16
+
+
 def resolve_backend(requested: str, params: RenderParams) -> str:
-    """The JAX package's backend rule, with its validation, for the
-    backends this package has (weekend_raytracer_tpu/renderer.py:184-192):
-    ``"auto"`` is ``"regroup"`` for power-of-two spp <= 128 and at least 2
-    bounces, else ``"pallas"`` (the CUDA megakernel). ``"wavefront"`` is
-    taken as it is: its spp is checked when a frame renders, as in the JAX
-    package. Backends not ported yet raise NotImplementedError; none is
-    replaced by another."""
+    """The JAX package's backend rule, with its validation
+    (weekend_raytracer_tpu/renderer.py:184-192): ``"auto"`` is
+    ``"regroup"`` for power-of-two spp <= 128 and at least 2 bounces, else
+    ``"pallas"`` (the CUDA megakernel); it never picks ``"xla"`` or
+    ``"wavefront"``. ``"wavefront"`` is taken as it is: its spp is checked
+    when a frame renders, as in the JAX package."""
     spp = params.sampling.num_samples_per_pixel
     bounces = params.sampling.num_bounces
     pow2 = spp >= 1 and spp & (spp - 1) == 0
     regroup_ok = pow2 and spp <= 128 and bounces >= 2
     if requested == "auto":
         return "regroup" if regroup_ok else "pallas"
-    if requested in ("pallas", "wavefront"):
+    if requested in ("pallas", "wavefront", "xla"):
         return requested
     if requested == "regroup":
         if not regroup_ok:
@@ -114,9 +134,6 @@ def resolve_backend(requested: str, params: RenderParams) -> str:
                 f"{spp}, bounces={bounces} — use backend='pallas' or 'auto'"
             )
         return "regroup"
-    if requested in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend={requested!r} is not ported yet: {_NOT_PORTED[requested]}")
     raise ValueError(f"unknown backend {requested!r}")
 
 
@@ -129,13 +146,16 @@ class Renderer:
     params : RenderParams (validated on construction and on update)
     backend : "auto" | "pallas" (the CUDA megakernel) | "regroup" (the
         lane-regrouped wavefront) | "wavefront" (the row-compacted
-        wavefront, with no cuts). "auto" follows the JAX package's rule.
-        "xla" raises NotImplementedError until it is ported.
+        wavefront, with no cuts) | "xla" (the XLA tracer in plain PyTorch;
+        the full-resolution texture reference). "auto" follows the JAX
+        package's rule.
     device : the torch device every tensor of this renderer lives on, e.g.
         "cuda" or "cpu". On a CUDA device each frame launches the backend's
-        CUDA kernels; on the CPU it runs their plain PyTorch twins.
-    budget_texels : texels per image texture in the kernel's LUT (default
-        8192); textures are mipped down to fit.
+        CUDA kernels (``"xla"``: PyTorch's own); on the CPU it runs their
+        plain PyTorch twins.
+    budget_texels : texels per image texture in the fused kernels' LUT
+        (default 8192); textures are mipped down to fit. The ``"xla"``
+        backend samples full resolution and ignores it.
     hw_dataset : optional path to the published Hosek-Wilkie 2012 RGB
         dataset; otherwise the built-in Preetham fit supplies the sky.
     """
@@ -211,7 +231,9 @@ class Renderer:
         w, h = self._params.viewport_size
         bt = ({} if self.budget_texels is None
               else {"budget_texels": self.budget_texels})
-        if self.backend == "regroup":
+        if self.backend == "xla":  # full-resolution textures: no budget
+            fn, bt = render_image, {"pixel_batch": _default_pixel_batch(w * h)}
+        elif self.backend == "regroup":
             n_spheres = int(self._scene.spheres.centers.shape[0])
             fn = render_image_regrouped
             bt["cuts"] = default_cuts(gpu.num_bounces, n_spheres)
@@ -287,6 +309,93 @@ class Renderer:
 
     def accumulated_samples(self) -> int:
         return self._progress.accumulated_samples()
+
+    # -- checkpoint / resume: the accumulator and the sample count are the
+    # render's whole persistent state -----------------------------------------
+
+    def _fingerprint(self) -> str:
+        """Stable hash binding a checkpoint to what produced its samples:
+        scene tensors, camera, sky, viewport, bounce depth and estimator
+        family, in the JAX package's order, plus this package's tag.
+
+        Sampling counts are left out: changing them only re-paces or
+        extends the render, and resuming with a larger max spp is
+        supported. The fused backends (pallas, wavefront, regroup) draw the
+        same per-sample radiances, so they share one family; the xla
+        backend samples textures at full resolution, not from the fused
+        kernels' mipped LUT, so it is a family of its own. The fused family
+        hashes ``mxu=False`` (the only sweep this package has) and, for a
+        textured scene, the LUT's budget.
+        """
+        h = hashlib.sha256()
+        sp, mt = self._scene.spheres, self._scene.materials
+        for leaf in (sp.centers, sp.radii, sp.material_idx, mt.ids, mt.tex1, mt.tex2,
+                     mt.x, mt.pool, mt.albedo1, mt.albedo2):
+            a = leaf.cpu().numpy()
+            h.update(str(a.shape).encode())
+            h.update(str(a.dtype).encode())
+            h.update(a.tobytes())
+        p = self._params
+        h.update(repr(p.camera).encode())
+        h.update(repr(p.sky).encode())
+        # the cooked sky coefficients too: the same SkyParams cook to
+        # another estimator under the exact HW dataset
+        h.update(self._sky.params.cpu().numpy().tobytes())
+        h.update(self._sky.radiances.cpu().numpy().tobytes())
+        h.update(repr(tuple(p.viewport_size)).encode())
+        h.update(str(p.sampling.num_bounces).encode())
+        family = "xla" if self.backend == "xla" else "fused"
+        h.update(family.encode())
+        h.update(PACKAGE_TAG.encode())
+        if family == "fused":
+            h.update(b"mxu=False")
+            if not mt.all_solid:
+                bt = (DEFAULT_TEXTURE_BUDGET if self.budget_texels is None
+                      else self.budget_texels)
+                h.update(str(bt).encode())
+        return h.hexdigest()
+
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the progressive render state to an .npz file (the JAX
+        package's keys)."""
+        np.savez_compressed(
+            path,
+            accum=self._accum.cpu().numpy(),
+            accumulated_spp=np.int64(self._progress.accumulated_samples()),
+            frame_number=np.int64(self._frame_number),
+            viewport=np.asarray(self._params.viewport_size, dtype=np.int64),
+            fingerprint=np.asarray(self._fingerprint()),
+        )
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume a progressive render saved by save_checkpoint.
+
+        Raises CheckpointMismatchError unless the checkpoint's viewport and
+        fingerprint match this renderer; a checkpoint without a fingerprint
+        cannot be checked and is refused too. Parameter changes after the
+        resume behave like live changes (reset on change).
+        """
+        with np.load(path) as data:
+            vp = tuple(int(v) for v in data["viewport"])
+            if vp != tuple(self._params.viewport_size):
+                raise CheckpointMismatchError(
+                    f"checkpoint viewport {vp} != current {self._params.viewport_size}")
+            saved = str(data["fingerprint"]) if "fingerprint" in data else None
+            if saved != self._fingerprint():
+                raise CheckpointMismatchError(
+                    f"checkpoint {path!r} was saved with different scene/camera/sky/"
+                    "bounces/estimator/package state than this renderer; refusing "
+                    "to blend incompatible samples")
+            accum = torch.as_tensor(np.asarray(data["accum"], dtype=np.float32))
+            if tuple(accum.shape) != tuple(self._accum.shape):
+                raise CheckpointMismatchError(
+                    f"checkpoint accumulator shape {tuple(accum.shape)} != "
+                    f"{tuple(self._accum.shape)}")
+            accumulated = int(data["accumulated_spp"])
+            frame_number = int(data["frame_number"])
+        self._accum = accum.to(self.device)
+        self._progress.restore(accumulated)
+        self._frame_number = frame_number
 
     # -- readback ------------------------------------------------------------
 
