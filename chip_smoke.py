@@ -96,8 +96,30 @@ tonemapped RMSE must not rise with the budget; and a regroup checkpoint
 saved after two 1080p frames, resumed in a fresh renderer, equal in every
 bit.
 
-Each phase prints one line; any failure exits non-zero without the final
-``ok`` line. It needs a CUDA device and imports nothing of JAX. Options:
+``[parallel]`` runs the mesh (parallel/sharding.py) at RTiOW 1920x1080 x
+32 spp x 8 bounces: the per-shard body ``render_shard`` shard after shard
+on the card, each shard's launches counted from 0 (regroup: K0 once, PACK
+and K1 three times, COMBINE once; the megakernel once). A (4, 1) layout,
+regroup and the megakernel, equals the unsharded frames in every bit over
+two frames (the second accumulated as base + contrib); 7 tiles, whose last
+band runs 5 rows past the image, equal them on the real rows, the padding
+finite; (2, 2) at 16 spp a shard passes the image gates against the
+unsharded frames after 48 frames of each; and ``Renderer(mesh=
+global_mesh())`` in a one-process NCCL world that ``multihost.initialize``
+starts equals the unsharded Renderer in every bit, with its launches
+counted and one frame's shard and all_reduce times. ``[front]`` runs the
+CLI as a user does (``python -m weekend_raytracer_tpu_torch``, RTiOW
+1080p, 64 spp in frames of 32) and under ``torchrun --nproc-per-node 1``
+(a (1, 1) mesh), each with a timeout, and requires the JAX CLI's JSON
+keys, ``"regroup"`` and a ``--hdr`` equal to an in-process Renderer's mean
+radiance in every bit; then drives ``TerminalViewer`` headless along 30
+key and mouse events, one frame after each, on RTiOW 1080p and
+random_spheres(10000) at 3840x2160 (4 spp), and prints the time to the
+first frame, the event-to-frame latency p50 and p95, the
+``set_render_params`` and half-block draw host times.
+
+Each phase prints one line (some several); any failure exits non-zero
+without the final ``ok`` line. It needs a CUDA device and imports nothing of JAX. Options:
 ``--png PATH`` (default: chip_smoke_rtiow.png in the temporary directory)
 and ``--out DIR`` (also write every number as JSON there, and the profiler
 trace).
@@ -1769,6 +1791,387 @@ def _xla_paths(mk, rg, wf, ro, sw, log_dir) -> dict:
     return out
 
 
+# [parallel]: RTiOW at the main path's size through the per-shard body
+_PAR = dict(width=1920, height=1080, spp=32, bounces=8)
+PAD_TILES = 7  # does not divide 1080: bands of 155 rows, 5 padding rows
+# (2, 2) against the unsharded Renderer's frames: the two draw different
+# samples, so they are held at the image gates once each holds
+# SPP_FRAMES x 32 samples (at 32, one frame, the two part by some 0.02 in
+# tonemapped RMSE on the CPU at 160x90; the RMSE falls as 1/sqrt(spp))
+SPP_FRAMES = 48
+# the JAX CLI's JSON keys, in order (weekend_raytracer_tpu/cli.py:171-182)
+CLI_KEYS = ("scene", "backend", "size", "spp", "seconds", "warmup_seconds", "rays_per_sec",
+            "devices", "sky", "output")
+_VIEWER_CASES = (("rtiow", 1920, 1080), ("random10k", 3840, 2160))
+_VIEWER_SPP = 4
+SUBPROCESS_TIMEOUT_S = 420
+
+
+def _shard_want(backend: str, counts: dict) -> dict:
+    """One shard's launches: a regroup shard runs K0, PACK and K1 at each of
+    the three cuts, and COMBINE; a megakernel shard one launch."""
+    want = dict.fromkeys(counts, 0)
+    if backend == "regroup":
+        want.update(k0=1, pack=3, k1=3, combine=1)
+    else:
+        want.update(megakernel=1)
+    return want
+
+
+def _shards(mods, case, backend, n_tiles, n_spp, frame):
+    """Every shard of a (n_tiles, n_spp) layout through render_shard, one
+    after another on the card; each tile's spp shards summed in spp order
+    (two shards sum alike in either order, as their all_reduce would).
+    Returns the frame's contribution [padded H * W, 3], each shard's
+    CUDA-event ms (its call: host prep and kernels) and each shard's
+    launches, counted from 0."""
+    from weekend_raytracer_tpu_torch.parallel.sharding import render_shard
+
+    p = _PAR
+    h = p["height"]
+    hp = -(-h // n_tiles) * n_tiles
+    bands, ms, counts = [], [], []
+    for t in range(n_tiles):
+        tot = None
+        for s in range(n_spp):
+            torch.cuda.synchronize()
+            _zero_launch_counts(*mods)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            c = render_shard(frame, *case, tile_idx=t, spp_idx=s, n_tiles=n_tiles,
+                             n_spp=n_spp, width=p["width"], height=hp, spp=p["spp"],
+                             num_bounces=p["bounces"], backend=backend, aim_height=h)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            n = _launch_counts(*mods)
+            _check(n == _shard_want(backend, n), ("shard launches", backend, t, s, n))
+            counts.append(n)
+            tot = c if tot is None else tot + c
+        bands.append(tot)
+    return torch.cat(bands), ms, counts
+
+
+def _unsharded(mods, case, backend, acc, frame, clear):
+    mk, rg = mods[0], mods[1]
+    p = _PAR
+    kw = dict(width=p["width"], height=p["height"], spp=p["spp"], num_bounces=p["bounces"])
+    if backend == "regroup":
+        n_spheres = int(case[0].spheres.centers.shape[0])
+        rg.render_image_regrouped(acc, frame, clear, *case,
+                                  cuts=rg.default_cuts(p["bounces"], n_spheres), **kw)
+    else:
+        mk.render_image_megakernel(acc, frame, clear, *case, **kw)
+
+
+def _launch_summary(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _parallel_path(mods) -> dict:
+    """``[parallel]``: the mesh's per-shard body on the card at 1920x1080 x
+    32 spp x 8 bounces. (4, 1) for regroup and the megakernel over two
+    frames, the second accumulated as base + contrib, equal to the
+    unsharded frames in every bit; PAD_TILES tiles (padding rows past the
+    image) bit-equal on the real rows, finite on the padding; (2, 2) at 16
+    spp a shard against the unsharded frames at the image gates; then
+    Renderer(mesh=global_mesh()) in a one-process NCCL world started by
+    initialize, equal to the unsharded Renderer in every bit."""
+    p = _PAR
+    w, h = p["width"], p["height"]
+    case = _case("rtiow", w, h, "cuda")
+    out = {}
+    for backend in ("regroup", "pallas"):
+        ref = torch.zeros((w * h, 3), device="cuda")
+        acc = torch.zeros((w * h, 3), device="cuda")
+        res = {"shard_ms": [], "unsharded_ms": []}
+        for frame in range(2):
+            contrib, ms, counts = _shards(mods, case, backend, 4, 1, frame)
+            if frame == 0:
+                acc.zero_()
+            acc += contrib
+            res["unsharded_ms"].append(_time_ms(
+                lambda: _unsharded(mods, case, backend, ref, frame, frame == 0), 1))
+            _bitwise_max_err(acc, ref, (backend, "(4, 1) frame", frame))
+            res["shard_ms"].append(ms)
+        res["launches_per_shard"] = _launch_summary(counts[0])
+        # a tile count that does not divide the height: the last band's
+        # rows past 1080 are the padding
+        contrib, ms, counts = _shards(mods, case, backend, PAD_TILES, 1, 0)
+        _unsharded(mods, case, backend, ref, 0, True)
+        _bitwise_max_err(contrib[:w * h], ref, (backend, "padded real rows"))
+        pad = contrib[w * h:]
+        _check(pad.shape[0] == w * (-(-h // PAD_TILES) * PAD_TILES - h)
+               and bool(torch.isfinite(pad).all()), (backend, "padding rows"))
+        res.update(padded={"tiles": PAD_TILES, "band_rows": -(-h // PAD_TILES),
+                           "padding_rows": pad.shape[0] // w, "shard_ms": ms,
+                           "padding_mean": float(pad.mean())})
+        out[backend] = res
+        del ref, acc, contrib, pad
+        torch.cuda.empty_cache()
+    # (2, 2): 16 spp a shard, against the unsharded 32-spp frames
+    sh = torch.zeros((w * h, 3), device="cuda")
+    un = torch.zeros((w * h, 3), device="cuda")
+    for frame in range(SPP_FRAMES):
+        contrib, ms, counts = _shards(mods, case, "regroup", 2, 2, frame)
+        if frame == 0:
+            sh.zero_()
+            spp_ms = ms
+        sh += contrib
+        _unsharded(mods, case, "regroup", un, frame, frame == 0)
+        if frame == 0:
+            first = _compare(sh / p["spp"], un / p["spp"], w, h)
+    n = SPP_FRAMES * p["spp"]
+    st = _compare(sh / n, un / n, w, h)
+    _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE, ("(2, 2) gates", st))
+    out["spp_2x2"] = {"frames": SPP_FRAMES, "spp": n, "shard_ms": spp_ms,
+                      "launches_per_shard": _launch_summary(counts[0]),
+                      "vs_unsharded": st, "one_frame_vs_unsharded": first}
+    del sh, un, contrib
+    torch.cuda.empty_cache()
+    out["nccl_world"] = _nccl_world(mods)
+    return out
+
+
+def _nccl_world(mods) -> dict:
+    """Renderer(mesh=global_mesh()) in a one-process NCCL world that
+    multihost.initialize starts from torchrun's variables (a free local
+    port): launches counted from 0 over its three frames, its image and
+    mean radiance against the unsharded Renderer's in every bit, and one
+    frame's shard and all_reduce times (CUDA events) and the gather."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from weekend_raytracer_tpu_torch import SCENES, RenderParams, Renderer, SamplingParams
+    from weekend_raytracer_tpu_torch.parallel import multihost
+    from weekend_raytracer_tpu_torch.parallel.sharding import render_image_sharded
+
+    p = _PAR
+    w, h = p["width"], p["height"]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": "1",
+           "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        multihost.initialize(backend="nccl", timeout=timedelta(seconds=120))
+        _check(dist.is_initialized() and dist.get_backend() == "nccl", "no NCCL world")
+        mesh = multihost.global_mesh()
+        params = RenderParams(
+            camera=SCENES["rtiow"][1](), viewport_size=(w, h),
+            sampling=SamplingParams(max_samples_per_pixel=3 * p["spp"],
+                                    num_samples_per_pixel=p["spp"], num_bounces=p["bounces"]))
+        r = Renderer(SCENES["rtiow"][0](), params, device="cuda", mesh=mesh)
+        _check(r.device == torch.device("cuda", 0) and r.backend == "regroup",
+               (r.device, r.backend))
+        torch.cuda.synchronize()
+        _zero_launch_counts(*mods)
+        stats = r.render()
+        counts = _launch_counts(*mods)
+        want = {**dict.fromkeys(counts, 0), "k0": 3, "pack": 9, "k1": 9, "combine": 3}
+        _check(counts == want, ("mesh Renderer launches", counts, want))
+        gather_ms = []
+        for _ in range(3):  # the first also sets up the group's communicator
+            t0 = time.perf_counter()
+            mean = r.mean_radiance()
+            torch.cuda.synchronize()
+            gather_ms.append((time.perf_counter() - t0) * 1e3)
+        ref = Renderer(SCENES["rtiow"][0](), params, device="cuda")
+        ref_stats = ref.render()
+        _bitwise_max_err(mean, ref.mean_radiance(), "NCCL mesh Renderer vs unsharded")
+        _check(bool((r.image() == ref.image()).all()), "NCCL mesh image")
+        scratch = torch.zeros_like(r._accum)
+        fkw = dict(width=w, height=h, spp=p["spp"], num_bounces=p["bounces"], mesh=mesh,
+                   backend=r.backend)
+        render_image_sharded(scratch, 0, True, r._scene, r._sky, r._basis, **fkw)
+        stages = [_stage_ms(lambda mark: render_image_sharded(
+            scratch, 0, True, r._scene, r._sky, r._basis, on_stage=mark, **fkw))
+            for _ in range(3)]
+        return {"mesh": mesh.shape, "backend": dist.get_backend(), "launches":
+                _launch_summary(counts), "frames": stats.frames,
+                "warm_frame_s": (stats.seconds - stats.warmup_seconds) / (stats.frames - 1),
+                "unsharded_warm_frame_s": (ref_stats.seconds - ref_stats.warmup_seconds)
+                / (ref_stats.frames - 1),
+                "shard_ms": [st["shard"] for st in stages],
+                "all_reduce_ms": [st["all_reduce"] for st in stages],
+                "gather_ms": gather_ms}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _run_bounded(cmd, timeout: float) -> str:
+    """Run ``cmd`` from the checkout's root in a session of its own; on
+    timeout kill the whole session (torchrun's workers too) and fail.
+    Returns its standard output; a non-zero exit fails."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{cmd[:6]} timed out after {timeout} s")
+    _check(proc.returncode == 0, (cmd[:6], proc.returncode, err[-3000:]))
+    return out
+
+
+def _front_cli() -> dict:
+    """The CLI as a user runs it, then under torchrun (one rank, a (1, 1)
+    mesh): RTiOW 1920x1080, 64 spp in frames of 32, 8 bounces; the JAX
+    CLI's keys, "regroup", and --hdr equal to an in-process Renderer's mean
+    radiance in every bit."""
+    import numpy as np
+
+    from weekend_raytracer_tpu_torch import SCENES, RenderParams, Renderer, SamplingParams
+
+    p = _PAR
+    params = RenderParams(
+        camera=SCENES["rtiow"][1](), viewport_size=(p["width"], p["height"]),
+        sampling=SamplingParams(max_samples_per_pixel=2 * p["spp"],
+                                num_samples_per_pixel=p["spp"], num_bounces=p["bounces"]))
+    r = Renderer(SCENES["rtiow"][0](), params, device="cuda")
+    r.render()
+    want = r.mean_radiance().cpu().numpy()
+    del r
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_front_")
+    args = ["--scene", "rtiow", "--size", f"{p['width']}x{p['height']}", "--spp",
+            str(2 * p["spp"]), "--spp-per-frame", str(p["spp"]), "--bounces", str(p["bounces"]),
+            "--stats-json"]
+    launchers = {
+        "cli": [sys.executable, "-m", "weekend_raytracer_tpu_torch"],
+        "torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "1", "-m", "weekend_raytracer_tpu_torch"]}
+    out = {}
+    for label, launcher in launchers.items():
+        hdr = os.path.join(tmp, f"{label}.npz")
+        extra = ["--tile-shards", "1"] if label == "torchrun" else []
+        t0 = time.perf_counter()
+        stdout = _run_bounded(launcher + args + ["--hdr", hdr, "-o",
+                                                 os.path.join(tmp, f"{label}.png")] + extra,
+                              SUBPROCESS_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+        _check(len(lines) == 1, (label, stdout[-2000:]))
+        line = json.loads(lines[0])
+        _check(tuple(line) == CLI_KEYS and line["backend"] == "regroup"
+               and line["spp"] == 2 * p["spp"] and line["devices"] == 1, (label, line))
+        with np.load(hdr) as data:
+            got = data["mean_radiance"]
+        _check(got.shape == want.shape and np.array_equal((got + 0.0).view(np.int32),
+                                                          (want + 0.0).view(np.int32)),
+               (label, "--hdr is not the in-process Renderer's mean radiance"))
+        out[label] = {"wall_s": wall, **{k: line[k] for k in ("seconds", "warmup_seconds",
+                                                              "rays_per_sec", "devices")}}
+    return out
+
+
+def _viewer_events(w: int, h: int) -> list:
+    """The scripted fly-camera path: 24 keys (moves, looks, lens and sky
+    edits, a reset) and a drag of 6 mouse events, in terminal cells (a row
+    is two pixels)."""
+    keys = ["w", "w", "a", "d", "s", "q", "e", "j", "l", "i", "k", "f", "F", "g", "G", "v",
+            "V", "t", "T", "z", "Z", "x", "X", "r"]
+    cols, rows = w, h // 2
+    drag = [(cols // 2, rows // 2, True), (cols // 2 + cols // 40, rows // 2, True),
+            (cols // 2 + cols // 20, rows // 2 + rows // 30, True),
+            (cols // 2 + cols // 20, rows // 2 + rows // 15, True),
+            (cols // 2 + cols // 20, rows // 2 + rows // 15, False), (cols // 3, rows // 3, False)]
+    return [("key", k) for k in keys] + [("mouse", *m) for m in drag]
+
+
+def _viewer_run(mods, name: str, w: int, h: int) -> dict:
+    """TerminalViewer driven headless on the card along _viewer_events, one
+    frame after each event (an event that edits the camera, the sky or the
+    sampling resets accumulation, so its frame is a first frame): time to the first frame (the viewer made, its scene on
+    the card, one frame read back; the libraries already loaded), each
+    event's latency on the host clock to the frame read back after a
+    synchronize, the host time of the set_render_params each event ends in,
+    and the half-block draw's host time (the native library's route when it
+    loads, else the Python one). Launches counted from 0 over the events."""
+    import numpy as np
+
+    from weekend_raytracer_tpu_torch import SCENES, SamplingParams
+    from weekend_raytracer_tpu_torch.interactive.fly_camera import FlyCameraController
+    from weekend_raytracer_tpu_torch.interactive.viewer import TerminalViewer, _halfblock_frame
+    from weekend_raytracer_tpu_torch.utils import native
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = TerminalViewer(SCENES[name][0](), FlyCameraController(), viewport=(w, h),
+                       sampling=SamplingParams(max_samples_per_pixel=1 << 16,
+                                               num_samples_per_pixel=_VIEWER_SPP,
+                                               num_bounces=8),
+                       backend="auto", device="cuda")
+    _check(v.renderer.render_frame() and v.renderer.backend == "regroup", v.renderer.backend)
+    img = v.renderer.image()
+    first_s = time.perf_counter() - t0
+    set_ms = []
+    set_params = v.renderer.set_render_params
+
+    def timed(params):
+        t = time.perf_counter()
+        changed = set_params(params)
+        set_ms.append((time.perf_counter() - t) * 1e3)
+        return changed
+
+    v.renderer.set_render_params = timed
+    events = _viewer_events(w, h)
+    latency = []
+    _zero_launch_counts(*mods)
+    for kind, *args in events:
+        t = time.perf_counter()
+        if kind == "key":
+            _check(v.handle_key(args[0]), ("viewer quit on", args))
+        else:
+            v.handle_mouse(*args)
+        _check(v.renderer.render_frame(), "the viewer's frame did not render")
+        img = v.renderer.image()
+        torch.cuda.synchronize()
+        latency.append((time.perf_counter() - t) * 1e3)
+        _check(img.shape == (h, w, 3), img.shape)
+    counts = _launch_counts(*mods)
+    n = len(events)
+    want = {**dict.fromkeys(counts, 0), "k0": n, "pack": 3 * n, "k1": 3 * n, "combine": n}
+    _check(counts == want, ("viewer launches", counts, want))
+    # an event that changes no parameter (a release where the drag ended)
+    # keeps accumulating
+    _check(v.renderer.accumulated_samples() % _VIEWER_SPP == 0 and img.mean() > 1.0,
+           (v.renderer.accumulated_samples(), float(img.mean())))
+    route = "native" if native.available() else "python"
+    draw = native.halfblock_render if route == "native" else _halfblock_frame
+    draw_ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        frame = draw(img)
+        draw_ms.append((time.perf_counter() - t) * 1e3)
+        _check(len(frame) > w * (h // 2), len(frame))
+    del v
+    torch.cuda.empty_cache()
+    return {"scene": name, "size": f"{w}x{h}", "spp": _VIEWER_SPP, "events": n,
+            "first_frame_s": first_s, "latency_ms_p50": float(np.percentile(latency, 50)),
+            "latency_ms_p95": float(np.percentile(latency, 95)),
+            "latency_ms_max": max(latency),
+            "set_render_params_ms_p50": float(np.percentile(set_ms, 50)),
+            "set_render_params_ms_max": max(set_ms), "draw_route": route,
+            "draw_ms": draw_ms, "launches": _launch_summary(counts)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png", default=os.path.join(tempfile.gettempdir(),
@@ -2204,6 +2607,30 @@ def main(argv=None) -> int:
          never_rises=True)
     _say("xla", case="checkpoint", **xla["checkpoint"], seconds=f"{xla['seconds']:.1f}")
     record["xla"] = xla
+
+    # 6f. the mesh: its per-shard body at full size, then a real
+    # one-process NCCL world through Renderer(mesh=global_mesh())
+    mods = (mk, rg, wf, ro, sw)
+    t0 = time.perf_counter()
+    par = _parallel_path(mods)
+    par_s = time.perf_counter() - t0
+    _say("parallel", shape=f"rtiow {_PAR['width']}x{_PAR['height']} spp{_PAR['spp']} "
+         f"b{_PAR['bounces']}", tiles_4x1="bit-exact over 2 frames (regroup, pallas)",
+         padded=f"{PAD_TILES} tiles bit-exact on the real rows, padding finite",
+         **{f"{k}": json.dumps(v) for k, v in par.items()}, seconds=f"{par_s:.1f}",
+         card=repr(smi))
+    record["parallel"] = par
+
+    # 6g. the front ends: the CLI, the CLI under torchrun, the viewer
+    t0 = time.perf_counter()
+    front = {"cli": _front_cli()}
+    for name, vw, vh in _VIEWER_CASES:
+        front[f"viewer_{name}"] = _viewer_run(mods, name, vw, vh)
+    front_s = time.perf_counter() - t0
+    _say("front", hdr="bit-exact (cli and torchrun against the in-process Renderer)",
+         **{k: json.dumps(v) for k, v in front.items()}, seconds=f"{front_s:.1f}",
+         card=repr(smi))
+    record["front"] = front
 
     # 7. the stats kernels against their twins, then the counters' own path
     # at full size, with its launches counted from 0 (after the main paths,

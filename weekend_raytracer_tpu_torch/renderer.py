@@ -13,8 +13,10 @@ src/raytracer/mod.rs:20-394, and ``RenderProgress``, mod.rs:615-679):
 
 Every renderer names its device. The render state (the accumulator and
 the sample count) is saved and resumed by ``save_checkpoint`` and
-``load_checkpoint``, which refuse a checkpoint of another estimator. Mesh
-sharding, the CLI and the viewer are not ported yet (ROADMAP Queue 1).
+``load_checkpoint``, which refuse a checkpoint of another estimator. With
+``mesh=`` (parallel/sharding.py) each torch.distributed rank keeps one band
+of the accumulator and renders it, its tile's sample shards merged by one
+all_reduce a frame.
 
 Backends: ``"pallas"`` is the fused CUDA megakernel (one launch per frame),
 ``"regroup"`` the lane-regrouped wavefront (K0, then PACK and K1 per cut,
@@ -34,6 +36,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .models.camera import CameraBasis
 from .models.params import RenderParams, RenderParamsValidationError
@@ -44,6 +47,10 @@ from .ops.cuda.megakernel import DEFAULT_TEXTURE_BUDGET, render_image_megakernel
 from .ops.cuda.regroup import default_cuts, render_image_regrouped
 from .ops.cuda.wavefront import render_image_wavefront
 from .ops.tracer import Scene, render_image
+from .parallel.multihost import local_rank
+from .parallel.sharding import (SPP_AXIS, TILE_AXIS, gather_accumulator,
+                                render_image_sharded, sharded_accumulator,
+                                validate_mesh_config)
 
 # Hashed into every checkpoint's estimator family: the two packages' draws
 # agree only statistically (FMA contraction, math libraries), so a
@@ -111,30 +118,51 @@ def _default_pixel_batch(n_pixels: int) -> Optional[int]:
     return 1 << 16
 
 
-def resolve_backend(requested: str, params: RenderParams) -> str:
+def resolve_backend(requested: str, params: RenderParams, mesh=None) -> str:
     """The JAX package's backend rule, with its validation
-    (weekend_raytracer_tpu/renderer.py:184-192): ``"auto"`` is
+    (weekend_raytracer_tpu/renderer.py:163-204): ``"auto"`` is
     ``"regroup"`` for power-of-two spp <= 128 and at least 2 bounces, else
     ``"pallas"`` (the CUDA megakernel); it never picks ``"xla"`` or
     ``"wavefront"``. ``"wavefront"`` is taken as it is: its spp is checked
-    when a frame renders, as in the JAX package."""
+    when a frame renders, as in the JAX package. Under a ``mesh`` the
+    params are validated against it, the rule reads the spp of one shard,
+    and ``"wavefront"`` is refused."""
     spp = params.sampling.num_samples_per_pixel
     bounces = params.sampling.num_bounces
+    if mesh is not None:
+        validate_mesh_config(mesh, params.viewport_size, spp)
+        spp //= mesh.shape[SPP_AXIS]
     pow2 = spp >= 1 and spp & (spp - 1) == 0
     regroup_ok = pow2 and spp <= 128 and bounces >= 2
     if requested == "auto":
-        return "regroup" if regroup_ok else "pallas"
-    if requested in ("pallas", "wavefront", "xla"):
-        return requested
-    if requested == "regroup":
+        backend = "regroup" if regroup_ok else "pallas"
+    elif requested in ("pallas", "wavefront", "xla"):
+        backend = requested
+    elif requested == "regroup":
         if not regroup_ok:
             raise RenderParamsValidationError(
                 "backend='regroup' requires power-of-two (per-shard) "
                 "spp <= 128 and num_bounces >= 2; got spp="
                 f"{spp}, bounces={bounces} — use backend='pallas' or 'auto'"
             )
-        return "regroup"
-    raise ValueError(f"unknown backend {requested!r}")
+        backend = "regroup"
+    else:
+        raise ValueError(f"unknown backend {requested!r}")
+    if backend == "wavefront" and mesh is not None:
+        raise RenderParamsValidationError(
+            "backend='wavefront' does not support mesh sharding yet; "
+            "use backend='regroup', 'pallas', or 'auto' with a mesh"
+        )
+    return backend
+
+
+def rank_device(device, mesh=None) -> torch.device:
+    """The renderer's device: ``device``, except that under a mesh a bare
+    "cuda" is the rank's own card, ``cuda:LOCAL_RANK``."""
+    device = torch.device(device)
+    if mesh is not None and device.type == "cuda" and device.index is None:
+        return torch.device("cuda", local_rank())
+    return device
 
 
 class Renderer:
@@ -152,7 +180,14 @@ class Renderer:
     device : the torch device every tensor of this renderer lives on, e.g.
         "cuda" or "cpu". On a CUDA device each frame launches the backend's
         CUDA kernels (``"xla"``: PyTorch's own); on the CPU it runs their
-        plain PyTorch twins.
+        plain PyTorch twins. Under a mesh, "cuda" is the rank's own card
+        (``cuda:LOCAL_RANK``).
+    mesh : optional parallel.sharding.Mesh (tiles x spp ranks, see
+        make_mesh). When given, this rank keeps its band of the
+        accumulator, every frame renders through render_image_sharded (the
+        band's sample shards merged with one all_reduce), and heights the
+        tile axis does not divide are padded. Readback (``mean_radiance``,
+        ``image``) and checkpoints gather the bands: every rank calls them.
     budget_texels : texels per image texture in the fused kernels' LUT
         (default 8192); textures are mipped down to fit. The ``"xla"``
         backend samples full resolution and ignores it.
@@ -161,18 +196,19 @@ class Renderer:
     """
 
     def __init__(self, scene, params: RenderParams, backend: str = "auto", *,
-                 device, budget_texels: Optional[int] = None,
+                 device, mesh=None, budget_texels: Optional[int] = None,
                  hw_dataset: Optional[str] = None):
         params.validate()
-        self.device = torch.device(device)
+        self.device = rank_device(device, mesh)
         if isinstance(scene, SceneDesc):
             self._scene: Scene = scene.build(device=self.device)
         else:
             self._scene = _scene_to(scene, self.device)
         self._backend_request = backend
+        self.mesh = mesh
         self.budget_texels = budget_texels
         self.hw_dataset = hw_dataset
-        self.backend = resolve_backend(backend, params)
+        self.backend = resolve_backend(backend, params, mesh)
         self._params = params
         self._progress = RenderProgress()
         self._frame_number = 0
@@ -193,10 +229,24 @@ class Renderer:
         """Which sky model this renderer's frames actually use."""
         return self._sky_model
 
+    def _padded_height(self) -> int:
+        """Image height padded so the tile axis divides the rows evenly
+        (single-device: no padding). Padding rows render off-frame content
+        and are dropped on readback."""
+        h = self._params.viewport_size[1]
+        if self.mesh is None:
+            return h
+        n_tiles = self.mesh.shape[TILE_AXIS]
+        return -(-h // n_tiles) * n_tiles
+
     def _alloc_accumulator(self) -> None:
         w, h = self._params.viewport_size
-        self._accum = torch.zeros((w * h, 3), dtype=torch.float32,
-                                  device=self.device)
+        if self.mesh is None:
+            self._accum = torch.zeros((w * h, 3), dtype=torch.float32,
+                                      device=self.device)
+        else:
+            self._accum = sharded_accumulator(w, self._padded_height(), self.mesh,
+                                              device=self.device)
 
     # -- parameter updates (reference mod.rs:353-388) ------------------------
 
@@ -210,7 +260,7 @@ class Renderer:
         if params == self._params:
             return False
         params.validate()
-        backend = resolve_backend(self._backend_request, params)
+        backend = resolve_backend(self._backend_request, params, self.mesh)
         resize = params.viewport_size != self._params.viewport_size
         self.backend = backend
         self._params = params
@@ -229,6 +279,15 @@ class Renderer:
         if gpu.num_samples_per_pixel == 0:
             return False
         w, h = self._params.viewport_size
+        if self.mesh is not None:
+            render_image_sharded(
+                self._accum, self._frame_number, gpu.clear_accumulated_samples,
+                self._scene, self._sky, self._basis, width=w,
+                height=self._padded_height(), aim_height=h,
+                spp=gpu.num_samples_per_pixel, num_bounces=gpu.num_bounces,
+                mesh=self.mesh, backend=self.backend, budget_texels=self.budget_texels)
+            self._frame_number += 1
+            return True
         bt = ({} if self.budget_texels is None
               else {"budget_texels": self.budget_texels})
         if self.backend == "xla":  # full-resolution textures: no budget
@@ -355,12 +414,23 @@ class Renderer:
                 h.update(str(bt).encode())
         return h.hexdigest()
 
+    def _whole_accumulator(self) -> torch.Tensor:
+        """The (padded) accumulator of the whole image: under a mesh the
+        bands gathered from every rank (a collective), else ``_accum``."""
+        if self.mesh is None:
+            return self._accum
+        return gather_accumulator(self._accum, self.mesh)
+
     def save_checkpoint(self, path: str) -> None:
         """Persist the progressive render state to an .npz file (the JAX
-        package's keys)."""
+        package's keys). Under a mesh every rank calls it and rank 0 writes
+        the gathered accumulator, padding rows included."""
+        accum = self._whole_accumulator().cpu().numpy()
+        if self.mesh is not None and self.mesh.distributed and dist.get_rank() != 0:
+            return
         np.savez_compressed(
             path,
-            accum=self._accum.cpu().numpy(),
+            accum=accum,
             accumulated_spp=np.int64(self._progress.accumulated_samples()),
             frame_number=np.int64(self._frame_number),
             viewport=np.asarray(self._params.viewport_size, dtype=np.int64),
@@ -373,7 +443,10 @@ class Renderer:
         Raises CheckpointMismatchError unless the checkpoint's viewport and
         fingerprint match this renderer; a checkpoint without a fingerprint
         cannot be checked and is refused too. Parameter changes after the
-        resume behave like live changes (reset on change).
+        resume behave like live changes (reset on change). Rows past the
+        image (a mesh's padding) are grown or trimmed to this renderer's
+        padded height, so a checkpoint moves between a mesh and a single
+        device; under a mesh every rank reads the file and keeps its band.
         """
         with np.load(path) as data:
             vp = tuple(int(v) for v in data["viewport"])
@@ -386,14 +459,24 @@ class Renderer:
                     f"checkpoint {path!r} was saved with different scene/camera/sky/"
                     "bounces/estimator/package state than this renderer; refusing "
                     "to blend incompatible samples")
-            accum = torch.as_tensor(np.asarray(data["accum"], dtype=np.float32))
-            if tuple(accum.shape) != tuple(self._accum.shape):
+            accum = np.asarray(data["accum"], dtype=np.float32)
+            w, h = self._params.viewport_size
+            if accum.ndim != 2 or accum.shape[1] != 3 or accum.shape[0] % w or \
+                    accum.shape[0] < w * h:
                 raise CheckpointMismatchError(
-                    f"checkpoint accumulator shape {tuple(accum.shape)} != "
-                    f"{tuple(self._accum.shape)}")
+                    f"checkpoint accumulator shape {tuple(accum.shape)} holds no "
+                    f"whole {w}x{h} image")
             accumulated = int(data["accumulated_spp"])
             frame_number = int(data["frame_number"])
-        self._accum = accum.to(self.device)
+        # grow or trim the padding rows, which carry no image data
+        whole = np.zeros((w * self._padded_height(), 3), dtype=np.float32)
+        n = min(whole.shape[0], accum.shape[0])
+        whole[:n] = accum[:n]
+        if self.mesh is not None:
+            tile_idx, _ = self.mesh.coords()
+            block = self._accum.shape[0]
+            whole = whole[tile_idx * block:(tile_idx + 1) * block]
+        self._accum = torch.from_numpy(whole).to(self.device)
         self._progress.restore(accumulated)
         self._frame_number = frame_number
 
@@ -401,13 +484,16 @@ class Renderer:
 
     def mean_radiance(self) -> torch.Tensor:
         """Accumulator / sample count as [H, W, 3] (pre-tonemap), on the
-        renderer's device."""
+        renderer's device. Under a mesh the bands are gathered (every rank
+        calls it) and the padding rows dropped."""
         w, h = self._params.viewport_size
         n = max(1, self._progress.accumulated_samples())
-        return (self._accum / n).reshape(h, w, 3)
+        acc = self._whole_accumulator()[: w * h]
+        return (acc / n).reshape(h, w, 3)
 
     def image(self) -> np.ndarray:
-        """Tonemapped sRGB uint8 frame [H, W, 3] on the host."""
+        """Tonemapped sRGB uint8 frame [H, W, 3] on the host (under a mesh,
+        gathered on every rank)."""
         return tonemap.to_srgb_u8(self.mean_radiance()).cpu().numpy()
 
 
