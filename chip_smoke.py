@@ -18,7 +18,20 @@ resolves to the regroup pipeline (K0, PACK, K1, COMBINE), through
 ``Renderer(backend="wavefront")``, which runs the wavefront as the JAX
 Renderer does, one K0 per frame. For each it checks that every frame went
 through the kernels and that the image is right, and it times the kernels
-against their plain versions.
+against their plain versions. ``Renderer(backend="auto")`` at 24 spp a
+frame, which the JAX rule gives to the megakernel, must launch it once a
+frame and regroup never, and equal the stats megakernel's full sweep in
+every bit.
+
+The ``[megakernel]`` phase holds the megakernel, which culls its sweep per
+warp and refills each lane's samples, in every bit against the stats
+megakernel (the full sweep, one sample after another) on RTiOW 1920x1080 x
+32 spp, random_spheres(10000) at 3840x2160 x 4 spp, random_spheres(60000)
+at 1920x1080 x 1 spp (boxes in global memory), the first-hit scene and the
+textured scene; holds a 1080p band of the textured scene against its twin
+at the image gates; and counts the 1080p frame's sphere and box tests per
+live segment with ``cull.megakernel_census``, the warp's lanes in step and
+refilled, for its bounds.
 
 The ``[wavefront]`` phase drives COMPACT and K1 through
 ``render_image_wavefront(..., phase_cuts=...)`` at 1080p x 32 spp and holds
@@ -101,7 +114,8 @@ bit.
 on the card, each shard's launches counted from 0 (regroup: K0 once, PACK
 and K1 three times, COMBINE once; the megakernel once). A (4, 1) layout,
 regroup and the megakernel, equals the unsharded frames in every bit over
-two frames (the second accumulated as base + contrib); 7 tiles, whose last
+two frames (the second accumulated as base + contrib), the megakernel's
+bands also against the stats megakernel's full sweep; 7 tiles, whose last
 band runs 5 rows past the image, equal them on the real rows, the padding
 finite; (2, 2) at 16 spp a shard passes the image gates against the
 unsharded frames after 48 frames of each; and ``Renderer(mesh=
@@ -164,6 +178,7 @@ STATS_SUM_GATE = 0.01
 STATS_SUM_GATE_RANDOM = 0.03
 _RANDOM_SCENES = ("super", "random10k")
 REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
+CULLED_KERNELS = ("k0", "k1", "megakernel")  # the kernels that cull per warp
 WAVEFRONT_KERNELS = ("k0", "compact", "k1")
 REORDER_KERNELS = ("record_gather", "record_scatter", "dma_rate")
 SWEEP_KERNELS = ("sweep_fma", "sweep_mma_tf32", "sweep_mma_3xtf32", "dot_mma", "layout")
@@ -195,6 +210,16 @@ SLAB_TEST_OPS = 12  # per chunk or super-chunk box: 6 subtractions, 6 products
 # lost all their device events (three runs of three on an H100).
 _CULL_CASES = (("rtiow", 1920, 1080, 32, 2, None), ("random10k", 3840, 2160, 4, 1, 32),
                ("random60k", 1920, 1080, 1, 1, 0))
+# the [megakernel] phase: scene, width, height, spp, bounces of the
+# megakernel against the stats megakernel's full sweep in every
+# bit (random_spheres(60000): boxes in global memory; first_hit: one
+# sphere, no chunks, one bounce; textured: no chunks, image textures)
+_MK_CASES = (("rtiow", 1920, 1080, 32, 8), ("random10k", 3840, 2160, 4, 8),
+             ("random60k", 1920, 1080, 1, 8), ("first_hit", 64, 48, 1, 1),
+             ("textured", 1920, 1080, 4, 8))
+TEX_BAND = (528, 32)  # first row and rows of the textured 1080p band against its twin
+# Renderer(backend="auto") at a spp that is not a power of two: the megakernel
+_AUTO_MK = dict(spp=24, max_spp=72)
 RECORD_BYTES = 64  # a pool record: 16 f32 components
 WF_COMPONENTS = 15  # a wavefront row holds 15 components of 128 f32 lanes
 ROW_PLANE_BYTES = 128 * 4  # one component of one wavefront row
@@ -916,6 +941,103 @@ def _cull_paths(mk, rg, wf, ro, sw) -> dict:
     return out
 
 
+def _census_totals(census) -> dict:
+    """A megakernel census (cull.megakernel_census) summed over its steps:
+    live segments, steps, warp steps and the share of their lanes that are
+    live, and the sphere tests (the priors' included) and box tests per
+    live segment that each lane's own decisions need and that the warp
+    vote runs."""
+    steps = [c.count for c in census]
+    live = sum(c.live for c in steps)
+    warps = sum(c.warps for c in census)
+    per = lambda v: round(v / max(live, 1), 2)  # noqa: E731
+    return {"segments": live, "steps": len(steps), "warp_steps": warps,
+            "live_lane_share": round(live / max(32 * warps, 1), 4),
+            "own_tests_per_segment": per(sum(c.own_sphere_tests + c.prior_tests
+                                             for c in steps)),
+            "own_boxes_per_segment": per(sum(c.own_box_tests for c in steps)),
+            "vote_tests_per_segment": per(sum(c.sphere_tests + c.prior_tests for c in steps)),
+            "vote_boxes_per_segment": per(sum(c.box_tests for c in steps))}
+
+
+def _megakernel_census(inp, w, h, spp, bounces, frame=0) -> dict:
+    """The megakernel's frame counted by cull.megakernel_census on the
+    twin's rays, its warps' lanes in step (one sample and bounce at a
+    time, as the stats megakernel's loop runs them) and refilled
+    per lane (the kernel's); each lane's own counts are the same in both."""
+    from weekend_raytracer_tpu_torch.ops.cuda import cull
+
+    t0 = time.perf_counter()
+    out = {grouping: cull.megakernel_census(inp, w, h, spp, bounces, frame,
+                                            refill=grouping == "refill")
+           for grouping in ("lockstep", "refill")}
+    own = [cull.CullCount(*map(sum, zip(*(c.count for c in steps))))
+           for steps in out.values()]
+    own = [(c.live, c.prior_tests, c.own_sphere_tests, c.own_box_tests) for c in own]
+    _check(own[0] == own[1], ("the megakernel census's own counts depend on the grouping",
+                              own))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _megakernel_paths(mk, rg, wf, ro, sw) -> dict:
+    """``[megakernel]``: the megakernel (per-warp cull, samples
+    refilled per lane) equals the stats megakernel, which sweeps every
+    sphere one sample after another, in every bit (_MK_CASES), with one
+    launch each, counted from 0; with each case's times (CUDA events), the
+    cull placement and the kernel's registers. Then a 1080p band of the
+    textured scene against its twin at the image gates, and the census of
+    RTiOW 1080p x 32 spp in both groupings."""
+    out = {}
+    for name, w, h, spp, bounces in _MK_CASES:
+        case = _case(name, w, h, "cuda")
+        inp = mk.kernel_inputs(*case)
+        kw = dict(width=w, height=h, spp=spp, num_bounces=bounces)
+        acc = torch.zeros((w * h, 3), device="cuda")
+        ref = torch.zeros_like(acc)
+        torch.cuda.synchronize()
+        _zero_launch_counts(mk, rg, wf, ro, sw)
+        mk.render_image_megakernel(acc, 0, True, *case, **kw)
+        torch.cuda.synchronize()
+        launches = _launch_counts(mk, rg, wf, ro, sw)
+        want = {**dict.fromkeys(launches, 0), "megakernel": 1}
+        _check(launches == want, ("megakernel launches", name, launches, want))
+        mk.launch_megakernel(ref, inp, 0, True, stats=True, **kw)
+        torch.cuda.synchronize()
+        differ = int((acc != ref).any(dim=1).sum())
+        _check(differ == 0, ("the megakernel is not the full sweep", name, differ,
+                             _compare(ref, acc, w, h)))
+        _check(bool(torch.isfinite(acc).all()), (name, "non-finite"))
+        reps = 1 if w * h * spp > 1e7 else 5
+        out[name] = {"shape": f"{name} {w}x{h} spp{spp} b{bounces}", "vs_full_sweep": "bit-exact",
+                     "launches": _launch_summary(launches),
+                     "ms": _time_ms(lambda: mk.launch_megakernel(acc, inp, 0, True, **kw), reps),
+                     "stats_ms": _time_ms(lambda: mk.launch_megakernel(
+                         ref, inp, 0, True, stats=True, **kw), reps),
+                     "spheres": inp.n_spheres, "chunks": inp.n_chunks,
+                     "placement": rg.cull_placement(inp)}
+        del acc, ref
+        torch.cuda.empty_cache()
+    # the textured scene's 1080p band against its twin (Queue 3's item)
+    w, h = _MAIN["width"], _MAIN["height"]
+    inp = mk.kernel_inputs(*_case("textured", w, h, "cuda"))
+    kw = dict(width=w, height=TEX_BAND[1], spp=_MAIN["spp"], num_bounces=_MAIN["bounces"],
+              row_offset=TEX_BAND[0], full_height=h)
+    band = torch.zeros((w * TEX_BAND[1], 3), device="cuda")
+    plain = torch.zeros_like(band)
+    mk.launch_megakernel(band, inp, 0, True, **kw)
+    mk.render_plain_with_inputs(plain, inp, 0, True, **kw)
+    torch.cuda.synchronize()
+    st = _compare(plain / _MAIN["spp"], band / _MAIN["spp"], w, TEX_BAND[1])
+    _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE, ("textured band", st))
+    out["textured_band"] = {"rows": [TEX_BAND[0], sum(TEX_BAND)], "spp": _MAIN["spp"],
+                            "texture_pool_rows": int(inp.tex_pool.numel() // 128), **st}
+    out["census_1080p"] = _megakernel_census(
+        mk.kernel_inputs(*_case("rtiow", w, h, "cuda")), w, h, _MAIN["spp"], _MAIN["bounces"])
+    torch.cuda.empty_cache()
+    return out
+
+
 def _slot_pixels(t, dev):
     """Pixel column and row of each ray slot of tiling ``t``, unclamped
     (past the image edge for the padding slots)."""
@@ -977,15 +1099,33 @@ def _culled_bounds(census, k0_bytes: float, k1_bytes: float, full: dict) -> dict
     return out
 
 
+def _megakernel_bound(mk_census, pixels: int, full: dict) -> dict:
+    """The megakernel's bound from its census (_megakernel_census): each
+    real pixel's own sphere, prior and box tests (``bound_ms``); the same
+    bound on what the warp vote runs with the lanes refilled
+    (``vote_bound_ms``, the kernel's grouping) and in step
+    (``lockstep_vote_bound_ms``, one sample and bounce at a time); the
+    full sweep's (``bound_full_ms``, from ``full``). A pixel writes 12
+    bytes."""
+    refill, lockstep = ([(None, [c.count for c in mk_census[g]])]
+                        for g in ("refill", "lockstep"))
+    return {**_bound(_culled_ops(refill), pixels * 12),
+            "vote_bound_ms": _bound(_culled_ops(refill, own=False), pixels * 12)["bound_ms"],
+            "lockstep_vote_bound_ms": _bound(_culled_ops(lockstep, own=False),
+                                             pixels * 12)["bound_ms"],
+            "bound_full_ms": full["bound_ms"]}
+
+
 def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
-            census=None) -> dict:
+            census=None, mk_census=None) -> dict:
     """Each kernel's bound at the [timing] shape, from this run's live
     counts: a live path segment (a path alive at the start of a bounce)
     tests every prepared sphere; a kStats segment also tests the priors and
     every chunk and super-chunk box. K0 and K1 cull per warp: with
     ``census`` (rg.cull_census of this frame) their bound counts the work
     each lane's own cull decisions need (``_culled_bounds``: beside it the
-    warp vote's work and the full sweep's). The megakernels trace the real
+    warp vote's work and the full sweep's); so does the megakernel with
+    ``mk_census`` (_megakernel_bound). The megakernels trace the real
     pixels' paths (the stats one counts the TPU's padded lanes without
     tracing them); K1 stats traces the segments of its table's col 1
     (``k1_stats``). Each record or value is read once and written once
@@ -1019,6 +1159,8 @@ def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
         "combine": _bound(0, live_real[0] * 16 + sum(live_real[c] for c in cuts[:-1]) * 4
                           + pixels * 24),
     }
+    if mk_census is not None:
+        out["megakernel"] = _megakernel_bound(mk_census, pixels, out["megakernel"])
     if mk_stats is not None:
         out["megakernel_stats"] = _bound(counted * sum(live_real),
                                          pixels * 12 + mk_stats.numel() * 4)
@@ -1873,8 +2015,9 @@ def _parallel_path(mods) -> dict:
     """``[parallel]``: the mesh's per-shard body on the card at 1920x1080 x
     32 spp x 8 bounces. (4, 1) for regroup and the megakernel over two
     frames, the second accumulated as base + contrib, equal to the
-    unsharded frames in every bit; PAD_TILES tiles (padding rows past the
-    image) bit-equal on the real rows, finite on the padding; (2, 2) at 16
+    unsharded frames in every bit (the megakernel's bands each frame also
+    to the stats megakernel's full sweep); PAD_TILES tiles (padding rows
+    past the image) bit-equal on the real rows, finite on the padding; (2, 2) at 16
     spp a shard against the unsharded frames at the image gates; then
     Renderer(mesh=global_mesh()) in a one-process NCCL world started by
     initialize, equal to the unsharded Renderer in every bit."""
@@ -1890,6 +2033,14 @@ def _parallel_path(mods) -> dict:
             contrib, ms, counts = _shards(mods, case, backend, 4, 1, frame)
             if frame == 0:
                 acc.zero_()
+            if backend == "pallas":  # the bands against the full sweep
+                full = torch.zeros_like(contrib)
+                mods[0].launch_megakernel(full, mods[0].kernel_inputs(*case), frame, True,
+                                          stats=True, width=w, height=h, spp=p["spp"],
+                                          num_bounces=p["bounces"])
+                _bitwise_max_err(contrib, full, (backend, "(4, 1) frame", frame,
+                                                 "against the full sweep"))
+                del full
             acc += contrib
             res["unsharded_ms"].append(_time_ms(
                 lambda: _unsharded(mods, case, backend, ref, frame, frame == 0), 1))
@@ -2215,9 +2366,11 @@ def main(argv=None) -> int:
                                            sw.LIBRARY, ac.LIBRARY])))
     build_s = time.perf_counter() - t0
     ptxas = {k: b.ptxas_usage() for k, b in built.items()}
-    attrs = {"megakernel": {("textured" if t else "plain") + ("_stats" if st else ""):
-                            mk.kernel_attributes(t, st) for t in (False, True)
-                            for st in (False, True)},
+    attrs = {"megakernel": {("textured" if t else "plain") + suffix:
+                            mk.kernel_attributes(t, st, staged) for t in (False, True)
+                            for suffix, st, staged in (("", False, True),
+                                                       ("_global", False, False),
+                                                       ("_stats", True, True))},
              "regroup": rg.kernel_attributes(), "wavefront": wf.kernel_attributes(),
              "reorder": ro.kernel_attributes(), "sweep": sw.kernel_attributes(),
              "access": ac.kernel_attributes()}
@@ -2243,6 +2396,12 @@ def main(argv=None) -> int:
          rtiow_cull=json.dumps(rg.cull_placement(
              mk.kernel_inputs(*_case("rtiow", 96, 64, "cuda")))))
     record["build"]["regroup_k0_k1"] = {"launch_bounds": rg.launch_bounds()}
+    # the megakernel's chosen launch bounds, registers and spills (both
+    # placements of the boxes; the stats instantiation apart)
+    _say("build", case="megakernel", launch_bounds=json.dumps(mk.launch_bounds()),
+         attributes=json.dumps(attrs["megakernel"]),
+         ptxas=json.dumps({k: v for k, v in ptxas["megakernel"].items() if "megakernel" in k}))
+    record["build"]["megakernel"] = {"launch_bounds": mk.launch_bounds()}
 
     # 3. megakernel against plain, both on the card
     record["plain"] = {}
@@ -2455,6 +2614,48 @@ def main(argv=None) -> int:
         del renderer, scratch
         torch.cuda.empty_cache()
 
+    # 6a. Renderer(backend="auto") at 24 spp a frame, not a power of two,
+    # as the JAX rule gives it to the megakernel: one launch a frame, none
+    # of regroup's; its accumulator equals the stats megakernel's full
+    # sweep, frame by frame, in every bit
+    ap = RenderParams(camera=SCENES["rtiow"][1](), viewport_size=(w, h),
+                      sampling=SamplingParams(max_samples_per_pixel=_AUTO_MK["max_spp"],
+                                              num_samples_per_pixel=_AUTO_MK["spp"],
+                                              num_bounces=mp["bounces"]))
+    renderer = Renderer(SCENES["rtiow"][0](), ap, backend="auto", device="cuda")
+    _check(renderer.backend == "pallas", ("auto at 24 spp", renderer.backend))
+    torch.cuda.synchronize()
+    _zero_launch_counts(mk, rg, wf, ro, sw)
+    stats = renderer.render()
+    counts = _launch_counts(mk, rg, wf, ro, sw)
+    frames = stats.frames
+    want = {**dict.fromkeys(counts, 0), "megakernel": frames}
+    _check(frames == _AUTO_MK["max_spp"] // _AUTO_MK["spp"] and counts == want,
+           ("auto at 24 spp", frames, counts, want))
+    inp = mk.kernel_inputs(renderer._scene, renderer._sky, renderer._basis)
+    full = torch.zeros_like(renderer._accum)
+    for f in range(frames):
+        mk.launch_megakernel(full, inp, f, f == 0, stats=True, width=w, height=h,
+                             spp=_AUTO_MK["spp"], num_bounces=mp["bounces"])
+    torch.cuda.synchronize()
+    _check(torch.equal(renderer._accum, full),
+           ("auto at 24 spp is not the full sweep", _compare(full, renderer._accum, w, h)))
+    img = renderer.image()
+    _check(20 < img.mean() < 235, img.mean())
+    warm_s = (stats.seconds - stats.warmup_seconds) / max(frames - 1, 1)
+    launches["auto_spp24"] = counts
+    record["main"]["auto_spp24"] = {
+        "frames": frames, "launches": counts, "warmup_s": stats.warmup_seconds,
+        "warm_frame_s": warm_s, "rays_per_s": stats.rays_per_sec, "seconds": stats.seconds,
+        "image_mean": float(img.mean()), "vs_full_sweep": "bit-exact"}
+    _say("main", backend="auto", resolved=renderer.backend, spp=_AUTO_MK["spp"], frames=frames,
+         launches=json.dumps(_launch_summary(counts)), warmup_s=f"{stats.warmup_seconds:.3f}",
+         warm_frame_s=f"{warm_s:.4f}", rays_per_s=f"{stats.rays_per_sec:.4e}",
+         image_mean=f"{img.mean():.1f}", vs_full_sweep="bit-exact (stats megakernel)",
+         card=repr(smi))
+    del renderer, full
+    torch.cuda.empty_cache()
+
     # 6b. the wavefront through Renderer(backend="wavefront"), as the JAX
     # Renderer runs it: no cuts, so one K0 per frame. After the same frames
     # its accumulator must be regroup's in every bit.
@@ -2562,8 +2763,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 6d. the per-warp cull of K0 and K1 at full size: regroup against the
-    # unculled wavefront and megakernel in every bit, and the tests each
-    # lane needs and those of the warp vote, per bounce, beside the full sweep's
+    # unculled wavefront, and at 1 spp the megakernel, in every bit, and the
+    # tests each lane needs and those of the warp vote, per bounce, beside
+    # the full sweep's
     cull = _cull_paths(mk, rg, wf, ro, sw)
     for name, res in cull.items():
         _say("cull", shape=res["shape"], frames=res["frames"], vs_wavefront="bit-exact",
@@ -2585,6 +2787,28 @@ def main(argv=None) -> int:
     record["cull"] = {k: {**v, "census": [[list(span), [c._asdict() for c in counts]]
                                           for span, counts in v.get("census", ())]}
                       for k, v in cull.items()}
+
+    # 6d'. the megakernel against the full sweep in every bit,
+    # the textured 1080p band against its twin, and the census of its
+    # warps at 1080p in both groupings
+    mkp = _megakernel_paths(mk, rg, wf, ro, sw)
+    for name, *_ in _MK_CASES:
+        res = mkp[name]
+        _say("megakernel", shape=res["shape"], vs_full_sweep="bit-exact (stats megakernel)",
+             launches=json.dumps(res["launches"]), ms=f"{res['ms']:.4f}",
+             stats_ms=f"{res['stats_ms']:.4f}", spheres=res["spheres"], chunks=res["chunks"],
+             placement=json.dumps(res["placement"]), card=repr(smi))
+    _say("megakernel", case="textured_band_vs_plain",
+         **{k: (f"{v:.3e}" if isinstance(v, float) else json.dumps(v))
+            for k, v in mkp["textured_band"].items()})
+    mk_census = mkp["census_1080p"]
+    _say("megakernel", case="rtiow_census", shape=f"rtiow {w}x{h} spp{mp['spp']} "
+         f"b{mp['bounces']}", full_sweep_tests_per_segment=mkp["rtiow"]["spheres"],
+         **{g: json.dumps(_census_totals(mk_census[g])) for g in ("lockstep", "refill")},
+         seconds=f"{mk_census['seconds']:.1f}", card=repr(smi))
+    record["megakernel"] = {**{k: v for k, v in mkp.items() if k != "census_1080p"},
+                            "census_1080p": {g: _census_totals(mk_census[g])
+                                             for g in ("lockstep", "refill")}}
 
     # 6e. the xla backend on the card: no kernel of the port launches; its
     # image against regroup's; the textured ladder; a checkpoint resumed
@@ -2615,7 +2839,8 @@ def main(argv=None) -> int:
     par = _parallel_path(mods)
     par_s = time.perf_counter() - t0
     _say("parallel", shape=f"rtiow {_PAR['width']}x{_PAR['height']} spp{_PAR['spp']} "
-         f"b{_PAR['bounces']}", tiles_4x1="bit-exact over 2 frames (regroup, pallas)",
+         f"b{_PAR['bounces']}",
+         tiles_4x1="bit-exact over 2 frames (regroup, pallas; pallas also to the full sweep)",
          padded=f"{PAD_TILES} tiles bit-exact on the real rows, padding finite",
          **{f"{k}": json.dumps(v) for k, v in par.items()}, seconds=f"{par_s:.1f}",
          card=repr(smi))
@@ -2726,7 +2951,10 @@ def main(argv=None) -> int:
     k1_table = _k1_stats(rg, rg.launch_k1, inp_t, dense_t, counts_t, t_t, 0, _CUTS[0],
                          _CUTS[1])
     census_t = rg.cull_census(inp_t, t_t, 0, _CUTS, tm["bounces"])
-    bounds = _bounds(mk, inp_t, t_t, live_all, live_real, mk_table, k1_table, census_t)
+    mk_census_t = _megakernel_census(inp_t, tm["width"], tm["height"], tm["spp"],
+                                     tm["bounces"])
+    bounds = _bounds(mk, inp_t, t_t, live_all, live_real, mk_table, k1_table, census_t,
+                     mk_census_t)
     library_ms = _library_ms(rg, inp_t, t_t, 0, tm["bounces"], live_all)
     del dense_t
     # the wavefront's: its rows per cut at this shape, and the profiler's
@@ -2749,12 +2977,16 @@ def main(argv=None) -> int:
          live_real_per_bounce=json.dumps(live_real),
          bounds=json.dumps({k: [round(v["bound_ms"], 5), v["bound_by"]]
                             for k, v in bounds.items()}),
-         k0_k1_bound_full_ms=json.dumps({k: round(bounds[k]["bound_full_ms"], 5)
-                                         for k in ("k0", "k1")}),
-         k0_k1_vote_bound_ms=json.dumps({k: round(bounds[k]["vote_bound_ms"], 5)
-                                         for k in ("k0", "k1")}),
+         culled_bound_full_ms=json.dumps({k: round(bounds[k]["bound_full_ms"], 5)
+                                          for k in CULLED_KERNELS}),
+         culled_vote_bound_ms=json.dumps({k: round(bounds[k]["vote_bound_ms"], 5)
+                                          for k in CULLED_KERNELS}),
+         megakernel_lockstep_vote_bound_ms=round(
+             bounds["megakernel"]["lockstep_vote_bound_ms"], 5),
          k0_k1_tests_per_segment=json.dumps([round(_per_segment(census_t[:1]), 2),
                                              round(_per_segment(census_t[1:]), 2)]),
+         megakernel_census=json.dumps({g: _census_totals(mk_census_t[g])
+                                       for g in ("lockstep", "refill")}),
          library_ms=json.dumps({k: round(v, 4) for k, v in library_ms.items()}),
          wavefront_rows=json.dumps(rows_t), card=repr(smi))
     # the 1080p frame, kernels only: regroup, megakernel, megakernel, regroup
@@ -2811,7 +3043,8 @@ def main(argv=None) -> int:
     record["trace_wavefront"] = {**tr_wf, "per_kernel_ms": wf_device}
     t_big = rg.plan(mp["width"], mp["height"], mp["spp"], mp["bounces"], _CUTS)[0]
     live_big = _live_per_bounce(rg, inp, t_big, 0, mp["bounces"])
-    bounds_big = _bounds(mk, inp, t_big, *live_big, census=cull["rtiow"]["census"])
+    bounds_big = _bounds(mk, inp, t_big, *live_big, census=cull["rtiow"]["census"],
+                         mk_census=mk_census)
     bounds_big.update(_wf_bounds(inp, t_big, live_big[0], wf_rows[_CUTS]))
     library_big = _library_ms(rg, inp, t_big, 0, mp["bounces"], live_big[0], reps=3)
     stage_big = {**_per_kernel(tr["stages_ms"]), "megakernel": min(frame_ms["megakernel"]),
@@ -2825,12 +3058,18 @@ def main(argv=None) -> int:
                                         bounds_big[k]["bound_by"],
                                         round(bounds_big[k]["bound_ms"] / stage_big[k], 4)]
                                     for k in stage_big}),
-         k0_k1_bound_full_ms_share=json.dumps({
+         culled_bound_full_ms_share=json.dumps({
              k: [round(bounds_big[k]["bound_full_ms"], 3),
-                 round(bounds_big[k]["bound_full_ms"] / stage_big[k], 4)] for k in ("k0", "k1")}),
-         k0_k1_vote_bound_ms_share=json.dumps({
+                 round(bounds_big[k]["bound_full_ms"] / stage_big[k], 4)]
+             for k in CULLED_KERNELS}),
+         culled_vote_bound_ms_share=json.dumps({
              k: [round(bounds_big[k]["vote_bound_ms"], 3),
-                 round(bounds_big[k]["vote_bound_ms"] / stage_big[k], 4)] for k in ("k0", "k1")}),
+                 round(bounds_big[k]["vote_bound_ms"] / stage_big[k], 4)]
+             for k in CULLED_KERNELS}),
+         megakernel_lockstep_vote_bound_ms_share=json.dumps([
+             round(bounds_big["megakernel"]["lockstep_vote_bound_ms"], 3),
+             round(bounds_big["megakernel"]["lockstep_vote_bound_ms"]
+                   / stage_big["megakernel"], 4)]),
          library_ms=json.dumps({k: round(v, 4) for k, v in library_big.items()}),
          wavefront_rows=json.dumps(wf_rows[_CUTS]), card=repr(smi))
     record["bounds_1080p"] = {"live": live_big, "bounds": bounds_big, "ms": stage_big,
@@ -2968,12 +3207,13 @@ def main(argv=None) -> int:
                      launches["pallas"]["megakernel"], max_abs_err)]
     kernels += [entry(f"regroup_{k}", k, rg.KERNEL_SOURCE, rg.REPLACES[k],
                       launches["regroup"][k], rg_err[k]) for k in REGROUP_KERNELS]
-    # K0 and K1 cull per warp: their bound counts the work each lane's own
-    # cull decisions need (rg.cull_census), vote_bound_ms what the warp
-    # vote makes the lanes do, bound_full_ms the full sweep's
+    # K0, K1 and the megakernel cull per warp: their bound counts the work
+    # each lane's own cull decisions need (rg.cull_census,
+    # cull.megakernel_census), vote_bound_ms what the warp vote makes the
+    # lanes do, bound_full_ms the full sweep's
     for e in kernels:
-        if e["name"] in ("regroup_k0", "regroup_k1"):
-            b = bounds[e["name"][len("regroup_"):]]
+        if e["name"] in ("regroup_k0", "regroup_k1", "megakernel"):
+            b = bounds[e["name"].replace("regroup_", "")]
             e.update(vote_bound_ms=b["vote_bound_ms"], bound_full_ms=b["bound_full_ms"])
     kernels += [
         entry("megakernel_stats", "megakernel_stats", mk.KERNEL_SOURCE, mk.STATS_REPLACES,

@@ -14,10 +14,11 @@ PyTorch's, so chaotic Monte-Carlo paths may diverge at silhouettes. The
 regroup pipeline's PACK and COMBINE (one launch a cut, one a frame) are
 held bit for bit with their twins; its K0 and K1
 run the megakernel's own per-ray body, so at one sample per pixel regroup
-and the megakernel give the same bits; K0 and K1 cull their sweep per
-warp, with the boxes in shared or (a large scene) global memory, which
-changes no bit against the unculled wavefront and megakernel,
-the kStats K1 (which sweeps every sphere), or with a last warp part full.
+and the megakernel give the same bits; K0, K1 and the megakernel cull
+their sweep per warp, with the boxes in shared or (a large scene) global
+memory, and the megakernel refills each lane's samples, which changes no
+bit against the unculled wavefront, the stats megakernel and the kStats
+K1 (which sweep every sphere), or with a last warp part full.
 The row-compacted wavefront runs the
 same body on the same slots: it gives regroup's image in every bit, and
 its COMPACT equals its twin bit for bit. The record reorder kernels equal
@@ -122,6 +123,42 @@ def test_row_band_reproduces_full_image(cuda):
                          num_bounces=4, row_offset=12, full_height=h)
     torch.cuda.synchronize()
     torch.testing.assert_close(band / 2, full[12 * w:20 * w], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rtiow", "textured", "first_hit"])
+def test_megakernel_is_the_full_sweep(name, cuda):
+    """The megakernel (per-warp cull on RTiOW's chunks, samples refilled per
+    lane) equals the stats megakernel, which sweeps every sphere one sample
+    after another, in every bit: 3 spp, two frames, the second added."""
+    w, h = 70, 40
+    inp = _inputs(name, w, h, cuda)
+    assert (inp.n_chunks > 0) == (name == "rtiow")
+    bounces = 1 if name == "first_hit" else 8
+    a = torch.zeros((w * h, 3), device=cuda)
+    b = torch.zeros_like(a)
+    for f in range(2):
+        kw = dict(width=w, height=h, spp=3, num_bounces=bounces)
+        mk.launch_megakernel(a, inp, f, f == 0, **kw)
+        mk.launch_megakernel(b, inp, f, f == 0, stats=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_megakernel_budget_has_no_spills(cuda):
+    """Every megakernel instantiation builds without spills, and the culled
+    ones stay inside their launch bounds' register budget."""
+    usage = {k: v for k, v in mk._library().ptxas_usage().items()
+             if "megakernel" in k and "stats_finish" not in k}
+    assert len(usage) == 6  # 2 textures x (staged, global, stats)
+    assert all(v["spill_stores"] == 0 and v["spill_loads"] == 0 for v in usage.values()), usage
+    threads, blocks = mk.launch_bounds()
+    assert blocks > 0
+    for textured in (False, True):
+        for staged in (True, False):
+            regs = mk.kernel_attributes(textured, False, staged)["registers"]
+            assert regs <= 65536 // (threads * blocks), (textured, staged, regs)
 
 
 @pytest.mark.cuda

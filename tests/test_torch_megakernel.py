@@ -306,7 +306,9 @@ def test_wrapper_launches_kernel_for_cuda_tensor(monkeypatch):
     assert args[6] == 5  # spheres of the three-sphere scene, unpadded
     assert args[7:9] == (w, h)
     assert args[9] == pytest.approx(1.0 / w) and args[10] == pytest.approx(1.0 / h)
-    assert args[11:] == (5, 0, 1, 3, 7, 1234)
+    assert args[11:16] == (5, 0, 1, 3, 7)
+    # no chunk hierarchy below two chunks (16 spheres each): the full sweep
+    assert args[19:24] == (0, 0, 0, 16, 16) and args[24:] == (0.0, 0.0, 1234)
     assert args[4] is None  # no image textures
 
 

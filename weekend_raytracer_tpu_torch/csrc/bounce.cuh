@@ -24,13 +24,16 @@
 // polynomial acos/atan2. Built without --use_fast_math (IEEE sqrtf,
 // accurate sinf/cosf/expf/powf).
 //
-// trace_bounces<kTextured, kStats = true> is the body of the kStats
-// instantiations: the same bounces, sweeping the same spheres in the same
-// order, plus the cull counters of stats.cuh. Given the cull tables of a
-// scene with chunks (CullView), the kStats = false body sweeps only
-// the chunks that some lane of its warp can enter (sweep_culled), which
-// gives the full sweep's (bt, bi) in every bit; the megakernel and the
-// wavefront pass none and sweep every sphere.
+// bounce_step is one bounce; trace_bounces runs it over a span of bounces,
+// and the megakernel's refill loop calls it directly, so each inlines the
+// same expressions. bounce_step<kTextured, kStats = true> is the body of
+// the kStats instantiations: the same bounces, sweeping the same spheres in
+// the same order, plus the cull counters of stats.cuh. Given the cull
+// tables of a scene with chunks (CullView, staged by stage_cull), the
+// kStats = false body sweeps only the chunks that some lane of its warp
+// can enter (sweep_culled), which gives the full sweep's (bt, bi) in every
+// bit; regroup K0 and K1 and the megakernel pass them, the wavefront
+// passes none and sweeps every sphere.
 
 #pragma once
 
@@ -308,6 +311,87 @@ __device__ __forceinline__ float box_bound(const float* b, int k) {
   }
 }
 
+// The two scene terms of each lane's box margin in sweep_culled
+// (KernelInputs.cull_reach and cull_scale).
+struct CullMargin {
+  float reach, scale;
+};
+
+// The most dynamic shared memory a block of a culled kernel (regroup K0
+// and K1, the megakernel) stages: five blocks an SM, each with the 1 KiB
+// the runtime reserves, fit an H100 SM's 228 KiB, and the 48 KiB a launch
+// gets without opting in.
+constexpr size_t kStageBytes = 44 * 1024;
+
+// Whether a culled kernel stages a scene's chunk and super-chunk boxes in
+// shared memory: while they and the priors' rows fit kStageBytes. Above
+// that (about 1,800 chunk and super boxes, some 57,000 spheres at 32 a
+// chunk) the launch takes the kStaged = false instantiation, which reads
+// them from global memory through __ldg at the same warp-uniform
+// addresses; a table is never refused.
+inline bool cull_staged(const CullRefs& cu) {
+  return kNPriors * (sizeof(float4) + sizeof(int)) +
+             6 * sizeof(float) * (cu.n_tests + cu.n_super) <=
+         kStageBytes;
+}
+
+// Dynamic shared bytes of a block of a culled kernel (stage_cull): the
+// priors' sweep rows and indices, then the chunk and super-chunk boxes
+// where cull_staged; 0 without a chunk hierarchy.
+inline size_t cull_smem_bytes(const CullRefs& cu) {
+  if (cu.n_chunks == 0) return 0;
+  return kNPriors * (sizeof(float4) + sizeof(int)) +
+         (cull_staged(cu) ? 6 * sizeof(float) * (cu.n_tests + cu.n_super) : 0);
+}
+
+// The cull view of a block, staged once before its first bounce; every
+// thread of the block must call it. The priors' rows go to shared memory,
+// and the exact boxes too where kStaged (the launch's choice,
+// cull_staged), with cooperative loads: a few KiB at most.
+template <bool kStaged>
+__device__ __forceinline__ CullView stage_cull(const CullRefs& cu, const float4* sweep,
+                                               const CullMargin& margin) {
+  extern __shared__ float4 cull_smem[];
+  int* prior_index = reinterpret_cast<int*>(cull_smem + kNPriors);
+  float* chunk = reinterpret_cast<float*>(prior_index + kNPriors);
+  float* super = chunk + 6 * cu.n_tests;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int threads = blockDim.x * blockDim.y;
+  CullView v;
+  v.prior = cull_smem;
+  v.prior_index = prior_index;
+  if constexpr (kStaged) {
+    v.chunk = chunk;
+    v.super = super;
+  } else {
+    v.chunk = cu.chunk_bounds;
+    v.super = cu.super_bounds;
+  }
+  v.n_chunks = cu.n_chunks;
+  v.n_tests = cu.n_tests;
+  v.n_super = cu.n_super;
+  v.chunk_size = cu.chunk_size;
+  v.super_factor = cu.super_factor;
+  v.reach = margin.reach;
+  v.margin_scale = margin.scale;
+  if (cu.n_chunks == 0) return v;
+  if constexpr (kStaged) {
+    for (int k = tid; k < 6 * cu.n_tests; k += threads) {
+      chunk[k] = __ldg(cu.chunk_bounds + k);
+    }
+    for (int k = tid; k < 6 * cu.n_super; k += threads) {
+      super[k] = __ldg(cu.super_bounds + k);
+    }
+  }
+  if (tid < kNPriors) {
+    const int i = __ldg(cu.priors + tid);
+    prior_index[tid] = i;
+    cull_smem[tid] = __ldg(sweep + i);
+  }
+  __syncthreads();
+  return v;
+}
+
 // The closest-hit sweep culled per warp. The priors' own closest hit
 // (pbt, pbi), least (t, index) first, is kept apart from the sweep's
 // (bt, bi). Before each super-chunk, then before each chunk of an entered
@@ -392,217 +476,220 @@ __device__ __forceinline__ void sweep_culled(const SceneRefs& sc, const CullView
   }
 }
 
-// Bounces [b_lo, b_hi) of one live path. A miss sets the sky colour and a
-// hit on an emissive sphere its light; either ends the path (alive = false,
-// the ray itself left as it was). A path still alive after b_hi keeps
-// colour 0. The kStats instantiation also counts the loop iterations in
-// rc->trips and, in a scene with chunks, the cull tests (sweep_counted).
-// The kStats = false one, given the cull tables of a scene with chunks
-// (cv, in shared memory if kStaged), sweeps per warp what its lanes can
-// enter (sweep_culled).
-template <bool kTextured, bool kStats = false, bool kStaged = true>
-__device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int b_hi, Ray& r,
-                                              RayCounter* rc = nullptr,
-                                              const CullView* cv = nullptr) {
+// One bounce of a live path, the body every kernel runs: the closest hit,
+// then the scatter, which leaves r on the next ray with its throughput
+// attenuated and its RNG state advanced four draws, and returns true. A
+// miss sets the sky colour and a hit on an emissive sphere its light;
+// either ends the path (returns false, alive = false, the ray itself left
+// as it was, the RNG state after the emitter's draws). The kStats
+// instantiation also counts the iteration in rc->trips and, in a scene with
+// chunks, the cull tests of loop iteration k (sweep_counted). The kStats =
+// false one, given the cull tables of a scene with chunks (cv, in shared
+// memory if kStaged), sweeps per warp what its lanes can enter
+// (sweep_culled).
+template <bool kTextured, bool kStats, bool kStaged>
+__device__ __forceinline__ bool bounce_step(const SceneRefs& sc, Ray& r, RayCounter* rc, int k,
+                                            const CullView* cv) {
   const float* __restrict__ sky = sc.sky;
   const float* __restrict__ at = sc.attrs;
   const int n = sc.n;
-  float ox = r.ox, oy = r.oy, oz = r.oz;
-  float dx = r.dx, dy = r.dy, dz = r.dz;
-  float tr = r.tr, tg = r.tg, tb = r.tb;
+  const float ox = r.ox, oy = r.oy, oz = r.oz;
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
   uint32_t state = r.state;
-  for (int bounce = b_lo; bounce < b_hi; ++bounce) {
-    // Closest hit over the prepared spheres.
-    const float od = ox * dx + oy * dy + oz * dz;
-    const float oo = ox * ox + oy * oy + oz * oz;
-    float bt = kMaxT;
-    int bi = -1;
-    if constexpr (kStats) {
-      ++rc->trips;
-      if (rc->cull->n_chunks > 0) {
-        sweep_counted(sc, *rc, bounce - b_lo, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
-      } else {
-        for (int i = 0; i < n; ++i) {
-          sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
-        }
-      }
-    } else if (cv != nullptr && cv->n_chunks > 0) {
-      sweep_culled<kStaged>(sc, *cv, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
+  // Closest hit over the prepared spheres.
+  const float od = ox * dx + oy * dy + oz * dz;
+  const float oo = ox * ox + oy * oy + oz * oz;
+  float bt = kMaxT;
+  int bi = -1;
+  if constexpr (kStats) {
+    ++rc->trips;
+    if (rc->cull->n_chunks > 0) {
+      sweep_counted(sc, *rc, k, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
     } else {
       for (int i = 0; i < n; ++i) {
         sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
       }
     }
-
-    if (bi < 0) {  // miss: sky radiance ends the path
-      const float cos_theta = fabsf(clip1(dy));
-      const float cos_gamma = clip1(dx * sky[30] + dy * sky[31] + dz * sky[32]);
-      const float gamma = acos_approx(cos_gamma);
-      r.cr = sky[27] * sky_channel(sky + 0, cos_theta, gamma, cos_gamma);
-      r.cg = sky[28] * sky_channel(sky + 9, cos_theta, gamma, cos_gamma);
-      r.cb = sky[29] * sky_channel(sky + 18, cos_theta, gamma, cos_gamma);
-      r.alive = false;
-      break;
+  } else if (cv != nullptr && cv->n_chunks > 0) {
+    sweep_culled<kStaged>(sc, *cv, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
+  } else {
+    for (int i = 0; i < n; ++i) {
+      sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
     }
-
-    // Hit record (megakernel.py:962-970); negative radii flip the normal.
-    const float bcx = __ldg(at + kCx * n + bi);
-    const float bcy = __ldg(at + kCy * n + bi);
-    const float bcz = __ldg(at + kCz * n + bi);
-    const float brad = __ldg(at + kRad * n + bi);
-    const float bmid = __ldg(at + kMid * n + bi);
-    const float bmx = __ldg(at + kMx * n + bi);
-    float b1r = __ldg(at + kA1r * n + bi);
-    float b1g = __ldg(at + kA1g * n + bi);
-    float b1b = __ldg(at + kA1b * n + bi);
-    float b2r = __ldg(at + kA2r * n + bi);
-    float b2g = __ldg(at + kA2g * n + bi);
-    float b2b = __ldg(at + kA2b * n + bi);
-    const float px = ox + bt * dx;
-    const float py = oy + bt * dy;
-    const float pz = oz + bt * dz;
-    const float inv_r = 1.0f / brad;
-    const float nx = (px - bcx) * inv_r;
-    const float ny = (py - bcy) * inv_r;
-    const float nz = (pz - bcz) * inv_r;
-
-    if (kTextured) {  // spherical UV (wgsl:431-440) + image fetch
-      const float theta = acos_approx(clip1(-ny));
-      const float phi = atan2_approx(-nz, nx) + kPi;
-      const float u = phi * kInvTwoPi;
-      const float v = theta * kFrac1Pi;
-      tex_lookup(sc.tex_pool, __ldg(at + kT1Base * n + bi), __ldg(at + kT1W * n + bi),
-                 __ldg(at + kT1H * n + bi), u, v, b1r, b1g, b1b);
-      tex_lookup(sc.tex_pool, __ldg(at + kT2Base * n + bi), __ldg(at + kT2W * n + bi),
-                 __ldg(at + kT2H * n + bi), u, v, b2r, b2g, b2b);
-    }
-
-    const float r1 = rng_float(state);
-    const float r2 = rng_float(state);
-    const float r3 = rng_float(state);
-    const float r4 = rng_float(state);
-
-    if (bmid == kEmissive) {  // area light: the path ends with x * albedo
-      r.cr = bmx * b1r;
-      r.cg = bmx * b1g;
-      r.cb = bmx * b1b;
-      r.alive = false;
-      break;
-    }
-
-    float ndx, ndy, ndz, att_r, att_g, att_b;
-    if (bmid == kLambertian || bmid == kCheckerboard) {
-      // pixarOnb + cosine hemisphere (megakernel.py:991-1012)
-      const float sgn = nz >= 0.0f ? 1.0f : -1.0f;
-      const float ia = -1.0f / (sgn + nz);
-      const float bb = nx * ny * ia;
-      const float t1x = 1.0f + sgn * nx * nx * ia;
-      const float t1y = sgn * bb;
-      const float t1z = -sgn * nx;
-      const float t2x = bb;
-      const float t2y = sgn + ny * ny * ia;
-      const float t2z = -ny;
-      const float sqr2 = sqrtf(r2);
-      const float zl = sqrtf(fmaxf(0.0f, 1.0f - r2));
-      const float phi = kTwoPi * r1;
-      const float xl = cosf(phi) * sqr2;
-      const float yl = sinf(phi) * sqr2;
-      ndx = xl * t1x + yl * t2x + zl * nx;
-      ndy = xl * t1y + yl * t2y + zl * ny;
-      ndz = xl * t1z + yl * t2z + zl * nz;
-      const float ndw = nx * ndx + ny * ndy + nz * ndz;
-      const float lam_ratio = (kFrac1Pi * fmaxf(kEps, ndw)) / fmaxf(kEps, ndw * kFrac1Pi);
-      float alr = b1r, alg = b1g, alb = b1b;
-      if (bmid == kCheckerboard) {  // 3D sine parity (wgsl:300-307)
-        const float sines = sinf(5.0f * px) * sinf(5.0f * py) * sinf(5.0f * pz);
-        if (!(sines < 0.0f)) {
-          alr = b2r;
-          alg = b2g;
-          alb = b2b;
-        }
-      }
-      att_r = alr * lam_ratio;
-      att_g = alg * lam_ratio;
-      att_b = alb * lam_ratio;
-    } else {
-      // unit-ball point (metal fuzz / unknown material), megakernel.py:1015-1021
-      const float rr = powf(r1, static_cast<float>(1.0 / 3.0));
-      const float cth = 1.0f - 2.0f * r2;
-      const float sth = sqrtf(fmaxf(0.0f, 1.0f - cth * cth));
-      const float ph3 = kTwoPi * r3;
-      const float ballx = rr * sth * cosf(ph3);
-      const float bally = rr * sth * sinf(ph3);
-      const float ballz = rr * cth;
-      const float ddn2 = 2.0f * (dx * nx + dy * ny + dz * nz);
-      const float rflx = dx - ddn2 * nx;
-      const float rfly = dy - ddn2 * ny;
-      const float rflz = dz - ddn2 * nz;
-      if (bmid == kMetal) {
-        ndx = rflx + bmx * ballx;
-        ndy = rfly + bmx * bally;
-        ndz = rflz + bmx * ballz;
-        att_r = b1r;
-        att_g = b1g;
-        att_b = b1b;
-      } else if (bmid == kDielectric) {  // RTiOW-correct, megakernel.py:1032-1056
-        const float ddn = 0.5f * ddn2;
-        const bool front = ddn < 0.0f;
-        const float osx = front ? nx : -nx;
-        const float osy = front ? ny : -ny;
-        const float osz = front ? nz : -nz;
-        const float eta = front ? 1.0f / bmx : bmx;
-        const float cosine = front ? -ddn : bmx * ddn;
-        const float dt = dx * osx + dy * osy + dz * osz;
-        const float disc_d = 1.0f - eta * eta * (1.0f - dt * dt);
-        const float sqd = sqrtf(fmaxf(disc_d, 0.0f));
-        float r0 = (1.0f - bmx) / (1.0f + bmx);
-        r0 = r0 * r0;
-        const float omc = 1.0f - fminf(fmaxf(cosine, 0.0f), 1.0f);
-        const float omc2 = omc * omc;
-        const float schlick = r0 + (1.0f - r0) * omc2 * omc2 * omc;
-        const float reflect_prob = disc_d > 0.0f ? schlick : 1.0f;
-        if (r4 < reflect_prob) {
-          ndx = rflx;
-          ndy = rfly;
-          ndz = rflz;
-        } else {
-          ndx = eta * (dx - dt * osx) - sqd * osx;
-          ndy = eta * (dy - dt * osy) - sqd * osy;
-          ndz = eta * (dz - dt * osz) - sqd * osz;
-        }
-        att_r = 1.0f;
-        att_g = 1.0f;
-        att_b = 1.0f;
-      } else {  // unknown id: aggressive pink (wgsl:309-314)
-        ndx = nx + ballx;
-        ndy = ny + bally;
-        ndz = nz + ballz;
-        att_r = kPinkR;
-        att_g = kPinkG;
-        att_b = kPinkB;
-      }
-    }
-    const float inv_len = 1.0f / sqrtf(fmaxf(1.0e-24f, ndx * ndx + ndy * ndy + ndz * ndz));
-    tr = tr * att_r;
-    tg = tg * att_g;
-    tb = tb * att_b;
-    ox = px;
-    oy = py;
-    oz = pz;
-    dx = ndx * inv_len;
-    dy = ndy * inv_len;
-    dz = ndz * inv_len;
   }
-  r.ox = ox;
-  r.oy = oy;
-  r.oz = oz;
-  r.dx = dx;
-  r.dy = dy;
-  r.dz = dz;
-  r.tr = tr;
-  r.tg = tg;
-  r.tb = tb;
+
+  if (bi < 0) {  // miss: sky radiance ends the path
+    const float cos_theta = fabsf(clip1(dy));
+    const float cos_gamma = clip1(dx * sky[30] + dy * sky[31] + dz * sky[32]);
+    const float gamma = acos_approx(cos_gamma);
+    r.cr = sky[27] * sky_channel(sky + 0, cos_theta, gamma, cos_gamma);
+    r.cg = sky[28] * sky_channel(sky + 9, cos_theta, gamma, cos_gamma);
+    r.cb = sky[29] * sky_channel(sky + 18, cos_theta, gamma, cos_gamma);
+    r.alive = false;
+    return false;
+  }
+
+  // Hit record (megakernel.py:962-970); negative radii flip the normal.
+  const float bcx = __ldg(at + kCx * n + bi);
+  const float bcy = __ldg(at + kCy * n + bi);
+  const float bcz = __ldg(at + kCz * n + bi);
+  const float brad = __ldg(at + kRad * n + bi);
+  const float bmid = __ldg(at + kMid * n + bi);
+  const float bmx = __ldg(at + kMx * n + bi);
+  float b1r = __ldg(at + kA1r * n + bi);
+  float b1g = __ldg(at + kA1g * n + bi);
+  float b1b = __ldg(at + kA1b * n + bi);
+  float b2r = __ldg(at + kA2r * n + bi);
+  float b2g = __ldg(at + kA2g * n + bi);
+  float b2b = __ldg(at + kA2b * n + bi);
+  const float px = ox + bt * dx;
+  const float py = oy + bt * dy;
+  const float pz = oz + bt * dz;
+  const float inv_r = 1.0f / brad;
+  const float nx = (px - bcx) * inv_r;
+  const float ny = (py - bcy) * inv_r;
+  const float nz = (pz - bcz) * inv_r;
+
+  if (kTextured) {  // spherical UV (wgsl:431-440) + image fetch
+    const float theta = acos_approx(clip1(-ny));
+    const float phi = atan2_approx(-nz, nx) + kPi;
+    const float u = phi * kInvTwoPi;
+    const float v = theta * kFrac1Pi;
+    tex_lookup(sc.tex_pool, __ldg(at + kT1Base * n + bi), __ldg(at + kT1W * n + bi),
+               __ldg(at + kT1H * n + bi), u, v, b1r, b1g, b1b);
+    tex_lookup(sc.tex_pool, __ldg(at + kT2Base * n + bi), __ldg(at + kT2W * n + bi),
+               __ldg(at + kT2H * n + bi), u, v, b2r, b2g, b2b);
+  }
+
+  const float r1 = rng_float(state);
+  const float r2 = rng_float(state);
+  const float r3 = rng_float(state);
+  const float r4 = rng_float(state);
+
+  if (bmid == kEmissive) {  // area light: the path ends with x * albedo
+    r.cr = bmx * b1r;
+    r.cg = bmx * b1g;
+    r.cb = bmx * b1b;
+    r.alive = false;
+    r.state = state;
+    return false;
+  }
+
+  float ndx, ndy, ndz, att_r, att_g, att_b;
+  if (bmid == kLambertian || bmid == kCheckerboard) {
+    // pixarOnb + cosine hemisphere (megakernel.py:991-1012)
+    const float sgn = nz >= 0.0f ? 1.0f : -1.0f;
+    const float ia = -1.0f / (sgn + nz);
+    const float bb = nx * ny * ia;
+    const float t1x = 1.0f + sgn * nx * nx * ia;
+    const float t1y = sgn * bb;
+    const float t1z = -sgn * nx;
+    const float t2x = bb;
+    const float t2y = sgn + ny * ny * ia;
+    const float t2z = -ny;
+    const float sqr2 = sqrtf(r2);
+    const float zl = sqrtf(fmaxf(0.0f, 1.0f - r2));
+    const float phi = kTwoPi * r1;
+    const float xl = cosf(phi) * sqr2;
+    const float yl = sinf(phi) * sqr2;
+    ndx = xl * t1x + yl * t2x + zl * nx;
+    ndy = xl * t1y + yl * t2y + zl * ny;
+    ndz = xl * t1z + yl * t2z + zl * nz;
+    const float ndw = nx * ndx + ny * ndy + nz * ndz;
+    const float lam_ratio = (kFrac1Pi * fmaxf(kEps, ndw)) / fmaxf(kEps, ndw * kFrac1Pi);
+    float alr = b1r, alg = b1g, alb = b1b;
+    if (bmid == kCheckerboard) {  // 3D sine parity (wgsl:300-307)
+      const float sines = sinf(5.0f * px) * sinf(5.0f * py) * sinf(5.0f * pz);
+      if (!(sines < 0.0f)) {
+        alr = b2r;
+        alg = b2g;
+        alb = b2b;
+      }
+    }
+    att_r = alr * lam_ratio;
+    att_g = alg * lam_ratio;
+    att_b = alb * lam_ratio;
+  } else {
+    // unit-ball point (metal fuzz / unknown material), megakernel.py:1015-1021
+    const float rr = powf(r1, static_cast<float>(1.0 / 3.0));
+    const float cth = 1.0f - 2.0f * r2;
+    const float sth = sqrtf(fmaxf(0.0f, 1.0f - cth * cth));
+    const float ph3 = kTwoPi * r3;
+    const float ballx = rr * sth * cosf(ph3);
+    const float bally = rr * sth * sinf(ph3);
+    const float ballz = rr * cth;
+    const float ddn2 = 2.0f * (dx * nx + dy * ny + dz * nz);
+    const float rflx = dx - ddn2 * nx;
+    const float rfly = dy - ddn2 * ny;
+    const float rflz = dz - ddn2 * nz;
+    if (bmid == kMetal) {
+      ndx = rflx + bmx * ballx;
+      ndy = rfly + bmx * bally;
+      ndz = rflz + bmx * ballz;
+      att_r = b1r;
+      att_g = b1g;
+      att_b = b1b;
+    } else if (bmid == kDielectric) {  // RTiOW-correct, megakernel.py:1032-1056
+      const float ddn = 0.5f * ddn2;
+      const bool front = ddn < 0.0f;
+      const float osx = front ? nx : -nx;
+      const float osy = front ? ny : -ny;
+      const float osz = front ? nz : -nz;
+      const float eta = front ? 1.0f / bmx : bmx;
+      const float cosine = front ? -ddn : bmx * ddn;
+      const float dt = dx * osx + dy * osy + dz * osz;
+      const float disc_d = 1.0f - eta * eta * (1.0f - dt * dt);
+      const float sqd = sqrtf(fmaxf(disc_d, 0.0f));
+      float r0 = (1.0f - bmx) / (1.0f + bmx);
+      r0 = r0 * r0;
+      const float omc = 1.0f - fminf(fmaxf(cosine, 0.0f), 1.0f);
+      const float omc2 = omc * omc;
+      const float schlick = r0 + (1.0f - r0) * omc2 * omc2 * omc;
+      const float reflect_prob = disc_d > 0.0f ? schlick : 1.0f;
+      if (r4 < reflect_prob) {
+        ndx = rflx;
+        ndy = rfly;
+        ndz = rflz;
+      } else {
+        ndx = eta * (dx - dt * osx) - sqd * osx;
+        ndy = eta * (dy - dt * osy) - sqd * osy;
+        ndz = eta * (dz - dt * osz) - sqd * osz;
+      }
+      att_r = 1.0f;
+      att_g = 1.0f;
+      att_b = 1.0f;
+    } else {  // unknown id: aggressive pink (wgsl:309-314)
+      ndx = nx + ballx;
+      ndy = ny + bally;
+      ndz = nz + ballz;
+      att_r = kPinkR;
+      att_g = kPinkG;
+      att_b = kPinkB;
+    }
+  }
+  const float inv_len = 1.0f / sqrtf(fmaxf(1.0e-24f, ndx * ndx + ndy * ndy + ndz * ndz));
+  r.tr = r.tr * att_r;
+  r.tg = r.tg * att_g;
+  r.tb = r.tb * att_b;
+  r.ox = px;
+  r.oy = py;
+  r.oz = pz;
+  r.dx = ndx * inv_len;
+  r.dy = ndy * inv_len;
+  r.dz = ndz * inv_len;
   r.state = state;
+  return true;
+}
+
+// Bounces [b_lo, b_hi) of one live path, one bounce_step each, until
+// one ends it. A path still alive after b_hi keeps colour 0.
+template <bool kTextured, bool kStats = false, bool kStaged = true>
+__device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int b_hi, Ray& r,
+                                              RayCounter* rc = nullptr,
+                                              const CullView* cv = nullptr) {
+  for (int bounce = b_lo; bounce < b_hi; ++bounce) {
+    if (!bounce_step<kTextured, kStats, kStaged>(sc, r, rc, bounce - b_lo, cv)) break;
+  }
 }
 
 }  // namespace

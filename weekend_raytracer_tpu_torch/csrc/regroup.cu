@@ -38,13 +38,14 @@
 //   - The box tables in shared memory: every lane tests every box each
 //     bounce, so each block stages the chunk and super-chunk bounds and
 //     the priors' sweep rows once, before its first bounce, with
-//     cooperative loads (stage_cull: 824 B on RTiOW, 8,240 B on
-//     random_spheres(10000)). TMA buys nothing for a few KiB loaded once
-//     per block. Boxes above kStageBytes (about 1,800 chunk and super
-//     boxes, some 57,000 spheres at 32 a chunk) would cost blocks an SM,
-//     so such a scene reads them from global memory through __ldg at the
-//     same warp-uniform addresses (the kStaged = false instantiations);
-//     the launch picks the placement from the table's size. The sphere
+//     cooperative loads (bounce.cuh stage_cull, which the megakernel
+//     shares: 824 B on RTiOW, 8,240 B on random_spheres(10000)). TMA buys
+//     nothing for a few KiB loaded once per block. Boxes above
+//     kStageBytes (about 1,800 chunk and super boxes, some 57,000 spheres
+//     at 32 a chunk) would cost blocks an SM, so such a scene reads them
+//     from global memory through __ldg at the same warp-uniform addresses
+//     (the kStaged = false instantiations); the launch picks the placement
+//     from the table's size (cull_staged). The sphere
 //     table stays in global memory: the warp reads one row at a time at a
 //     warp-uniform address, which the L1 broadcasts, and
 //     random_spheres(10000)'s 160 KiB would leave one block of 256
@@ -92,10 +93,6 @@ constexpr int kThreads = 256;    // K0, K1: one thread per record
 // megakernel does: at 48 it spills.
 constexpr int kTraceMinBlocks = 5;
 constexpr int kStatsMinBlocks = 4;
-// The most dynamic shared memory a block of K0 or K1 stages: five blocks
-// an SM, each with the 1 KiB the runtime reserves, fit an H100 SM's
-// 228 KiB, and the 48 KiB a launch gets without opting in.
-constexpr size_t kStageBytes = 44 * 1024;
 
 // Image geometry of the tiles: width, height, tiles across, log2(spp).
 struct Tiling {
@@ -121,75 +118,6 @@ __device__ __forceinline__ uint32_t seed_pixel(const Tiling& g, int x, int y,
                                                uint32_t row_offset) {
   const uint32_t y_g = static_cast<uint32_t>(y) + row_offset;
   return y_g * static_cast<uint32_t>(g.width) + static_cast<uint32_t>(x);
-}
-
-// The two scene terms of each lane's box margin in sweep_culled
-// (KernelInputs.cull_reach and cull_scale).
-struct CullMargin {
-  float reach, scale;
-};
-
-// Whether K0 and K1 stage a scene's chunk and super-chunk boxes in shared
-// memory: while they and the priors' rows fit kStageBytes.
-inline bool cull_staged(const CullRefs& cu) {
-  return kNPriors * (sizeof(float4) + sizeof(int)) +
-             6 * sizeof(float) * (cu.n_tests + cu.n_super) <=
-         kStageBytes;
-}
-
-// Dynamic shared bytes of a block of K0 or K1 (stage_cull): the priors'
-// sweep rows and indices, then the chunk and super-chunk boxes where
-// cull_staged; 0 without a chunk hierarchy.
-inline size_t cull_smem_bytes(const CullRefs& cu) {
-  if (cu.n_chunks == 0) return 0;
-  return kNPriors * (sizeof(float4) + sizeof(int)) +
-         (cull_staged(cu) ? 6 * sizeof(float) * (cu.n_tests + cu.n_super) : 0);
-}
-
-// The cull view of a block of K0 or K1, staged once before its first
-// bounce; every thread of the block must call it. The priors' rows go to
-// shared memory, and the exact boxes too where kStaged (the launch's
-// choice, cull_staged), with cooperative loads: a few KiB at most.
-template <bool kStaged>
-__device__ __forceinline__ CullView stage_cull(const CullRefs& cu, const float4* sweep,
-                                               const CullMargin& margin) {
-  extern __shared__ float4 cull_smem[];
-  int* prior_index = reinterpret_cast<int*>(cull_smem + kNPriors);
-  float* chunk = reinterpret_cast<float*>(prior_index + kNPriors);
-  float* super = chunk + 6 * cu.n_tests;
-  CullView v;
-  v.prior = cull_smem;
-  v.prior_index = prior_index;
-  if constexpr (kStaged) {
-    v.chunk = chunk;
-    v.super = super;
-  } else {
-    v.chunk = cu.chunk_bounds;
-    v.super = cu.super_bounds;
-  }
-  v.n_chunks = cu.n_chunks;
-  v.n_tests = cu.n_tests;
-  v.n_super = cu.n_super;
-  v.chunk_size = cu.chunk_size;
-  v.super_factor = cu.super_factor;
-  v.reach = margin.reach;
-  v.margin_scale = margin.scale;
-  if (cu.n_chunks == 0) return v;
-  if constexpr (kStaged) {
-    for (int k = threadIdx.x; k < 6 * cu.n_tests; k += blockDim.x) {
-      chunk[k] = __ldg(cu.chunk_bounds + k);
-    }
-    for (int k = threadIdx.x; k < 6 * cu.n_super; k += blockDim.x) {
-      super[k] = __ldg(cu.super_bounds + k);
-    }
-  }
-  if (threadIdx.x < kNPriors) {
-    const int i = __ldg(cu.priors + threadIdx.x);
-    prior_index[threadIdx.x] = i;
-    cull_smem[threadIdx.x] = __ldg(sweep + i);
-  }
-  __syncthreads();
-  return v;
 }
 
 struct K0Args {

@@ -13,7 +13,10 @@ see that file for what bounds it on the card and how its design answers.
 - ``render_image_megakernel`` is the counterpart of ``render_image_pallas``:
   one progressive frame, accumulated in place into ``accum``. On a CUDA
   tensor it launches the kernel or raises; on a CPU tensor it runs
-  ``render_image_megakernel_plain``.
+  ``render_image_megakernel_plain``. The kernel culls its sweep per warp
+  and refills each lane's samples (csrc/megakernel.cu); neither changes a
+  bit of the frame, which the plain version computes with the full sweep,
+  one sample after another.
 - ``render_image_megakernel_plain`` is the same computation in plain
   PyTorch, vectorized over pixels, for the CPU tests and for holding the
   kernel to it on the card.
@@ -39,8 +42,8 @@ from ..tracer import Scene
 from .build import load_library
 
 N_PRIORS = 4  # largest-|radius| spheres (the TPU kernel seeds best-t with them)
-# Regroup K0's and K1's per-warp cull (csrc/bounce.cuh sweep_culled,
-# cull.py) tests each box widened by a margin of the lane's own,
+# The per-warp cull of regroup K0 and K1 and the megakernel (csrc/bounce.cuh
+# sweep_culled, cull.py) tests each box widened by a margin of the lane's own,
 #     m = cull_scale * (|o| + cull_reach)^2, where
 #     cull_reach = max(|c| + |r|), cull_scale = CULL_MARGIN_ULPS * u / min |r|
 # over the spheres that are not priors (a prior's hit joins after the
@@ -180,8 +183,8 @@ def build_kernel_texture_pool(mat, budget_texels: int = DEFAULT_TEXTURE_BUDGET):
 
 def default_chunk_size(n_spheres: int) -> int:
     """The JAX package's chunk size: 16 up to 2048 spheres, 32 above
-    (chosen for its culled sweep; regroup's K0 and K1 cull per warp on the
-    same chunks, the megakernel and the wavefront sweep every sphere)."""
+    (chosen for its culled sweep; regroup's K0 and K1 and the megakernel
+    cull per warp on the same chunks, the wavefront sweeps every sphere)."""
     return 16 if n_spheres <= 2048 else 32
 
 
@@ -271,12 +274,13 @@ class KernelInputs(NamedTuple):
     """What the kernel reads, laid out for it (shared with the plain twin).
 
     The chunk hierarchy (the last nine fields) is read by regroup's K0 and
-    K1, which cull their sweep per warp with it, and by the kStats
-    instantiations, which count the TPU kernel's cull decisions; it is a
+    K1 and the megakernel, which cull their sweep per warp with it, and by
+    the kStats instantiations, which count the TPU kernel's cull decisions
+    and sweep every sphere; it is a
     few KiB (RTiOW: 6 x 31 chunk bounds, 744 bytes; random_spheres(10000):
     6 x 320 chunk and 6 x 20 super bounds, 8,160 bytes). Its boxes are the
-    exact ones of the JAX package; K0 and K1 widen them per lane by the
-    margin of CULL_MARGIN_ULPS, from cull_reach and cull_scale."""
+    exact ones of the JAX package; the culled kernels widen them per lane
+    by the margin of CULL_MARGIN_ULPS, from cull_reach and cull_scale."""
 
     cam: torch.Tensor  # [20] f32
     sky: torch.Tensor  # [33] f32
@@ -379,40 +383,54 @@ def _library():
     if fn.argtypes is None:
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
         frame = [vp, vp, vp, vp, vp, vp, i, i, i, f, f, u, u, i, i, i]
-        fn.argtypes = frame + [vp]
+        fn.argtypes = frame + CULL_ARGTYPES + [f, f, vp]
         fn.restype = ctypes.c_int
         st = built.lib.wrt_megakernel_stats_launch
         st.argtypes = frame + CULL_ARGTYPES + [vp, ctypes.c_longlong, vp, vp]
         st.restype = ctypes.c_int
         attr = built.lib.wrt_megakernel_attributes
-        attr.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        attr.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
         attr.restype = ctypes.c_int
+        bounds = built.lib.wrt_megakernel_launch_bounds
+        bounds.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+        bounds.restype = None
     return built
 
 
-def kernel_attributes(textured: bool, stats: bool = False) -> dict:
-    """Registers per thread and local-memory bytes of the built kernel."""
+def kernel_attributes(textured: bool, stats: bool = False, staged: bool = True) -> dict:
+    """Registers per thread and local-memory bytes of the built kernel;
+    ``staged`` (stats=False only) picks the instantiation that reads the
+    box tables from shared memory, else the one that reads them from
+    global memory."""
     built = _library()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = built.lib.wrt_megakernel_attributes(int(textured), int(stats), ctypes.byref(regs),
-                                              ctypes.byref(local))
+    err = built.lib.wrt_megakernel_attributes(int(textured), int(stats), int(staged),
+                                              ctypes.byref(regs), ctypes.byref(local))
     if err:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
     return {"registers": regs.value, "local_bytes": local.value}
+
+
+def launch_bounds() -> tuple:
+    """(threads a block, blocks an SM) of the kStats = false
+    instantiations' ``__launch_bounds__`` (0 blocks: no minimum)."""
+    threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    _library().lib.wrt_megakernel_launch_bounds(ctypes.byref(threads), ctypes.byref(blocks))
+    return threads.value, blocks.value
 
 
 def _stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# ctypes types of cull_args(), as both libraries' kStats entry points take them
+# ctypes types of cull_args(), as the culled and kStats entry points take them
 CULL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
 
 
 def cull_args(inp: KernelInputs, device) -> tuple:
-    """The chunk hierarchy as a kStats entry point takes it, after checking
-    it: three device pointers, then n_chunks, n_tests, n_super,
-    chunk_size, super_factor."""
+    """The chunk hierarchy as a culled or kStats entry point takes it,
+    after checking it: three device pointers, then n_chunks, n_tests,
+    n_super, chunk_size, super_factor."""
     for t, shape, dtype in ((inp.chunk_bounds, (6, max(inp.n_tests, 1)), _F32),
                             (inp.super_bounds, (6, max(inp.n_super, 1)), _F32),
                             (inp.prior_idx, (N_PRIORS,), torch.int32)):
@@ -559,13 +577,14 @@ def launch_megakernel(accum: torch.Tensor, inp: KernelInputs, frame, clear, *,
         float(np.float32(1.0 / width)), float(np.float32(1.0 / fh)),
         int(frame) & rng.MASK32, int(row_offset) & rng.MASK32, int(bool(clear)),
         spp, num_bounces)
+    cull = cull_args(inp, accum.device)
     if not stats:
-        err = lib.wrt_megakernel_launch(*frame_args, _stream_handle(accum.device))
+        err = lib.wrt_megakernel_launch(*frame_args, *cull, _f32(inp.cull_reach),
+                                        _f32(inp.cull_scale), _stream_handle(accum.device))
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
         render_image_megakernel.launches += 1
         return accum
-    cull = cull_args(inp, accum.device)
     n_tiles = stats_tiles(width, height)
     words = stats_scratch_words(n_tiles * spp, num_bounces, inp)
     scratch = torch.empty((words,), dtype=torch.int32, device=accum.device)
