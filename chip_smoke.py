@@ -35,10 +35,11 @@ refilled, for its bounds.
 
 The ``[wavefront]`` phase drives COMPACT and K1 through
 ``render_image_wavefront(..., phase_cuts=...)`` at 1080p x 32 spp and holds
-the wavefront in every bit against regroup (two frames), against the
-megakernel at one sample per pixel, and against itself under four cut
-schedules; COMPACT against its twin bit for bit and K1 against its twin
-on the whole dense pool at the first cut.
+the wavefront, whose K0 and K1 cull their sweep per warp (K0's lanes
+refilled, K1's live lanes regrouped per block), in every bit against
+regroup (two frames), against the megakernel at one sample per pixel, and
+against itself under four cut schedules; COMPACT against its twin bit for
+bit and K1 against its twin on the whole dense pool at the first cut.
 
 The ``[stats]`` phase holds the two stats kernels (the megakernel's and
 K1's kStats instantiations) against their twins at small sizes (a
@@ -50,13 +51,17 @@ K0 -> PACK -> K1(stats) at the first cut of RTiOW 1920x1080 x 32 spp. Each
 full-size table is held against the twin on a part of it (the last row of
 TPU tiles, the last dense tiles); the phase prints the summaries and times
 each stats kernel against its kStats = false twin. ``[cull]`` holds
-regroup, whose K0 and K1 cull their sweep per warp, against the unculled
-wavefront in every bit (RTiOW 1920x1080 x 32 spp over two frames,
-random_spheres(10000) at 3840x2160 x 4 spp, and random_spheres(60000),
-whose boxes K0 and K1 read from global memory, at 1920x1080 x 1 spp) and
-against the megakernel at one sample per pixel, and prints the sphere
-and box tests per live segment that each lane's own decisions need and
-that the warp vote runs. ``[trace]`` runs one regroup
+regroup and the wavefront, whose K0 and K1 cull their sweep per warp,
+against the full-sweep wavefront (K0's and K1's kCull = false
+instantiations) in every bit, the wavefront at four cut schedules (RTiOW
+1920x1080 x 32 spp over two frames, random_spheres(10000) at 3840x2160 x 4
+spp, and random_spheres(60000), whose boxes K0 and K1 read from global
+memory, at 1920x1080 x 1 spp), and both against the stats megakernel's
+full sweep at one sample per pixel; it prints the sphere and box tests
+per live segment that each lane's own decisions need and that the warp
+vote runs (regroup's warps, and the wavefront's refilled and regrouped
+ones), and times random_spheres(60000)'s culled kernels with CUDA events,
+its census taken in a child process. ``[trace]`` runs one regroup
 1080p frame under ``utils.metrics.profiler_trace`` and prints what the
 profiler saw beside the CUDA-event stage times. The ``kernels`` line gives
 every kernel its time, its twin's, its bound (the least time the card could
@@ -178,7 +183,9 @@ STATS_SUM_GATE = 0.01
 STATS_SUM_GATE_RANDOM = 0.03
 _RANDOM_SCENES = ("super", "random10k")
 REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
-CULLED_KERNELS = ("k0", "k1", "megakernel")  # the kernels that cull per warp
+# the kernels that cull per warp ("wavefront_k0_nocut": the Renderer's K0,
+# all bounces in one launch)
+CULLED_KERNELS = ("k0", "k1", "megakernel", "wavefront_k0", "wavefront_k0_nocut", "wavefront_k1")
 WAVEFRONT_KERNELS = ("k0", "compact", "k1")
 REORDER_KERNELS = ("record_gather", "record_scatter", "dma_rate")
 SWEEP_KERNELS = ("sweep_fma", "sweep_mma_tf32", "sweep_mma_3xtf32", "dot_mma", "layout")
@@ -199,17 +206,20 @@ _STATS_MK = (("rtiow", 1920, 1080), ("random10k", 3840, 2160))
 _STATS_MK_RUN = dict(spp=4, bounces=8, frame=1)
 _STATS_K1 = dict(width=1920, height=1080, spp=32, bounces=8, frame=0)
 SLAB_TEST_OPS = 12  # per chunk or super-chunk box: 6 subtractions, 6 products
-# the [cull] phase: scene, width, height, spp, frames of regroup (K0 and K1
-# culled per warp) against the unculled wavefront; and the rows of the
-# frame whose rays rg.cull_census counts (None: all; random10k: the middle
-# row of tiles, since the twins' sweep of 10,016 spheres over 33M rays
-# would take minutes; 0: none). random_spheres(60000)'s 48,144 bytes of
-# boxes pass what a block stages, so K0 and K1 read them from global
-# memory. Its census (some 10^5 small launches of the twins) is left out:
-# with it, later profiler traces of the [access] phase in this process
-# lost all their device events (three runs of three on an H100).
+# the [cull] phase: scene, width, height, spp, frames of regroup and the
+# wavefront (K0 and K1 culled per warp) against the full-sweep wavefront;
+# and the rows of the frame whose rays rg.cull_census counts (None: all,
+# with cull.wavefront_census too; else the middle row of tiles, since the
+# twins' sweep of 10,016 spheres over 33M rays would take minutes).
+# random_spheres(60000)'s 48,144 bytes of boxes pass what a block
+# stages, so K0 and K1 read them from global memory. Each census (up to
+# some 10^5 small launches of the twins) runs in a child process
+# (``--child NAME``, NAME a case or "timing", the [timing] shape), so that
+# none adds its launches to this process: with random60k's census in it,
+# later profiler traces of the [access] phase lost all their device events
+# (three runs of three on an H100).
 _CULL_CASES = (("rtiow", 1920, 1080, 32, 2, None), ("random10k", 3840, 2160, 4, 1, 32),
-               ("random60k", 1920, 1080, 1, 1, 0))
+               ("random60k", 1920, 1080, 1, 1, 32))
 # the [megakernel] phase: scene, width, height, spp, bounces of the
 # megakernel against the stats megakernel's full sweep in every
 # bit (random_spheres(60000): boxes in global memory; first_hit: one
@@ -874,6 +884,38 @@ def _census_lines(census) -> dict:
     return out
 
 
+def _wf_spans(spans) -> list:
+    """A wavefront census's spans (cull.CensusSpan) as rg.cull_census
+    gives its own: [((b_lo, b_hi), [CullCount of each step])]."""
+    return [(sp.span, [st.count for st in sp.steps]) for sp in spans]
+
+
+def _census_line(res: dict) -> dict:
+    """The fields of a [cull] census line (JSON): regroup's sphere tests
+    (the priors' included) per live segment for each lane's own decisions
+    and under the warp vote, K0 and K1 apart; the wavefront's K0 at _CUTS,
+    its K1s, and its K0 with no cuts, each summed over its warps' steps
+    (_census_totals); regroup's per bounce (_census_lines)."""
+    c = res["census"]
+
+    def totals(spans):
+        return _census_totals([st for sp in spans for st in sp.steps])
+
+    out = {"rows": res["census_rows"],
+           "k0_tests_per_segment": round(_per_segment(c[:1]), 2),
+           "k1_tests_per_segment": round(_per_segment(c[1:]), 2),
+           "k0_vote_tests_per_segment": round(_per_segment(c[:1], own=False), 2),
+           "k1_vote_tests_per_segment": round(_per_segment(c[1:], own=False), 2),
+           "live_own_spheres_priors_boxes_vote_spheres_boxes_per_bounce": _census_lines(c),
+           "seconds": round(res["census_s"], 1)}
+    if "wf_census" in res:
+        out["wavefront"] = {"k0": totals(res["wf_census"][:1]),
+                            "k1": totals(res["wf_census"][1:]),
+                            "k0_nocut": totals(res["wf_census_nocut"]),
+                            "rows": [sp.rows for sp in res["wf_census"]]}
+    return out
+
+
 def _per_segment(spans, own: bool = True) -> float:
     """Sphere tests per live segment (the priors' included) over spans of
     a census: those each lane's own decisions need, or (own=False) those
@@ -884,20 +926,163 @@ def _per_segment(spans, own: bool = True) -> float:
     return tests / max(live, 1)
 
 
+def _cull_censuses(inp, w, h, spp, band) -> dict:
+    """The censuses of a [cull] case on the twins' rays of frame 0, on the
+    rows ``band`` asks for (None: all; else the middle row of tiles, ``band``
+    rows): rg.cull_census of regroup's K0 and K1 at _CUTS, and, of the whole
+    frame, cull.wavefront_census of the wavefront's at _CUTS and with no
+    cuts (the Renderer's one K0). The wavefront's refilled warps take a
+    step a bounce of a lane's slot, some hundreds of steps a frame, each
+    through the twin of the vote over every chunk: random_spheres(60000)'s
+    1,875 took 440 s on a row of tiles, so the banded cases count
+    regroup's warps alone. Each lane's own counts of the two censuses at
+    _CUTS must agree: the same rays, grouped otherwise."""
+    from weekend_raytracer_tpu_torch.ops.cuda import cull
+    from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg
+
+    rows = (0, h) if band is None else ((h // 2) // 32 * 32, (h // 2) // 32 * 32 + band)
+    t = rg.plan(w, rows[1] - rows[0], spp, 8, _CUTS, row_offset=rows[0], full_height=h)[0]
+    t0 = time.perf_counter()
+    census = rg.cull_census(inp, t, 0, _CUTS, 8)
+    if band is not None:
+        return {"census_rows": list(rows), "census_s": time.perf_counter() - t0,
+                "census": census}
+    wf_census = cull.wavefront_census(inp, t, 0, _CUTS, 8)
+    wf_nocut = cull.wavefront_census(inp, t, 0, (), 8)
+    own = [[(c.live, c.prior_tests, c.own_sphere_tests, c.own_box_tests) for c in counts]
+           for _, counts in census]
+    for spans in (wf_census, wf_nocut):
+        _check(sum(sum(sp.live) for sp in spans) == sum(c.live for _, counts in census
+                                                          for c in counts),
+               ("the wavefront census's live segments are not regroup's", rows))
+    wf_own = []
+    for sp in wf_census:
+        total = cull.CullCount(0, 0, 0, 0, 0, 0)
+        for st in sp.steps:
+            total = total.plus(st.count)
+        wf_own.append(total)
+    _check([(c.live, c.prior_tests, c.own_sphere_tests, c.own_box_tests) for c in wf_own]
+           == [tuple(map(sum, zip(*k))) for k in own],
+           ("the wavefront census's own counts are not regroup's", rows))
+    return {"census_rows": list(rows), "census_s": time.perf_counter() - t0, "census": census,
+            "wf_census": wf_census, "wf_census_nocut": wf_nocut}
+
+
+def _child_census(name: str) -> int:
+    """``--child NAME``: _cull_censuses of [cull]'s case NAME, or of the
+    [timing] shape (NAME "timing"), in this process, printed as one JSON
+    line: the census line's fields (_census_line), regroup's census, and
+    each wavefront span's counts summed over its steps."""
+    from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk
+
+    if name == "timing":
+        scene, w, h, spp, band = (_TIMING["scene"], _TIMING["width"], _TIMING["height"],
+                                  _TIMING["spp"], None)
+    else:
+        (case,) = [c for c in _CULL_CASES if c[0] == name]
+        scene, w, h, spp, _, band = case
+    res = _cull_censuses(mk.kernel_inputs(*_case(scene, w, h, "cuda")), w, h, spp, band)
+
+    def span_sum(sp):
+        total = (0,) * 6
+        for st in sp.steps:
+            total = tuple(a + b for a, b in zip(total, st.count))
+        return {"span": sp.span, "count": total, "warps": sum(st.warps for st in sp.steps),
+                "live": sp.live, "rows": sp.rows}
+
+    out = {"line": _census_line(res),
+           "census": [[span, [list(c) for c in counts]] for span, counts in res["census"]]}
+    if "wf_census" in res:
+        out["wf"] = {key: [span_sum(sp) for sp in res[key]]
+                     for key in ("wf_census", "wf_census_nocut")}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _census_in_child(name: str) -> dict:
+    """_child_census in a child process (with a time limit, killed past
+    it): its census line, regroup's census as rg.cull_census gives it, and
+    the wavefront's spans (cull.CensusSpan) with one step each, their
+    counts summed (what _wf_bounds reads)."""
+    from weekend_raytracer_tpu_torch.ops.cuda import cull
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", name],
+                         capture_output=True, text=True, timeout=900)
+    _check(out.returncode == 0, (f"the {name} census child failed", out.stderr[-3000:]))
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    res = {"census_line": {**got["line"], "child_s": round(time.perf_counter() - t0, 1)},
+           "census": [(tuple(span), [cull.CullCount(*c) for c in counts])
+                      for span, counts in got["census"]]}
+    for key, spans in got.get("wf", {}).items():
+        res[key] = [cull.CensusSpan(tuple(sp["span"]),
+                                    [cull.CensusStep(cull.CullCount(*sp["count"]), sp["warps"])],
+                                    sp["live"], sp["rows"], None) for sp in spans]
+    return res
+
+
+def _wf_schedules_vs_full(mk, rg, wf, ro, sw, inp, kw, frames, ref) -> dict:
+    """The culled wavefront at every _WF_SCHEDULES, over ``frames`` frames
+    (the later ones accumulated), against ``ref``, the full sweep's
+    accumulator, in every bit; the launches counted from 0: one K0 a
+    frame, one COMPACT and K1 a cut."""
+    acc = torch.zeros_like(ref)
+    torch.cuda.synchronize()
+    _zero_launch_counts(mk, rg, wf, ro, sw)
+    for cuts in _WF_SCHEDULES:
+        for f in range(frames):
+            wf.launch_wavefront(acc, inp, f, f == 0, phase_cuts=cuts, **kw)
+        torch.cuda.synchronize()
+        _check(torch.equal(acc, ref), ("the culled wavefront is not the full sweep", cuts,
+                                       _compare(ref, acc, kw["width"], kw["height"])))
+    launches = _launch_counts(mk, rg, wf, ro, sw)
+    n = frames * sum(len(c) for c in _WF_SCHEDULES)
+    want = {**dict.fromkeys(launches, 0), "wavefront_k0": frames * len(_WF_SCHEDULES),
+            "wavefront_compact": n, "wavefront_k1": n}
+    _check(launches == want, ("culled wavefront launches", launches, want))
+    return launches
+
+
+def _cull_times(rg, wf, inp, kw) -> dict:
+    """CUDA-event stage times (least of two frames after a warm one) of
+    one frame: regroup at _CUTS per kernel, the wavefront with no cuts (the
+    Renderer's one K0) and at _CUTS per kernel."""
+    acc = torch.zeros((kw["width"] * kw["height"], 3), device="cuda")
+    runs = {
+        "regroup": (lambda mark: rg.launch_regrouped(acc, inp, 0, True, cuts=_CUTS,
+                                                     on_stage=mark, **kw), REGROUP_KERNELS),
+        "wavefront_nocut": (lambda mark: wf.launch_wavefront(acc, inp, 0, True, on_stage=mark,
+                                                             **kw), ("k0", "fold")),
+        "wavefront_cuts": (lambda mark: wf.launch_wavefront(acc, inp, 0, True, phase_cuts=_CUTS,
+                                                            on_stage=mark, **kw),
+                           WAVEFRONT_KERNELS + ("fold",))}
+    out = {}
+    for name, (run, kernels) in runs.items():
+        run(lambda stage: None)
+        times = [_per_kernel(_stage_ms(run), kernels) for _ in range(2)]
+        out[name] = {k: min(t[k] for t in times) for k in kernels}
+    return out
+
+
 def _cull_paths(mk, rg, wf, ro, sw) -> dict:
     """The per-warp cull of K0 and K1 at full size (_CULL_CASES): the
-    regroup accumulator, through launch_regrouped with its launches
-    counted from 0, equals the wavefront's (which sweeps every sphere) in
-    every bit over the case's frames, the second accumulated; at one sample
-    per pixel it equals the megakernel's. Then, where the case asks,
-    rg.cull_census counts on the twins' rays of frame 0 the
-    tests each lane's own cull decisions need and those the warp vote
-    makes the lanes run."""
+    full-sweep wavefront (K0's and K1's kCull = false instantiations, no
+    cuts) over the case's frames, the second accumulated, is the
+    reference; the regroup accumulator, through launch_regrouped with its
+    launches counted from 0, and the culled wavefront's at every
+    _WF_SCHEDULES equal it in every bit. At one sample per pixel regroup
+    and the wavefront (no cuts and _CUTS) equal the stats megakernel's
+    full sweep. Then each case's kernels are timed with CUDA events, and
+    the censuses (_cull_censuses, each in a child process) are left to the
+    caller."""
     out = {}
     for name, w, h, spp, frames, band in _CULL_CASES:
         inp = mk.kernel_inputs(*_case(name, w, h, "cuda"))
         kw = dict(width=w, height=h, spp=spp, num_bounces=8)
-        acc = torch.zeros((w * h, 3), device="cuda")
+        ref = torch.zeros((w * h, 3), device="cuda")
+        for f in range(frames):
+            wf._launch_wavefront_full_sweep(ref, inp, f, f == 0, **kw)
+        acc = torch.zeros_like(ref)
         torch.cuda.synchronize()
         _zero_launch_counts(mk, rg, wf, ro, sw)
         for f in range(frames):
@@ -908,35 +1093,36 @@ def _cull_paths(mk, rg, wf, ro, sw) -> dict:
         want = {**dict.fromkeys(launches, 0), "k0": frames, "pack": n, "k1": n,
                 "combine": frames}
         _check(launches == want, ("cull launches", name, launches, want))
-        ref = torch.zeros_like(acc)
-        for f in range(frames):
-            wf.launch_wavefront(ref, inp, f, f == 0, **kw)
-        torch.cuda.synchronize()
-        _check(torch.equal(acc, ref), ("culled regroup is not the wavefront", name,
+        _check(torch.equal(acc, ref), ("culled regroup is not the full sweep", name,
                                        _compare(ref, acc, w, h)))
+        del acc
+        wf_launches = _wf_schedules_vs_full(mk, rg, wf, ro, sw, inp, kw, frames, ref)
         del ref
         one = dict(kw, spp=1)
-        a, m = torch.zeros_like(acc), torch.zeros_like(acc)
-        rg.launch_regrouped(a, inp, 0, True, cuts=_CUTS, **one)
-        mk.launch_megakernel(m, inp, 0, True, **one)
-        torch.cuda.synchronize()
-        one_spp = int((a != m).any(dim=1).sum())
-        _check(one_spp == 0, ("culled regroup against the megakernel at 1 spp", name, one_spp))
-        del acc, a, m
+        m = torch.zeros((w * h, 3), device="cuda")
+        mk.launch_megakernel(m, inp, 0, True, stats=True, **one)
+        one_spp = {}
+        for key, run in (("regroup", lambda a: rg.launch_regrouped(a, inp, 0, True, cuts=_CUTS,
+                                                                   **one)),
+                         ("wavefront_nocut", lambda a: wf.launch_wavefront(a, inp, 0, True,
+                                                                           **one)),
+                         ("wavefront_cuts", lambda a: wf.launch_wavefront(
+                             a, inp, 0, True, phase_cuts=_CUTS, **one))):
+            a = torch.zeros_like(m)
+            run(a)
+            torch.cuda.synchronize()
+            one_spp[key] = int((a != m).any(dim=1).sum())
+        _check(not any(one_spp.values()), ("culled paths against the stats megakernel at 1 spp",
+                                           name, one_spp))
+        del m, a
         torch.cuda.empty_cache()
         out[name] = {"shape": f"{name} {w}x{h} spp{spp} b8", "frames": frames,
-                     "launches": launches, "vs_wavefront": "bit-exact",
-                     "one_spp_vs_megakernel_pixels_differing": one_spp,
+                     "launches": launches, "wavefront_launches": _launch_summary(wf_launches),
+                     "vs_full_sweep": "bit-exact", "one_spp_vs_stats_megakernel": one_spp,
+                     "ms": _cull_times(rg, wf, inp, kw),
                      "spheres": inp.n_spheres, "chunks": inp.n_chunks, "supers": inp.n_super,
-                     "placement": rg.cull_placement(inp)}
-        if band == 0:
-            continue
-        rows = (0, h) if band is None else ((h // 2) // 32 * 32, (h // 2) // 32 * 32 + band)
-        t = rg.plan(w, rows[1] - rows[0], spp, 8, _CUTS, row_offset=rows[0], full_height=h)[0]
-        t0 = time.perf_counter()
-        census = rg.cull_census(inp, t, 0, _CUTS, 8)
-        out[name].update(census_rows=list(rows), census_s=time.perf_counter() - t0,
-                         census=census)
+                     "placement": {"regroup": rg.cull_placement(inp),
+                                   "wavefront": wf.cull_placement(inp)}}
         torch.cuda.empty_cache()
     return out
 
@@ -1366,26 +1552,48 @@ def _wf_compact_k1_full(mk, wf, inp, t, frame, fkw) -> dict:
     return out
 
 
-def _wf_bounds(inp, t, live_all, rows) -> dict:
+def _wf_bounds(inp, t, live_all, rows, census=None, census_nocut=None) -> dict:
     """The wavefront kernels' bounds over _CUTS, from this frame's live
     counts (``live_all``, paths alive entering each bounce, as for regroup:
     the same slots trace the same paths) and row counts (``rows``: the home
-    pool's rows, then the live rows after each cut, from debug_counts). K0
-    and K1 test every prepared sphere per live path segment of the bounces
-    they run and move each row once each way (K1 also writes 3 components
-    of contributions); COMPACT reads each input row's alive component and
-    reads and writes each live row."""
+    pool's rows, then the live rows after each cut, from debug_counts):
+    K0 at _CUTS[0], K0 with no cuts ("wavefront_k0_nocut", the Renderer's),
+    COMPACT and K1. The full sweep tests every prepared sphere per live
+    path segment of the bounces a kernel runs. K0 writes each slot's 15
+    components and 3 contributions. K1 reads the alive component of every
+    lane of its dense rows; a dead lane also reads its tr, cr and home and
+    writes its 3 contributions; a live lane (``live_all`` at the cut) reads
+    its 10 other loaded components and its home and writes 14 components
+    and 3 contributions (csrc/wavefront.cu k1_regrouped). COMPACT reads
+    each input row's alive component and reads and writes each live row.
+    With ``census`` and ``census_nocut`` (cull.wavefront_census of this
+    frame at _CUTS and with no cuts) K0's and K1's bound counts the work
+    each lane's own cull decisions need, beside the warp vote's work
+    (``vote_bound_ms``, the lanes grouped as the kernels group them) and
+    the full sweep's (``bound_full_ms``)."""
     sweep = SPHERE_TEST_OPS * inp.n_spheres
     c1 = _CUTS[0]
-    return {
-        "wavefront_k0": _bound(sweep * sum(live_all[:c1]), t.cap * (WF_COMPONENTS * 4 + 12)),
+    k0_bytes = t.cap * (WF_COMPONENTS * 4 + 12)
+    k1_bytes = sum(b * ROW_PLANE_BYTES + 4 * (10 * (b * 128 - n) + 28 * n)
+                   for b, n in zip(rows[1:], (live_all[c] for c in _CUTS)))
+    out = {
+        "wavefront_k0": _bound(sweep * sum(live_all[:c1]), k0_bytes),
+        "wavefront_k0_nocut": _bound(sweep * sum(live_all), k0_bytes),
         "wavefront_compact": _bound(0, sum(a * ROW_PLANE_BYTES
                                            + b * 2 * WF_COMPONENTS * ROW_PLANE_BYTES
                                            for a, b in zip(rows[:-1], rows[1:]))),
-        "wavefront_k1": _bound(sweep * sum(live_all[c1:]),
-                               sum(b * (2 * WF_COMPONENTS + 3) * ROW_PLANE_BYTES
-                                   for b in rows[1:])),
+        "wavefront_k1": _bound(sweep * sum(live_all[c1:]), k1_bytes),
     }
+    if census is None:
+        return out
+    for key, spans, nbytes in (("wavefront_k0", census[:1], k0_bytes),
+                               ("wavefront_k1", census[1:], k1_bytes),
+                               ("wavefront_k0_nocut", census_nocut, k0_bytes)):
+        spans = _wf_spans(spans)
+        out[key] = {**_bound(_culled_ops(spans), nbytes),
+                    "vote_bound_ms": _bound(_culled_ops(spans, own=False), nbytes)["bound_ms"],
+                    "bound_full_ms": out[key]["bound_ms"]}
+    return out
 
 
 def _wf_library_ms(wf, inp, t, frame, num_bounces, reps: int = 5) -> float:
@@ -2328,6 +2536,7 @@ def main(argv=None) -> int:
     ap.add_argument("--png", default=os.path.join(tempfile.gettempdir(),
                                                   "chip_smoke_rtiow.png"))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     record = {}
 
@@ -2336,6 +2545,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    if args.child:  # [cull]'s census of one case, in a process of its own
+        return _child_census(args.child)
     from weekend_raytracer_tpu_torch import (SCENES, RenderParams, Renderer,
                                              SamplingParams)
     from weekend_raytracer_tpu_torch.ops.cuda import build
@@ -2402,6 +2613,19 @@ def main(argv=None) -> int:
          attributes=json.dumps(attrs["megakernel"]),
          ptxas=json.dumps({k: v for k, v in ptxas["megakernel"].items() if "megakernel" in k}))
     record["build"]["megakernel"] = {"launch_bounds": mk.launch_bounds()}
+    # the wavefront's K0 and K1: culled (boxes staged and in global memory)
+    # and full-sweep, textured and not; the culled ones' launch bounds, the
+    # most slices a K0 warp walks and K1's rows a block (wavefront.cu's
+    # constants, which the census mirrors), and the tables a block stages
+    _say("build", case="wavefront_k0_k1", launch_bounds=json.dumps(wf.launch_bounds()),
+         k0_max_slices=wf.K0_MAX_SLICES, k1_rows=wf.K1_ROWS,
+         attributes=json.dumps({k: v for k, v in attrs["wavefront"].items()
+                                if k.startswith(("k0", "k1"))}),
+         ptxas=json.dumps({k[k.index("wavefront_k"):][:25]: v
+                           for k, v in ptxas["wavefront"].items() if "wavefront_k" in k}),
+         rtiow_cull=json.dumps(wf.cull_placement(
+             mk.kernel_inputs(*_case("rtiow", 96, 64, "cuda")))))
+    record["build"]["wavefront_k0_k1"] = {"launch_bounds": wf.launch_bounds()}
 
     # 3. megakernel against plain, both on the card
     record["plain"] = {}
@@ -2762,30 +2986,30 @@ def main(argv=None) -> int:
          **{k: json.dumps(v) for k, v in full.items()})
     torch.cuda.empty_cache()
 
-    # 6d. the per-warp cull of K0 and K1 at full size: regroup against the
-    # unculled wavefront, and at 1 spp the megakernel, in every bit, and the
-    # tests each lane needs and those of the warp vote, per bounce, beside
-    # the full sweep's
+    # 6d. the per-warp cull of K0 and K1 at full size: regroup and the
+    # wavefront (four cut schedules) against the full-sweep wavefront, and
+    # at 1 spp the stats megakernel, in every bit; each case's kernel times;
+    # and the tests each lane needs and those of the warp votes, beside the
+    # full sweep's (random60k's census in a child process)
     cull = _cull_paths(mk, rg, wf, ro, sw)
     for name, res in cull.items():
-        _say("cull", shape=res["shape"], frames=res["frames"], vs_wavefront="bit-exact",
-             one_spp_vs_megakernel_pixels_differing=res["one_spp_vs_megakernel_pixels_differing"],
+        _say("cull", shape=res["shape"], frames=res["frames"],
+             vs_full_sweep="bit-exact (regroup; the wavefront at "
+             f"{[list(c) for c in _WF_SCHEDULES]})",
+             one_spp_vs_stats_megakernel_pixels_differing=json.dumps(
+                 res["one_spp_vs_stats_megakernel"]),
              launches=json.dumps(res["launches"]),
+             wavefront_launches=json.dumps(res["wavefront_launches"]),
+             ms=json.dumps({k: {kk: round(vv, 3) for kk, vv in v.items()}
+                            for k, v in res["ms"].items()}),
              spheres=res["spheres"], chunks=res["chunks"], supers=res["supers"],
-             placement=json.dumps(res["placement"]))
-        if "census" not in res:
-            continue
-        _say("cull", case=f"{name}_census", rows=json.dumps(res["census_rows"]),
-             full_sweep_tests_per_segment=res["spheres"],
-             k0_tests_per_segment=f"{_per_segment(res['census'][:1]):.2f}",
-             k1_tests_per_segment=f"{_per_segment(res['census'][1:]):.2f}",
-             k0_vote_tests_per_segment=f"{_per_segment(res['census'][:1], own=False):.2f}",
-             k1_vote_tests_per_segment=f"{_per_segment(res['census'][1:], own=False):.2f}",
-             live_own_spheres_priors_boxes_vote_spheres_boxes_per_bounce=json.dumps(
-                 _census_lines(res["census"])),
-             seconds=f"{res['census_s']:.1f}", card=repr(smi))
-    record["cull"] = {k: {**v, "census": [[list(span), [c._asdict() for c in counts]]
-                                          for span, counts in v.get("census", ())]}
+             placement=json.dumps(res["placement"]), card=repr(smi))
+    for name, res in cull.items():
+        res.update(_census_in_child(name))
+        _say("cull", case=f"{name}_census", full_sweep_tests_per_segment=res["spheres"],
+             **{k: json.dumps(v) for k, v in res["census_line"].items()}, card=repr(smi))
+    record["cull"] = {k: {kk: vv for kk, vv in v.items()
+                          if kk not in ("census", "wf_census", "wf_census_nocut")}
                       for k, v in cull.items()}
 
     # 6d'. the megakernel against the full sweep in every bit,
@@ -2950,7 +3174,8 @@ def main(argv=None) -> int:
     mk_table = mega(True)[1]
     k1_table = _k1_stats(rg, rg.launch_k1, inp_t, dense_t, counts_t, t_t, 0, _CUTS[0],
                          _CUTS[1])
-    census_t = rg.cull_census(inp_t, t_t, 0, _CUTS, tm["bounces"])
+    child_t = _census_in_child("timing")  # regroup's and the wavefront's censuses
+    census_t = child_t["census"]
     mk_census_t = _megakernel_census(inp_t, tm["width"], tm["height"], tm["spp"],
                                      tm["bounces"])
     bounds = _bounds(mk, inp_t, t_t, live_all, live_real, mk_table, k1_table, census_t,
@@ -2964,7 +3189,8 @@ def main(argv=None) -> int:
     _, rows_t = wf.launch_wavefront(acc, inp_t, 0, True, phase_cuts=_CUTS, debug_counts=True,
                                     **kw)
     rows_t = [int(r) for r in rows_t]
-    bounds.update(_wf_bounds(inp_t, wf_t, live_all, rows_t))
+    bounds.update(_wf_bounds(inp_t, wf_t, live_all, rows_t, child_t["wf_census"],
+                             child_t["wf_census_nocut"]))
     library_ms["wavefront_compact"] = _wf_library_ms(wf, inp_t, wf_t, 0, tm["bounces"])
     trace_root = args.out or tempfile.mkdtemp(prefix="chip_smoke_trace_")
     wf_device_t = _wavefront_device_ms(_trace_frame(
@@ -2987,6 +3213,7 @@ def main(argv=None) -> int:
                                              round(_per_segment(census_t[1:]), 2)]),
          megakernel_census=json.dumps({g: _census_totals(mk_census_t[g])
                                        for g in ("lockstep", "refill")}),
+         wavefront_census=json.dumps(child_t["census_line"]["wavefront"]),
          library_ms=json.dumps({k: round(v, 4) for k, v in library_ms.items()}),
          wavefront_rows=json.dumps(rows_t), card=repr(smi))
     # the 1080p frame, kernels only: regroup, megakernel, megakernel, regroup
@@ -3045,11 +3272,13 @@ def main(argv=None) -> int:
     live_big = _live_per_bounce(rg, inp, t_big, 0, mp["bounces"])
     bounds_big = _bounds(mk, inp, t_big, *live_big, census=cull["rtiow"]["census"],
                          mk_census=mk_census)
-    bounds_big.update(_wf_bounds(inp, t_big, live_big[0], wf_rows[_CUTS]))
+    bounds_big.update(_wf_bounds(inp, t_big, live_big[0], wf_rows[_CUTS],
+                                 cull["rtiow"]["wf_census"], cull["rtiow"]["wf_census_nocut"]))
     library_big = _library_ms(rg, inp, t_big, 0, mp["bounces"], live_big[0], reps=3)
     stage_big = {**_per_kernel(tr["stages_ms"]), "megakernel": min(frame_ms["megakernel"]),
                  **{f"wavefront_{k}": v for k, v in _per_kernel(
-                     tr_wf["stages_ms"], WAVEFRONT_KERNELS + ("fold",)).items() if k != "fold"}}
+                     tr_wf["stages_ms"], WAVEFRONT_KERNELS + ("fold",)).items() if k != "fold"},
+                 "wavefront_k0_nocut": record["main"]["wavefront"]["stages_ms"]["k0"]}
     _say("bounds", shape=f"rtiow {mp['width']}x{mp['height']} spp{mp['spp']} "
          f"b{mp['bounces']}", live_per_bounce=json.dumps(live_big[0]),
          live_real_per_bounce=json.dumps(live_big[1]),
@@ -3168,6 +3397,9 @@ def main(argv=None) -> int:
                  ms_device_bound_share_library=json.dumps(_access_summary(access[name])),
                  device_ms_by_cuda_events=json.dumps(_by_events(access[name])))
     tiny = _tiny_device_ms(ro, sw, dma, mxu_sweep)
+    # profiler traces that recorded no device event, timed by CUDA events
+    by_events = sum(len(_by_events(access[name])) for mod in (place, mosaic, gather_cost)
+                    for name, _ in mod.PROBES) + len(_by_events(tiny))
     rate = access["gather_cost"]["smem_rate"]
     access_s = time.perf_counter() - t0
     _say("access", case="tiny_shapes_event_vs_device_ms",
@@ -3189,8 +3421,9 @@ def main(argv=None) -> int:
          library_ms=json.dumps({k: library_ms.get(k) for k in ACCESS_KERNELS}),
          launches=json.dumps(access["launches"]), sms=rate["sms"], max_sm_mhz=rate["max_sm_mhz"],
          smem_bytes_per_s=f"{rate['bytes_per_s']:.4e}", seconds=f"{access_s:.1f}",
-         card=repr(smi))
-    record["access"] = {**access, "tiny_shapes": tiny, "seconds": access_s}
+         traces_by_cuda_events=by_events, card=repr(smi))
+    record["access"] = {**access, "tiny_shapes": tiny, "seconds": access_s,
+                        "traces_by_cuda_events": by_events}
     torch.cuda.empty_cache()
 
     if args.out:
@@ -3225,6 +3458,12 @@ def main(argv=None) -> int:
     kernels += [entry(f"wavefront_{k}", f"wavefront_{k}", wf.KERNEL_SOURCE, wf.REPLACES[k],
                       launches["wavefront" if k == "k0" else "wavefront_cuts"][f"wavefront_{k}"],
                       wf_err[k]) for k in WAVEFRONT_KERNELS]
+    # the wavefront's K0 and K1 cull per warp too (cull.wavefront_census);
+    # their ms and bounds are the [timing] shape's at _CUTS
+    for e in kernels:
+        if e["name"] in ("wavefront_k0", "wavefront_k1"):
+            b = bounds[e["name"]]
+            e.update(vote_bound_ms=b["vote_bound_ms"], bound_full_ms=b["bound_full_ms"])
     # the gather's and the scatter's launches are the binned path's (RTiOW,
     # every scheme), dma_rate's the probe's; all three equal their twins
     # in every bit

@@ -14,11 +14,13 @@ PyTorch's, so chaotic Monte-Carlo paths may diverge at silhouettes. The
 regroup pipeline's PACK and COMBINE (one launch a cut, one a frame) are
 held bit for bit with their twins; its K0 and K1
 run the megakernel's own per-ray body, so at one sample per pixel regroup
-and the megakernel give the same bits; K0, K1 and the megakernel cull
-their sweep per warp, with the boxes in shared or (a large scene) global
-memory, and the megakernel refills each lane's samples, which changes no
-bit against the unculled wavefront, the stats megakernel and the kStats
-K1 (which sweep every sphere), or with a last warp part full.
+and the megakernel give the same bits; regroup's K0 and K1, the megakernel
+and the wavefront's K0 and K1 cull their sweep per warp, with the boxes in
+shared or (a large scene) global memory, the megakernel and the
+wavefront's K0 refill each lane's samples and the wavefront's K1 regroups
+each block's live lanes, which changes no bit against the wavefront's
+full-sweep instantiations, the stats megakernel and the kStats K1 (which
+sweep every sphere), or with a last warp or block part full.
 The row-compacted wavefront runs the
 same body on the same slots: it gives regroup's image in every bit, and
 its COMPACT equals its twin bit for bit. The record reorder kernels equal
@@ -401,9 +403,10 @@ def test_k1_stats_match_plain(cuda):
 def test_culled_regroup_equals_unculled_paths(name, spp, cuda):
     """K0 and K1 sweep only the chunks some lane of a warp enters, and
     change no bit: over two frames the regroup accumulator equals the
-    wavefront's, which sweeps every sphere, and at one sample per pixel
-    the megakernel's; a frame launches K0 and COMBINE once and PACK and
-    K1 once per cut. (textured has no chunks: the full sweep.)"""
+    full-sweep wavefront's (its kCull = false kernels, which sweep every
+    sphere), and at one sample per pixel the megakernel's; a frame launches
+    K0 and COMBINE once and PACK and K1 once per cut. (textured has no
+    chunks: the full sweep.)"""
     w, h = 96, 64
     inp = _stats_case(name, w, h, cuda)
     assert (inp.n_chunks > 0) == (name != "textured") and (inp.n_super > 0) == (name == "super")
@@ -413,7 +416,7 @@ def test_culled_regroup_equals_unculled_paths(name, spp, cuda):
     got = _render(rg.launch_regrouped, inp, w, h, 2, spp, 8, cuda, cuts=(2, 4, 6))
     after = [getattr(rg, f"launch_{k}").launches for k in names]
     assert [a - b for a, b in zip(after, before)] == [2, 6, 6, 2]
-    ref = _render(wf.launch_wavefront, inp, w, h, 2, spp, 8, cuda)
+    ref = _render(wf._launch_wavefront_full_sweep, inp, w, h, 2, spp, 8, cuda)
     assert torch.equal(got, ref)
     if spp == 1:
         a = _render(rg.launch_regrouped, inp, w, h, 1, 1, 8, cuda, cuts=(2, 4, 6))
@@ -476,9 +479,9 @@ def test_culled_regroup_with_boxes_in_global_memory(spp, cuda):
     """random_spheres(60000) has 1,875 chunks of 32 in 118 super-chunks,
     48,144 bytes of boxes: past regroup.cu's kStageBytes, so K0 and K1
     stage only the priors' rows (80 bytes) and read the boxes from global
-    memory (kStaged = false). The accumulator still equals the wavefront's
-    in every bit over two frames, and at one sample per pixel the
-    megakernel's."""
+    memory (kStaged = false). The accumulator still equals the full-sweep
+    wavefront's in every bit over two frames, and at one sample per pixel
+    the megakernel's."""
     from weekend_raytracer_tpu_torch.models.scenes import random_spheres, random_spheres_camera
 
     w, h = 96, 64
@@ -488,7 +491,8 @@ def test_culled_regroup_with_boxes_in_global_memory(spp, cuda):
     assert (inp.n_chunks, inp.n_tests, inp.n_super) == (1875, 1888, 118)
     assert rg.cull_placement(inp) == {"smem_bytes": 80, "boxes": "global"}
     got = _render(rg.launch_regrouped, inp, w, h, 2, spp, 8, cuda, cuts=(2, 4, 6))
-    assert torch.equal(got, _render(wf.launch_wavefront, inp, w, h, 2, spp, 8, cuda))
+    assert torch.equal(got, _render(wf._launch_wavefront_full_sweep, inp, w, h, 2, spp, 8,
+                                    cuda))
     if spp == 1:
         a = _render(rg.launch_regrouped, inp, w, h, 1, 1, 8, cuda, cuts=(2, 4, 6))
         assert torch.equal(a, _render(mk.launch_megakernel, inp, w, h, 1, 1, 8, cuda))
@@ -592,6 +596,128 @@ def test_wavefront_compact_bit_for_bit(alive, cuda):
         a = out[0][1].permute(0, 2, 1, 3).reshape(n_rows, -1)
         b = out[1][1].permute(0, 2, 1, 3).reshape(n_rows, -1)
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))  # rows past n stay 7.0
+
+
+_WF_SCHEDULES = ((), (2,), (2, 4, 6), (1, 2, 3, 4, 5, 6, 7))
+
+
+def _random60k(w, h, device):
+    from weekend_raytracer_tpu_torch.models.scenes import random_spheres, random_spheres_camera
+
+    return mk.kernel_inputs(random_spheres(60000).build(device=device),
+                            to_sky_state(SkyParams(), device=device),
+                            CameraBasis.create(random_spheres_camera(), (w, h), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rtiow", "textured", "super"])
+def test_culled_wavefront_equals_full_sweep(name, cuda):
+    """The wavefront's K0 (per-warp cull, slots refilled per lane) and K1
+    (per-warp cull, each block's live lanes regrouped) change no bit: at
+    every cut schedule, over two frames of 4 spp (the second accumulated),
+    the accumulator equals the full-sweep wavefront's (K0's and K1's
+    kCull = false instantiations), whose launches count apart; the culled
+    frame launches K0 once and COMPACT and K1 once a cut. (textured has no
+    chunks; super has a super-chunk level.)"""
+    w, h = 96, 64
+    inp = _stats_case(name, w, h, cuda)
+    for cuts in _WF_SCHEDULES:
+        names = ("k0", "compact", "k1")
+        before = [getattr(wf, f"launch_{k}").launches for k in names]
+        full = (wf._launch_k0_full_sweep.launches, wf._launch_k1_full_sweep.launches)
+        got = _render(wf.launch_wavefront, inp, w, h, 2, 4, 8, cuda, phase_cuts=cuts)
+        after = [getattr(wf, f"launch_{k}").launches for k in names]
+        assert [a - b for a, b in zip(after, before)] == [2, 2 * len(cuts), 2 * len(cuts)]
+        ref = _render(wf._launch_wavefront_full_sweep, inp, w, h, 2, 4, 8, cuda,
+                      phase_cuts=cuts)
+        assert (wf._launch_k0_full_sweep.launches - full[0],
+                wf._launch_k1_full_sweep.launches - full[1]) == (2, 2 * len(cuts))
+        assert torch.equal(got, ref), (name, cuts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rtiow", "random60k"])
+def test_culled_wavefront_equals_stats_megakernel_at_one_sample(name, cuda):
+    """At one sample per pixel every path's contribution is the stats
+    megakernel's (the full sweep, no sum to contract): the culled wavefront
+    gives it in every bit, with no cuts and at (2, 4, 6); random60k reads
+    its boxes from global memory."""
+    w, h = 96, 64
+    inp = _inputs(name, w, h, cuda) if name == "rtiow" else _random60k(w, h, cuda)
+    ref = torch.zeros((w * h, 3), device=cuda)
+    mk.launch_megakernel(ref, inp, 0, True, width=w, height=h, spp=1, num_bounces=8,
+                         stats=True)
+    for cuts in ((), (2, 4, 6)):
+        a = _render(wf.launch_wavefront, inp, w, h, 1, 1, 8, cuda, phase_cuts=cuts)
+        assert torch.equal(a, ref), cuts
+
+
+@pytest.mark.cuda
+def test_culled_wavefront_with_boxes_in_global_memory(cuda):
+    """random_spheres(60000)'s 48,144 bytes of boxes pass what a block
+    stages, so the culled K0 and K1 stage only the priors' rows and read
+    the boxes from global memory (kStaged = false); over two frames of 4
+    spp at cuts (2, 4, 6) the accumulator equals the full sweep's."""
+    w, h = 96, 64
+    inp = _random60k(w, h, cuda)
+    assert wf.cull_placement(inp) == {"k0": {"smem_bytes": 80, "boxes": "global"},
+                                      "k1": {"smem_bytes": 80, "boxes": "global"}}
+    kw = dict(phase_cuts=(2, 4, 6))
+    got = _render(wf.launch_wavefront, inp, w, h, 2, 4, 8, cuda, **kw)
+    assert torch.equal(got, _render(wf._launch_wavefront_full_sweep, inp, w, h, 2, 4, 8, cuda,
+                                    **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rtiow", "super"])
+def test_culled_wavefront_k1_with_a_ragged_count(cuda, name):
+    """The culled K1 on a dense pool whose row count leaves its last block
+    part full (count = 8k + 3 rows, past a row whose lanes are all dead):
+    it equals the full-sweep K1 in every bit, pool and contributions, and
+    leaves the rows past the count as they were."""
+    w, h, spp = (96, 64, 4) if name == "rtiow" else (256, 192, 4)
+    inp = _stats_case(name, w, h, cuda)
+    t = wf.plan(w, h, spp)
+    pool, contrib = _wf_pool(t, wf.N_COMP, cuda), _wf_pool(t, 3, cuda)
+    wf.launch_k0(inp, pool, contrib, t, 0, 2)
+    dense = torch.full_like(pool, 7.0)
+    counts = torch.tensor([t.cap // 128, -1], dtype=torch.int32, device=cuda)
+    wf.launch_compact(pool, dense, counts, 1, torch.empty((t.cap // 4096,), dtype=torch.int32,
+                                                          device=cuda))
+    n = (int(counts[1]) // 8 - 1) * 8 + 3
+    assert n > 8
+    dense[(n - 2) // 32, wf._AL, (n - 2) % 32] = 0.0  # a dense row whose lanes all ended
+    counts[1] = n
+    runs = []
+    for k1 in (wf.launch_k1, wf._launch_k1_full_sweep):
+        p, c = dense.clone(), contrib.clone()
+        k1(inp, p, c, counts, 1, 2, 5)
+        runs.append((p, c))
+    torch.cuda.synchronize()
+    (pk, ck), (pf, cf) = runs
+    assert _same_bits(pk, pf) and _same_bits(ck, cf)
+    def rows(x):
+        return x.permute(0, 2, 1, 3).reshape(-1, wf.N_COMP, 128)
+
+    assert _same_bits(rows(pk)[n:], rows(dense)[n:])
+    assert _same_bits(rows(pk)[n - 2], rows(dense)[n - 2])  # nothing live: left as it was
+
+
+@pytest.mark.cuda
+def test_wavefront_budget_has_no_spills(cuda):
+    """Every wavefront instantiation (culled, full-sweep; boxes staged and
+    in global memory; textured and not) and COMPACT build without spills;
+    the culled K0 and K1 stay inside their launch bounds' register budget."""
+    usage = {k: v for k, v in wf._library().ptxas_usage().items()
+             if "wavefront" in k and "stats_finish" not in k}
+    assert len(usage) == 12 + 3, sorted(usage)
+    assert all(v["spill_stores"] == 0 and v["spill_loads"] == 0 for v in usage.values()), usage
+    threads, min_blocks = wf.launch_bounds()
+    assert (threads, min_blocks) == (256, 4)
+    attrs = wf.kernel_attributes()
+    for k in ("k0", "k0_textured", "k0_global", "k0_global_textured", "k1", "k1_textured",
+              "k1_global", "k1_global_textured"):
+        assert attrs[k]["registers"] <= 65536 // (threads * min_blocks), (k, attrs[k])
 
 
 @pytest.mark.cuda

@@ -24,9 +24,10 @@ makes the same decisions in PyTorch; here it is held to
 
 The twins' regroup frame still meets the JAX ``render_image_regrouped``
 (interpret mode) at tests/test_torch_regroup.py's gates: the slice did not
-move. The CUDA kernels are held to the unculled wavefront, and at one
-sample per pixel to the megakernel, in every bit by tests/test_torch_cuda.py
-and chip_smoke.py's ``[cull]``.
+move. The CUDA kernels are held to the full-sweep wavefront (its K0's and
+K1's kCull = false instantiations), and at one sample per pixel to the
+stats megakernel's full sweep, in every bit by tests/test_torch_cuda.py and
+chip_smoke.py's ``[cull]``.
 """
 import numpy as np
 import pytest

@@ -480,7 +480,9 @@ def _launch_counts():
 @pytest.mark.parametrize("cuts", [(), (2,), (2, 4, 6)])
 def test_wrapper_launches_kernels_for_cuda_tensor(cuts, monkeypatch):
     """One K0 per frame, one COMPACT and one K1 per cut, with the C entry
-    points' arguments; the row counts stay in one device tensor."""
+    points' arguments (K0's and K1's followed by the cull hierarchy, here
+    empty, and the two terms of each lane's box margin, before the
+    stream); the row counts stay in one device tensor."""
     w, h = 20, 12
     scene, sky, basis = _three(w, h)
     lib = _stubbed(monkeypatch)
@@ -497,7 +499,8 @@ def test_wrapper_launches_kernels_for_cuda_tensor(cuts, monkeypatch):
     k0 = lib.calls[0][1]
     assert k0[4] is None and k0[5] == 5  # no textures; five spheres, unpadded
     assert k0[8:13] == (t.cap, w, h, t.tiles_x, 2)
-    assert k0[15:] == (5, cuts[0] if cuts else 8, 1234)  # frame, b_hi, stream
+    assert k0[15:17] == (5, cuts[0] if cuts else 8)  # frame, b_hi
+    assert len(k0) == 28 and k0[-8:-3] == (0, 0, 0, 16, 16) and k0[-3:] == (0.0, 0.0, 1234)
     compacts = [a for n, a in lib.calls if n == "wrt_wavefront_compact"]
     k1s = [a for n, a in lib.calls if n == "wrt_wavefront_k1"]
     src = k0[6]  # K0's pool
@@ -506,7 +509,8 @@ def test_wrapper_launches_kernels_for_cuda_tensor(cuts, monkeypatch):
         assert c[3] - c[2] == 4 and c[5:] == (t.cap, 1234)  # counts[k] -> counts[k + 1]
         assert k1[:5] == k0[1:6] and k1[6] == k0[7]  # the scene; K0's contributions
         assert k1[5] == c[1] and k1[7] == c[3] and k1[8] == t.cap  # the dense pool, its count
-        assert k1[9:] == (cuts[k], cuts[k + 1] if k + 1 < len(cuts) else 8, 1234)
+        assert k1[9:11] == (cuts[k], cuts[k + 1] if k + 1 < len(cuts) else 8)
+        assert len(k1) == 22 and k1[-8:-3] == (0, 0, 0, 16, 16) and k1[-3:] == (0.0, 0.0, 1234)
         src = c[1]
 
 

@@ -1,5 +1,6 @@
-// The per-ray path-tracing body shared by the megakernel (megakernel.cu)
-// and the regroup kernels K0 and K1 (regroup.cu).
+// The per-ray path-tracing body shared by the megakernel (megakernel.cu),
+// the regroup kernels K0 and K1 (regroup.cu) and the wavefront's K0 and K1
+// (wavefront.cu).
 //
 // Counterpart of weekend_raytracer_tpu/ops/pallas/megakernel.py::_make_bounce
 // (294-1143) and _camera_ray (128-162), the one body every TPU kernel of the
@@ -25,15 +26,17 @@
 // accurate sinf/cosf/expf/powf).
 //
 // bounce_step is one bounce; trace_bounces runs it over a span of bounces,
-// and the megakernel's refill loop calls it directly, so each inlines the
-// same expressions. bounce_step<kTextured, kStats = true> is the body of
+// and the refill loops (the megakernel's, the wavefront's K0 and K1) call
+// it directly, so each inlines the same expressions.
+// bounce_step<kTextured, kStats = true> is the body of
 // the kStats instantiations: the same bounces, sweeping the same spheres in
 // the same order, plus the cull counters of stats.cuh. Given the cull
 // tables of a scene with chunks (CullView, staged by stage_cull), the
 // kStats = false body sweeps only the chunks that some lane of its warp
 // can enter (sweep_culled), which gives the full sweep's (bt, bi) in every
-// bit; regroup K0 and K1 and the megakernel pass them, the wavefront
-// passes none and sweeps every sphere.
+// bit; regroup K0 and K1, the megakernel and the wavefront's K0 and K1 pass
+// them. The wavefront's kCull = false instantiations pass none and sweep
+// every sphere: they are the exact full-sweep reference of the gates.
 
 #pragma once
 
@@ -317,20 +320,21 @@ struct CullMargin {
   float reach, scale;
 };
 
-// The most dynamic shared memory a block of a culled kernel (regroup K0
-// and K1, the megakernel) stages: five blocks an SM, each with the 1 KiB
-// the runtime reserves, fit an H100 SM's 228 KiB, and the 48 KiB a launch
-// gets without opting in.
+// The most shared memory a block of a culled kernel (regroup K0 and K1,
+// the megakernel, the wavefront's K0 and K1) stages: five blocks an SM,
+// each with the 1 KiB the runtime reserves, fit an H100 SM's 228 KiB, and
+// the 48 KiB a launch gets without opting in.
 constexpr size_t kStageBytes = 44 * 1024;
 
 // Whether a culled kernel stages a scene's chunk and super-chunk boxes in
-// shared memory: while they and the priors' rows fit kStageBytes. Above
-// that (about 1,800 chunk and super boxes, some 57,000 spheres at 32 a
-// chunk) the launch takes the kStaged = false instantiation, which reads
-// them from global memory through __ldg at the same warp-uniform
-// addresses; a table is never refused.
-inline bool cull_staged(const CullRefs& cu) {
-  return kNPriors * (sizeof(float4) + sizeof(int)) +
+// shared memory: while they, the priors' rows and the `reserved` bytes of
+// the kernel's own static shared memory (the wavefront K1's lane list)
+// fit kStageBytes. Above that (about 1,800 chunk and super boxes, some
+// 57,000 spheres at 32 a chunk) the launch takes the kStaged = false
+// instantiation, which reads them from global memory through __ldg at the
+// same warp-uniform addresses; a table is never refused.
+inline bool cull_staged(const CullRefs& cu, size_t reserved = 0) {
+  return reserved + kNPriors * (sizeof(float4) + sizeof(int)) +
              6 * sizeof(float) * (cu.n_tests + cu.n_super) <=
          kStageBytes;
 }
@@ -338,10 +342,10 @@ inline bool cull_staged(const CullRefs& cu) {
 // Dynamic shared bytes of a block of a culled kernel (stage_cull): the
 // priors' sweep rows and indices, then the chunk and super-chunk boxes
 // where cull_staged; 0 without a chunk hierarchy.
-inline size_t cull_smem_bytes(const CullRefs& cu) {
+inline size_t cull_smem_bytes(const CullRefs& cu, size_t reserved = 0) {
   if (cu.n_chunks == 0) return 0;
   return kNPriors * (sizeof(float4) + sizeof(int)) +
-         (cull_staged(cu) ? 6 * sizeof(float) * (cu.n_tests + cu.n_super) : 0);
+         (cull_staged(cu, reserved) ? 6 * sizeof(float) * (cu.n_tests + cu.n_super) : 0);
 }
 
 // The cull view of a block, staged once before its first bounce; every
@@ -496,9 +500,14 @@ __device__ __forceinline__ bool bounce_step(const SceneRefs& sc, Ray& r, RayCoun
   const float ox = r.ox, oy = r.oy, oz = r.oz;
   const float dx = r.dx, dy = r.dy, dz = r.dz;
   uint32_t state = r.state;
-  // Closest hit over the prepared spheres.
-  const float od = ox * dx + oy * dy + oz * dz;
-  const float oo = ox * ox + oy * oy + oz * oz;
+  // Closest hit over the prepared spheres. od and oo are rounded as
+  // written, in the order nvcc contracts them elsewhere: left to the
+  // compiler, their contraction depended on the kernel around them (the
+  // wavefront's culled K1 contracted them otherwise than its full-sweep
+  // instantiation, and parted from it by some ulps in a sphere's t), and
+  // every kernel must give the same bits for the same ray.
+  const float od = __fmaf_rn(oz, dz, __fmaf_rn(oy, dy, __fmul_rn(ox, dx)));
+  const float oo = __fmaf_rn(oz, oz, __fmaf_rn(oy, oy, __fmul_rn(ox, ox)));
   float bt = kMaxT;
   int bi = -1;
   if constexpr (kStats) {

@@ -16,8 +16,11 @@ K0's and K1's groups; ``megakernel_census`` in the megakernel's, whose
 warps are 16 x 2 pixel patches of its 16 x 16 blocks (``megakernel_lanes``),
 with the lanes of a warp in step (one sample and bounce at a time) or
 each at its own place in its pixel's samples, as the refill loop of
-csrc/megakernel.cu runs them. They are used by the tests and by
-chip_smoke's bounds, never by the main path.
+csrc/megakernel.cu runs them; ``wavefront_census`` in the wavefront's:
+K0's warps walking their slices of slots with refill, and K1's blocks
+tracing the list of their rows' live lanes (``wavefront.k1_block_order``)
+with refill, as csrc/wavefront.cu runs them. They are used by the tests
+and by chip_smoke's bounds, never by the main path.
 """
 from __future__ import annotations
 
@@ -186,7 +189,9 @@ def megakernel_warp_cull(o, d, live, lanes, inp: mk.KernelInputs) -> WarpCull:
     megakernel's warps cull it: the lanes of ``megakernel_lanes`` (a pixel
     per lane, -1 none) in groups of 32. (bt, bi) are per pixel (MAX_T, -1
     for a pixel not live), ``entered`` per warp that has a live lane;
-    warps with none are skipped, as the kernel's warps then are."""
+    warps with none are skipped, as the kernel's warps then are. Any grid
+    of warps whose lanes each trace one ray of o, d is culled so
+    (``wavefront_census`` passes its lanes in order, ``lanes`` = arange)."""
     dev = o[0].device
     n = o[0].shape[0]
     alive = (lanes >= 0) & live[lanes.clamp(min=0)]
@@ -275,5 +280,153 @@ def megakernel_census(inp: mk.KernelInputs, width: int, height: int, spp: int,
     return out
 
 
-__all__ = ["CensusStep", "CullCount", "WarpCull", "lane_margin", "megakernel_census",
-           "megakernel_lanes", "megakernel_warp_cull", "warp_cull_plain"]
+class CensusSpan(NamedTuple):
+    """One kernel of a wavefront frame under its warps' cull: the bounces
+    it runs, the work of each step of its warps, the live segments entering
+    each of its bounces, the rows it runs on (K0: the pool's; K1: the dense
+    rows COMPACT kept), and, when checked, how many live lanes' culled hit
+    parted from the full sweep's (None: not checked)."""
+
+    span: tuple  # (b_lo, b_hi)
+    steps: list  # [CensusStep], one per step of the warps
+    live: list  # live segments entering bounces b_lo .. b_hi - 1
+    rows: int
+    parted: object  # int, or None
+
+
+def _refill_span(inp: mk.KernelInputs, n_lanes: int, item, start, store, b_lo: int,
+                 b_hi: int, exact: bool):
+    """Bounces [b_lo, b_hi) of a grid of ``n_lanes`` lanes (warps of 32 in
+    order) that each trace a sequence of slots one bounce a step, as the
+    refill loops of csrc/wavefront.cu run them: ``item(lanes, j)`` is the
+    j-th slot of each lane (-1: none left), ``start(slots)`` the (o [3, n],
+    d [3, n], tr [n, 3], state [n]) of slots entering b_lo, and
+    ``store(slots, o, d, tr, state, alive)`` takes each slot's path where
+    it ends (a miss, an emitter, or b_hi reached alive). Returns
+    ([CensusStep], live segments entering each bounce, parted or None)."""
+    dev = inp.sweep.device
+    idx = torch.arange(n_lanes, device=dev)
+    j = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
+    slot = item(idx, j)
+    live = slot >= 0
+    o = torch.zeros((3, n_lanes), dtype=_F32, device=dev)
+    d = torch.zeros_like(o)
+    tr = torch.ones((n_lanes, 3), dtype=_F32, device=dev)
+    state = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
+    bounce = torch.full((n_lanes,), b_lo, dtype=torch.int64, device=dev)
+
+    def load(lanes):
+        o[:, lanes], d[:, lanes], tr[lanes], state[lanes] = start(slot[lanes])
+        bounce[lanes] = b_lo
+
+    load(torch.nonzero(live).squeeze(1))
+    steps, per_bounce = [], torch.zeros((b_hi - b_lo,), dtype=torch.int64, device=dev)
+    parted = 0 if exact else None
+    while bool(live.any()):
+        act = torch.nonzero(live).squeeze(1)
+        per_bounce += torch.bincount(bounce[act] - b_lo, minlength=b_hi - b_lo)
+        wc = megakernel_warp_cull(tuple(o), tuple(d), live, idx, inp)
+        steps.append(CensusStep(wc.count, int(wc.entered.numel())))
+        if exact:
+            bt, bi = mk._closest_hit(tuple(o[:, act]), tuple(d[:, act]), inp.sweep)
+            parted += int(((wc.bi[act] != bi) | (wc.bt[act].view(torch.int32)
+                                                 != bt.view(torch.int32))).sum())
+        p = mk.trace_bounces_plain(tuple(o[:, act]), tuple(d[:, act]), tr[act], state[act],
+                                   inp, 0, 1)
+        o[:, act], d[:, act], tr[act], state[act] = p.o.T, p.d.T, p.tr, p.state
+        bounce[act] += 1
+        ends = ~p.alive | (bounce[act] == b_hi)
+        ended = act[ends]
+        store(slot[ended], o[:, ended], d[:, ended], tr[ended], state[ended], p.alive[ends])
+        live[ended] = False
+        j[ended] += 1
+        slot[ended] = item(ended, j[ended])
+        nxt = ended[slot[ended] >= 0]
+        if nxt.numel():
+            load(nxt)
+            live[nxt] = True
+    return steps, per_bounce.tolist(), parted
+
+
+def wavefront_census(inp: mk.KernelInputs, t, frame, cuts: tuple, num_bounces: int, *,
+                     exact: bool = False) -> list:
+    """The work of one wavefront frame (K0, then COMPACT and K1 per cut)
+    under the per-warp cull, on the twins' rays, its lanes grouped as
+    csrc/wavefront.cu groups them: per kernel a CensusSpan. K0's warps each
+    walk ``wavefront.k0_slices(spp)`` slices of 32 slots (a quarter of a
+    tile's row, then the same quarter of the rows below), lane l taking
+    slot l of each, one bounce a step, the next slot as soon as a path
+    ends; K1's blocks take wavefront.K1_ROWS dense rows and thread j traces
+    entries j, j + 256, ... of their live lanes in
+    ``wavefront.k1_block_order``, refilled the same way. ``t`` is ``wavefront.plan``'s tiling. With
+    ``exact`` each live lane's culled hit is held against the full sweep's
+    (CensusSpan.parted). Each lane's own counts (``own_*``, ``live``,
+    ``prior_tests``) do not depend on the grouping. Rays come from
+    ``trace_bounces_plain`` one bounce at a time, as cull_census's."""
+    from . import regroup as rg
+    from . import wavefront as wf
+
+    k0_slices, k1_rows, k1_threads = wf.k0_slices(t.spp), wf.K1_ROWS, wf._K1_THREADS
+    dev = inp.sweep.device
+    frame = int(frame) & rng.MASK32
+    cam = [mk._f32(v) for v in inp.cam.tolist()]
+    inv_w, inv_h = mk._f32(1.0 / t.width), mk._f32(1.0 / t.full_height)
+    cap = t.cap
+    # each slot's path where its last kernel left it
+    so = torch.zeros((3, cap), dtype=_F32, device=dev)
+    sd = torch.zeros_like(so)
+    str_ = torch.ones((cap, 3), dtype=_F32, device=dev)
+    sst = torch.zeros((cap,), dtype=torch.int64, device=dev)
+    salive = torch.zeros((cap,), dtype=torch.bool, device=dev)
+
+    def camera(slots):
+        st, x, y_g = rg._seeds(t, slots, frame)
+        st, o, d = mk.camera_rays_plain(cam, x.to(_F32), y_g.to(torch.int32).to(_F32), inv_w,
+                                        inv_h, st)
+        return (torch.stack(o), torch.stack(d),
+                torch.ones((slots.numel(), 3), dtype=_F32, device=dev), st)
+
+    def stored(slots):
+        return so[:, slots], sd[:, slots], str_[slots], sst[slots]
+
+    def store(slots, o, d, tr, state, alive):
+        so[:, slots], sd[:, slots], str_[slots], sst[slots] = o, d, tr, state
+        salive[slots] = alive
+
+    spans = list(zip((0,) + tuple(cuts), tuple(cuts) + (num_bounces,)))
+    out = []
+    rows = torch.arange(cap, device=dev).view(-1, wf.LANES)  # the pool's rows of slots
+    for k, (b_lo, b_hi) in enumerate(spans):
+        if k == 0:
+            per_tile = 4 * (wf.TILE_ROWS // k0_slices)  # warps a tile
+
+            def item(lanes, j):
+                warp = lanes >> 5
+                tile, in_tile = warp // per_tile, warp % per_tile
+                at = (tile * wf.TILE_ROWS * wf.LANES + ((in_tile >> 2) * k0_slices + j)
+                      * wf.LANES + (in_tile & 3) * 32 + (lanes & 31))
+                return torch.where(j < k0_slices, at, torch.full_like(at, -1))
+            n_lanes = cap // (wf.TILE_ROWS * wf.LANES) * per_tile * 32
+            start = camera
+        else:
+            rows = rows[salive[rows].any(dim=1)]  # COMPACT: whole live rows, in order
+            order, n_live = wf.k1_block_order(salive[rows], k1_rows)
+            per = k1_rows * wf.LANES
+            blk_slots = torch.cat([rows, rows.new_full(
+                (order.shape[0] * k1_rows - rows.shape[0], wf.LANES), -1)]).view(-1, per)
+
+            def item(lanes, j, order=order, n_live=n_live, blk_slots=blk_slots):
+                b, at = lanes // k1_threads, lanes % k1_threads + k1_threads * j
+                ok = at < n_live[b]
+                e = order[b, at.clamp(max=per - 1)].clamp(min=0)
+                return torch.where(ok, blk_slots[b, e], torch.full_like(lanes, -1))
+            n_lanes = order.shape[0] * k1_threads
+            start = stored
+        steps, live, parted = _refill_span(inp, n_lanes, item, start, store, b_lo, b_hi, exact)
+        out.append(CensusSpan((b_lo, b_hi), steps, live, int(rows.shape[0]), parted))
+    return out
+
+
+__all__ = ["CensusSpan", "CensusStep", "CullCount", "WarpCull", "lane_margin",
+           "megakernel_census", "megakernel_lanes", "megakernel_warp_cull", "warp_cull_plain",
+           "wavefront_census"]

@@ -183,8 +183,8 @@ def build_kernel_texture_pool(mat, budget_texels: int = DEFAULT_TEXTURE_BUDGET):
 
 def default_chunk_size(n_spheres: int) -> int:
     """The JAX package's chunk size: 16 up to 2048 spheres, 32 above
-    (chosen for its culled sweep; regroup's K0 and K1 and the megakernel
-    cull per warp on the same chunks, the wavefront sweeps every sphere)."""
+    (chosen for its culled sweep; regroup's K0 and K1, the megakernel and
+    the wavefront's K0 and K1 cull per warp on the same chunks)."""
     return 16 if n_spheres <= 2048 else 32
 
 

@@ -18,12 +18,21 @@ accumulator (or written over it), as regroup's home combine does, so the
 same samples give the same bits on both paths.
 
 The three kernels are CUDA C++ (csrc/wavefront.cu) on the megakernel's
-per-ray body (csrc/bounce.cuh); see wavefront.cu for what bounds them on
-the card. Each has a plain PyTorch twin here (``k0_plain``,
-``compact_plain``, ``k1_plain``) with the same contract on the same
-buffers, and ``render_image_wavefront_plain`` is the frame built from the
-twins. ``render_image_wavefront`` launches the kernels for a CUDA
-``accum`` (or raises) and runs the twins for a CPU one.
+per-ray body (csrc/bounce.cuh). K0 and K1 cull their sweep per warp in
+scenes with chunks (bounce.cuh ``sweep_culled``; the full sweep's result
+in every bit); K0's lanes refill their samples, one slot of each of
+``k0_slices(spp)`` slices of 32 slots after another, and K1 regroups the
+live lanes of each ``K1_ROWS`` dense rows before it traces them
+(``k1_block_order`` is that order in PyTorch); see wavefront.cu for what
+bounds them on the card. Each has a plain PyTorch twin here
+(``k0_plain``, ``compact_plain``, ``k1_plain``) with the same contract on
+the same buffers, and ``render_image_wavefront_plain`` is the frame built
+from the twins. ``render_image_wavefront`` launches the kernels for a
+CUDA ``accum`` (or raises) and runs the twins for a CPU one. The kernels
+before they culled, which sweep every sphere, stay in the library as the
+exact reference of the gates, reached only through the private
+``_launch_wavefront_full_sweep``. ``cull.wavefront_census`` counts the
+culled kernels' work.
 
 Layout, as in the JAX package (wavefront.py:57-61, 338-352): 32-row x
 128-lane tiles with spp folded into lanes (``block_w = 128 >> log2(spp)``
@@ -76,6 +85,21 @@ REPLACES = {
 }
 # the TPU sweep variant of the JAX function and the values that leave it off
 _OFF_MXU = (None, False)
+# csrc/wavefront.cu kK0MaxSlices, kK1Rows and kThreads (the census groups
+# lanes by them; tests/test_torch_wavefront_cull.py reads them there): the
+# most slices of 32 slots a culled K0 warp walks down a tile
+# (``k0_slices``), the dense rows each culled K1 block regroups, and the
+# threads of a K1 block
+K0_MAX_SLICES = 32
+K1_ROWS = 8
+_K1_THREADS = 256
+
+
+def k0_slices(spp: int) -> int:
+    """Slices of 32 slots a culled K0 warp walks at ``spp`` samples a pixel
+    (csrc/wavefront.cu ``k0_slices``): min(spp, K0_MAX_SLICES), so that its
+    slots are 32 pixels' samples."""
+    return min(spp, K0_MAX_SLICES)
 
 
 def plan(width: int, height: int, spp: int) -> rg.Tiling:
@@ -128,9 +152,12 @@ def _workspace(device, t: rg.Tiling, phases: int) -> Workspace:
 # The CUDA kernels' wrappers
 # --------------------------------------------------------------------------
 
-# wavefront.cu wrt_wavefront_attributes index -> kernel
-KERNEL_NAMES = ("k0", "k0_textured", "k1", "k1_textured", "compact_count", "compact_scan",
-                "compact_scatter")
+# wavefront.cu wrt_wavefront_attributes index -> kernel ("global": the boxes
+# in global memory; "full_sweep": the kCull = false reference)
+KERNEL_NAMES = ("k0", "k0_textured", "k0_global", "k0_global_textured", "k0_full_sweep",
+                "k0_full_sweep_textured", "k1", "k1_textured", "k1_global",
+                "k1_global_textured", "k1_full_sweep", "k1_full_sweep_textured",
+                "compact_count", "compact_scan", "compact_scatter")
 
 
 def _library():
@@ -140,29 +167,64 @@ def _library():
     if lib.wrt_wavefront_k0.argtypes is None:
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
         ll = ctypes.c_longlong
+        k0 = [vp] * 5 + [i, vp, vp, ll, i, i, i, i, f, f, u, i]
+        k1 = [vp] * 4 + [i, vp, vp, vp, ll, i, i]
         sigs = {
-            "wrt_wavefront_k0": [vp] * 5 + [i, vp, vp, ll, i, i, i, i, f, f, u, i, vp],
+            "wrt_wavefront_k0": k0 + mk.CULL_ARGTYPES + [f, f, vp],
+            "wrt_wavefront_k0_full_sweep": k0 + [vp],
             "wrt_wavefront_compact": [vp] * 5 + [ll, vp],
-            "wrt_wavefront_k1": [vp] * 4 + [i, vp, vp, vp, ll, i, i, vp],
-            "wrt_wavefront_attributes": [i, ctypes.POINTER(i), ctypes.POINTER(i)],
+            "wrt_wavefront_k1": k1 + mk.CULL_ARGTYPES + [f, f, vp],
+            "wrt_wavefront_k1_full_sweep": k1 + [vp],
+            "wrt_wavefront_attributes": [i] + [ctypes.POINTER(i)] * 3,
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.wrt_wavefront_launch_bounds.argtypes = [ctypes.POINTER(i)] * 2
+        lib.wrt_wavefront_launch_bounds.restype = None
+        lib.wrt_wavefront_cull_smem.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.wrt_wavefront_cull_smem.restype = ll
     return built
 
 
 def kernel_attributes() -> dict:
-    """Registers per thread and local-memory bytes of each built kernel."""
+    """Registers per thread, local-memory bytes and static shared-memory
+    bytes of each built kernel."""
     lib = _library().lib
     out = {}
     for which, name in enumerate(KERNEL_NAMES):
-        regs, local = ctypes.c_int(0), ctypes.c_int(0)
-        err = lib.wrt_wavefront_attributes(which, ctypes.byref(regs), ctypes.byref(local))
+        regs, local, shared = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        err = lib.wrt_wavefront_attributes(which, ctypes.byref(regs), ctypes.byref(local),
+                                           ctypes.byref(shared))
         if err:
             raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
-        out[name] = {"registers": regs.value, "local_bytes": local.value}
+        out[name] = {"registers": regs.value, "local_bytes": local.value,
+                     "shared_bytes": shared.value}
+    return out
+
+
+def launch_bounds() -> tuple:
+    """The culled K0's and K1's __launch_bounds__: (threads a block, blocks
+    an SM), which fix their register budget (wavefront.cu kMinBlocks)."""
+    threads, min_blocks = ctypes.c_int(0), ctypes.c_int(0)
+    _library().lib.wrt_wavefront_launch_bounds(ctypes.byref(threads), ctypes.byref(min_blocks))
+    return threads.value, min_blocks.value
+
+
+def cull_placement(inp: mk.KernelInputs) -> dict:
+    """Where the culled K0 and K1 read this scene's cull tables
+    (bounce.cuh stage_cull; K1's lane list takes its share of what a block
+    stages): per kernel, ``smem_bytes``, the dynamic shared memory of a
+    block, and ``boxes``, "shared", "global" or "none"."""
+    out = {}
+    for k1, name in ((0, "k0"), (1, "k1")):
+        staged = ctypes.c_int(0)
+        smem = _library().lib.wrt_wavefront_cull_smem(k1, inp.n_chunks, inp.n_tests,
+                                                      inp.n_super, ctypes.byref(staged))
+        out[name] = {"smem_bytes": int(smem),
+                     "boxes": ("shared" if staged.value else "global") if inp.n_chunks
+                     else "none"}
     return out
 
 
@@ -188,21 +250,42 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"wavefront {what} launch failed: CUDA error {err}")
 
 
-def launch_k0(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
-              t: rg.Tiling, frame, b_hi: int) -> None:
-    """K0 on the current stream: every slot's record into ``pool`` [tiles,
-    15, 32, 128] and its tr * cr into ``contrib`` [tiles, 3, 32, 128].
-    Counts one launch in ``launch_k0.launches``."""
+def _k0_args(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
+             t: rg.Tiling, frame, b_hi: int) -> tuple:
+    """K0's arguments before the cull hierarchy, after checking them."""
     dev = pool.device
     rg._expect_scene(inp, dev)
     if _expect_pool(pool, N_COMP, dev) != t.cap or _expect_pool(contrib, 3, dev) != t.cap:
         raise ValueError(f"K0 buffers are not of the tiling's {t.cap} slots")
-    err = _library().lib.wrt_wavefront_k0(
-        inp.cam.data_ptr(), *rg._scene_ptrs(inp), pool.data_ptr(), contrib.data_ptr(),
-        t.cap, t.width, t.height, t.tiles_x, t.spp_shift, mk._f32(1.0 / t.width),
-        mk._f32(1.0 / t.height), int(frame) & rng.MASK32, int(b_hi), _stream_handle(dev))
+    return (inp.cam.data_ptr(), *rg._scene_ptrs(inp), pool.data_ptr(), contrib.data_ptr(),
+            t.cap, t.width, t.height, t.tiles_x, t.spp_shift, mk._f32(1.0 / t.width),
+            mk._f32(1.0 / t.height), int(frame) & rng.MASK32, int(b_hi))
+
+
+def launch_k0(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
+              t: rg.Tiling, frame, b_hi: int) -> None:
+    """K0 on the current stream: every slot's record into ``pool`` [tiles,
+    15, 32, 128] and its tr * cr into ``contrib`` [tiles, 3, 32, 128], the
+    sweep culled per warp where ``inp`` has chunks (the library stages the
+    boxes in shared memory while they fit, else reads them from global
+    memory) and each lane's slots refilled (``k0_slices``). Counts one launch in
+    ``launch_k0.launches``."""
+    args = _k0_args(inp, pool, contrib, t, frame, b_hi)
+    err = _library().lib.wrt_wavefront_k0(*args, *rg._cull_args(inp, pool.device),
+                                          _stream_handle(pool.device))
     _raise_on(err, "K0")
     launch_k0.launches += 1
+
+
+def _launch_k0_full_sweep(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
+                          t: rg.Tiling, frame, b_hi: int) -> None:
+    """``launch_k0``'s contract through the kCull = false instantiation
+    (one slot a thread, every sphere swept): the gates' exact reference.
+    Counts in ``_launch_k0_full_sweep.launches``."""
+    args = _k0_args(inp, pool, contrib, t, frame, b_hi)
+    err = _library().lib.wrt_wavefront_k0_full_sweep(*args, _stream_handle(pool.device))
+    _raise_on(err, "K0 full-sweep")
+    _launch_k0_full_sweep.launches += 1
 
 
 def launch_compact(src: torch.Tensor, dst: torch.Tensor, counts: torch.Tensor, k: int,
@@ -224,25 +307,45 @@ def launch_compact(src: torch.Tensor, dst: torch.Tensor, counts: torch.Tensor, k
     launch_compact.launches += 1
 
 
-def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
-              counts: torch.Tensor, k: int, b_lo: int, b_hi: int) -> None:
-    """K1 of phase k on the current stream: bounces [b_lo, b_hi) of the
-    live lanes of the counts[k] dense rows of ``pool``, in place, and every
-    lane's tr * cr into its home row of ``contrib``. Counts one launch in
-    ``launch_k1.launches``."""
+def _k1_args(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
+             counts: torch.Tensor, k: int, b_lo: int, b_hi: int) -> tuple:
+    """K1's arguments before the cull hierarchy, after checking them."""
     dev = pool.device
     rg._expect_scene(inp, dev)
     cap = _expect_pool(pool, N_COMP, dev)
     if _expect_pool(contrib, 3, dev) != cap:
         raise ValueError("K1's pool and contributions differ in size")
-    err = _library().lib.wrt_wavefront_k1(
-        *rg._scene_ptrs(inp), pool.data_ptr(), contrib.data_ptr(),
-        rg._count_ptr(counts, k, dev), cap, int(b_lo), int(b_hi), _stream_handle(dev))
+    return (*rg._scene_ptrs(inp), pool.data_ptr(), contrib.data_ptr(),
+            rg._count_ptr(counts, k, dev), cap, int(b_lo), int(b_hi))
+
+
+def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
+              counts: torch.Tensor, k: int, b_lo: int, b_hi: int) -> None:
+    """K1 of phase k on the current stream: bounces [b_lo, b_hi) of the
+    live lanes of the counts[k] dense rows of ``pool``, in place, and every
+    lane's tr * cr into its home row of ``contrib``, the live lanes of each
+    K1_ROWS rows regrouped and their sweep culled per warp where ``inp``
+    has chunks. Counts one launch in ``launch_k1.launches``."""
+    args = _k1_args(inp, pool, contrib, counts, k, b_lo, b_hi)
+    err = _library().lib.wrt_wavefront_k1(*args, *rg._cull_args(inp, pool.device),
+                                          _stream_handle(pool.device))
     _raise_on(err, "K1")
     launch_k1.launches += 1
 
 
-for _fn in (launch_k0, launch_compact, launch_k1):
+def _launch_k1_full_sweep(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
+                          counts: torch.Tensor, k: int, b_lo: int, b_hi: int) -> None:
+    """``launch_k1``'s contract through the kCull = false instantiation
+    (one lane a thread, every sphere swept): the gates' exact reference.
+    Counts in ``_launch_k1_full_sweep.launches``."""
+    args = _k1_args(inp, pool, contrib, counts, k, b_lo, b_hi)
+    err = _library().lib.wrt_wavefront_k1_full_sweep(*args, _stream_handle(pool.device))
+    _raise_on(err, "K1 full-sweep")
+    _launch_k1_full_sweep.launches += 1
+
+
+for _fn in (launch_k0, launch_compact, launch_k1, _launch_k0_full_sweep,
+            _launch_k1_full_sweep):
     _fn.launches = 0
 
 
@@ -355,6 +458,34 @@ def k1_plain(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
         contrib[ht, :, hr] = rec[:, _TR:_TB + 1] * rec[:, _CR:_CB + 1]
 
 
+def k1_block_order(alive: torch.Tensor, rows_per_block: int = K1_ROWS):
+    """The order in which the culled K1 traces the live lanes of its dense
+    rows, as csrc/wavefront.cu ranks them: ``alive`` [rows, 128] bool, in
+    blocks of ``rows_per_block`` rows (the last one cut at the row count).
+    Lane e = it * 256 + thread of a block's rows takes pass ``it``; each
+    warp's live lanes are counted (its ballot), the counts summed over
+    (pass, warp) into an exclusive prefix, and a live lane's entry is that
+    prefix plus its rank among the warp's live lanes: the live lanes in lane
+    order. Returns (order [blocks, rows_per_block * 128] i64, the lane index
+    of each entry and -1 past the block's live count; n_live [blocks])."""
+    rows = alive.shape[0]
+    per = rows_per_block * LANES
+    if per % _K1_THREADS:
+        raise ValueError(f"K1 takes an even number of rows a block, got {rows_per_block}")
+    n_blocks = -(-rows // rows_per_block)
+    pad = n_blocks * rows_per_block - rows
+    a = torch.cat([alive.to(torch.bool), alive.new_zeros((pad, LANES), dtype=torch.bool)])
+    warps = a.view(n_blocks, per // 32, 32).to(torch.int64)
+    counts = warps.sum(dim=2)  # [blocks, (pass, warp)]: each ballot's popc
+    base = torch.cumsum(counts, dim=1) - counts
+    rank = torch.cumsum(warps, dim=2) - warps  # popc(ballot & lanes below)
+    pos = (base[:, :, None] + rank).view(n_blocks, per)
+    b, e = torch.nonzero(a.view(n_blocks, per), as_tuple=True)
+    order = torch.full((n_blocks, per), -1, dtype=torch.int64, device=alive.device)
+    order[b, pos[b, e]] = e
+    return order, counts.sum(dim=1)
+
+
 def _fold(contrib: torch.Tensor, accum: torch.Tensor, t: rg.Tiling, clear) -> None:
     """Each pixel's spp lanes summed in sample order from 0, then added to
     the scanline accumulator (written over it when ``clear``): the order of
@@ -374,13 +505,21 @@ def _fold(contrib: torch.Tensor, accum: torch.Tensor, t: rg.Tiling, clear) -> No
 # One frame
 # --------------------------------------------------------------------------
 
-def _frame(kernels: bool, accum: torch.Tensor, inp: mk.KernelInputs, frame, clear,
+def _steps(route: str) -> tuple:
+    """K0, COMPACT and K1 of a route, looked up when a frame runs: "kernels"
+    (the culled kernels), "full_sweep" (K0's and K1's kCull = false
+    instantiations) or "twins"."""
+    return {"kernels": (launch_k0, launch_compact, launch_k1),
+            "full_sweep": (_launch_k0_full_sweep, launch_compact, _launch_k1_full_sweep),
+            "twins": (k0_plain, compact_plain, k1_plain)}[route]
+
+
+def _frame(route: str, accum: torch.Tensor, inp: mk.KernelInputs, frame, clear,
            t: rg.Tiling, cuts: tuple, num_bounces: int, on_stage=None,
            debug_counts: bool = False):
-    """K0, then COMPACT and K1 per cut, then the fold, on the kernels or on
-    their twins."""
-    k0, compact, k1 = ((launch_k0, launch_compact, launch_k1) if kernels
-                       else (k0_plain, compact_plain, k1_plain))
+    """K0, then COMPACT and K1 per cut, then the fold, on one route
+    (``_steps``)."""
+    k0, compact, k1 = _steps(route)
     mark = on_stage or (lambda name: None)
     ws = _workspace(accum.device, t, len(cuts))
     k0(inp, ws.pools[0], ws.contrib, t, frame, cuts[0] if cuts else num_bounces)
@@ -407,8 +546,23 @@ def launch_wavefront(accum: torch.Tensor, inp: mk.KernelInputs, frame, clear, *,
     "compact1", "k1_1", ..., "fold"), e.g. to record a CUDA event."""
     t = plan(width, height, spp)
     mk._check_accum(accum, width, height, spp, num_bounces)
-    return _frame(True, accum, inp, frame, clear, t, _cuts_within(phase_cuts, num_bounces),
-                  num_bounces, on_stage, debug_counts)
+    return _frame("kernels", accum, inp, frame, clear, t,
+                  _cuts_within(phase_cuts, num_bounces), num_bounces, on_stage, debug_counts)
+
+
+def _launch_wavefront_full_sweep(accum: torch.Tensor, inp: mk.KernelInputs, frame, clear, *,
+                                 width: int, height: int, spp: int, num_bounces: int,
+                                 phase_cuts: tuple = (), on_stage=None,
+                                 debug_counts: bool = False):
+    """``launch_wavefront`` through K0's and K1's kCull = false
+    instantiations, which sweep every sphere, one slot or lane a thread (and
+    the same COMPACT): the exact full-sweep reference that the gates hold
+    the culled kernels to. Neither the Renderer nor any public entry point
+    reaches it."""
+    t = plan(width, height, spp)
+    mk._check_accum(accum, width, height, spp, num_bounces)
+    return _frame("full_sweep", accum, inp, frame, clear, t,
+                  _cuts_within(phase_cuts, num_bounces), num_bounces, on_stage, debug_counts)
 
 
 def wavefront_plain_with_inputs(accum: torch.Tensor, inp: mk.KernelInputs, frame, clear, *,
@@ -418,7 +572,7 @@ def wavefront_plain_with_inputs(accum: torch.Tensor, inp: mk.KernelInputs, frame
     """``launch_wavefront``'s twin, on ``accum``'s device."""
     t = plan(width, height, spp)
     mk._check_accum(accum, width, height, spp, num_bounces)
-    return _frame(False, accum, inp, frame, clear, t, _cuts_within(phase_cuts, num_bounces),
+    return _frame("twins", accum, inp, frame, clear, t, _cuts_within(phase_cuts, num_bounces),
                   num_bounces, on_stage, debug_counts)
 
 
@@ -471,7 +625,7 @@ def render_image_wavefront(
         raise ValueError(f"unsupported device {accum.device}")
     inp = mk.kernel_inputs(scene, sky, basis, chunk_size=chunk_size, super_factor=super_factor,
                            budget_texels=_texture_budget(budget_texels))
-    return _frame(kind == "cuda", accum, inp, frame, clear, t,
+    return _frame("kernels" if kind == "cuda" else "twins", accum, inp, frame, clear, t,
                   _cuts_within(phase_cuts, num_bounces), num_bounces,
                   debug_counts=debug_counts)
 
@@ -503,4 +657,5 @@ def render_image_wavefront_plain(
         num_bounces=num_bounces, phase_cuts=phase_cuts, debug_counts=debug_counts)
 
 
-__all__ = ["render_image_wavefront", "render_image_wavefront_plain"]
+__all__ = ["k0_slices", "k1_block_order", "render_image_wavefront",
+           "render_image_wavefront_plain"]
