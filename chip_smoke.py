@@ -87,7 +87,9 @@ the probe's shapes (every ray as the twin's), past the first
 shared-memory window of sweep_mma (every ray) and at a card-filling shape
 (2,097,152 rays against RTiOW's 496 spheres; at most 1e-5 of the rays may
 part), the dot's precision (FP32 bit for bit with the probe's reference)
-and the layout kernels, each against its twin and its bound.
+at p3's shape and at a card-filling B[8, 2^20], each mode beside
+torch.matmul by CUDA events, the host clock and the profiler, and the
+layout kernels, each against its twin and its bound.
 
 ``[access]`` runs probes/place.py, probes/mosaic.py and probes/gather_cost.py
 (benchmarks/probe_place.py's, probe_mosaic.py's and probe_gather_cost.py's
@@ -97,8 +99,13 @@ table_gather, lane_gather, smem_rw, row_sort and lane_scan against its twin
 bit for bit, at the probes' shapes (with the profiler's device time beside
 the event time) and at card-filling shapes (2^24 values; the texture
 pools of textured_spheres at the LUT's budget and at full size), each
-beside its bound and a library call. It also gives the device time of the
-record-DMA probes' and p3's dot at their tiny shapes.
+beside its bound and a library call; smem_rw's three routes ("direct"
+among them) also with each call's host time, and at the fill with the
+library call's device and host time, each case's calls rotating over copies
+of its scratches until a round of them outgrows the L2 (``warm_l2`` lists
+the cases too small for that), and a call's host side by piece
+(``case=smem_rw_host_parts_ms``). It also gives the device time of the
+record-DMA probes at their tiny shapes.
 
 ``[xla]`` drives the ``"xla"`` backend, the JAX package's XLA tracer in
 plain PyTorch, through ``Renderer(backend="xla", device="cuda")``: RTiOW at
@@ -1869,8 +1876,8 @@ def _sweep_launches(mxu, name: str) -> dict:
     want = dict.fromkeys(SWEEP_KERNELS, 0)
     if name in ("p1", "p2"):
         want["layout"] = 2 * case(r)
-    elif name == "p3":
-        want["dot_mma"] = len(mxu.sw.PRECISIONS) * turns(r)
+    elif name == "p3":  # the probe's shape and the card-filling B[8, 2^20]
+        want["dot_mma"] = mxu.dot_launches(r)
     elif name == "p4":
         want["layout"] = (len(mxu.CHAIN_SHAPES) + 1) * 2 * case(r)
     elif name.startswith("p5"):
@@ -1940,10 +1947,10 @@ def _access_probes(mk, rg, wf, ro, sw, modules) -> dict:
     return out
 
 
-def _tiny_device_ms(ro, sw, dma, mxu, reps: int = 20) -> dict:
-    """Rows 9a-9d, 10f and 13c at the TPU probes' tiny shapes: the CUDA-event
+def _tiny_device_ms(ro, dma, reps: int = 20) -> dict:
+    """Rows 9a-9d and 10f at the TPU probes' tiny shapes: the CUDA-event
     time of a call (time_mean over ``reps``) beside the kernel's device time
-    under the profiler (probes.device_times)."""
+    under the profiler (probes.device_times). Row 13c's are p3's own."""
     from weekend_raytracer_tpu_torch.probes import device_times, time_mean
 
     fns = {}
@@ -1955,10 +1962,6 @@ def _tiny_device_ms(ro, sw, dma, mxu, reps: int = 20) -> dict:
             fns[name] = lambda src=src, idx=idx, dst=dst: ro.record_gather(src, idx, dst)
         else:
             fns[name] = lambda src=src, idx=idx, held=held: ro.record_scatter(src, idx, held)
-    an, bn, _ = mxu.dot_inputs()
-    a, b = torch.from_numpy(an).cuda(), torch.from_numpy(bn).cuda()
-    for prec in sw.PRECISIONS:
-        fns[f"dot_mma_{prec}"] = lambda prec=prec: sw.dot_mma(a, b, prec)
     event = {k: time_mean(fn, reps, "cuda") for k, fn in fns.items()}
     dev = device_times(fns, reps, "cuda")
     return {k: {"event_ms": event[k], **dev[k]} for k in fns}
@@ -1970,19 +1973,39 @@ def _sig(x, digits: int = 4):
 
 
 def _access_summary(res: dict) -> dict:
-    """{"case.route": [ms, device ms, bound ms, share, library ms]} of a
-    probe's result (None where a number was not taken)."""
+    """{"case.route": [ms, device ms, host ms, bound ms, share, library ms,
+    library device ms, library host ms]} of a probe's result (None where a
+    number was not taken; host ms: probes.host_ms, a call's host side)."""
     out = {}
 
     def walk(key, v):
         if isinstance(v, dict) and "bound_ms" in v and "ms" in v:
-            out[key] = [_sig(v["ms"]), _sig(v.get("device_ms")), _sig(v["bound_ms"]),
-                        _sig(v["share"]), _sig(v["library_ms"])]
+            out[key] = [_sig(v[k]) if k in ("ms", "bound_ms") else _sig(v.get(k))
+                        for k in ("ms", "device_ms", "host_ms", "bound_ms", "share",
+                                  "library_ms", "library_device_ms", "library_host_ms")]
         elif isinstance(v, dict):
             for k, vv in v.items():
                 walk(f"{key}.{k}" if key else k, vv)
 
     walk("", {k: v for k, v in res.items() if k not in ("launches", "smem_rate")})
+    return out
+
+
+def _warm_l2(res: dict) -> list:
+    """The scratch cases of a probe's result whose calls fit in the L2
+    (probes/place.py ``rotation``), so that their byte bound, at the HBM
+    rate, is no bound."""
+    out = []
+
+    def walk(key, v):
+        if isinstance(v, dict) and "warm_l2" in v:
+            if v["warm_l2"]:
+                out.append(key)
+        elif isinstance(v, dict):
+            for k, vv in v.items():
+                walk(f"{key}.{k}" if key else k, vv)
+
+    walk("", res)
     return out
 
 
@@ -3369,34 +3392,49 @@ def main(argv=None) -> int:
          wrong_share_gate=fill["wrong_share"], control=f"{fill['control']:.3g}",
          launches=json.dumps(sp7["launches"]), card=repr(smi))
     record["sweep"] = sp7
+    dot = {"p3": sp7["p3"], "p3_fill": sp7["p3"]["fill"]}
+    for shape, res in dot.items():
+        _say("sweep", case=f"dot_mma_{shape}", shape=json.dumps(res.get("shape", [64, 8, 4096])),
+             ms_device_host_bound_share=json.dumps(
+                 {p: [_sig(res[p].get(k)) for k in ("ms", "device_ms", "host_ms", "bound_ms",
+                                                     "share")] for p in sw.PRECISIONS}),
+             library_ms_device_host=json.dumps(
+                 {p: [_sig(res[f"library{k}"].get(p)) for k in ("_ms", "_device_ms", "_host_ms")]
+                  for p in ("fp32", "tf32")}),
+             device_ms_by_cuda_events=json.dumps(
+                 _by_events({k: v for k, v in res.items() if k != "fill"})), card=repr(smi))
     for key, case in (("sweep_fma", fill["fma"]), ("sweep_mma_tf32", fill["mma_tf32"]),
-                      ("sweep_mma_3xtf32", fill["mma_3xtf32"]), ("dot_mma", sp7["p3"]["fp32"]),
-                      ("layout", sp7["p1"]["big"])):
+                      ("sweep_mma_3xtf32", fill["mma_3xtf32"]),
+                      ("dot_mma", dot["p3_fill"]["fp32"]), ("layout", sp7["p1"]["big"])):
         ms[key], plain_ms[key] = case["ms"], case["plain_ms"]
         bounds[key] = {"bound_ms": case["bound_ms"], "bound_by": case["bound_by"]}
-    library_ms["dot_mma"] = sp7["p3"]["library_ms"]["fp32"]
+    library_ms["dot_mma"] = dot["p3_fill"]["library_ms"]["fp32"]
     library_ms["layout"] = sp7["p1"]["big"]["library_ms"]
     _say("sweep", case="kernels", ms_bound_share=json.dumps(
         {k: [round(ms[k], 4), round(bounds[k]["bound_ms"], 4), bounds[k]["bound_by"],
              round(bounds[k]["bound_ms"] / ms[k], 4)] for k in SWEEP_KERNELS}),
          plain_ms=json.dumps({k: round(plain_ms[k], 3) for k in SWEEP_KERNELS}),
          library_ms=json.dumps({k: library_ms.get(k) for k in SWEEP_KERNELS}),
-         dot_tf32_library_ms=f"{sp7['p3']['library_ms']['tf32']:.4f}", card=repr(smi))
+         dot_tf32_library_ms=f"{dot['p3_fill']['library_ms']['tf32']:.4f}", card=repr(smi))
     torch.cuda.empty_cache()
 
     # 13. the indexed-access probes (probes/place.py, mosaic.py,
     # gather_cost.py) on csrc/access.cu's kernels, each with its launches
     # counted from 0; then the tiny probes' device time beside their event
-    # time (rows 9a-9d, 10f, 13c)
+    # time (rows 9a-9d, 10f)
     t0 = time.perf_counter()
     access = _access_probes(mk, rg, wf, ro, sw, (place, mosaic, gather_cost))
     for mod in (place, mosaic, gather_cost):
         for name, _ in mod.PROBES:
             _say("access", probe=name, row=mod.ROWS[name],
                  launches=json.dumps({k: v for k, v in access[name]["launches"].items() if v}),
-                 ms_device_bound_share_library=json.dumps(_access_summary(access[name])),
-                 device_ms_by_cuda_events=json.dumps(_by_events(access[name])))
-    tiny = _tiny_device_ms(ro, sw, dma, mxu_sweep)
+                 ms_device_host_bound_share_library_device_host=json.dumps(
+                     _access_summary(access[name])),
+                 device_ms_by_cuda_events=json.dumps(_by_events(access[name])),
+                 warm_l2=json.dumps(_warm_l2(access[name])))
+    _say("access", case="smem_rw_host_parts_ms", parts=json.dumps(
+        {k: _sig(v) for k, v in access["p2"]["host_parts"].items()}), card=repr(smi))
+    tiny = _tiny_device_ms(ro, dma)
     # profiler traces that recorded no device event, timed by CUDA events
     by_events = sum(len(_by_events(access[name])) for mod in (place, mosaic, gather_cost)
                     for name, _ in mod.PROBES) + len(_by_events(tiny))
@@ -3471,7 +3509,8 @@ def main(argv=None) -> int:
                       (rp if k == "dma_rate" else bn["rtiow"])["launches"][k], 0.0)
                 for k in REORDER_KERNELS]
     # the sweeps' numbers are the card-filling shape's (fill), dot_mma's its
-    # FP32 mode at p3's shape, layout's the remap of 2^24 values (p1)
+    # FP32 mode at p3's card-filling B[8, 2^20], layout's the remap of 2^24
+    # values (p1)
     sweep_err = {"sweep_fma": fill["fma"]["max_abs_err"],
                  "sweep_mma_tf32": fill["mma_tf32"]["max_abs_err"],
                  "sweep_mma_3xtf32": fill["mma_3xtf32"]["max_abs_err"],

@@ -37,6 +37,7 @@ import types
 
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -302,6 +303,56 @@ def test_smem_rw_twin_later_write_wins():
     assert out.tolist() == [[[1, 7, 8, 9, 0]]] * 2  # offsets wrap modulo 64
 
 
+def direct_rule_np(base, read_idx, read_width, vals=None, write_idx=None):
+    """smem_rw's function word by word, as the "direct" route computes it:
+    output (b, m, w) is word a = (read_idx[m] + w) mod words of scratch b,
+    the value of the last write k whose window write_idx[k] + [0, width)
+    (mod words) covers a, else base[b, a]."""
+    batch, words = base.shape
+    out = np.empty((batch, len(read_idx), read_width), base.dtype)
+    for m, r in enumerate(read_idx):
+        for w in range(read_width):
+            a = (int(r) + w) % words
+            col = base[:, a]
+            for k in range(0 if write_idx is None else len(write_idx) - 1, -1, -1):
+                if write_idx is None:
+                    break
+                d = (a - int(write_idx[k])) % words
+                if d < vals.shape[1]:
+                    col = np.full(batch, vals[k, d], base.dtype)
+                    break
+            out[:, m, w] = col
+    return out
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(st.data())
+def test_smem_rw_direct_rule_is_the_twin(data):
+    """The per-word rule of the "direct" route equals the twin's writes
+    then reads, bit for bit, on seeded scratches: offsets beyond the
+    scratch and negative (they wrap), overlapping writes (the later wins),
+    and reads that wrap or cover the scratch more than once."""
+    words = data.draw(st.integers(1, 40))
+    batch = data.draw(st.integers(1, 3))
+    n_writes = data.draw(st.integers(0, 5))
+    width = data.draw(st.integers(1, words))
+    read_width = data.draw(st.integers(1, 2 * words + 3))
+    at = st.integers(-3 * words, 3 * words)
+    read_idx = np.asarray(data.draw(st.lists(at, min_size=1, max_size=5)), np.int32)
+    rng = np.random.default_rng(data.draw(st.integers(0, 2 ** 16)))
+    base = rng.integers(-(1 << 31), 1 << 31, size=(batch, words), dtype=np.int64).astype(np.int32)
+    vals = write_idx = None
+    if n_writes:
+        vals = rng.integers(-(1 << 31), 1 << 31, size=(n_writes, width),
+                            dtype=np.int64).astype(np.int32)
+        write_idx = np.asarray(data.draw(st.lists(at, min_size=n_writes, max_size=n_writes)),
+                               np.int32)
+    twin = ac.smem_rw_plain(_t(base), _t(read_idx), read_width,
+                            None if vals is None else _t(vals),
+                            None if write_idx is None else _t(write_idx))
+    assert _same_bits(twin.numpy(), direct_rule_np(base, read_idx, read_width, vals, write_idx))
+
+
 # --- the slice as a whole ------------------------------------------------
 
 _CPU_SIZES = {"place": dict(fill_rows=64, reps=1), "mosaic": dict(fill_rows=64, reps=1),
@@ -358,6 +409,59 @@ def test_fill_patterns_are_permutations_on_the_banks_they_name():
     warp = np.arange(32)
     assert len(set(pats["rotate"][warp] % 32)) == 32
     assert len(set(pats["stride32"][warp] % 32)) == 1
+
+
+_MIB = 2**20
+
+
+@pytest.mark.parametrize("base_mib,call_mib,copies", [
+    (64, 32, 4),  # 10e's fill: 16 MiB read and 16 MiB written a call
+    (64, 4, 25),  # 10i's: one 128-word row of each scratch
+    (64, 128, 1),  # p2's: every word read and written, past the L2 alone
+    (64, 1 / 32, 1),  # 10d's: one word a scratch, too few bytes to leave the L2
+    (2048, 4, 1),  # 25 copies of 2 GiB: over ROTATE_LIMIT
+])
+def test_rotation_outgrows_the_l2_where_it_can(base_mib, call_mib, copies):
+    call = int(call_mib * _MIB)
+    got = place.rotation(int(base_mib * _MIB), call)
+    assert got == copies
+    if got > 1:  # the fewest copies whose round reaches ROTATE_BYTES
+        assert got * call >= place.ROTATE_BYTES > (got - 1) * call
+
+
+def test_rw_case_rotates_over_copies_of_the_base(monkeypatch):
+    """With a round of calls smaller than ROTATE_BYTES, each call of the
+    library and of every route goes to the next copy of the base, each case
+    holds the twin's bits and the probe's expectation, and says how many
+    copies it rotated over."""
+    monkeypatch.setattr(place, "ROTATE_BYTES", 4096)
+    base = torch.arange(8 * 64, dtype=_F32).reshape(8, 64)
+    seen = []
+
+    def library(b):
+        seen.append(b.data_ptr())
+        return b.index_select(1, torch.arange(3, 7))
+
+    res = place.rw_case(base, torch.tensor([3], dtype=_I32),
+                        place.equal_to(base.numpy()[:, None, 3:7]), "cpu", 2, 0, "rotate",
+                        read_width=4, routes=("smem", "direct"), library=library)
+    # a call: 8 scratches x 4 words read and written, and the index
+    assert all(v["copies"] == 16 and not v["warm_l2"] for v in res.values())
+    assert len(seen) == 9 and len(set(seen)) == 9 and base.data_ptr() in seen
+
+
+@pytest.mark.parametrize("us,per_call,want", [
+    ([1.0, 2.0] * 3, 2, 3e-3),  # every event: a call's sum
+    ([1.0, 2.0, 1.0, 2.0, 1.0], 2, None),  # one lost: the sum would read low
+    ([1.0, 2.0] * 3, 1, None),  # more events than one traced call had
+    ([], 0, None),  # the traced call recorded none
+])
+def test_library_device_ms_needs_every_event(us, per_call, want):
+    assert probes.library_device_ms(us, 3, per_call) == pytest.approx(want)
+
+
+def test_host_parts_need_the_card():
+    assert place.host_parts("cpu") is None
 
 
 def test_device_times_is_none_off_the_card():
@@ -455,6 +559,22 @@ def test_wrappers_launch_for_cuda_tensors(stub_library):
     assert ac.launch_counts() == dict.fromkeys(ac.KERNELS, 0)
 
 
+def test_smem_rw_direct_reaches_the_library(stub_library):
+    """Route "direct" passes index 2, the writes and the reads as the other
+    routes do, and counts its launch."""
+    ac.zero_launch_counts()
+    base = torch.zeros((3, 4096), dtype=_I32)
+    vals = torch.zeros((2, 128), dtype=_I32)
+    out = ac.smem_rw(base, torch.zeros(5, dtype=_I32), 1024, vals=vals,
+                     write_idx=torch.zeros(2, dtype=_I32), route="direct")
+    (rw,) = stub_library["wrt_smem_rw"].calls
+    assert rw[0] == base.data_ptr() and rw[1:3] == (3, 4096) and rw[3] == vals.data_ptr()
+    assert rw[5:7] == (2, 128) and rw[8:11] == (5, 1024, ac.RW_ROUTES.index("direct")) == \
+        (5, 1024, 2) and rw[11] == out.data_ptr() and rw[12] == 77
+    assert out.shape == (3, 5, 1024) and ac.launch_counts()["smem_rw"] == 1
+    ac.zero_launch_counts()
+
+
 @pytest.mark.parametrize("which", range(len(_C_FUNCTIONS)))
 def test_wrappers_raise_on_launch_error(which, stub_library):
     stub_library[_C_FUNCTIONS[which]].rc = 700
@@ -467,7 +587,8 @@ def test_wrappers_raise_on_launch_error(which, stub_library):
 @pytest.mark.parametrize("bad", ["table_width", "tile_rows", "span", "shared_span", "route",
                                  "lane_both", "lane_axis0_rows", "lane_rows_len", "lane_dtype",
                                  "rw_shfl_words", "rw_smem_words", "rw_write_width",
-                                 "rw_vals_alone", "sort_width", "devices"])
+                                 "rw_vals_alone", "sort_width", "devices",
+                                 "rw_direct_writes", "rw_direct_output"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
     tab, x = torch.zeros((4, 128)), torch.zeros((32, 128))
     idx = torch.zeros((32, 128), dtype=_I32)
@@ -502,6 +623,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
             ac.smem_rw(torch.zeros((1, 32)), at, vals=torch.zeros((1, 3)))
         elif bad == "sort_width":
             ac.row_sort(torch.zeros((4, 64)))
+        elif bad == "rw_direct_writes":
+            n = ac.MAX_DIRECT_WRITES + 1
+            ac.smem_rw(torch.zeros((1, 32)), at, vals=torch.zeros((n, 1)),
+                       write_idx=torch.zeros(n, dtype=_I32), route="direct")
+        elif bad == "rw_direct_output":  # 2 x 3 x 2^30 output words
+            ac.smem_rw(torch.zeros((2, 32)), at, 1 << 30, route="direct")
         else:
             ac.lane_gather(x, idx.to("meta"))
 

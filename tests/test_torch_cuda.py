@@ -26,8 +26,9 @@ same body on the same slots: it gives regroup's image in every bit, and
 its COMPACT equals its twin bit for bit. The record reorder kernels equal
 their twins bit for bit (dma_rate's twin repeats its sum order), and K1 on
 a binned pool, scattered back, equals home-order K1 in every bit. Of the
-sweep probe kernels, the layout remap and the FP32 dot equal their twins
-bit for bit; the TF32 and 3xTF32 dots are within probes/mxu_sweep.py's
+sweep probe kernels, the layout remap and the FP32 dot (at M of 16 to 64,
+N up to 2^20) equal their twins bit for bit, and so does the indexed-access
+kernel smem_rw's "direct" route (wraps, overlapping writes, every width); the TF32 and 3xTF32 dots are within probes/mxu_sweep.py's
 DOT_TOL of sum |a||b| of their twins (the products are exact, the tensor
 cores sum in their own order); the sweeps hit the same spheres as their
 twins with t within probes/mxu_sweep.py's t_tolerance on every ray at the
@@ -932,6 +933,120 @@ def test_dot_mma_matches_plain(prec, cuda):
         assert _same_bits(got, plain) and _same_bits(got.cpu(), torch.from_numpy(ref))
     mag = (a.abs() @ b.abs()).cpu()
     assert bool(((got - plain).abs().cpu() <= mxu_sweep.DOT_TOL * mag).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "tf32", "3xtf32"])
+@pytest.mark.parametrize("n", [8, 4104, 1 << 20])  # 4104: 64 tiles of 64 and one of 8
+@pytest.mark.parametrize("m", [16, 48, 64])
+def test_dot_mma_shapes_match_plain(m, n, prec, cuda):
+    """dot_mma's two kernels at M of 16, 48 and 64 (a block's rows halved
+    until the grid fills the card, or a partial 64-row block), N not a
+    multiple of a block's columns, and the card-filling 2^20: FP32 bit for
+    bit with its twin, TF32 and 3xTF32 within DOT_TOL of theirs."""
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + n)
+    a = torch.randn((m, 8), generator=gen, device=cuda)
+    b = torch.randn((8, n), generator=gen, device=cuda) * 3.0
+    before = sw.dot_mma.launches
+    got = sw.dot_mma(a, b, prec)
+    plain = sw.dot_plain(a, b, prec)
+    torch.cuda.synchronize()
+    assert sw.dot_mma.launches == before + 1
+    if prec == "fp32":
+        assert _same_bits(got, plain)
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        mag = a.abs() @ b.abs()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+    assert bool(((got - plain).abs() <= mxu_sweep.DOT_TOL * mag).all())
+
+
+@pytest.mark.cuda
+def test_p3_fill_holds(cuda):
+    """p3 with its card-filling B[8, 2^20]: every mode against its twin
+    inside the probe (FP32 bit for bit), with exactly dot_launches calls."""
+    sw.zero_launch_counts()
+    out = mxu_sweep.p3(cuda, reps=2, device_reps=2)
+    torch.cuda.synchronize()
+    assert sw.launch_counts()["dot_mma"] == mxu_sweep.dot_launches(2, 2)
+    assert out["fill"]["fp32"]["max_abs_err"] == 0.0 and out["fp32"]["bit_identical"]
+    sw.zero_launch_counts()
+
+
+# smem_rw "direct": batch, words, read offsets, read width, (offset, width)
+# of each write, base dtype
+_DIRECT_CASES = {
+    # reads and writes past both ends, overlapping writes, 16-byte items
+    # that leave alignment or wrap
+    "wrapping": (5, 300, [-7, 295, 1000, 3], 12, [(298, 9), (-5, 9), (100, 9)], "i32"),
+    "odd_width": (64, 4096, [2816, 4090, -1], 7, [(4093, 5)], "i32"),  # 4-byte items
+    "above_shfl": (1000, 2048, [643, 0, 2040], 128, [(700, 64), (736, 64)], "f32"),
+    "whole_scratch": (4096, 4096, [0], 4096, [(2816, 128)], "f32"),  # 10h at the fill
+    "many_writes": (32, 1024, list(range(0, 1024, 3)), 1, [(i * 7, 1) for i in range(1024)],
+                    "i32"),
+    "tiny_words": (7, 3, [1, -2], 8, [(2, 2)], "i32"),  # a 16-byte item wraps twice
+    "no_writes": (4096, 4096, [2048], 1024, [], "f32"),  # 10e at the fill
+}
+
+
+def _direct_inputs(case, cuda):
+    batch, words, reads, width, writes, dtype = _DIRECT_CASES[case]
+    rng = np.random.default_rng(len(case))
+    bits = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.integers(-(1 << 31), 1 << 31, size=shape, dtype=np.int64).astype(np.int32))
+    base = bits(batch, words)
+    special = np.asarray([0x80000000, 0x7FC00001, 0x7F800001, 1, 0xFF800000], np.uint32)
+    base[:, :min(words, 5)] = torch.from_numpy(special.view(np.int32)[:words])
+    view = torch.float32 if dtype == "f32" else torch.int32
+    read_idx = torch.tensor(reads, dtype=torch.int32)
+    vals = write_idx = None
+    if writes:
+        ww = writes[0][1]
+        vals = bits(len(writes), ww).to(cuda).view(view)
+        write_idx = torch.tensor([w[0] for w in writes], dtype=torch.int32).to(cuda)
+    return base.to(cuda).view(view), read_idx.to(cuda), width, vals, write_idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_DIRECT_CASES))
+def test_smem_rw_direct_bit_for_bit(case, cuda):
+    """smem_rw's "direct" route equal to its twin in every bit (NaN
+    payloads, -0.0, denormals kept) and to "smem" where the scratch fits
+    shared memory, one launch each."""
+    from weekend_raytracer_tpu_torch.ops.cuda import access as ac
+
+    base, read_idx, width, vals, write_idx = _direct_inputs(case, cuda)
+    ac.zero_launch_counts()
+    got = ac.smem_rw(base, read_idx, width, vals=vals, write_idx=write_idx, route="direct")
+    want = ac.smem_rw_plain(base, read_idx, width, vals, write_idx)
+    torch.cuda.synchronize()
+    assert ac.launch_counts()["smem_rw"] == 1
+    assert _same_bits(got, want)
+    if base.shape[1] * 4 <= ac.MAX_SHARED_BYTES:
+        smem = ac.smem_rw(base, read_idx, width, vals=vals, write_idx=write_idx, route="smem")
+        torch.cuda.synchronize()
+        assert _same_bits(smem, want) and ac.launch_counts()["smem_rw"] == 2
+    ac.zero_launch_counts()
+
+
+@pytest.mark.cuda
+def test_smem_rw_direct_refused_launch_raises(monkeypatch, cuda):
+    """With the wrapper's limit lifted, more writes than a block stages
+    reach wrt_smem_rw, which refuses them: the wrapper raises and does not
+    count the launch."""
+    from weekend_raytracer_tpu_torch.ops.cuda import access as ac
+
+    n = ac.MAX_DIRECT_WRITES + 1
+    monkeypatch.setattr(ac, "MAX_DIRECT_WRITES", n)
+    before = ac.smem_rw.launches
+    with pytest.raises(RuntimeError, match=r"smem_rw \(direct\) launch failed: CUDA error"):
+        ac.smem_rw(torch.zeros((2, 64), device=cuda), torch.zeros(3, dtype=torch.int32,
+                                                                    device=cuda),
+                   vals=torch.zeros((n, 1), device=cuda),
+                   write_idx=torch.zeros(n, dtype=torch.int32, device=cuda), route="direct")
+    assert ac.smem_rw.launches == before
 
 
 @pytest.mark.cuda

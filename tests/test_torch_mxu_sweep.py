@@ -54,6 +54,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from weekend_raytracer_tpu_torch.ops.cuda import sweep as sw  # noqa: E402
+from weekend_raytracer_tpu_torch.probes import HBM_RATE  # noqa: E402
 from weekend_raytracer_tpu_torch.probes import mxu_sweep as ms  # noqa: E402
 
 _PROBE = pathlib.Path(__file__).resolve().parents[1] / "benchmarks" / "probe_mxu_sweep.py"
@@ -168,6 +169,35 @@ def test_p3_jax_dot_within_twin_bound(probe, which, prec, extra):
     mag = np.abs(a) @ np.abs(b)
     twin = sw.dot_plain(_t(a), _t(b), prec).numpy()
     assert (np.abs(out - twin) <= (16 * U + extra) * mag).all()
+
+
+def test_p3_fill_case_runs_through_the_twin(monkeypatch):
+    """p3's card-filling case, A[64, 8] . B[8, N] at a small N on the CPU:
+    the twin's FP32 product (no error against itself), TF32 and 3xTF32
+    within DOT_TOL, the byte bound of A, B and C, B drawn as dot_fill_b
+    draws it, and exactly the dot_mma calls ``dot_launches`` counts (less
+    the profiler's, which need the card)."""
+    calls = []
+
+    def counted(*a, _fn=sw.dot_mma, **k):
+        calls.append(a[2] if len(a) > 2 else k.get("prec", "fp32"))
+        return _fn(*a, **k)
+
+    monkeypatch.setattr(sw, "dot_mma", counted)
+    out = ms.p3("cpu", reps=1, fill_cols=1024)
+    fill = out["fill"]
+    assert fill["shape"] == [64, 8, 1024] and out["fp32"]["bit_identical"]
+    assert fill["fp32"]["max_abs_err"] == 0.0
+    for prec in sw.PRECISIONS:
+        assert fill[prec]["bound_by"] == "bytes"
+        assert fill[prec]["bound_ms"] == pytest.approx(
+            (64 * 8 + 8 * 1024 + 64 * 1024) * 4 / HBM_RATE * 1e3)
+        assert fill[prec]["host_ms"] > 0 and fill[prec]["ms"] > 0
+    assert set(fill["library_ms"]) == {"fp32", "tf32"}
+    assert len(calls) == ms.dot_launches(reps=1, device_reps=0)
+    assert sorted(set(calls)) == sorted(sw.PRECISIONS)
+    b = ms.dot_fill_b(1024)
+    assert b.shape == (8, 1024) and _same_bits(b, ms.dot_fill_b(1024))
 
 
 # --- 13d: layout, chain mode ---------------------------------------------
@@ -404,7 +434,7 @@ def test_the_port_never_imports_jax():
 # --- the slice as a whole ------------------------------------------------
 
 _SMALL = {"p1": dict(big=4096 * 4, reps=1), "p2": dict(big=4096 * 4, reps=1),
-          "p3": dict(reps=1), "p4": dict(big=4096 * 4, reps=1, steps=64),
+          "p3": dict(reps=1, fill_cols=2048), "p4": dict(big=4096 * 4, reps=1, steps=64),
           "p6": dict(rows=(64,), reps=1), "fill": dict(rays=2048, reps=1),
           "window": dict(rays=512)}
 

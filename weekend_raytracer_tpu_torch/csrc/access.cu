@@ -17,7 +17,9 @@
 //   smem_rw        a scratch written and read at dynamic word offsets
 //                  (probe_place.py:72; probe_mosaic.py:83, :104, :231, :251),
 //                  held in shared memory (kSmem) or across a warp's
-//                  registers (kShfl, scratches of at most 1024 words).
+//                  registers (kShfl, scratches of at most 1024 words), or
+//                  never held at all (kDirect: each output word read from
+//                  the base or a write where it lies).
 //   row_sort       probe_place.py:104: the probe's bitonic network along the
 //                  128 lanes of each row.
 //   lane_scan      probe_mosaic.py:213: an inclusive sum along the 128 lanes
@@ -35,6 +37,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "card.cuh"
+
 namespace {
 
 constexpr int kWidth = 128;  // lanes of a row
@@ -48,9 +52,14 @@ constexpr int kMaxSharedBytes = 232448;  // a block's shared memory on an H100
 constexpr int kDefaultSharedBytes = 48 * 1024;
 constexpr int kFetchStride = 37;  // probe_gather_cost.py:32
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDirectWrites = 1024;  // smem_rw kDirect: write offsets a block stages
+constexpr int kMaxDirectReads = 2048;  // smem_rw kDirect: one-word read offsets a block stages
+constexpr int kDirectBlocksPerSm = 8;  // smem_rw kDirect: 2048 threads an SM
+constexpr int kDirectUnroll = 4;  // smem_rw kDirect: independent items a thread loads at once
 
 enum GatherRoute { kGlobal = 0, kShared = 1, kArith = 2 };
 enum Route { kShfl = 0, kSmem = 1, kLocal = 2 };
+constexpr int kDirect = 2;  // smem_rw's third route (shfl 0, smem 1)
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
   const int r = a % m;
@@ -258,6 +267,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// a mod m for 0 <= a, the division only where a >= m.
+__device__ __forceinline__ int wrap(int a, int m) { return a < m ? a : a % m; }
+
 // The word of output o of a scratch read: read_idx[o / width] + o % width.
 __device__ __forceinline__ int read_offset(const int* __restrict__ read_idx, long long o,
                                            int width) {
@@ -302,6 +314,126 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t* dst = out + b * total;
   for (long long o = threadIdx.x; o < total; o += kThreads) {
     dst[o] = scratch[floor_mod(read_offset(read_idx, o, read_width), words)];
+  }
+}
+
+// smem_rw_direct<kVec>: smem_rw_shared's function with no copy of the
+// scratch. Output word (b, m, w) is scratch b's word a = (read_idx[m] + w)
+// mod words: the value of the last write k whose window (write_idx[k] +
+// [0, write_width)) mod words covers a, vals[k, (a - write_idx[k]) mod
+// words], or base[b, a] where no write covers it.
+//
+// Replaces the same pallas_calls as smem_rw_shared (probe_place.py:72;
+// probe_mosaic.py:83, :104, :231, :251). Bound on an H100 by bytes: the
+// base words the reads return, the writes, the indices and the output
+// (probes/place.py rw_case counts them). smem_rw_shared moves every word
+// of every scratch whatever the reads ask for (64 MB at probe_mosaic's
+// fill, where :83 returns one word a scratch), takes a barrier a write and
+// runs a block a scratch. Design: no staging and no barrier but one, which
+// follows the block's copy of the write offsets (floor-modded, at most
+// kMaxDirectWrites) into shared memory; a write's values are read from
+// global memory (the L1) only where a word is covered, the writes walked
+// last to first; one-word reads (probe_place.py:72's, :83's) have their
+// offsets floor-modded once a block into shared memory too (at most
+// kMaxDirectReads), so such an item costs a shared load, a global load
+// and a store. The output is flat: consecutive items on consecutive
+// threads, an item kVec words (4 where read_width % 4 == 0: a 16-byte
+// store, and a 16-byte load where the four words neither wrap nor leave
+// 16-byte alignment; else four 4-byte loads), and a grid of
+// kDirectBlocksPerSm blocks an SM at most, each thread taking
+// kDirectUnroll items a step at a stride of the grid, their loads issued
+// together. Items index in 32 bits (the wrapper holds the output under
+// 2^31 words); a thread finds its first item's scratch by one division
+// and steps to the next by adding the stride's quotient and remainder.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    smem_rw_direct(const uint32_t* __restrict__ base, int words,
+                   const uint32_t* __restrict__ vals, const int* __restrict__ write_idx,
+                   int n_writes, int write_width, const int* __restrict__ read_idx,
+                   int n_reads, int read_width, unsigned items_per_scratch, unsigned items,
+                   uint32_t* __restrict__ out) {
+  __shared__ int wstart[kMaxDirectWrites];
+  __shared__ int rstart[kMaxDirectReads];
+  const bool staged_reads = read_width == 1 && n_reads <= kMaxDirectReads;
+  for (int k = threadIdx.x; k < n_writes; k += kThreads) {
+    wstart[k] = floor_mod(write_idx[k], words);
+  }
+  if (staged_reads) {
+    for (int m = threadIdx.x; m < n_reads; m += kThreads) {
+      rstart[m] = floor_mod(read_idx[m], words);
+    }
+  }
+  __syncthreads();
+  const unsigned items_per_read = static_cast<unsigned>(read_width / kVec);
+  const unsigned stride = gridDim.x * kThreads;
+  const unsigned first = blockIdx.x * kThreads + threadIdx.x;
+  if (first >= items) return;
+  // (scratch, item of the scratch) of this thread's next item, advanced by
+  // the grid's stride without a division
+  unsigned b = first / items_per_scratch;
+  unsigned r = first - b * items_per_scratch;
+  const unsigned step_b = stride / items_per_scratch;
+  const unsigned step_r = stride - step_b * items_per_scratch;
+  for (unsigned i0 = first; i0 < items; i0 += stride * kDirectUnroll) {
+    uint32_t v[kDirectUnroll][kVec];
+    int at[kDirectUnroll];
+#pragma unroll
+    for (int u = 0; u < kDirectUnroll; ++u) {
+      if (i0 + u * stride < items) {
+        int a0;
+        if (staged_reads) {
+          a0 = rstart[r];
+        } else {
+          const unsigned m = items_per_read == 1 ? r : r / items_per_read;
+          const int w = static_cast<int>(r - m * items_per_read) * kVec;
+          // the int32 sum the twin takes modulo words
+          a0 = floor_mod(static_cast<int>(static_cast<unsigned>(__ldg(read_idx + m)) +
+                                          static_cast<unsigned>(w)),
+                         words);
+        }
+        at[u] = a0;
+        const uint32_t* src = base + static_cast<long long>(b) * words;
+        if constexpr (kVec == 4) {
+          if (a0 <= words - 4 && (reinterpret_cast<uintptr_t>(src + a0) & 15) == 0) {
+            const uint4 q = __ldg(reinterpret_cast<const uint4*>(src + a0));
+            v[u][0] = q.x, v[u][1] = q.y, v[u][2] = q.z, v[u][3] = q.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[u][e] = __ldg(src + wrap(a0 + e, words));
+          }
+        } else {
+          v[u][0] = __ldg(src + a0);
+        }
+      }
+      r += step_r;
+      b += step_b;
+      if (r >= items_per_scratch) {
+        r -= items_per_scratch;
+        ++b;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kDirectUnroll; ++u) {
+      const unsigned it = i0 + u * stride;
+      if (it >= items) continue;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int a = wrap(at[u] + e, words);
+        for (int k = n_writes - 1; k >= 0; --k) {
+          int d = a - wstart[k];
+          d += d < 0 ? words : 0;
+          if (d < write_width) {
+            v[u][e] = __ldg(vals + static_cast<long long>(k) * write_width + d);
+            break;
+          }
+        }
+      }
+      if constexpr (kVec == 4) {
+        reinterpret_cast<uint4*>(out)[it] = make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
+      } else {
+        out[it] = v[u][0];
+      }
+    }
   }
 }
 
@@ -448,10 +580,24 @@ unsigned blocks_for(long long items, int per_block) {
   return static_cast<unsigned>((items + per_block - 1) / per_block);
 }
 
-cudaError_t allow_shared(const void* fn, int bytes) {
+// The dynamic shared memory each kernel that takes more than the default
+// has been allowed, per device: cudaFuncSetAttribute runs once for each
+// larger size, not on every launch.
+int table_shared_allowed[kMaxDevices];
+int rw_shared_allowed[kMaxDevices];
+
+cudaError_t allow_shared(const void* fn, int bytes, int* allowed) {
   if (bytes <= kDefaultSharedBytes) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && cached) allowed[dev] = bytes;
+  return err;
 }
+
 
 }  // namespace
 
@@ -479,7 +625,7 @@ int wrt_table_gather(const float* tab, int table_rows, const int* idx, int n_til
   } else if (route == kShared) {
     const int smem = span_rows * kWidth * 4;
     const cudaError_t err = allow_shared(reinterpret_cast<const void*>(table_gather<kShared>),
-                                         smem);
+                                         smem, table_shared_allowed);
     if (err != cudaSuccess) return static_cast<int>(err);
     table_gather<kShared><<<n_tiles, kGatherThreads, smem, s>>>(tab, table_rows, idx,
                                                                 span_rows, n_fetch, out);
@@ -533,20 +679,49 @@ int wrt_lane_gather(const uint32_t* x, int x_rows, const int* idx, const int* sh
 // base [batch, words] -> out [batch, n_reads, read_width]; vals
 // [n_writes, write_width] and write_idx [n_writes] (null when n_writes is
 // 0), write_width <= words; read_idx [n_reads]. route 0 shfl (words 32,
-// 64, ..., 1024), 1 smem (words * 4 <= 232,448).
+// 64, ..., 1024), 1 smem (words * 4 <= 232,448), 2 direct (n_writes <=
+// 1024, batch * n_reads * read_width < 2^31).
 int wrt_smem_rw(const uint32_t* base, int batch, int words, const uint32_t* vals,
                 const int* write_idx, int n_writes, int write_width, const int* read_idx,
                 int n_reads, int read_width, int route, uint32_t* out, void* stream) {
   if (batch <= 0 || words <= 0 || n_writes < 0 || write_width <= 0 || write_width > words ||
-      n_reads <= 0 || read_width <= 0 || route < kShfl || route > kSmem ||
+      n_reads <= 0 || read_width <= 0 || route < kShfl || route > kDirect ||
       (n_writes > 0 && (vals == nullptr || write_idx == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kDirect) {
+    const long long total = static_cast<long long>(batch) * n_reads * read_width;
+    if (n_writes > kMaxDirectWrites || total >= (1LL << 31)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const bool vec = read_width % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    const int per = vec ? 4 : 1;
+    const unsigned items = static_cast<unsigned>(total / per);
+    const unsigned per_scratch = static_cast<unsigned>(static_cast<long long>(n_reads) *
+                                                       read_width / per);
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned fill = static_cast<unsigned>(sms * kDirectBlocksPerSm);
+    const unsigned blocks = blocks_for(items, kThreads) < fill ? blocks_for(items, kThreads)
+                                                               : fill;
+    if (vec) {
+      smem_rw_direct<4><<<blocks, kThreads, 0, s>>>(base, words, vals, write_idx, n_writes,
+                                                    write_width, read_idx, n_reads, read_width,
+                                                    per_scratch, items, out);
+    } else {
+      smem_rw_direct<1><<<blocks, kThreads, 0, s>>>(base, words, vals, write_idx, n_writes,
+                                                    write_width, read_idx, n_reads, read_width,
+                                                    per_scratch, items, out);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   if (route == kSmem) {
     if (words > kMaxSharedBytes / 4) return static_cast<int>(cudaErrorInvalidValue);
     const int smem = words * 4;
-    const cudaError_t err = allow_shared(reinterpret_cast<const void*>(smem_rw_shared), smem);
+    const cudaError_t err =
+        allow_shared(reinterpret_cast<const void*>(smem_rw_shared), smem, rw_shared_allowed);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_rw_shared<<<batch, kThreads, smem, s>>>(base, words, vals, write_idx, n_writes,
                                                  write_width, read_idx, n_reads, read_width,
@@ -606,6 +781,8 @@ int wrt_access_attributes(int which, int* num_regs, int* local_bytes, int* share
       reinterpret_cast<const void*>(smem_rw_shfl<16>),
       reinterpret_cast<const void*>(smem_rw_shfl<32>),
       reinterpret_cast<const void*>(smem_rw_shared),
+      reinterpret_cast<const void*>(smem_rw_direct<1>),
+      reinterpret_cast<const void*>(smem_rw_direct<4>),
       reinterpret_cast<const void*>(row_sort),
       reinterpret_cast<const void*>(lane_scan),
   };

@@ -14,9 +14,10 @@
 //                  B [8, R]), _rowdot_sweep_kernel (:322, at :394) and
 //                  _chunked_mxu_kernel (:486, at :577; rays from the six SoA
 //                  planes).
-//   dot_mma        A[M, 8] . B[8, N] (p3, :98, at :108): FP32 multiply then
-//                  add in k order (bit for bit the probe's FMA-order
-//                  reference), TF32 or 3xTF32 on the tensor cores.
+//   dot_mma        A[M, 8] . B[8, N] (p3, :98, at :108): dot_fp32, multiply
+//                  then add in k order (bit for bit the probe's FMA-order
+//                  reference), or dot_tc, TF32 or 3xTF32 on the tensor
+//                  cores; both store C as 16-byte words.
 //   layout_remap   p1 (:62, at :70), p2 (:79, at :87): a copy under the
 //                  probe's index map (2x + 1 in place, or rows reversed).
 //   layout_chain   p4 (:130, at :140): the 256-step chain
@@ -48,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
+#include "card.cuh"
 
 namespace {
 
@@ -57,7 +59,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRayTiles = 4;  // 8-ray tiles a warp of sweep_mma carries: 32 rays
 constexpr int kTileFloats = 2 * 32 * 4;  // one 16-sphere tile's two A fragments
 constexpr int kMmaSmemBytes = 48 * 1024;  // a block's window of staged A fragments
-constexpr int kDotWarpCols = 32;  // dot_mma: a warp's output tile is 16 x 32
+constexpr int kDotThreads = 128;  // dot_mma: four warps a block
+constexpr int kDotWarps = kDotThreads / 32;
+constexpr int kDotMaxRows = 64;  // dot_mma: rows of A a block stages at most
+constexpr int kDotTileCols = 64;  // dot_tc: columns a block takes
 
 enum Prec { kFp32 = 0, kTf32 = 1, kTf32x3 = 2 };
 
@@ -309,55 +314,145 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dot_mma<kPrec>: C[M, N] = A[M, 8] . B[8, N].
+// dot_mma: C[M, N] = A[M, 8] . B[8, N], two kernels.
 //
-// Replaces benchmarks/probe_mxu_sweep.py:98 p3's kernel (pallas_call at
+// Replace benchmarks/probe_mxu_sweep.py:98 p3's kernel (pallas_call at
 // :108), jnp.dot at precision "highest" and at the default. Bound on an
-// H100 by bytes at the probe's shape (4 MFLOP against 1.2 MB, written C
-// foremost); at any shape a launch is most of it. Design: a warp computes
-// a 16 x 32 tile as four m16n8k8 products with A's fragment split once;
-// kFp32 computes the same tile positions with __fmul_rn then __fadd_rn in
-// k order from 0.0f, no contraction: bit for bit the probe's numpy
-// reference (ref += a[:, k] * b[k, :]).
+// H100 by bytes at every shape: depth 8 gives 16 flops an output word
+// against the 4 B written (4 MFLOP against 1.2 MB at p3's A[64, 8] . B[8,
+// 4096]; 1.07 GFLOP against 302 MB at B[8, 2^20], 0.090 ms at 3.35 TB/s),
+// far below the TF32 and FP32 lines, and C is most of the bytes. The
+// kernel before this one gave a warp a 16 x 32 tile (64 blocks at p3 on
+// 132 SMs), loaded B and stored C 4 bytes at a time, and in FP32 read 16
+// values from global memory an output word. Both kernels here store C as
+// coalesced 16-byte words, stage A once a block in shared memory, and
+// size the grid to the card: a block covers its columns for up to 64 rows
+// of A, and where that gives fewer blocks than SMs (p3) the rows a block
+// takes are halved until it does not (dot_rows).
+
+// dot_fp32: each output by __fmul_rn then __fadd_rn in k order from 0.0f,
+// no contraction: bit for bit the probe's numpy reference (ref += a[:, k]
+// * b[k, :]). Design: a thread owns a strip of 4 adjacent columns, loads
+// its 8 B values as 16-byte loads once and reuses them for every row of
+// the block's rows, whose A values it reads from shared memory (one
+// address a warp: a broadcast), and stores each row's 4 outputs as one
+// 16-byte word (a warp writes 512 contiguous bytes of a row).
+__global__ void __launch_bounds__(kDotThreads)
+    dot_fp32(const float* __restrict__ a, const float4* __restrict__ b, float4* __restrict__ c,
+             int m, int n4, int rows) {
+  __shared__ float as[kDotMaxRows * 8];
+  const int m0 = blockIdx.y * rows;
+  const int mr = min(rows, m - m0);
+  for (int i = threadIdx.x; i < mr * 8; i += kDotThreads) as[i] = a[m0 * 8 + i];
+  __syncthreads();
+  const int col = blockIdx.x * kDotThreads + threadIdx.x;
+  if (col >= n4) return;
+  float4 bv[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) bv[k] = __ldg(b + static_cast<long long>(k) * n4 + col);
+  float4* dst = c + static_cast<long long>(m0) * n4 + col;
+  for (int r = 0; r < mr; ++r) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float av = as[r * 8 + k];
+      acc.x = __fadd_rn(acc.x, __fmul_rn(av, bv[k].x));
+      acc.y = __fadd_rn(acc.y, __fmul_rn(av, bv[k].y));
+      acc.z = __fadd_rn(acc.z, __fmul_rn(av, bv[k].z));
+      acc.w = __fadd_rn(acc.w, __fmul_rn(av, bv[k].w));
+    }
+    dst[static_cast<long long>(r) * n4] = acc;
+  }
+}
+
+// dot_tc<kPrec>: the products on the tensor cores, TF32 (one m16n8k8
+// product) or 3xTF32 (lo.hi, hi.lo, then hi.hi into one accumulator).
+// Design: a block of four warps takes kDotTileCols columns and up to 64
+// rows. It stages A's rows and B's [8, 64] tile in shared memory, each
+// element split to TF32 hi (and lo) once as it is staged (B read as
+// 16-byte words; cp.async would land B unsplit and need a second pass over
+// shared memory to split it, so B goes through registers); each warp takes
+// two 8-column tiles, its B fragments read once, and runs every 16-row
+// tile of A against them. The accumulators go to a [64, 72] tile of C in
+// shared memory, and the block stores that tile as coalesced 16-byte rows
+// (256 B a row). Row strides of 12 (A) and 72 (B, C) words put a
+// fragment's 32 lanes on 32 banks. mma.sync and not wgmma: the product is
+// no part of the time, and wgmma's K-major B would need B transposed as
+// it is staged.
 template <int kPrec>
-__global__ void __launch_bounds__(kThreads)
-    dot_mma(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
-            int n_cols) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int q = lane & 3;
-  const long long nc = n_cols;
-  const int m0 = blockIdx.y * 16;
-  const long long n0 = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
-                       kDotWarpCols;
-  uint32_t ahi[4], alo[4];
-  if constexpr (kPrec != kFp32) {
-    for (int v = 0; v < 4; ++v) {
-      split<kPrec>(a[(m0 + g + 8 * (v & 1)) * 8 + q + 4 * (v >> 1)], ahi[v], alo[v]);
+__global__ void __launch_bounds__(kDotThreads)
+    dot_tc(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
+           int m, int n, int rows) {
+  constexpr bool kLo = kPrec == kTf32x3;
+  constexpr int kAStride = 12;
+  constexpr int kStride = kDotTileCols + 8;
+  __shared__ uint32_t a_hi[kDotMaxRows * kAStride];
+  __shared__ uint32_t a_lo[kLo ? kDotMaxRows * kAStride : 1];
+  __shared__ __align__(16) uint32_t b_hi[8 * kStride];
+  __shared__ __align__(16) uint32_t b_lo[kLo ? 8 * kStride : 4];
+  __shared__ __align__(16) float cs[kDotMaxRows * kStride];
+  const int m0 = blockIdx.y * rows;
+  const int mr = min(rows, m - m0);
+  const int n0 = blockIdx.x * kDotTileCols;
+  const int nc = min(kDotTileCols, n - n0);
+  for (int i = threadIdx.x; i < mr * 8; i += kDotThreads) {
+    uint32_t hi, lo;
+    split<kPrec>(a[m0 * 8 + i], hi, lo);
+    a_hi[(i >> 3) * kAStride + (i & 7)] = hi;
+    if constexpr (kLo) a_lo[(i >> 3) * kAStride + (i & 7)] = lo;
+  }
+  {  // B's tile: 8 rows of 16 float4, one a thread
+    const int k = threadIdx.x >> 4, c4 = threadIdx.x & 15;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (4 * c4 < nc) {
+      v = __ldg(reinterpret_cast<const float4*>(b + static_cast<long long>(k) * n + n0) + c4);
+    }
+    uint4 hi, lo;
+    split<kPrec>(v.x, hi.x, lo.x);
+    split<kPrec>(v.y, hi.y, lo.y);
+    split<kPrec>(v.z, hi.z, lo.z);
+    split<kPrec>(v.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(b_hi + k * kStride + 4 * c4) = hi;
+    if constexpr (kLo) *reinterpret_cast<uint4*>(b_lo + k * kStride + 4 * c4) = lo;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kDotTileCols / 8 / kDotWarps; ++j) {
+    const int nt = warp + j * kDotWarps;
+    if (8 * nt >= nc) break;  // n is a multiple of 8: whole tiles, warp-uniform
+    uint32_t bh[2], bl[2] = {0u, 0u};
+    bh[0] = b_hi[q * kStride + 8 * nt + g];
+    bh[1] = b_hi[(q + 4) * kStride + 8 * nt + g];
+    if constexpr (kLo) {
+      bl[0] = b_lo[q * kStride + 8 * nt + g];
+      bl[1] = b_lo[(q + 4) * kStride + 8 * nt + g];
+    }
+    for (int mt = 0; mt < mr / 16; ++mt) {
+      const int r0 = (16 * mt + g) * kAStride + q;
+      uint32_t ah[4], al[4] = {0u, 0u, 0u, 0u};
+      ah[0] = a_hi[r0], ah[1] = a_hi[r0 + 8 * kAStride];
+      ah[2] = a_hi[r0 + 4], ah[3] = a_hi[r0 + 8 * kAStride + 4];
+      if constexpr (kLo) {
+        al[0] = a_lo[r0], al[1] = a_lo[r0 + 8 * kAStride];
+        al[2] = a_lo[r0 + 4], al[3] = a_lo[r0 + 8 * kAStride + 4];
+      }
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_prec<kPrec>(acc, ah, al, bh, bl);
+      float* row = cs + (16 * mt + g) * kStride + 8 * nt + 2 * q;
+      *reinterpret_cast<float2*>(row) = make_float2(acc[0], acc[1]);
+      *reinterpret_cast<float2*>(row + 8 * kStride) = make_float2(acc[2], acc[3]);
     }
   }
-  for (int nt = 0; nt < kDotWarpCols / 8; ++nt) {
-    const long long n = n0 + 8 * nt;
-    if (n >= nc) break;  // n_cols is a multiple of 8: whole tiles, warp-uniform
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if constexpr (kPrec == kFp32) {
-      for (int v = 0; v < 4; ++v) {
-        const int row = m0 + g + 8 * (v >> 1);
-        const long long col = n + 2 * q + (v & 1);
-        for (int k = 0; k < 8; ++k) {
-          acc[v] = __fadd_rn(acc[v], __fmul_rn(a[row * 8 + k], b[k * nc + col]));
-        }
-      }
-    } else {
-      uint32_t bhi[2], blo[2];
-      split<kPrec>(b[q * nc + n + g], bhi[0], blo[0]);
-      split<kPrec>(b[(q + 4) * nc + n + g], bhi[1], blo[1]);
-      mma_prec<kPrec>(acc, ahi, alo, bhi, blo);
+  __syncthreads();
+  float* dst = c + static_cast<long long>(m0) * n + n0;
+  for (int e = threadIdx.x; e < mr * (kDotTileCols / 4); e += kDotThreads) {
+    const int r = e / (kDotTileCols / 4), c4 = e % (kDotTileCols / 4);
+    if (4 * c4 < nc) {
+      reinterpret_cast<float4*>(dst + static_cast<long long>(r) * n)[c4] =
+          *reinterpret_cast<const float4*>(cs + r * kStride + 4 * c4);
     }
-    c[(m0 + g) * nc + n + 2 * q] = acc[0];
-    c[(m0 + g) * nc + n + 2 * q + 1] = acc[1];
-    c[(m0 + g + 8) * nc + n + 2 * q] = acc[2];
-    c[(m0 + g + 8) * nc + n + 2 * q + 1] = acc[3];
   }
 }
 
@@ -443,12 +538,36 @@ int launch_sweep_mma(const float* amats, int n_chunks, int cs, const float* rays
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kPrec>
-int launch_dot(const float* a, const float* b, float* c, int m, int n, cudaStream_t s) {
-  const int cols_a_block = kDotWarpCols * kWarps;
-  const dim3 grid(static_cast<unsigned>((n + cols_a_block - 1) / cols_a_block),
-                  static_cast<unsigned>(m / 16));
-  dot_mma<kPrec><<<grid, kThreads, 0, s>>>(a, b, c, n);
+// The rows of A a dot_mma block takes: 64, halved (down to min_rows) while
+// the grid would hold fewer blocks than the card's sms.
+int dot_rows(int m, long long col_blocks, int min_rows, int sms) {
+  int rows = kDotMaxRows;
+  while (rows > min_rows && col_blocks * ((m + rows - 1) / rows) < sms) rows /= 2;
+  return rows;
+}
+
+int launch_dot(const float* a, const float* b, float* c, int m, int n, int prec,
+               cudaStream_t s) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prec == kFp32) {
+    const int n4 = n / 4;
+    const unsigned cols = static_cast<unsigned>((n4 + kDotThreads - 1) / kDotThreads);
+    const int rows = dot_rows(m, cols, 1, sms);
+    const dim3 grid(cols, static_cast<unsigned>((m + rows - 1) / rows));
+    dot_fp32<<<grid, kDotThreads, 0, s>>>(a, reinterpret_cast<const float4*>(b),
+                                          reinterpret_cast<float4*>(c), m, n4, rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const unsigned cols = static_cast<unsigned>((n + kDotTileCols - 1) / kDotTileCols);
+  const int rows = dot_rows(m, cols, 16, sms);
+  const dim3 grid(cols, static_cast<unsigned>((m + rows - 1) / rows));
+  if (prec == kTf32) {
+    dot_tc<kTf32><<<grid, kDotThreads, 0, s>>>(a, b, c, m, n, rows);
+  } else {
+    dot_tc<kTf32x3><<<grid, kDotThreads, 0, s>>>(a, b, c, m, n, rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,17 +619,15 @@ int wrt_sweep_mma(const float* amats, int n_chunks, int cs, const float* rays, i
 }
 
 // c [m, n] = a [m, 8] . b [8, n] at prec 0 (FP32, k order), 1 (TF32) or 2
-// (3xTF32); m a multiple of 16, n of 8.
+// (3xTF32); m a multiple of 16, n of 8, b and c 16-byte aligned.
 int wrt_dot_mma(const float* a, const float* b, float* c, int m, int n, int prec,
                 void* stream) {
-  if (m <= 0 || m % 16 || n <= 0 || n % 8 || m / 16 > 65535) {
+  if (m <= 0 || m % 16 || n <= 0 || n % 8 || m / 16 > 65535 || prec < kFp32 ||
+      prec > kTf32x3 || (reinterpret_cast<uintptr_t>(b) & 15) ||
+      (reinterpret_cast<uintptr_t>(c) & 15)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (prec == kFp32) return launch_dot<kFp32>(a, b, c, m, n, s);
-  if (prec == kTf32) return launch_dot<kTf32>(a, b, c, m, n, s);
-  if (prec == kTf32x3) return launch_dot<kTf32x3>(a, b, c, m, n, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dot(a, b, c, m, n, prec, static_cast<cudaStream_t>(stream));
 }
 
 // out [rows, cols] = in [rows, cols] with rows reversed (reverse = 1) and,
@@ -553,9 +670,9 @@ int wrt_sweep_attributes(int which, int* num_regs, int* local_bytes) {
       reinterpret_cast<const void*>(sweep_fma),
       reinterpret_cast<const void*>(sweep_mma<kTf32>),
       reinterpret_cast<const void*>(sweep_mma<kTf32x3>),
-      reinterpret_cast<const void*>(dot_mma<kFp32>),
-      reinterpret_cast<const void*>(dot_mma<kTf32>),
-      reinterpret_cast<const void*>(dot_mma<kTf32x3>),
+      reinterpret_cast<const void*>(dot_fp32),
+      reinterpret_cast<const void*>(dot_tc<kTf32>),
+      reinterpret_cast<const void*>(dot_tc<kTf32x3>),
       reinterpret_cast<const void*>(layout_remap),
       reinterpret_cast<const void*>(layout_chain),
   };

@@ -16,7 +16,9 @@ says what bounds each on the card):
                 each (32, 128) tile; route "shfl", "smem" or "local".
   smem_rw       a scratch of words, written and read at run-time offsets;
                 route "shfl" (scratches of 32 to 1024 words in a warp's
-                registers) or "smem".
+                registers), "smem" (each scratch staged in shared memory)
+                or "direct" (no copy: each output word read where it
+                lies, in the base or in the last write that covers it).
   row_sort      probe_place.py p3's bitonic network along each row of 128.
   lane_scan     an inclusive sum along each row of 128.
 
@@ -27,7 +29,9 @@ or a scratch offset modulo its size (floor modulo, as jnp's ``%``), so no
 input reads out of bounds. Each wrapper launches its CUDA kernel for CUDA
 tensors (counted in its launch counter) or raises, and runs its plain
 PyTorch twin for CPU tensors; every twin repeats its kernel's order of
-operations, so the two agree in every bit.
+operations, so the two agree in every bit. A wrapper's host side is most
+of a call at the probes' shapes, so the library is loaded and bound once
+and the stream is read as a raw handle.
 """
 from __future__ import annotations
 
@@ -59,23 +63,30 @@ FETCH_STRIDE = 37  # probe_gather_cost.py:32
 N_FETCH = 16  # probe_gather_cost.py:54
 GATHER_ROUTES = ("global", "shared", "arith")
 LANE_ROUTES = ("shfl", "smem", "local")
-RW_ROUTES = ("shfl", "smem")
+RW_ROUTES = ("shfl", "smem", "direct")
 MAX_SHARED_BYTES = 232448  # a block's shared memory on an H100
 # the rows of a span table_gather "shared" can stage beside its 128 B of
 # warp minima
 MAX_SHARED_SPAN = (MAX_SHARED_BYTES - 128) // (WIDTH * 4)
 SHFL_WORDS = (32, 64, 128, 256, 512, 1024)  # scratch sizes smem_rw "shfl" holds
+MAX_DIRECT_WRITES = 1024  # writes smem_rw "direct" takes (their offsets staged a block)
 
 # access.cu wrt_access_attributes index -> kernel
 KERNEL_NAMES = ("table_gather_global", "table_gather_shared", "table_gather_arith",
                 "lane_gather_rows_shfl", "lane_gather_rows_smem", "lane_gather_rows_local",
                 "lane_gather_cols_shfl", "lane_gather_cols_smem", "lane_gather_cols_local",
-                *(f"smem_rw_shfl_{w}" for w in SHFL_WORDS), "smem_rw_smem", "row_sort",
-                "lane_scan")
+                *(f"smem_rw_shfl_{w}" for w in SHFL_WORDS), "smem_rw_smem",
+                "smem_rw_direct_1", "smem_rw_direct_4", "row_sort", "lane_scan")
+
+_BUILT = None  # the loaded library, its functions bound, after the first call
 
 
 def _library():
-    """Build (first use) and load the kernel library; raises on failure."""
+    """Build (first use) and load the kernel library; raises on failure.
+    The library, its functions bound, is kept after the first call."""
+    global _BUILT
+    if _BUILT is not None:
+        return _BUILT
     built = load_library(*LIBRARY)
     lib = built.lib
     if lib.wrt_table_gather.argtypes is None:
@@ -93,6 +104,7 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    _BUILT = built
     return built
 
 
@@ -113,7 +125,9 @@ def kernel_attributes() -> dict:
 
 
 def _stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of ``device`` as a raw handle, with no Stream
+    object built."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -133,12 +147,13 @@ def _check(t: torch.Tensor, what: str, dims: int, dtypes=(_F32,)) -> None:
 
 
 def _same_device(*ts) -> str:
-    """The device type ("cpu" or "cuda") the tensors (None skipped) share;
-    raises if they lie on different devices or on another kind."""
-    ts = [t for t in ts if t is not None]
+    """The device type ("cpu" or "cuda") the tensors (None skipped; the
+    first is one) share; raises if they lie on different devices or on
+    another kind."""
+    first = ts[0].device
     for t in ts[1:]:
-        if t.device != ts[0].device:
-            raise ValueError(f"tensors on {ts[0].device} and {t.device}")
+        if t is not None and t.device != first:
+            raise ValueError(f"tensors on {first} and {t.device}")
     kind = _device_type(ts[0])
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {ts[0].device}")
@@ -348,39 +363,47 @@ def smem_rw(base: torch.Tensor, read_idx: torch.Tensor, read_width: int = 1, *,
     [batch, words] (float32 or int32 words) takes the writes of ``vals``
     [n, width] at ``write_idx`` [n] int32 in order, then is read at
     ``read_idx`` [m] int32, ``read_width`` words from each offset, all
-    offsets modulo words: out [batch, m, read_width]. Route "shfl" (words
-    one of SHFL_WORDS) or "smem" (words * 4 <= MAX_SHARED_BYTES)."""
+    offsets modulo words: out [batch, m, read_width]. An offset plus a
+    width is an int32 sum, as the twin takes it. Route "shfl" (words one
+    of SHFL_WORDS), "smem" (words * 4 <= MAX_SHARED_BYTES) or "direct" (at
+    most MAX_DIRECT_WRITES writes, fewer than 2^31 output words)."""
     _check(base, "base", 2, _WORDS)
     _check(read_idx, "read indices", 1, (_I32,))
     which = _route(route, RW_ROUTES, "smem_rw")
     batch, words = base.shape
+    n_reads = read_idx.shape[0]
     if (vals is None) != (write_idx is None):
         raise ValueError("smem_rw takes vals and write_idx together")
-    width_ok = True
+    n_writes, write_width, width_ok = 0, 1, True
     if vals is not None:
         _check(vals, "vals", 2, (base.dtype,))
         _check(write_idx, "write indices", 1, (_I32,))
-        width_ok = vals.shape[0] == write_idx.shape[0] and vals.shape[1] <= words
-    fits = words in SHFL_WORDS if route == "shfl" else words * 4 <= MAX_SHARED_BYTES
+        n_writes, write_width = vals.shape
+        width_ok = n_writes == write_idx.shape[0] and write_width <= words
+    if route == "shfl":
+        fits = words in SHFL_WORDS
+    elif route == "smem":
+        fits = words * 4 <= MAX_SHARED_BYTES
+    else:
+        fits = n_writes <= MAX_DIRECT_WRITES and batch * n_reads * read_width < 1 << 31
     if (not width_ok or not fits or read_width <= 0 or batch >= 1 << 31
-            or read_idx.shape[0] * read_width * batch >= 1 << 62):
+            or n_reads * read_width * batch >= 1 << 62):
         raise ValueError(f"smem_rw takes base [batch, words] (words in {SHFL_WORDS} for 'shfl',"
                          f" at most {MAX_SHARED_BYTES // 4} for 'smem'), vals [n, width <= "
-                         f"words] with write_idx [n], read_idx [m] and read_width > 0, got "
-                         f"base {tuple(base.shape)}, vals "
+                         f"words] with write_idx [n] (n <= {MAX_DIRECT_WRITES} and fewer than "
+                         f"2^31 output words for 'direct'), read_idx [m] and read_width > 0, "
+                         f"got base {tuple(base.shape)}, vals "
                          f"{None if vals is None else tuple(vals.shape)}, read_width "
                          f"{read_width}, route {route!r}")
     if _same_device(base, read_idx, vals, write_idx) == "cpu":
         return smem_rw_plain(base, read_idx, read_width, vals, write_idx)
-    out = torch.empty((batch, read_idx.shape[0], read_width), dtype=base.dtype,
-                      device=base.device)
-    n_writes = 0 if vals is None else vals.shape[0]
-    write_width = 1 if vals is None else vals.shape[1]
+    out = base.new_empty((batch, n_reads, read_width))
     err = _library().lib.wrt_smem_rw(base.data_ptr(), batch, words, _ptr(vals),
                                      _ptr(write_idx), n_writes, write_width,
-                                     read_idx.data_ptr(), read_idx.shape[0], read_width, which,
+                                     read_idx.data_ptr(), n_reads, read_width, which,
                                      out.data_ptr(), _stream_handle(base.device))
-    _raise_on(err, f"smem_rw ({route})")
+    if err:
+        _raise_on(err, f"smem_rw ({route})")
     smem_rw.launches += 1
     return out
 

@@ -22,7 +22,8 @@ Rays are the six SoA planes [6, R] (ox, oy, oz, dx, dy, dz) or, for
 A sweep returns (t [R] float32, index [R] int32): MAX_T and -1 for a miss.
 Each wrapper launches its CUDA kernel for CUDA tensors (counted in its
 launch counter) or raises, and runs its plain PyTorch twin for CPU
-tensors.
+tensors. The library is loaded and bound once, and the stream read as a
+raw handle: at the probes' shapes a call's host side is most of its time.
 """
 from __future__ import annotations
 
@@ -59,8 +60,15 @@ KERNEL_NAMES = ("sweep_fma", "sweep_mma_tf32", "sweep_mma_3xtf32", "dot_mma_fp32
                 "dot_mma_tf32", "dot_mma_3xtf32", "layout_remap", "layout_chain")
 
 
+_BUILT = None  # the loaded library, its functions bound, after the first call
+
+
 def _library():
-    """Build (first use) and load the kernel library; raises on failure."""
+    """Build (first use) and load the kernel library; raises on failure.
+    The library, its functions bound, is kept after the first call."""
+    global _BUILT
+    if _BUILT is not None:
+        return _BUILT
     built = load_library(*LIBRARY)
     lib = built.lib
     if lib.wrt_sweep_fma.argtypes is None:
@@ -77,6 +85,7 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    _BUILT = built
     return built
 
 
@@ -94,7 +103,9 @@ def kernel_attributes() -> dict:
 
 
 def _stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of ``device`` as a raw handle, with no Stream
+    object built."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -330,7 +341,8 @@ def sweep_mma(amats: torch.Tensor, rays: torch.Tensor, prec: str = "3xtf32", ite
 
 
 def dot_mma(a: torch.Tensor, b: torch.Tensor, prec: str = "fp32") -> torch.Tensor:
-    """a [M, 8] . b [8, N] (M a multiple of 16, N of 8) at ``prec``."""
+    """a [M, 8] . b [8, N] (M a multiple of 16, N of 8; b 16-byte
+    aligned) at ``prec``."""
     _check(a, "a", 2)
     _check(b, "b", 2)
     m, n = a.shape[0], b.shape[1]
@@ -342,10 +354,13 @@ def dot_mma(a: torch.Tensor, b: torch.Tensor, prec: str = "fp32") -> torch.Tenso
     kind = _same_device(a, b)
     if kind == "cpu":
         return dot_plain(a, b, prec)
-    c = torch.empty((m, n), dtype=_F32, device=a.device)
+    if b.data_ptr() % 16:
+        raise ValueError("dot_mma reads b 16 bytes at a time: b must be 16-byte aligned")
+    c = a.new_empty((m, n))
     err = _library().lib.wrt_dot_mma(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n,
                                      PRECISIONS.index(prec), _stream_handle(a.device))
-    _raise_on(err, f"dot_mma ({prec})")
+    if err:
+        _raise_on(err, f"dot_mma ({prec})")
     dot_mma.launches += 1
     return c
 

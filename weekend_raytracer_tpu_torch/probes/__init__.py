@@ -96,6 +96,22 @@ def time_mean(fn, reps: int, device) -> float:
     return time_call(calls, device)[1] / reps
 
 
+def host_ms(fn, reps: int, device) -> float:
+    """Host milliseconds a call of ``fn`` takes: the host clock over
+    ``reps`` calls in a row, after one warm call and a synchronize, with no
+    synchronize between or after them. On the card that is each call's
+    host side (checks, allocation, the launch), whatever the kernel's
+    device time; on the CPU, the whole call. Makes reps + 1 calls."""
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    sync(device)
+    return ms
+
+
 def max_sm_clock_mhz() -> float:
     """The card's maximum SM clock, as nvidia-smi reports it."""
     out = subprocess.run(
@@ -126,19 +142,36 @@ def smem_rate(device) -> dict:
 TRACE_PAD_S = 0.05
 
 
-def device_times(fns: dict, reps: int, device):
+def library_device_ms(us, reps: int, per_call: int):
+    """A call's device milliseconds of a function that launches ``per_call``
+    kernels (learnt from one traced call), from the device events ``us``
+    (microseconds) that a trace of ``reps`` calls recorded; None unless the
+    trace holds exactly reps x per_call events, as a dropped event would
+    make the sum read low."""
+    if per_call < 1 or len(us) != reps * per_call:
+        return None
+    return sum(us) / reps / 1e3
+
+
+def device_times(fns: dict, reps: int, device, several=()):
     """{label: {"device_ms": ms, "device_ms_by": by}} for each function of
-    ``fns``, each of which launches one kernel: each is called ``reps``
+    ``fns``, each of which launches one kernel (those labelled in
+    ``several``, a library call, may launch more): each is called ``reps``
     times under its own utils.metrics.profiler_trace, the calls padded on
     both sides by TRACE_PAD_S of idle host time, with a pair of CUDA events
     around each call. By "profiler", the time is the mean of the device
     events the profiler records there (as chip_smoke's [trace] reads them);
     a trace can miss a few of its events, so the mean is over those it has.
-    A trace that records none of them (one did after some hundred traces in
-    one process) gives by "cuda_events" the mean of the event pairs of the
-    same calls instead, which also counts each launch's host side: no call
-    is made again, so the launches stay ``reps`` a function. More events
-    than calls is an error. None off the card."""
+    A label of ``several`` is first traced over one call of its own, which
+    counts its kernels a call; its time is then the sum of its events over
+    ``reps`` (``library_device_ms``), and only where the trace holds every
+    event it should. A trace that records none of them (one did after some
+    hundred traces in one process), or a ``several`` trace that lost any,
+    gives by "cuda_events" the mean of the event pairs of the same calls
+    instead, which also counts each launch's host side: no call is made
+    again, so the launches stay ``reps`` a function (one more for a label of
+    ``several``). More events than calls is an error where a call launches
+    one kernel. None off the card."""
     import tempfile
 
     import torch
@@ -148,10 +181,10 @@ def device_times(fns: dict, reps: int, device):
 
     if torch.device(device).type != "cuda":
         return None
-    out = {}
-    for label, fn in fns.items():
+
+    def trace(fn, calls: int):
         pairs = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
-                 for _ in range(reps)]
+                 for _ in range(calls)]
         torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as log_dir:
             with profiler_trace(log_dir) as prof:
@@ -164,11 +197,19 @@ def device_times(fns: dict, reps: int, device):
                 time.sleep(TRACE_PAD_S)
             us = [e.self_device_time_total for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-        if len(us) > reps:
+        return us, pairs
+
+    out = {}
+    for label, fn in fns.items():
+        per_call = len(trace(fn, 1)[0]) if label in several else 1
+        us, pairs = trace(fn, reps)
+        if len(us) > reps and label not in several:
             raise AssertionError(f"{label}: the profiler saw {len(us)} device events of "
                                  f"{reps} calls")
-        if us:
-            out[label] = {"device_ms": sum(us) / len(us) / 1e3, "device_ms_by": "profiler"}
+        ms = (library_device_ms(us, reps, per_call) if label in several
+              else sum(us) / len(us) / 1e3 if us else None)
+        if ms is not None:
+            out[label] = {"device_ms": ms, "device_ms_by": "profiler"}
         else:
             out[label] = {"device_ms": sum(s.elapsed_time(e) for s, e in pairs) / reps,
                           "device_ms_by": "cuda_events"}

@@ -27,7 +27,9 @@ as probes/place.py times it (device time under the profiler at the probe's
 shape); each probe then runs at a card-filling shape, 2^24 values with its
 pattern repeated: (FILL_ROWS, 128) for the lane gathers and the scan, 4096
 scratches of the probe's 4096 words for the scratch reads and writes
-("smem" only: "shfl" holds at most 1024 words). The scan's fill also runs
+("smem" and "direct", RW_PROBE_ROUTES: "shfl" holds at most 1024 words;
+there also under the profiler and the host clock beside the library
+call). The scan's fill also runs
 seeded floats, held to the twin bit for bit and to torch.cumsum within
 SCAN_ULPS units of the prefix's magnitude.
 
@@ -50,6 +52,7 @@ from .place import (DEVICE_REPS, FILL_ROWS, REPS, byte_bound, case_launches, dev
                     gather_library, lane_case, nbytes, routes_case, run as _run, rw_case)
 
 _F32 = torch.float32
+RW_PROBE_ROUTES = ("smem", "direct")  # smem_rw's routes that take 4096-word scratches
 # torch.cumsum against the kernel: two sums of the same prefix of n <= 128
 # terms in two orders each err by at most (n - 1) u sum |x| (u = 2^-24), so
 # they differ by at most 2 * 127 u of the prefix's sum of magnitudes
@@ -128,12 +131,14 @@ def _scratch_fill(host: np.ndarray, rows: int) -> np.ndarray:
 def _rw_probe(base_np, read_at, read_width, fill_rows, device, reps, what, vals=None,
               write_at=None) -> dict:
     """A scratch probe at the probe's shape (one scratch) and at the fill
-    (its pattern repeated over 4096 scratches), "smem" only: the scratches
-    hold 4096 words. ``read_at`` and ``write_at`` make the offsets on the
-    device from the probe's index array."""
+    (its pattern repeated over 4096 scratches), in RW_PROBE_ROUTES: the
+    scratches hold 4096 words. Both under the profiler; the fill's calls
+    rotate over copies of its scratches (``place.rw_case``). ``read_at`` and
+    ``write_at`` make the offsets on the device from the probe's index
+    array."""
     out = {}
-    for label, host, dreps in (("probe_shape", base_np.reshape(1, -1), DEVICE_REPS),
-                               ("fill", _scratch_fill(base_np, fill_rows), 0)):
+    for label, host in (("probe_shape", base_np.reshape(1, -1)),
+                        ("fill", _scratch_fill(base_np, fill_rows))):
         base = dev(host, device)
         i = dev(np.asarray([_INDEX[what]], np.int32), device)
         read_idx = read_at(i)
@@ -149,16 +154,16 @@ def _rw_probe(base_np, read_at, read_width, fill_rows, device, reps, what, vals=
         if label == "fill":
             cols = (r0 + torch.arange(read_width, device=device)).long()
             if vals is None:
-                library = (lambda base=base, cols=cols: base.index_select(1, cols))
+                library = (lambda b, cols=cols: b.index_select(1, cols))
             else:
                 wcols = (at + torch.arange(vals.shape[1], device=device)).long()
                 src = v.expand(base.shape[0], -1)
 
-                def library(base=base, wcols=wcols, src=src, cols=cols):
-                    return base.clone().index_copy_(1, wcols, src).index_select(1, cols)
-        out[label] = rw_case(base, read_idx, equal_to(want), device, reps, dreps,
+                def library(b, wcols=wcols, src=src, cols=cols):
+                    return b.clone().index_copy_(1, wcols, src).index_select(1, cols)
+        out[label] = rw_case(base, read_idx, equal_to(want), device, reps, DEVICE_REPS,
                              (what, label), read_width=read_width, vals=v,
-                             write_idx=write_idx, routes=("smem",), library=library)
+                             write_idx=write_idx, routes=RW_PROBE_ROUTES, library=library)
     return out
 
 
@@ -288,8 +293,8 @@ def launches(name: str, reps: int = REPS, device_reps: int = DEVICE_REPS) -> dic
     out = dict.fromkeys(ac.KERNELS, 0)
     if name == "cumsum_lanes":  # the probe's shape, 0/1 and float fills
         out["lane_scan"] = case_launches(1, reps, device_reps) + 2 * case_launches(1, reps)
-    elif name in _INDEX:  # "smem" at the probe's shape and the fill
-        out["smem_rw"] = case_launches(1, reps, device_reps) + case_launches(1, reps)
+    elif name in _INDEX:  # RW_PROBE_ROUTES at the probe's shape and the fill
+        out["smem_rw"] = 2 * case_launches(len(RW_PROBE_ROUTES), reps, device_reps, host=True)
     else:
         lanes = len(ac.LANE_ROUTES)
         out["lane_gather"] = case_launches(lanes, reps, device_reps) + case_launches(lanes, reps)

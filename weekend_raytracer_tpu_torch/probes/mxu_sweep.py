@@ -10,7 +10,8 @@ TPU probe prints, with the bound, its share and the card:
     p1      (32, 128) -> 2x + 1 through shared memory       layout_remap
     p2      six (1, 4096) rows in reverse                   layout_remap
     p3      A[64, 8] . B[8, 4096], FP32 k order, TF32 and   dot_mma
-            3xTF32, against the probe's FMA-order reference
+            3xTF32, against the probe's FMA-order reference;
+            then A[64, 8] . B[8, 2^20] (card-filling)
     p4      256-step acc = acc * v + 1e-7 on the probe's    layout_chain
             shapes, 1 and 4 chains a thread
     p5      32 spheres x 4096 rays x 64 passes: the FMA     sweep_fma,
@@ -42,6 +43,7 @@ anything there).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
 import time
@@ -50,8 +52,8 @@ import numpy as np
 import torch
 
 from ..ops.cuda import sweep as sw
-from . import (FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS, TF32_PEAK, card, check, same_bits, sync,
-               time_call, time_mean)
+from . import (FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS, TF32_PEAK, card, check, device_times,
+               host_ms, same_bits, sync, time_call, time_mean)
 
 _F32 = torch.float32
 # what sweep_mma leaves on the FP32 units per pair (b, cq, b^2, - cq, sqrt,
@@ -80,6 +82,8 @@ T_EPS = 16 * 2.0 ** -24  # each term's rounding in t_tolerance: FMA contraction
 # moves a sum by a unit or two, 3xTF32's split by 3 * 2^-22 of a product
 CHAIN_RTOL = 5e-5  # 256 steps, each rounded once (FMA) or twice: 256 * 3 * 2^-24
 DOT_TOL = 2.0 ** -18  # of sum_k |a_k| |b_k|: the tensor cores' order of the 8 sums
+DOT_FILL_COLS = 1 << 20  # p3's card-filling B[8, 2^20]: C is 256 MB
+DOT_DEVICE_REPS = 10  # p3: calls of each mode and library call under the profiler
 
 
 def _dev(x, device) -> torch.Tensor:
@@ -336,13 +340,13 @@ def dot_inputs(seed: int = 0):
     return a, b, ref
 
 
-def _matmul_ms(a, b, tf32: bool, reps: int, device) -> float:
-    if torch.device(device).type != "cuda":
-        return time_mean(lambda: a @ b, reps, device)
+@contextlib.contextmanager
+def _tf32_matmul(on: bool):
+    """torch.matmul with TF32 on or off, the setting restored after."""
     keep = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
     try:
-        return time_mean(lambda: a @ b, reps, device)
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = keep
 
@@ -356,44 +360,100 @@ def dot_ops_ms(m: int, n: int, prec: str) -> float:
     return flops * (3 if prec == "3xtf32" else 1) / TF32_PEAK * 1e3
 
 
-def p3(device="cuda", reps: int = 20) -> dict:
-    """The product at FP32 (k order), TF32 and 3xTF32 against the probe's
-    FMA-order reference: max relative error, bit identity; FP32 equals its
-    twin bit for bit, TF32 and 3xTF32 theirs within DOT_TOL of
-    sum_k |a_k| |b_k|. Library: torch.matmul with TF32 off and on."""
-    an, bn, ref = dot_inputs()
-    a, b = _dev(an, device), _dev(bn, device)
-    mag = torch.from_numpy(np.abs(an) @ np.abs(bn))
+def dot_fill_b(cols: int, seed: int = 1) -> np.ndarray:
+    """B [8, cols] of p3's card-filling case, drawn as p3 draws its own."""
+    return np.random.default_rng(seed).standard_normal((8, cols)).astype(np.float32) * 3.0
+
+
+# torch.matmul with TF32 off and on: the library call beside each mode
+# (off for fp32 and 3xtf32, on for tf32)
+MATMULS = {"matmul_fp32": False, "matmul_tf32": True}
+
+
+def _dot_case(a, b, ref, device, reps: int, device_reps: int) -> dict:
+    """dot_mma at every precision on a [M, 8] . b [8, N]: FP32 bit for bit
+    with its twin (and with ``ref``, the probe's FMA-order reference, where
+    given), TF32 and 3xTF32 within DOT_TOL of sum_k |a_k| |b_k| of theirs;
+    each mode and torch.matmul (MATMULS) timed in turns by CUDA events, by
+    the host clock (``probes.host_ms``) and under the profiler."""
+    m, n = a.shape[0], b.shape[1]
+    with _tf32_matmul(False):
+        mag = a.abs() @ b.abs()
     out = {}
     for prec in sw.PRECISIONS:
         got = sw.dot_mma(a, b, prec)
         plain, plain_ms = time_call(lambda: sw.dot_plain(a, b, prec), device)
         sync(device)
-        host = got.cpu()
         if prec == "fp32":
-            check(same_bits(host, torch.from_numpy(ref)), "dot_mma fp32 against the reference")
             check(same_bits(got, plain), "dot_mma fp32 against its twin")
-        diff = (host - plain.cpu()).abs()
+        diff = (got - plain).abs()
         check(bool((diff <= DOT_TOL * mag).all()), ("dot_mma against its twin", prec,
                                                     float((diff / mag.clamp_min(1e-30)).max())))
-        err = (host - torch.from_numpy(ref)).abs()
-        rel = err / torch.from_numpy(np.abs(ref)).clamp_min(1e-6)
-        out[prec] = {"max_rel_err": float(rel.max()),
-                     "bit_identical": same_bits(host, torch.from_numpy(ref)),
-                     "max_abs_err": float(diff.max()),
-                     "max_err_over_magnitude": float((err / mag.clamp_min(1e-30)).max()),
-                     "plain_ms": plain_ms,
-                     **_bound(dot_ops_ms(64, 4096, prec), (a.numel() + b.numel() + 64 * 4096) * 4)}
-    for prec, ms in _turns({p: (lambda p=p: sw.dot_mma(a, b, p)) for p in sw.PRECISIONS}, reps,
-                           device).items():
-        out[prec]["ms"] = ms
-    out["library_ms"] = {"fp32": _matmul_ms(a, b, False, reps, device),
-                         "tf32": _matmul_ms(a, b, True, reps, device)}
+        out[prec] = {"max_abs_err": float(diff.max()), "plain_ms": plain_ms,
+                     **_bound(dot_ops_ms(m, n, prec), (a.numel() + b.numel() + m * n) * 4)}
+        if ref is not None:
+            host, want = got.cpu(), torch.from_numpy(ref)
+            err = (host - want).abs()
+            out[prec].update(
+                max_rel_err=float((err / want.abs().clamp_min(1e-6)).max()),
+                bit_identical=same_bits(host, want),
+                max_err_over_magnitude=float((err / mag.cpu().clamp_min(1e-30)).max()))
+    check(ref is None or out["fp32"]["bit_identical"], "dot_mma fp32 against the reference")
+    fns = {p: (lambda p=p: sw.dot_mma(a, b, p)) for p in sw.PRECISIONS}
+    fns.update({k: (lambda: a @ b) for k in MATMULS})
+    ms = _turns(fns, reps, device, tf32=MATMULS)
+    host = {}
+    for k, fn in fns.items():
+        with _tf32_matmul(MATMULS.get(k, False)):
+            host[k] = host_ms(fn, reps, device)
+    timed = dict(fns, **{k: (lambda on=on: _matmul_as(a, b, on)) for k, on in MATMULS.items()})
+    dev = device_times(timed, device_reps, device, several=tuple(MATMULS)) or {}
+    for prec in sw.PRECISIONS:
+        out[prec].update(ms=ms[prec], share=out[prec]["bound_ms"] / ms[prec],
+                         host_ms=host[prec], **dev.get(prec, {}))
+    out["library_ms"] = {"fp32": ms["matmul_fp32"], "tf32": ms["matmul_tf32"]}
+    out["library_host_ms"] = {"fp32": host["matmul_fp32"], "tf32": host["matmul_tf32"]}
+    # a library call's device time only where its trace kept every event
+    out["library_device_ms"] = {p: dev[f"matmul_{p}"]["device_ms"] for p in ("fp32", "tf32")
+                                if dev.get(f"matmul_{p}", {}).get("device_ms_by") == "profiler"}
+    return out
+
+
+def _matmul_as(a, b, tf32: bool):
+    with _tf32_matmul(tf32):
+        return a @ b
+
+
+def dot_launches(reps: int = 20, device_reps: int = DOT_DEVICE_REPS) -> int:
+    """dot_mma's launches in p3: per precision and shape (the probe's and
+    the fill), a check, two timings in turns, a host timing and the
+    profiler's calls."""
+    return len(sw.PRECISIONS) * 2 * (1 + 2 * (reps + 1) + (reps + 1) + device_reps)
+
+
+def p3(device="cuda", reps: int = 20, fill_cols: int = DOT_FILL_COLS,
+       device_reps: int = DOT_DEVICE_REPS) -> dict:
+    """The product at FP32 (k order), TF32 and 3xTF32 against the probe's
+    FMA-order reference: max relative error, bit identity; FP32 equals its
+    twin bit for bit, TF32 and 3xTF32 theirs within DOT_TOL of
+    sum_k |a_k| |b_k|. Library: torch.matmul with TF32 off and on. Then
+    the same at the card-filling shape, A[64, 8] . B[8, fill_cols] (FP32
+    bit for bit with its twin)."""
+    an, bn, ref = dot_inputs()
+    a, b = _dev(an, device), _dev(bn, device)
+    out = _dot_case(a, b, ref, device, reps, device_reps)
+    out["fill"] = _dot_case(a, _dev(dot_fill_b(fill_cols), device), None, device, reps,
+                            device_reps)
+    out["fill"]["shape"] = [64, 8, fill_cols]
+    f = out["fill"]
     out["message"] = "; ".join(
         f"{p}: max rel err {out[p]['max_rel_err']:.2e}, bit-identical to FMA order: "
         f"{out[p]['bit_identical']}, {out[p]['ms'] * 1e3:.1f} us" for p in sw.PRECISIONS) + (
         f"; matmul fp32 {out['library_ms']['fp32'] * 1e3:.1f} us, tf32 "
-        f"{out['library_ms']['tf32'] * 1e3:.1f} us")
+        f"{out['library_ms']['tf32'] * 1e3:.1f} us; B[8, {fill_cols}]: " + ", ".join(
+            f"{p} {f[p]['ms']:.4f} ms ({f[p]['share']:.1%} of {f[p]['bound_ms']:.4f})"
+            for p in sw.PRECISIONS) +
+        f", matmul fp32 {f['library_ms']['fp32']:.4f}, tf32 {f['library_ms']['tf32']:.4f} ms")
     return out
 
 
@@ -587,13 +647,16 @@ def p6(device="cuda", rows=TRANSPOSE_ROWS, reps: int = 20) -> dict:
     return out
 
 
-def _turns(fns: dict, reps: int, device) -> dict:
+def _turns(fns: dict, reps: int, device, tf32=None) -> dict:
     """Each function's mean ms over ``reps`` calls, timed in order and then
-    in reverse, the smaller of the two."""
+    in reverse, the smaller of the two; a function named in ``tf32``
+    ({name: on}) runs with torch.matmul's TF32 set so."""
     order = list(fns)
+    tf32 = tf32 or {}
     times = {k: [] for k in order}
     for k in order + order[::-1]:
-        times[k].append(time_mean(fns[k], reps, device))
+        with _tf32_matmul(tf32.get(k, torch.backends.cuda.matmul.allow_tf32)):
+            times[k].append(time_mean(fns[k], reps, device))
     return {k: min(v) for k, v in times.items()}
 
 

@@ -32,6 +32,7 @@ twins (no timing means anything there).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import sys
 
@@ -39,8 +40,8 @@ import numpy as np
 import torch
 
 from ..ops.cuda import access as ac
-from . import (FP32_PEAK, HBM_RATE, card, check, device_times, same_bits, sync, time_call,
-               time_mean)
+from . import (FP32_PEAK, HBM_RATE, card, check, device_times, host_ms, same_bits, sync,
+               time_call, time_mean)
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -51,6 +52,12 @@ FILL_ROWS = 131072  # 2^24 values as (FILL_ROWS, 128)
 # each a min or a max for every key
 SORT_OPS_PER_KEY = 28
 RW_FILL_WORDS = 1024  # p2's fill: scratches of 1024 words (the largest "shfl" holds)
+# a scratch case's calls rotate over copies of its base until a round of
+# them moves ROTATE_BYTES, twice an H100's 50 MB L2, within ROTATE_COPIES
+# copies and ROTATE_LIMIT bytes of them (``rotation``)
+ROTATE_BYTES = 2 * 50 * 2**20
+ROTATE_COPIES = 32
+ROTATE_LIMIT = 2 * 2**30
 
 
 def dev(x, device, dtype=None) -> torch.Tensor:
@@ -95,11 +102,15 @@ def in_turns(fns: dict, reps: int, device) -> dict:
 
 
 def routes_case(kernels: dict, plain, expect, bound: dict, device, reps: int, library=None,
-                what="", device_reps: int = 0) -> dict:
+                what="", device_reps: int = 0, host: bool = False) -> dict:
     """``hold`` for each route of ``kernels`` ({route: fn}), each timed in
     turns beside its bound, the twin and ``library``; then, with
-    ``device_reps``, the device time of each under the profiler (at the
-    probe's shape, where a call's host side is most of its event time)."""
+    ``device_reps``, the device time of each (and of ``library``, which may
+    launch several kernels) under the profiler (at the probe's shape a
+    call's host side is most of its event time); with ``host``, the host
+    time of a call of each (``probes.host_ms``). A route's ``library_*``
+    numbers are the library call's (its device time only where its trace
+    kept every event)."""
     plain_ms = {route: hold(fn, plain, expect, (what, route), device)
                 for route, fn in kernels.items()}
     timed = dict(kernels, **({"library": library} if library is not None else {}))
@@ -107,16 +118,26 @@ def routes_case(kernels: dict, plain, expect, bound: dict, device, reps: int, li
     out = {route: {"ms": ms[route], "plain_ms": plain_ms[route], "library_ms": ms.get("library"),
                    "share": bound["bound_ms"] / ms[route] if ms[route] else None,
                    "max_abs_err": 0.0, **bound} for route in kernels}
+    lib = {}
+    if host:
+        for label, fn in timed.items():
+            (lib if label == "library" else out[label])["host_ms"] = host_ms(fn, reps, device)
     if device_reps:
-        for route, dev_ms in (device_times(kernels, device_reps, device) or {}).items():
-            out[route].update(dev_ms)
+        for label, dev_ms in (device_times(timed, device_reps, device, several=("library",))
+                              or {}).items():
+            if label != "library":
+                out[label].update(dev_ms)
+            elif dev_ms["device_ms_by"] == "profiler":
+                lib["device_ms"] = dev_ms["device_ms"]
+    for route in kernels:
+        out[route].update({f"library_{k}": v for k, v in lib.items()})
     return out
 
 
-def case_launches(routes: int, reps: int, device_reps: int = 0) -> int:
-    """Launches ``routes_case`` makes: a check, two timings and the
-    profiler's calls a route."""
-    return routes * (1 + 2 * (reps + 1) + device_reps)
+def case_launches(routes: int, reps: int, device_reps: int = 0, host: bool = False) -> int:
+    """Launches ``routes_case`` makes: a check, two timings, the profiler's
+    calls and, with ``host``, a host timing a route."""
+    return routes * (1 + 2 * (reps + 1) + device_reps + (reps + 1 if host else 0))
 
 
 def equal_to(expect: np.ndarray):
@@ -188,10 +209,20 @@ def p1(device="cuda", fill_rows: int = FILL_ROWS, reps: int = REPS) -> dict:
             "message": f"x[5, 37] = {5 * 128 + 37}.0 on every lane and route"}
 
 
-def rw_routes(base, read_idx, read_width=1, vals=None, write_idx=None, routes=ac.RW_ROUTES):
-    return {route: (lambda route=route: ac.smem_rw(base, read_idx, read_width, vals=vals,
-                                                   write_idx=write_idx, route=route))
-            for route in routes}
+def rotating(fn, bases: list):
+    """A call of ``fn`` on each of ``bases`` in turn, one base a call."""
+    turn = itertools.cycle(bases)
+    return lambda: fn(next(turn))
+
+
+def rotation(base_bytes: int, call_bytes: int) -> int:
+    """Copies of a base a case's calls rotate over: as many as make the
+    bytes of one round (``call_bytes`` each) reach ROTATE_BYTES, so that a
+    call finds its base's words in HBM and not in the L2; 1 where that would
+    take more than ROTATE_COPIES copies or ROTATE_LIMIT bytes of them (the
+    case then reads a warm L2)."""
+    copies = -(-ROTATE_BYTES // max(call_bytes, 1))
+    return copies if copies <= ROTATE_COPIES and copies * base_bytes <= ROTATE_LIMIT else 1
 
 
 def base_words_read(words: int, read_idx, read_width: int, write_idx=None,
@@ -208,15 +239,29 @@ def base_words_read(words: int, read_idx, read_width: int, write_idx=None,
 def rw_case(base, read_idx, expect, device, reps, device_reps, what, read_width=1, vals=None,
             write_idx=None, routes=ac.RW_ROUTES, library=None) -> dict:
     """Every route of smem_rw on one input, its bound the base words its
-    reads return (each scratch), the writes, the indices and the output."""
+    reads return (each scratch), the writes, the indices and the output;
+    each route and ``library`` (a function of the base) with its host time
+    a call. The calls rotate over ``rotation``'s copies of the base (each
+    case's ``copies``); ``warm_l2`` marks a case whose round of calls fits
+    in ROTATE_BYTES, whose words the L2 can serve faster than the HBM rate
+    its bound assumes."""
     batch, words = base.shape
     needed = base_words_read(words, read_idx, read_width, write_idx,
                              0 if vals is None else vals.shape[1])
     out_bytes = batch * read_idx.shape[0] * read_width * 4
-    bound = byte_bound(batch * needed * 4 + nbytes(read_idx, vals, write_idx) + out_bytes)
-    return routes_case(rw_routes(base, read_idx, read_width, vals, write_idx, routes),
+    call_bytes = batch * needed * 4 + nbytes(read_idx, vals, write_idx) + out_bytes
+    copies = rotation(nbytes(base), call_bytes)
+    bases = [base] + [base.clone() for _ in range(copies - 1)]
+    bound = dict(byte_bound(call_bytes), copies=copies,
+                 warm_l2=copies * call_bytes < ROTATE_BYTES)
+    kernels = {route: rotating(lambda b, route=route: ac.smem_rw(
+        b, read_idx, read_width, vals=vals, write_idx=write_idx, route=route), bases)
+        for route in routes}
+    return routes_case(kernels,
                        lambda: ac.smem_rw_plain(base, read_idx, read_width, vals, write_idx),
-                       expect, bound, device, reps, library, what, device_reps)
+                       expect, bound, device, reps,
+                       None if library is None else rotating(library, bases), what,
+                       device_reps, host=True)
 
 
 def rw_fill_patterns(words: int = RW_FILL_WORDS) -> dict:
@@ -233,7 +278,8 @@ def p2(device="cuda", fill_rows: int = FILL_ROWS, reps: int = REPS) -> dict:
     """Four int32 (100 + k) written to a 128-word scratch at the device
     indices [7, 93, 12, 64], read back at the indices rotated by one
     (:64-83): [101, 102, 103, 100]. Fill: 2^24 words as scratches of 1024,
-    each read whole at a rotation and at stride 32."""
+    each read whole at a rotation and at stride 32, every route also under
+    the profiler beside index_select."""
     idx = dev(np.asarray([7, 93, 12, 64], np.int32), device)
     base = torch.zeros((1, 128), dtype=_I32, device=device)
     vals = torch.arange(100, 104, dtype=_I32, device=device).reshape(4, 1)
@@ -248,10 +294,42 @@ def p2(device="cuda", fill_rows: int = FILL_ROWS, reps: int = REPS) -> dict:
     for name, pattern in rw_fill_patterns().items():
         at = dev(pattern, device)
         at_long = at.long()
-        fill[name] = rw_case(fb, at, equal_to(host[:, pattern, None]), device, reps, 0,
-                             f"p2 fill {name}", library=lambda at_long=at_long:
-                             fb.index_select(1, at_long))
-    return {"probe_shape": probe, "fill": fill, "message": "read back [101, 102, 103, 100]"}
+        fill[name] = rw_case(fb, at, equal_to(host[:, pattern, None]), device, reps,
+                             DEVICE_REPS, f"p2 fill {name}", library=lambda b, at_long=at_long:
+                             b.index_select(1, at_long))
+    return {"probe_shape": probe, "fill": fill, "host_parts": host_parts(device),
+            "message": "read back [101, 102, 103, 100]"}
+
+
+def host_parts(device, reps: int = 200):
+    """A smem_rw call's host side by piece, each timed alone
+    (``probes.host_ms``): its output's ``torch.empty``; the stream handle as
+    the wrapper reads it ("stream_raw") and as a ``torch.cuda.current_stream``
+    object ("stream_object"); the kept library (``_library``) and a
+    ``load_library`` walk ("load_library"), which a call made before the
+    library was kept; a ctypes call of ``wrt_smem_rw`` that the library
+    refuses before any launch (batch 0: the arguments' conversion and the C
+    call). Beside a whole call's ``host_ms`` (a route's, in each case), the
+    pieces leave the wrapper's Python checks. Launches nothing; None off
+    the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    from ..ops.cuda.build import load_library
+
+    base = torch.zeros((4096, 4096), dtype=_F32, device=device)
+    idx = torch.zeros(1, dtype=_I32, device=device)
+    lib = ac._library().lib
+    pieces = {
+        "empty": lambda: torch.empty((4096, 1, 1), dtype=_F32, device=base.device),
+        "stream_raw": lambda: ac._stream_handle(base.device),
+        "stream_object": lambda: torch.cuda.current_stream(base.device).cuda_stream,
+        "library": ac._library,
+        "load_library": lambda: load_library(*ac.LIBRARY),
+        "ctypes_refused": lambda: lib.wrt_smem_rw(base.data_ptr(), 0, 4096, None, None, 0, 1,
+                                                  idx.data_ptr(), 1, 1, 2, base.data_ptr(),
+                                                  None),
+    }
+    return {k: host_ms(fn, reps, device) for k, fn in pieces.items()}
 
 
 def sort_case(x, expect, device, reps, device_reps, what) -> dict:
@@ -325,9 +403,8 @@ def launches(name: str, reps: int = REPS, device_reps: int = DEVICE_REPS) -> dic
     lanes = len(ac.LANE_ROUTES)
     if name in ("p1", "p4"):  # the probe's shape, the fill
         out["lane_gather"] = case_launches(lanes, reps, device_reps) + case_launches(lanes, reps)
-    elif name == "p2":  # the probe's shape, two fill patterns
-        rw = len(ac.RW_ROUTES)
-        out["smem_rw"] = case_launches(rw, reps, device_reps) + 2 * case_launches(rw, reps)
+    elif name == "p2":  # the probe's shape, two fill patterns, each with the profiler
+        out["smem_rw"] = 3 * case_launches(len(ac.RW_ROUTES), reps, device_reps, host=True)
     elif name == "p3":
         out["row_sort"] = case_launches(1, reps, device_reps) + case_launches(1, reps)
     return out
