@@ -1886,9 +1886,9 @@ def _sweep_launches(mxu, name: str) -> dict:
         want[prec] = probe + case(fl)
     elif name.startswith("p8"):
         want["sweep_fma"] = want[prec] = case(p8) + case(fl)
-    elif name == "fill":
-        want.update(sweep_fma=2 * turns(fl), sweep_mma_tf32=turns(fl),
-                    sweep_mma_3xtf32=turns(fl))
+    elif name == "fill":  # and the census launch beside sweep_mma's, at each precision
+        want.update(sweep_fma=2 * turns(fl), sweep_mma_tf32=turns(fl) + 2,
+                    sweep_mma_3xtf32=turns(fl) + 2)
     elif name == "window":
         want.update(sweep_mma_tf32=1, sweep_mma_3xtf32=1)
     return want
@@ -2649,6 +2649,13 @@ def main(argv=None) -> int:
          rtiow_cull=json.dumps(wf.cull_placement(
              mk.kernel_inputs(*_case("rtiow", 96, 64, "cuda")))))
     record["build"]["wavefront_k0_k1"] = {"launch_bounds": wf.launch_bounds()}
+    # sweep_mma's chosen launch bounds (one budget for its four, one and
+    # census instantiations at each precision), registers and spills
+    _say("build", case="sweep_mma", launch_bounds=json.dumps(sw.launch_bounds()),
+         attributes=json.dumps({k: v for k, v in attrs["sweep"].items()
+                                if k.startswith("sweep_mma")}),
+         ptxas=json.dumps({k: v for k, v in ptxas["sweep"].items() if "sweep_mma" in k}))
+    record["build"]["sweep_mma"] = {"launch_bounds": sw.launch_bounds()}
 
     # 3. megakernel against plain, both on the card
     record["plain"] = {}
@@ -3382,15 +3389,22 @@ def main(argv=None) -> int:
     for name, _ in mxu_sweep.PROBES:
         _say("sweep", probe=name, message=repr(sp7[name]["message"]))
     fill = sp7["fill"]
+    forms = {k: v for k, v in fill.items() if isinstance(v, dict) and "ms" in v}
     _say("sweep", case="fill", rays=fill["rays"], spheres=fill["spheres"],
          ms_bound_share=json.dumps({k: [round(v["ms"], 4), round(v["bound_ms"], 4), v["bound_by"],
-                                        round(v["share"], 4)]
-                                    for k, v in fill.items() if isinstance(v, dict)}),
+                                        round(v["share"], 4)] for k, v in forms.items()}),
          agree=json.dumps({k: {g: round(v[g], 7) for g in ("mask_agree", "idx_agree", "t_agree",
                                                             "parted")}
-                           for k, v in fill.items() if isinstance(v, dict)}),
+                           for k, v in forms.items()}),
          wrong_share_gate=fill["wrong_share"], control=f"{fill['control']:.3g}",
          launches=json.dumps(sp7["launches"]), card=repr(smi))
+    # sweep_mma's survivors at the fill: the pairs whose pre-test kept them
+    # for a root, and the root rounds a warp took per (tile, 8-ray tile)
+    _say("sweep", case="fill_census", census=json.dumps(
+        {p: {**{k: c[k] for k in ("pairs", "kept", "rounds", "steps")},
+             **{k: _sig(c[k]) for k in ("kept_share", "rounds_per_step")}}
+         for p, c in fill["census"].items()}),
+         card=repr(smi))
     record["sweep"] = sp7
     dot = {"p3": sp7["p3"], "p3_fill": sp7["p3"]["fill"]}
     for shape, res in dot.items():
@@ -3444,7 +3458,7 @@ def main(argv=None) -> int:
          ms=json.dumps({k: [round(v["event_ms"], 5), round(v["device_ms"], 5)]
                         for k, v in tiny.items()}),
          device_ms_by_cuda_events=json.dumps(_by_events(tiny)), card=repr(smi))
-    picks = {"table_gather": access["gather_cost"]["span16"]["global"],
+    picks = {"table_gather": access["fill"]["span16"]["global"],
              "lane_gather": access["take_along_lane_32"]["fill"]["shfl"],
              "smem_rw": access["p2"]["fill"]["rotate"]["smem"],
              "row_sort": access["p3"]["fill"]["shfl"],
@@ -3518,8 +3532,8 @@ def main(argv=None) -> int:
     kernels += [entry(k, k, sw.KERNEL_SOURCE, sw.REPLACES[k], sp7["launches"][k], sweep_err[k])
                 for k in SWEEP_KERNELS]
     # the access kernels' numbers are a card-filling case of each (table_gather
-    # at the probe's 512 tiles, span 16, "global"; lane_gather 10c's lanes,
-    # smem_rw p2's rotated reads, "smem"); all equal their twins in every bit
+    # at 4,096 tiles, span 16, "global"; lane_gather 10c's lanes, smem_rw
+    # p2's rotated reads, "smem"); all equal their twins in every bit
     kernels += [entry(k, k, ac.KERNEL_SOURCE, ac.REPLACES[k], access["launches"][k], 0.0)
                 for k in ACCESS_KERNELS]
     print(smi, flush=True)

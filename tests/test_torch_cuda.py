@@ -1150,6 +1150,104 @@ def test_window_probe_holds_every_ray(cuda):
         assert out[prec]["mask_agree"] == out[prec]["idx_agree"] == out[prec]["t_agree"] == 1.0
 
 
+def _far_planes(n, cuda):
+    """n rays from far above the probe's scene, pointing away: no hit."""
+    planes = torch.zeros((6, n), device=cuda)
+    planes[1] = 100.0
+    planes[4] = 1.0
+    return planes
+
+
+# Rays of the 131,077 of test_sweep_mma_edge_shapes_match_plain's "windows"
+# case that may part from the twin (hold_sweep): an H100 parted 2 at TF32
+# (a root at MIN_T or a near tie, as at the fill); a sweep that lost one
+# 16-sphere tile would part at least 825 (the fewest closest hits a tile
+# holds there, which the test reads as its control).
+WINDOWS_PARTED = 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["tf32", "3xtf32"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_sweep_mma_edge_shapes_match_plain(prec, packed, cuda):
+    """sweep_mma where its launch splits and wraps. 4,109 rays (one 8-ray
+    tile a warp, the tiles split over warps, a last group part full) over
+    32 spheres: every ray as its twin's. 131,077 rays (the wide ray groups)
+    over 40 tiles of 16 (3xTF32's window holds 32: two windows merged):
+    every ray in every bit as the least (t, index) of the first 32 tiles'
+    sweep and the last 8's, swept apart, and held against the twin as the
+    fill is (hold_sweep: at most WINDOWS_PARTED rays part, fewer than a
+    lost tile would move). Rays that hit nothing miss; three passes change
+    no bit."""
+    c, r, o, d = mxu_sweep.scene(640, 131_077)
+    kq = mxu_sweep.sphere_kq(c, r)
+    cases = {"narrow": (mxu_sweep.probe_amats(c[:32], kq[:32], 1, 32), 4109),
+             "windows": (mxu_sweep.probe_amats(c, kq, 40, 16), 131_077)}
+    for name, (amats_np, n) in cases.items():
+        amats = torch.from_numpy(amats_np).to(cuda)
+        planes = mxu_sweep.probe_planes(o[:, :n], d[:, :n], cuda)
+        planes[:, :64] = _far_planes(64, cuda)
+        rays = sw.packed_b(planes) if packed else planes
+        got = sw.sweep_mma(amats, rays, prec)
+        again = sw.sweep_mma(amats, rays, prec, iters=3)
+        torch.cuda.synchronize()
+        assert all(_same_bits(a, b) for a, b in zip(got, again)), name
+        assert bool((got[1][:64] == -1).all()) and bool((got[0][:64] == sw.MAX_T).all())
+        if name == "narrow":
+            table = mxu_sweep.probe_table(c[:32], kq[:32], cuda)
+            _held_everywhere(got, sw.sweep_plain(amats, rays, prec), table, planes, (name, prec))
+        else:
+            (ta, ia), (tb, ib) = sw.sweep_mma(amats[:32], rays, prec), sw.sweep_mma(
+                amats[32:], rays, prec)
+            ib = torch.where(ib >= 0, ib + 32 * 16, ib)
+            take = (tb < ta) | ((tb == ta) & (ib < ia))
+            assert _same_bits(got[0], torch.where(take, tb, ta))
+            assert torch.equal(got[1], torch.where(take, ib, ia))
+            assert 0.5 < float((got[1] >= 0).float().mean()) < 1.0
+            want = sw.sweep_plain(amats, rays, prec)
+            assert mxu_sweep.tile_control(want[1], 640) * n > WINDOWS_PARTED
+            table = mxu_sweep.probe_table(c, kq, cuda)
+            mxu_sweep.hold_sweep(got, want, table, planes, (name, prec), WINDOWS_PARTED / n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["tf32", "3xtf32"])
+def test_sweep_mma_census_counts_the_survivors(prec, cuda):
+    """The census launch sweeps as sweep_mma does, bit for bit, and counts
+    what the twin's census counts on the twin's products: the same steps,
+    the kept pairs and rounds within 1% (TF32 products round apart)."""
+    table, planes = mxu_sweep.fill_inputs(cuda, 65_536)
+    amats = sw.sphere_amats(table, 16)
+    (t, i), census = sw.sweep_mma_census(amats, planes, prec)
+    want = sw.sweep_mma(amats, planes, prec)
+    torch.cuda.synchronize()
+    assert _same_bits(t, want[0]) and torch.equal(i, want[1])
+    _, plain = sw.survivor_plain(amats, planes, prec)
+    assert census["steps"] == plain["steps"] and census["pairs"] == plain["pairs"]
+    for k in ("kept", "rounds"):
+        assert abs(census[k] - plain[k]) <= 0.01 * plain[k], (k, census, plain)
+    assert 0 < census["rounds"] <= census["kept"] < 0.01 * census["pairs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["global", "shared", "arith"])
+def test_table_gather_edge_cases_match_plain(route, cuda):
+    """Every route against its twin in every bit where the stepped walk
+    must wrap or give way to the two modulos (gather_cost.edge_cases):
+    spans longer than the table, tables of 24 and 100 rows, negative
+    indices, n_fetch 0 and 1, a tile spread over 2^31 and one whose span
+    passes 2^31 ("shared" stages its rows as the int32 flat wraps, as the
+    twin does)."""
+    from weekend_raytracer_tpu_torch.ops.cuda import access as ac
+    from weekend_raytracer_tpu_torch.probes import gather_cost
+
+    for name, (tab, idx, span, n_fetch) in gather_cost.edge_cases(cuda).items():
+        got = ac.table_gather(tab, idx, span, n_fetch, route)
+        want = ac.table_gather_plain(tab, idx, span, n_fetch, route)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", [n for n, _ in mxu_sweep.PROBES if n not in ("fill", "window")])
 def test_mxu_sweep_probes_pass(name, cuda):

@@ -495,18 +495,23 @@ def test_tile_control_is_the_fewest_hits_a_tile_holds():
 def test_sweep_bounds_count_what_the_sweep_needs():
     """fill's bounds: 21 FP32 operations a test for the FMA sweep; for the
     tensor-core sweep the larger of 14 product flops a pair (42 for
-    3xTF32) over the TF32 rate and the 7 epilogue operations over the FP32
-    rate, which is the epilogue at either precision."""
+    3xTF32) over the TF32 rate and the epilogue over the FP32 rate: 4
+    operations a pair (b, cq, b^2 - cq) and 3 more (the root, t0, t1) for
+    each pair a pass with a real root. At the fill's 0.46% of such pairs
+    that is the epilogue at TF32 and the products at 3xTF32."""
     n, r = 496, 2_097_152
     pairs = n * r
+    kept = int(pairs * 0.0046)
     fma = ms.fma_bound(n, r, 1)
     assert fma["bound_by"] == "operations"
     assert fma["bound_ms"] == pytest.approx(pairs * 21 / 67e12 * 1e3)
-    for prec, products in (("tf32", 1), ("3xtf32", 3)):
-        b = ms.mma_bound(n, r, 1, prec, False)
+    for prec, products, by in (("tf32", 1, "epilogue_ms"), ("3xtf32", 3, "mma_ms")):
+        b = ms.mma_bound(n, r, 1, prec, False, kept)
         assert b["mma_ms"] == pytest.approx(pairs * 14 * products / 495e12 * 1e3)
-        assert b["epilogue_ms"] == pytest.approx(pairs * 7 / 67e12 * 1e3)
-        assert b["bound_ms"] == b["epilogue_ms"] and b["bound_by"] == "operations"
+        assert b["epilogue_ms"] == pytest.approx((pairs * 4 + kept * 3) / 67e12 * 1e3)
+        assert b["bound_ms"] == b[by] and b["bound_by"] == "operations"
+        twice = ms.mma_bound(n, r, 2, prec, False, kept)
+        assert twice["epilogue_ms"] == pytest.approx(2 * b["epilogue_ms"])
 
 
 # --- the wrappers: CPU tensors take the twins, CUDA tensors launch or raise

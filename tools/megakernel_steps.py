@@ -41,8 +41,6 @@ import argparse
 import ctypes
 import json
 import pathlib
-import shutil
-import subprocess
 import sys
 import time
 
@@ -51,8 +49,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 from chip_smoke import _CUTS, _case, _nvidia_smi, _per_kernel, _stage_ms  # noqa: E402
+from variants import copy_csrc, finish, start  # noqa: E402
 from weekend_raytracer_tpu_torch.ops import rng  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import build  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
@@ -75,51 +75,13 @@ VARIANTS = {"blocks0": {"kMinBlocks": 0}, "blocks3": {"kMinBlocks": 3},
 REGROUP_CASE = ("rtiow", 1920, 1080, 32)
 
 
-def _set(src: str, name: str, value: int) -> str:
-    """``src`` with ``constexpr int name = ...;`` set to ``value``."""
-    head = f"constexpr int {name} = "
-    at = src.index(head) + len(head)
-    return src[:at] + str(value) + src[src.index(";", at):]
-
-
 def _sources(roots: dict, variants: bool, source: str) -> dict:
     """{build name: path of its ``source``}, each beside a copy of its csrc/."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    out = {}
-    for name, root in roots.items():
-        d = OUT / f"{name}_{source.split('.')[0]}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(root / "weekend_raytracer_tpu_torch" / "csrc", d)
-        out[name] = d / source
+    out = {name: copy_csrc(root, OUT / f"{name}_{source.split('.')[0]}", source)
+           for name, root in roots.items()}
     if variants:
-        for name, edits in VARIANTS.items():
-            d = OUT / name
-            shutil.rmtree(d, ignore_errors=True)
-            shutil.copytree(build.CSRC_DIR, d)
-            src = (d / "megakernel.cu").read_text()
-            for const, value in edits.items():
-                src = _set(src, const, value)
-            (d / "megakernel.cu").write_text(src)
-            out[name] = d / "megakernel.cu"
-    return out
-
-
-def _start(sources: dict) -> dict:
-    """One nvcc per build, all started at once: {name: process}."""
-    return {name: subprocess.Popen(
-        [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(src.parent / "lib.so"), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, src in sources.items()}
-
-
-def _finish(sources: dict, procs: dict) -> dict:
-    """{name: (CDLL, ptxas log)} once every build of ``procs`` is done."""
-    out = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed building {sources[name]}:\n{log[-4000:]}")
-        out[name] = (ctypes.CDLL(str(sources[name].parent / "lib.so")), log)
+        out.update({name: copy_csrc(ROOT, OUT / name, "megakernel.cu", edits)
+                    for name, edits in VARIANTS.items()})
     return out
 
 
@@ -211,9 +173,9 @@ def main(argv=None) -> int:
                                 for name, r in (b.split("=", 1) for b in args.baseline)}}
     mk_src = _sources(roots, True, "megakernel.cu")
     rg_src = _sources(roots, False, "regroup.cu")
-    mk_procs, rg_procs = _start(mk_src), _start(rg_src)
-    builds = _megakernels(_finish(mk_src, mk_procs))
-    regroups = _regroups(_finish(rg_src, rg_procs))
+    mk_procs, rg_procs = start(mk_src), start(rg_src)
+    builds = _megakernels(finish(mk_src, mk_procs))
+    regroups = _regroups(finish(rg_src, rg_procs))
     record = {"card": smi, "build_s": time.perf_counter() - t0, "builds": {}, "cases": {},
               "regroup": {}}
     for name, (_, culled, usage) in builds.items():

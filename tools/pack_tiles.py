@@ -26,16 +26,16 @@ import argparse
 import ctypes
 import json
 import pathlib
-import shutil
-import subprocess
 import sys
 
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 from chip_smoke import _CUTS, _case, _nvidia_smi  # noqa: E402
+from variants import build_all, copy_csrc  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import build  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg  # noqa: E402
@@ -50,39 +50,22 @@ VARIANTS = {"i4d1": (4, 1, False), "i4d2": (4, 2, False), "i2d1": (2, 1, False),
 GRID = "std::max(1LL, std::min(static_cast<long long>(per_sm) * sms, tiles))"
 
 
-def _set(src: str, name: str, value: int) -> str:
-    """``src`` with ``constexpr int name = ...;`` set to ``value``."""
-    head = f"constexpr int {name} = "
-    at = src.index(head) + len(head)
-    return src[:at] + str(value) + src[src.index(";", at):]
-
-
 def _variant(name: str, items: int, depth: int, grid1: bool) -> pathlib.Path:
     """A copy of csrc/ whose regroup.cu has this variant's constants."""
-    d = OUT / name
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(build.CSRC_DIR, d)
-    src = _set(_set((d / "regroup.cu").read_text(), "kPackItems", items), "kPackDepth", depth)
+    path = copy_csrc(ROOT, OUT / name, "regroup.cu", {"kPackItems": items, "kPackDepth": depth})
     if grid1:
+        src = path.read_text()
         if GRID not in src:
             raise RuntimeError("regroup.cu's PACK grid expression has changed")
-        src = src.replace(GRID, "1LL")
-    (d / "regroup.cu").write_text(src)
-    return d / "regroup.cu"
+        path.write_text(src.replace(GRID, "1LL"))
+    return path
 
 
 def _build(sources: dict) -> dict:
     """One nvcc per variant, all at once; {name: (wrt_regroup_pack, registers)}."""
-    procs = {name: subprocess.Popen(
-        [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"lib_{name}.so"), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, src in sources.items()}
     out = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        fn = ctypes.CDLL(str(OUT / f"lib_{name}.so")).wrt_regroup_pack
+    for name, (lib, log) in build_all(sources).items():
+        fn = lib.wrt_regroup_pack
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         regs = [u.get("registers") for k, u in build.parse_ptxas(log).items() if "pack" in k]
@@ -171,7 +154,7 @@ def main(argv=None) -> int:
     sources = {name: _variant(name, *v) for name, v in VARIANTS.items()}
     for spec in args.baseline:
         name, _, path = spec.partition("=")
-        sources[name] = pathlib.Path(path).resolve() / "regroup.cu"
+        sources[name] = copy_csrc(pathlib.Path(path).resolve(), OUT / name, "regroup.cu")
     libs = _build(sources)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"registers": {k: v[1] for k, v in libs.items()}}), flush=True)

@@ -41,8 +41,6 @@ import argparse
 import ctypes
 import json
 import pathlib
-import shutil
-import subprocess
 import sys
 import time
 
@@ -50,8 +48,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 from chip_smoke import _CUTS, _case, _nvidia_smi, _stage_ms  # noqa: E402
+from variants import LIB, build_all, copy_csrc  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import build  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
 from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf  # noqa: E402
@@ -72,44 +72,17 @@ VARIANTS = {"rows2": {"kK1Rows": 2}, "rows32": {"kK1Rows": 32},
             "blocks3": {"kMinBlocks": 3}, "blocks5": {"kMinBlocks": 5}}
 
 
-def _set(src: str, name: str, value: int) -> str:
-    """``src`` with ``constexpr int name = ...;`` set to ``value``."""
-    head = f"constexpr int {name} = "
-    at = src.index(head) + len(head)
-    return src[:at] + str(value) + src[src.index(";", at):]
-
-
 def _sources(roots: dict) -> dict:
     """{build name: path of its wavefront.cu}, each beside a copy of its csrc/."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    out = {}
-    for name, (root, edits) in roots.items():
-        d = OUT / name
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(root / "weekend_raytracer_tpu_torch" / "csrc", d)
-        src = (d / "wavefront.cu").read_text()
-        for const, value in edits.items():
-            src = _set(src, const, value)
-        (d / "wavefront.cu").write_text(src)
-        out[name] = d / "wavefront.cu"
-    return out
+    return {name: copy_csrc(root, OUT / name, "wavefront.cu", edits)
+            for name, (root, edits) in roots.items()}
 
 
 def _build(sources: dict) -> dict:
     """One nvcc per build, all started at once: {name: BuiltLibrary}."""
-    procs = {name: subprocess.Popen(
-        [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(src.parent / "lib.so"), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, src in sources.items()}
-    out = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed building {sources[name]}:\n{log[-4000:]}")
-        so = sources[name].parent / "lib.so"
-        out[name] = build.BuiltLibrary(lib=ctypes.CDLL(str(so)), path=so, build_seconds=0.0,
-                                       log=log)
-    return out
+    return {name: build.BuiltLibrary(lib=lib, path=sources[name].parent / LIB,
+                                     build_seconds=0.0, log=log)
+            for name, (lib, log) in build_all(sources).items()}
 
 
 class _FullSweepABI:

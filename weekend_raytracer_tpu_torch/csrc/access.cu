@@ -44,12 +44,21 @@ namespace {
 constexpr int kWidth = 128;  // lanes of a row
 constexpr int kTileRows = 32;  // rows of a gather tile
 constexpr int kTileLanes = kTileRows * kWidth;  // 4096
-constexpr int kGatherThreads = 1024;  // table_gather: four lanes of a tile a thread
+constexpr int kGatherThreads = 256;  // table_gather: a tile's threads
+constexpr int kGatherLanes = kTileLanes / kGatherThreads;  // its lanes a thread
+constexpr int kGatherWarps = kGatherThreads / 32;
+// table_gather: a tile's lanes are walked in the order of their offsets
+// where the span has kSortMinSpan rows or more and shared memory allows it
+constexpr int kSortMinSpan = 4;  // the spans of fewer rows walk in lane order
+// table_gather's sort: a bin a thread, keyed by an offset's top kSortBits
+// bits; the offsets, lanes and bins it keeps
+constexpr int kSortBits = kGatherThreads == 256 ? 8 : kGatherThreads == 512 ? 9 : 10;
+static_assert(1 << kSortBits == kGatherThreads, "a bin a thread");
+constexpr int kSortBytes = kTileLanes * (4 + 2) + kGatherThreads * 4;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLocalColThreads = kWidth;  // axis-0 kLocal: a thread per column
 constexpr int kMaxSharedBytes = 232448;  // a block's shared memory on an H100
-constexpr int kDefaultSharedBytes = 48 * 1024;
 constexpr int kFetchStride = 37;  // probe_gather_cost.py:32
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDirectWrites = 1024;  // smem_rw kDirect: write offsets a block stages
@@ -66,6 +75,46 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
+// float(at) for 0 <= at < 2^23, exactly, on the FP32 pipe (2^23 + at is a
+// float whose mantissa is at); the conversion unit (I2F, a quarter of the
+// FP32 rate) elsewhere.
+__device__ __forceinline__ float exact_float(int at, bool small) {
+  return small ? __int_as_float(at + 0x4B000000) - 8388608.0f : static_cast<float>(at);
+}
+
+// The fetches of a thread's lanes from pos on (an address, or for kShared
+// a byte offset into the staged span), summed into acc: pos steps by the
+// stride and wraps at end by `span` with one compare; kWrap also takes the
+// address modulo the table's words (a span that passes the table's last
+// row).
+template <int kRoute, bool kWrap>
+__device__ __forceinline__ void walk(const float* __restrict__ tab, const float* staged,
+                                     int (&pos)[kGatherLanes], float (&acc)[kGatherLanes],
+                                     int n_fetch, int end, int span, int table_words,
+                                     bool small) {
+  constexpr int kStep = kRoute == kShared ? 4 * kFetchStride : kFetchStride;
+  for (int k = 0; k < n_fetch; ++k) {
+#pragma unroll
+    for (int q = 0; q < kGatherLanes; ++q) {
+      float v;
+      if constexpr (kRoute == kShared) {
+        v = *reinterpret_cast<const float*>(reinterpret_cast<const char*>(staged) + pos[q]);
+      } else {
+        int at = pos[q];  // row * 128 + col
+        if (kWrap && at >= table_words) at -= table_words;
+        if constexpr (kRoute == kGlobal) {
+          v = __ldg(tab + at);
+        } else {
+          v = exact_float(at, small);  // the probe's arange table
+        }
+      }
+      acc[q] = acc[q] + v;
+      pos[q] += kStep;
+      if (pos[q] >= end) pos[q] -= span;
+    }
+  }
+}
+
 // table_gather<kRoute>: out[lane] = sum over k < n_fetch, in k order from
 // 0.0, of tab[(flat >> 7) mod rows, flat & 127], flat = span_base +
 // (idx[lane] - span_base + 37 k) mod (span_rows * 128), span_base the
@@ -74,74 +123,202 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
 // Replaces benchmarks/probe_gather_cost.py:20 make_fn (pallas_call at :66).
 // Bound on an H100: the probe's bytes (indices in, sums out: 8 B a lane,
 // 16.8 MB over 512 tiles, 5 us at 3.35 TB/s) and 16 lookups a lane through
-// the L1 or shared memory (128 B a clock an SM: 4 us for 2,097,152 lanes);
-// the index math (two floor modulos by runtime divisors a fetch) costs
-// more than either. On the TPU a lane gathers only within the 128-lane row
-// held in a vreg, so the kernel walks every row of the span; here every
-// thread loads its own address, so the span costs nothing in kGlobal while
-// it fits the L1, and kShared pays for staging the whole span per tile
-// (span x 512 B, at most 453 rows beside the warp minima). Design: one
-// block per (32, 128) tile, 1024 threads of four lanes each (lanes t, t +
-// 1024, t + 2048, t + 3072: coalesced); the tile minimum is a warp
-// reduction (__reduce_min_sync), then one over the 32 warp minima.
+// the L1 or shared memory (128 B a clock an SM: 4 us for 2,097,152 lanes).
+// On the TPU a lane gathers only within the 128-lane row held in a vreg, so
+// the kernel walks every row of the span; here every thread loads its own
+// address, so the span costs nothing in kGlobal while it fits the L1, and
+// kShared pays for staging the whole span per tile (span x 512 B, at most
+// 453 rows beside the warp minima). Two floor modulos by run-time divisors
+// a fetch (software divisions) would cost more than the bytes or the
+// lookups, and a warp's 32 random lanes touch up to 32 lines of the L1 (or
+// banks of shared memory) a fetch.
+// Design: one block per (32, 128) tile, 256 threads of 16 lanes each
+// (eight blocks an SM hold the probe's 512 tiles in one wave); the tile
+// minimum is a warp reduction (__reduce_min_sync), then each warp reduces
+// the 8 warp minima after one barrier.
+//  - A lane takes one modulo, its offset off = (idx - span_base) mod W, W =
+//    span_rows * 128; walk() then steps it by 37 and wraps it by a compare
+//    (37 < W). The row needs no modulo either where span_rows <=
+//    table_rows: flat >> 7 is span_base's row plus off >> 7, so the address
+//    is the tile's row base (span_base's row mod table_rows, once a thread)
+//    times 128 plus off, less the table's words if it passes them, which
+//    only a tile whose span passes the table's last row tests. kShared
+//    stages its rows the same way, a thread's row stepping by the block's 2
+//    rows mod table_rows (a span that passes 2^31 takes the rows of flat's
+//    int32 wrap, as the twin does), and walks byte offsets. A tile whose ints could overflow
+//    (spread over 2^31), or a span longer than the table, takes the two
+//    modulos a fetch in the same int arithmetic.
+//  - Spans of kSortMinSpan rows or more, kGlobal and kShared (where it fits
+//    beside the span), first sort the tile's lanes by offset (a counting
+//    sort on off's top 8 bits, a bin a thread, in 25 KB of shared memory)
+//    and give each warp 32 neighbours in that order: a fetch of the warp
+//    then touches one or two lines (banks in a row), not up to 32. The sums
+//    go back to their lanes through shared memory, so the stores stay
+//    coalesced. Shorter spans put a warp's lanes on few lines already.
+//  - kArith forms float(address) on the FP32 pipe (exact_float).
 template <int kRoute>
 __global__ void __launch_bounds__(kGatherThreads)
     table_gather(const float* __restrict__ tab, int table_rows, const int* __restrict__ idx,
-                 int span_rows, int n_fetch, float* __restrict__ out) {
-  extern __shared__ float staged[];  // span_rows * 128 (kShared)
-  __shared__ int warp_min[kGatherThreads / 32];
+                 int span_rows, int n_fetch, int sort, float* __restrict__ out) {
+  // kShared's span (span_rows * 128 words), then with `sort` the offsets
+  // [4096] (reused for the sums), the lanes [4096] and the bins [a thread]
+  extern __shared__ float staged[];
+  __shared__ int warp_min[kGatherWarps];
+  __shared__ int warp_sum[kGatherWarps];
   const long long tile = blockIdx.x;
   const int* tidx = idx + tile * kTileLanes;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int base[4];
+  int base[kGatherLanes];
   int m = INT_MAX;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < kGatherLanes; ++q) {
     base[q] = tidx[threadIdx.x + q * kGatherThreads];
     m = min(m, base[q]);
   }
   m = __reduce_min_sync(kFull, m);
   if (lane == 0) warp_min[warp] = m;
   __syncthreads();
-  if (warp == 0) {
-    const int w = __reduce_min_sync(kFull, warp_min[lane]);
-    if (lane == 0) warp_min[0] = w;
-  }
-  __syncthreads();
-  const int span_base = warp_min[0] & ~(kWidth - 1);  // (min >> 7) << 7
+  m = __reduce_min_sync(kFull, lane < kGatherWarps ? warp_min[lane] : INT_MAX);
+  const int span_base = m & ~(kWidth - 1);  // (min >> 7) << 7
   const int span_words = span_rows * kWidth;
   if constexpr (kRoute == kShared) {
-    const int row0 = span_base >> 7;
-    for (int i = threadIdx.x; i < span_words; i += kGatherThreads) {
-      const int row = floor_mod(row0 + (i >> 7), table_rows);
-      staged[i] = tab[static_cast<long long>(row) * kWidth + (i & (kWidth - 1))];
-    }
-    __syncthreads();
-  }
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < n_fetch; ++k) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int off = floor_mod(base[q] - span_base + kFetchStride * k, span_words);
-      float v;
-      if constexpr (kRoute == kShared) {
-        v = staged[off];  // staged row off >> 7 is table row (flat >> 7) mod rows
-      } else {
-        const int flat = span_base + off;
-        const int row = floor_mod(flat >> 7, table_rows);
-        const int col = flat & (kWidth - 1);
-        if constexpr (kRoute == kGlobal) {
-          v = __ldg(tab + static_cast<long long>(row) * kWidth + col);
-        } else {
-          v = static_cast<float>(row * kWidth + col);  // the probe's arange table
-        }
+    if (span_base <= INT_MAX - span_words) {
+      constexpr int kRowsAStep = kGatherThreads / kWidth;
+      int row = floor_mod((span_base >> 7) + (threadIdx.x >> 7), table_rows);
+      const int row_step = kRowsAStep % table_rows;
+      for (int i = threadIdx.x; i < span_words; i += kGatherThreads) {
+        staged[i] = tab[static_cast<long long>(row) * kWidth + (i & (kWidth - 1))];
+        row += row_step;
+        if (row >= table_rows) row -= table_rows;
       }
-      acc[q] = acc[q] + v;
+    } else {  // the span passes 2^31: the rows of flat's int32 wrap, as the twin's
+      for (int i = threadIdx.x; i < span_words; i += kGatherThreads) {
+        const int flat = static_cast<int>(static_cast<unsigned>(span_base) + i);
+        staged[i] = tab[static_cast<long long>(floor_mod(flat >> 7, table_rows)) * kWidth +
+                        (i & (kWidth - 1))];
+      }
+    }
+  }
+  // a tile steps where no int it would form overflows: idx - span_base +
+  // 37 k for every k < n_fetch, span_base + off, the row base + off
+  const long long last = static_cast<long long>(kFetchStride) * max(n_fetch - 1, 0);
+  bool over = false;
+  unsigned d[kGatherLanes];
+#pragma unroll
+  for (int q = 0; q < kGatherLanes; ++q) {
+    d[q] = static_cast<unsigned>(base[q]) - static_cast<unsigned>(span_base);
+    over = over || d[q] > INT_MAX - last;
+  }
+  const bool general = __syncthreads_or(over) ||
+                       (kRoute != kShared && (span_rows > table_rows ||
+                                              table_rows > INT_MAX / (2 * kWidth) ||
+                                              span_base > INT_MAX - span_words));
+  const bool small = table_rows <= (1 << 23) / kWidth;
+  float acc[kGatherLanes];
+#pragma unroll
+  for (int q = 0; q < kGatherLanes; ++q) acc[q] = 0.0f;
+  if (!general) {
+    int off[kGatherLanes];
+#pragma unroll
+    for (int q = 0; q < kGatherLanes; ++q) {
+      off[q] = static_cast<int>(d[q] % static_cast<unsigned>(span_words));
+    }
+    int* sort_off = reinterpret_cast<int*>(staged + (kRoute == kShared ? span_words : 0));
+    uint16_t* sort_lane = reinterpret_cast<uint16_t*>(sort_off + kTileLanes);
+    int* bins = reinterpret_cast<int*>(sort_lane + kTileLanes);
+    int lanes[kGatherLanes];  // the tile's lane of each of this thread's offsets
+    if (kRoute != kArith && sort) {
+      // a counting sort of the lanes by off's top kSortBits bits
+      const int shift = max(0, 32 - __clz(span_words - 1) - kSortBits);
+      bins[threadIdx.x] = 0;
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kGatherLanes; ++q) atomicAdd(&bins[off[q] >> shift], 1);
+      __syncthreads();
+      const int count = bins[threadIdx.x];
+      int incl = count;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (lane == 31) warp_sum[warp] = incl;
+      __syncthreads();
+      int before = 0;
+      for (int w = 0; w < warp; ++w) before += warp_sum[w];
+      bins[threadIdx.x] = before + incl - count;  // the bin's first place
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kGatherLanes; ++q) {
+        const int at = atomicAdd(&bins[off[q] >> shift], 1);
+        sort_off[at] = off[q];
+        sort_lane[at] = static_cast<uint16_t>(threadIdx.x + q * kGatherThreads);
+      }
+      __syncthreads();
+      // a warp takes 256 places in a row, its lanes 32 neighbours a time
+#pragma unroll
+      for (int q = 0; q < kGatherLanes; ++q) {
+        const int at = warp * (32 * kGatherLanes) + q * 32 + lane;
+        off[q] = sort_off[at];
+        lanes[q] = sort_lane[at];
+      }
+    } else if constexpr (kRoute == kShared) {
+      __syncthreads();  // the span staged
+    }
+    const int table_words = table_rows * kWidth;
+    if constexpr (kRoute == kShared) {  // staged row off >> 7 is table row (flat >> 7) mod rows
+#pragma unroll
+      for (int q = 0; q < kGatherLanes; ++q) off[q] *= 4;
+      walk<kRoute, false>(tab, staged, off, acc, n_fetch, 4 * span_words, 4 * span_words,
+                          table_words, small);
+    } else {
+      const int row_base = floor_mod(span_base >> 7, table_rows) * kWidth;
+#pragma unroll
+      for (int q = 0; q < kGatherLanes; ++q) off[q] += row_base;
+      if (row_base + span_words <= table_words) {
+        walk<kRoute, false>(tab, staged, off, acc, n_fetch, row_base + span_words, span_words,
+                            table_words, small);
+      } else {
+        walk<kRoute, true>(tab, staged, off, acc, n_fetch, row_base + span_words, span_words,
+                           table_words, small);
+      }
+    }
+    if (kRoute != kArith && sort) {  // each sum back to its lane
+      float* sums = reinterpret_cast<float*>(sort_off);
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kGatherLanes; ++q) sums[lanes[q]] = acc[q];
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kGatherLanes; ++q) acc[q] = sums[threadIdx.x + q * kGatherThreads];
+    }
+  } else {
+    if constexpr (kRoute == kShared) __syncthreads();  // the span staged
+    for (int k = 0; k < n_fetch; ++k) {
+#pragma unroll
+      for (int q = 0; q < kGatherLanes; ++q) {
+        const unsigned step = static_cast<unsigned>(kFetchStride) * static_cast<unsigned>(k);
+        const int off = floor_mod(static_cast<int>(d[q] + step), span_words);
+        float v;
+        if constexpr (kRoute == kShared) {
+          v = staged[off];
+        } else {
+          const int flat = span_base + off;
+          const int row = floor_mod(flat >> 7, table_rows);
+          const int col = flat & (kWidth - 1);
+          if constexpr (kRoute == kGlobal) {
+            v = __ldg(tab + static_cast<long long>(row) * kWidth + col);
+          } else {
+            v = exact_float(row * kWidth + col, small);  // the probe's arange table
+          }
+        }
+        acc[q] = acc[q] + v;
+      }
     }
   }
   float* tout = out + tile * kTileLanes;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) tout[threadIdx.x + q * kGatherThreads] = acc[q];
+  for (int q = 0; q < kGatherLanes; ++q) tout[threadIdx.x + q * kGatherThreads] = acc[q];
 }
 
 // The lane of row r that output (r, c) takes: idx[r, c] mod 128, or
@@ -580,14 +757,14 @@ unsigned blocks_for(long long items, int per_block) {
   return static_cast<unsigned>((items + per_block - 1) / per_block);
 }
 
-// The dynamic shared memory each kernel that takes more than the default
-// has been allowed, per device: cudaFuncSetAttribute runs once for each
-// larger size, not on every launch.
+// The dynamic shared memory each kernel has been allowed, per device:
+// cudaFuncSetAttribute runs once for each larger size, not on every launch
+// (also at 48 KB and below, where the kernel's static shared memory may
+// already take the default's rest).
 int table_shared_allowed[kMaxDevices];
 int rw_shared_allowed[kMaxDevices];
 
 cudaError_t allow_shared(const void* fn, int bytes, int* allowed) {
-  if (bytes <= kDefaultSharedBytes) return cudaSuccess;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -612,26 +789,30 @@ extern "C" {
 // shape f32; route 0 global, 1 shared (span_rows <= 453), 2 arith.
 int wrt_table_gather(const float* tab, int table_rows, const int* idx, int n_tiles,
                      int span_rows, int n_fetch, int route, float* out, void* stream) {
-  const int max_span = (kMaxSharedBytes - kGatherThreads / 32 * 4) / (kWidth * 4);
+  const int max_span = (kMaxSharedBytes - kGatherWarps * 8) / (kWidth * 4);
   if (table_rows <= 0 || n_tiles <= 0 || span_rows <= 0 || span_rows > INT_MAX / kWidth ||
       n_fetch < 0 || route < kGlobal || route > kArith ||
       (route == kShared && span_rows > max_span)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // "shared" sorts where its span leaves room for the sort
+  const int span_bytes = route == kShared ? span_rows * kWidth * 4 : 0;
+  const int sort = route != kArith && span_rows >= kSortMinSpan &&
+                   span_bytes + kSortBytes <= kMaxSharedBytes - kGatherWarps * 8;
+  const int smem = span_bytes + (sort ? kSortBytes : 0);
   if (route == kGlobal) {
-    table_gather<kGlobal><<<n_tiles, kGatherThreads, 0, s>>>(tab, table_rows, idx, span_rows,
-                                                             n_fetch, out);
+    table_gather<kGlobal><<<n_tiles, kGatherThreads, smem, s>>>(tab, table_rows, idx, span_rows,
+                                                                n_fetch, sort, out);
   } else if (route == kShared) {
-    const int smem = span_rows * kWidth * 4;
     const cudaError_t err = allow_shared(reinterpret_cast<const void*>(table_gather<kShared>),
                                          smem, table_shared_allowed);
     if (err != cudaSuccess) return static_cast<int>(err);
     table_gather<kShared><<<n_tiles, kGatherThreads, smem, s>>>(tab, table_rows, idx,
-                                                                span_rows, n_fetch, out);
+                                                                span_rows, n_fetch, sort, out);
   } else {
     table_gather<kArith><<<n_tiles, kGatherThreads, 0, s>>>(tab, table_rows, idx, span_rows,
-                                                            n_fetch, out);
+                                                            n_fetch, 0, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

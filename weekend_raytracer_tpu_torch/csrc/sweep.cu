@@ -56,9 +56,15 @@ namespace {
 constexpr float kProbeMaxT = 3.0e38f;  // probe_mxu_sweep.py:44
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRayTiles = 4;  // 8-ray tiles a warp of sweep_mma carries: 32 rays
 constexpr int kTileFloats = 2 * 32 * 4;  // one 16-sphere tile's two A fragments
-constexpr int kMmaSmemBytes = 48 * 1024;  // a block's window of staged A fragments
+// sweep_mma: a block's window of staged A fragments (RTiOW's 31 tiles in one
+// 3xTF32 window); its register budget in blocks an SM at each precision
+// (0: no minimum); and the 8-ray tiles a warp carries where the rays fill
+// the card
+constexpr int kMmaSmemBytes = 64 * 1024;
+constexpr int kMmaBlocksTf32 = 3;
+constexpr int kMmaBlocks3x = 2;
+constexpr int kWideTiles = 2;
 constexpr int kDotThreads = 128;  // dot_mma: four warps a block
 constexpr int kDotWarps = kDotThreads / 32;
 constexpr int kDotMaxRows = 64;  // dot_mma: rows of A a block stages at most
@@ -79,11 +85,12 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = kPrec == kTf32x3 ? tf32_bits(x - __uint_as_float(hi)) : 0u;
 }
 
-// d += a . b, one m16n8k8 TF32 product. Volatile: a pass of the sweep is
-// never merged with another (the probe's anti-hoist).
+// d += a . b, one m16n8k8 TF32 product. Not volatile: ptxas may schedule
+// it among other work; sweep_mma keeps a pass's products in that pass by
+// a dependence of B on the pass index.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -166,14 +173,12 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-// One (sphere s, ray) pair of the tensor-core sweep, from its products
-// cd = c.d and m = -2 c.o + kq: the probe's epilogue (:236-243) with the
-// running best kept as sweep_sphere keeps it.
-__device__ __forceinline__ void pair(float cd, float m, float od, float oo, int s, float& bt,
-                                     int& bi) {
-  const float b = cd - od;
-  const float cq = oo + m;
-  const float sq = sqrtf(b * b - cq);  // NaN for a negative discriminant
+// The root test of one (sphere s, ray) pair of the tensor-core sweep, from
+// b = c.d - o.d and the discriminant b^2 - cq (the probe's epilogue,
+// :236-243), the running best kept as sweep_sphere keeps it: the nearer
+// root above kMinT, taken if below bt.
+__device__ __forceinline__ void root(float b, float disc, int s, float& bt, int& bi) {
+  const float sq = sqrtf(disc);  // NaN for a negative discriminant
   const float t0 = b - sq;
   const float t1 = b + sq;
   const float ts = t0 > kMinT ? t0 : t1;
@@ -183,133 +188,267 @@ __device__ __forceinline__ void pair(float cd, float m, float od, float oo, int 
   }
 }
 
-// sweep_mma<kPrec>: the closest hit of each ray over n_tiles * 16 spheres,
-// the products on the tensor cores.
+// Whether root(b, disc, ...) may take the pair, without the root: a real
+// root (sqrtf(disc) > 0 where disc > 0, and NaN fails both). A pre-test
+// that also dropped the roots outside (kMinT, bt) (each by disc <= w^2,
+// rounded down, for w = kMinT - b or b - bt rounded down) cost more than
+// the roots it saved at RTiOW's fill.
+__device__ __forceinline__ bool may_take(float disc) { return disc > 0.0f; }
+
+// (t, i) becomes (ot, oi) where that is less on (t, index): the first
+// index wins a tie, as in sweep_sphere.
+__device__ __forceinline__ void take_least(float& t, int& i, float ot, int oi) {
+  if (ot < t || (ot == t && oi < i)) {
+    t = ot;
+    i = oi;
+  }
+}
+
+// Ray r's (t, index), merged with what earlier windows wrote there.
+__device__ __forceinline__ void put_ray(float* __restrict__ t_out, int* __restrict__ i_out,
+                                        long long r, float t, int i, bool merge) {
+  if (merge) take_least(t, i, t_out[r], i_out[r]);
+  t_out[r] = t;
+  i_out[r] = i;
+}
+
+// sweep_mma<kPrec, kRayTiles, kCensus>: the closest hit of each ray over
+// n_tiles * 16 spheres, the products on the tensor cores.
 //
 // Replaces benchmarks/probe_mxu_sweep.py:215 _mxu_sweep_kernel (pallas_call
 // at :293), :322 _rowdot_sweep_kernel (at :394) and :486
 // _chunked_mxu_kernel (at :577). amats is the probe's per-chunk sphere
 // matrix [n_chunks, 8, 2 cs] (p8's amats; p5's amat is its transpose with
 // one chunk of 32): columns [0, cs) are c against d, [cs, 2 cs) are
-// [-2c | kq] against [o | 1]. Bound on an H100 by the epilogue's
-// instructions: the products the sweep needs are 14 flops a pair (42 for
-// 3xTF32), a small share of the 495 TFLOP/s TF32 rate, and the 7 counted
-// operations of the epilogue (with its sqrt, compares and selects) remain
-// on the FP32 pipe, at 77 (TF32) or 98 (3xTF32) registers a thread.
-// Design: a block stages a window of tiles into shared memory once,
-// already split to TF32 in fragment order, so a warp reads each tile's A
-// fragments as one conflict-free 16-byte load per matrix; a warp carries
-// 32 rays (four B fragments, split once, in registers) so each A fragment
-// feeds four products; each thread keeps a running (t, index) for its two
-// rays of each tile over the spheres g, g + 8, g + 16, ... it sees in
-// increasing order, and the eight lanes that share a ray merge once, after
-// the loop, lexicographically on (t, index): the first index wins, as in
-// sweep_sphere.
-template <int kPrec>
-__global__ void __launch_bounds__(kThreads)
+// [-2c | kq] against [o | 1]. Bound on an H100 by operations: the products
+// need 14 flops a pair (42 for 3xTF32) at the 495 TFLOP/s TF32 rate, the
+// epilogue 4 FP32 operations a pair (b, cq, b^2 - cq) and 3 more (the root,
+// t0, t1) for a pair with a real root; at RTiOW's fill (0.46% of pairs with
+// one) the epilogue bounds TF32 and the products 3xTF32. The IEEE sqrtf
+// (MUFU, corrections, a range check) of every pair would cost more than
+// either, where almost every pair has no real root.
+// Design:
+//  - a lane runs the products of each 8-ray tile of a 16-sphere tile, then
+//    forms b and the discriminant of its 4 pairs of each (independent work
+//    that hides the products' latency). Where no lane of the warp has a
+//    real root (a warp vote on the largest discriminant), that is all, and
+//    so for each 8-ray tile of the others. Else the lane takes its pairs in
+//    order (sphere s0 before s0 + 8 for each ray, as the running best
+//    needs) and the root of those may_take passes: a warp takes one root a
+//    round, in which any of its lanes has a survivor;
+//  - a persistent grid, the blocks the card holds at once, walks the ray
+//    groups, so a block stages its window of tiles once (split to TF32 in
+//    fragment order, each thread stepping its element through the tiles
+//    with no division), and conflict-free 16-byte loads feed the products;
+//  - a warp carries kWideTiles 8-ray tiles (a fragment of A then feeds
+//    that many products); where the rays alone would leave the card idle
+//    (the probe's 4,096), one (kRayTiles 1), and `splits` warps of a block
+//    share a ray group, each over its own run of a window's tiles, merged
+//    in shared memory;
+//  - a register budget of kMmaBlocks* blocks an SM; the products are not
+//    volatile: A's operands depend on the pass index at zero weight (the
+//    probe's anti-hoist).
+// Each lane keeps a running (t, index) for its two rays of each 8-ray tile
+// over the spheres g, g + 8, ... it sees in increasing order; the eight
+// lanes of a ray, then the warps of a ray group, then the windows merge
+// with take_least. (t, index) is then the least valid (root, sphere) of the
+// ray, whatever the split: every launch shape gives the same bits.
+// kCensus also counts into census[0..2] the pairs may_take keeps, the
+// root rounds the warps take and their (tile, 8-ray tile) steps.
+template <int kPrec, int kRayTiles, bool kCensus>
+__global__ void __launch_bounds__(kThreads, kPrec == kTf32x3 ? kMmaBlocks3x : kMmaBlocksTf32)
     sweep_mma(const float* __restrict__ amats, int cs, int n_tiles, int window,
-              const float* __restrict__ rays, int packed, int n_rays, int iters,
-              float* __restrict__ t_out, int* __restrict__ i_out) {
+              const float* __restrict__ rays, int packed, int n_rays, int iters, int splits,
+              float* __restrict__ t_out, int* __restrict__ i_out,
+              unsigned long long* __restrict__ census) {
+  static_assert(kThreads == kTileFloats, "a thread stages one element of each tile");
+  constexpr int kRays = 8 * kRayTiles;  // a ray group
   extern __shared__ uint4 frag[];  // [window][2][32] hi, then as many lo for 3xTF32
+  __shared__ float part_t[kWarps][32];
+  __shared__ int part_i[kWarps][32];
   uint4* frag_lo = frag + window * 2 * 32;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int q = lane & 3;
+  const int slot = warp / splits;  // which of the block's ray groups this warp sweeps
+  const int part = warp - slot * splits;  // its run of each window's tiles
+  const int groups = kWarps / splits;  // ray groups a block sweeps at once
   const long long nr = n_rays;
-  const long long r_base =
-      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * (8 * kRayTiles);
-  uint32_t bhi[kRayTiles][2], blo[kRayTiles][2];
-  float od[kRayTiles][2], oo[kRayTiles][2], bt[kRayTiles][2];
-  int bi[kRayTiles][2];
-#pragma unroll
-  for (int rt = 0; rt < kRayTiles; ++rt) {
-    const long long rb = r_base + 8 * rt + g;  // this lane's ray of B
-    const bool in_b = rb < nr;
-    split<kPrec>(in_b ? ray_component(rays, packed, nr, q, rb) : 0.0f, bhi[rt][0], blo[rt][0]);
-    split<kPrec>(in_b ? ray_component(rays, packed, nr, q + 4, rb) : 0.0f, bhi[rt][1],
-                 blo[rt][1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // this lane's rays of C
-      const long long rc = r_base + 8 * rt + 2 * q + h;
-      float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (rc < nr) {
-        for (int k = 0; k < 6; ++k) v[k] = ray_component(rays, packed, nr, k, rc);
-      }
-      od[rt][h] = v[0] * v[3] + v[1] * v[4] + v[2] * v[5];
-      oo[rt][h] = v[3] * v[3] + v[4] * v[4] + v[5] * v[5];
-      bt[rt][h] = kProbeMaxT;
-      bi[rt][h] = -1;
-    }
-  }
+  const int n_groups = static_cast<int>((nr + kRays - 1) / kRays);
+  // this thread's element of every tile it stages: matrix mat, lane ln,
+  // value v, i.e. A row 16 j + (ln >> 2) + 8 (v & 1), component (ln & 3) +
+  // 4 (v >> 1) of tile j of a chunk
+  const int v = threadIdx.x & 3, ln = (threadIdx.x >> 2) & 31, mat = threadIdx.x >> 7;
+  const int a_off = ((ln & 3) + 4 * (v >> 1)) * (2 * cs) + mat * cs + (ln >> 2) + 8 * (v & 1);
   const int tiles_per_chunk = cs / 16;
+  int chunk = 0, tile_in_chunk = 0;  // of the next tile to stage
+  unsigned kept = 0, rounds = 0, steps = 0;
   for (int w0 = 0; w0 < n_tiles; w0 += window) {
     const int nt = min(window, n_tiles - w0);
     __syncthreads();
-    // element (tile, matrix, lane, v): sphere row 16 j + gg + 8 (v & 1),
-    // component qq + 4 (v >> 1) of the tile's chunk
-    for (int e = threadIdx.x; e < nt * kTileFloats; e += kThreads) {
-      const int v = e & 3;
-      const int ln = (e >> 2) & 31;
-      const int mat = (e >> 7) & 1;
-      const int t = w0 + (e >> 8);
-      const int c = t / tiles_per_chunk;
-      const int j = t - c * tiles_per_chunk;
-      const int row = 16 * j + (ln >> 2) + 8 * (v & 1);
-      const int k = (ln & 3) + 4 * (v >> 1);
-      const float x = amats[(static_cast<long long>(c) * 8 + k) * (2 * cs) + mat * cs + row];
+    for (int t = 0; t < nt; ++t) {
       uint32_t hi, lo;
-      split<kPrec>(x, hi, lo);
-      reinterpret_cast<uint32_t*>(frag)[e] = hi;
-      if constexpr (kPrec == kTf32x3) reinterpret_cast<uint32_t*>(frag_lo)[e] = lo;
+      split<kPrec>(amats[static_cast<long long>(chunk) * 8 * (2 * cs) + 16 * tile_in_chunk + a_off],
+                   hi, lo);
+      reinterpret_cast<uint32_t*>(frag)[t * kTileFloats + threadIdx.x] = hi;
+      if constexpr (kPrec == kTf32x3) {
+        reinterpret_cast<uint32_t*>(frag_lo)[t * kTileFloats + threadIdx.x] = lo;
+      }
+      if (++tile_in_chunk == tiles_per_chunk) {
+        tile_in_chunk = 0;
+        ++chunk;
+      }
     }
     __syncthreads();
-    for (int it = 0; it < iters; ++it) {
-      for (int t = 0; t < nt; ++t) {
-        uint32_t acd[4], am[4], acd_lo[4] = {0u, 0u, 0u, 0u}, am_lo[4] = {0u, 0u, 0u, 0u};
-        const uint4 f0 = frag[(t * 2) * 32 + lane];
-        const uint4 f1 = frag[(t * 2 + 1) * 32 + lane];
-        acd[0] = f0.x, acd[1] = f0.y, acd[2] = f0.z, acd[3] = f0.w;
-        am[0] = f1.x, am[1] = f1.y, am[2] = f1.z, am[3] = f1.w;
-        if constexpr (kPrec == kTf32x3) {
-          const uint4 l0 = frag_lo[(t * 2) * 32 + lane];
-          const uint4 l1 = frag_lo[(t * 2 + 1) * 32 + lane];
-          acd_lo[0] = l0.x, acd_lo[1] = l0.y, acd_lo[2] = l0.z, acd_lo[3] = l0.w;
-          am_lo[0] = l1.x, am_lo[1] = l1.y, am_lo[2] = l1.z, am_lo[3] = l1.w;
-        }
-        const int s0 = (w0 + t) * 16 + g;
+    const int t_lo = part * nt / splits;
+    const int t_hi = (part + 1) * nt / splits;
+    for (int grp0 = blockIdx.x * groups; grp0 < n_groups; grp0 += gridDim.x * groups) {
+      const int grp = grp0 + slot;  // warp-uniform, as is every branch on it
+      const long long r_base = static_cast<long long>(grp) * kRays;
+      float bt[kRayTiles][2];
+      int bi[kRayTiles][2];
+      if (grp < n_groups) {
+        uint32_t bhi[kRayTiles][2], blo[kRayTiles][2];
+        float od[kRayTiles][2], oo[kRayTiles][2];
 #pragma unroll
         for (int rt = 0; rt < kRayTiles; ++rt) {
-          float cd[4] = {0.0f, 0.0f, 0.0f, 0.0f}, m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_prec<kPrec>(cd, acd, acd_lo, bhi[rt], blo[rt]);
-          mma_prec<kPrec>(m, am, am_lo, bhi[rt], blo[rt]);
-          // sphere s0 before s0 + 8, for each of the lane's two rays
-          pair(cd[0], m[0], od[rt][0], oo[rt][0], s0, bt[rt][0], bi[rt][0]);
-          pair(cd[1], m[1], od[rt][1], oo[rt][1], s0, bt[rt][1], bi[rt][1]);
-          pair(cd[2], m[2], od[rt][0], oo[rt][0], s0 + 8, bt[rt][0], bi[rt][0]);
-          pair(cd[3], m[3], od[rt][1], oo[rt][1], s0 + 8, bt[rt][1], bi[rt][1]);
+          const long long rb = r_base + 8 * rt + g;  // this lane's ray of B
+          const bool in_b = rb < nr;
+          split<kPrec>(in_b ? ray_component(rays, packed, nr, q, rb) : 0.0f, bhi[rt][0],
+                       blo[rt][0]);
+          split<kPrec>(in_b ? ray_component(rays, packed, nr, q + 4, rb) : 0.0f, bhi[rt][1],
+                       blo[rt][1]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // this lane's rays of C
+            const long long rc = r_base + 8 * rt + 2 * q + h;
+            float c[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+            if (rc < nr) {
+              for (int k = 0; k < 6; ++k) c[k] = ray_component(rays, packed, nr, k, rc);
+            }
+            od[rt][h] = c[0] * c[3] + c[1] * c[4] + c[2] * c[5];
+            oo[rt][h] = c[3] * c[3] + c[4] * c[4] + c[5] * c[5];
+            bt[rt][h] = kProbeMaxT;
+            bi[rt][h] = -1;
+          }
         }
+        for (int it = 0; it < iters; ++it) {
+          // 0.0f * it is not foldable without fast math: A's operands
+          // depend on the pass through it, so each pass runs its own
+          // products, and adding its bits (0) changes no bit
+          const uint32_t zero = __float_as_uint(static_cast<float>(it) * 0.0f);
+          for (int t = t_lo; t < t_hi; ++t) {
+            uint32_t acd[4], am[4], acd_lo[4] = {0u, 0u, 0u, 0u}, am_lo[4] = {0u, 0u, 0u, 0u};
+            const uint4 f0 = frag[(t * 2) * 32 + lane];
+            const uint4 f1 = frag[(t * 2 + 1) * 32 + lane];
+            acd[0] = f0.x + zero, acd[1] = f0.y, acd[2] = f0.z, acd[3] = f0.w;
+            am[0] = f1.x + zero, am[1] = f1.y, am[2] = f1.z, am[3] = f1.w;
+            if constexpr (kPrec == kTf32x3) {
+              const uint4 l0 = frag_lo[(t * 2) * 32 + lane];
+              const uint4 l1 = frag_lo[(t * 2 + 1) * 32 + lane];
+              acd_lo[0] = l0.x, acd_lo[1] = l0.y, acd_lo[2] = l0.z, acd_lo[3] = l0.w;
+              am_lo[0] = l1.x, am_lo[1] = l1.y, am_lo[2] = l1.z, am_lo[3] = l1.w;
+            }
+            const int s0 = (w0 + t) * 16 + g;
+            // every 8-ray tile's products, then b and the discriminant of
+            // its pairs: pair (rt, e) is sphere s0 + 8 (e >> 1) against the
+            // lane's ray e & 1 of 8-ray tile rt
+            float b[kRayTiles][4], disc[kRayTiles][4];
+#pragma unroll
+            for (int rt = 0; rt < kRayTiles; ++rt) {
+              float cd[4] = {0.0f, 0.0f, 0.0f, 0.0f}, m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma_prec<kPrec>(cd, acd, acd_lo, bhi[rt], blo[rt]);
+              mma_prec<kPrec>(m, am, am_lo, bhi[rt], blo[rt]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                b[rt][e] = cd[e] - od[rt][e & 1];
+                const float cq = oo[rt][e & 1] + m[e];
+                disc[rt][e] = b[rt][e] * b[rt][e] - cq;
+              }
+            }
+            if constexpr (kCensus) steps += kRayTiles;
+            // most tiles: no lane of the warp has a real root (fmaxf drops a
+            // NaN, which has none); then most 8-ray tiles of the others
+            float most[kRayTiles];
+#pragma unroll
+            for (int rt = 0; rt < kRayTiles; ++rt) {
+              most[rt] = fmaxf(fmaxf(disc[rt][0], disc[rt][1]), fmaxf(disc[rt][2], disc[rt][3]));
+            }
+            float any = most[0];
+#pragma unroll
+            for (int rt = 1; rt < kRayTiles; ++rt) any = fmaxf(any, most[rt]);
+            if (__any_sync(0xffffffffu, any > 0.0f)) {
+#pragma unroll
+              for (int rt = 0; rt < kRayTiles; ++rt) {
+                if (!__any_sync(0xffffffffu, most[rt] > 0.0f)) continue;
+                // the pairs in order, sphere s0 before s0 + 8 for each ray
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const bool take = may_take(disc[rt][e]);
+                  if constexpr (kCensus) {
+                    kept += take;
+                    rounds += __any_sync(0xffffffffu, take);
+                  }
+                  if (take) root(b[rt][e], disc[rt][e], s0 + 8 * (e >> 1), bt[rt][e & 1],
+                                 bi[rt][e & 1]);
+                }
+                __syncwarp();
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int rt = 0; rt < kRayTiles; ++rt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            for (int off = 4; off < 32; off <<= 1) {  // the lanes of other g, same q
+              take_least(bt[rt][h], bi[rt][h], __shfl_xor_sync(0xffffffffu, bt[rt][h], off),
+                         __shfl_xor_sync(0xffffffffu, bi[rt][h], off));
+            }
+          }
+        }
+      }
+      if (splits == 1) {
+        if (grp < n_groups && g == 0) {
+#pragma unroll
+          for (int rt = 0; rt < kRayTiles; ++rt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const long long rc = r_base + 8 * rt + 2 * q + h;
+              if (rc < nr) put_ray(t_out, i_out, rc, bt[rt][h], bi[rt][h], w0 > 0);
+            }
+          }
+        }
+      } else {  // the warps of a ray group merge their runs of tiles
+        if (grp < n_groups && g == 0) {
+#pragma unroll
+          for (int rt = 0; rt < kRayTiles; ++rt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              part_t[warp][8 * rt + 2 * q + h] = bt[rt][h];
+              part_i[warp][8 * rt + 2 * q + h] = bi[rt][h];
+            }
+          }
+        }
+        __syncthreads();
+        if (grp < n_groups && part == 0 && lane < kRays) {
+          float t = part_t[warp][lane];
+          int i = part_i[warp][lane];
+          for (int p = 1; p < splits; ++p) take_least(t, i, part_t[warp + p][lane],
+                                                      part_i[warp + p][lane]);
+          const long long rc = r_base + lane;
+          if (rc < nr) put_ray(t_out, i_out, rc, t, i, w0 > 0);
+        }
+        __syncthreads();
       }
     }
   }
-#pragma unroll
-  for (int rt = 0; rt < kRayTiles; ++rt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float t = bt[rt][h];
-      int i = bi[rt][h];
-      for (int off = 4; off < 32; off <<= 1) {  // the lanes of other g, same q
-        const float ot = __shfl_xor_sync(0xffffffffu, t, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-        if (ot < t || (ot == t && oi < i)) {
-          t = ot;
-          i = oi;
-        }
-      }
-      const long long rc = r_base + 8 * rt + 2 * q + h;
-      if (g == 0 && rc < nr) {
-        t_out[rc] = t;
-        i_out[rc] = i;
-      }
+  if constexpr (kCensus) {
+    kept = __reduce_add_sync(0xffffffffu, kept);
+    if (lane == 0) {
+      atomicAdd(census, static_cast<unsigned long long>(kept));
+      atomicAdd(census + 1, static_cast<unsigned long long>(rounds));
+      atomicAdd(census + 2, static_cast<unsigned long long>(steps));
     }
   }
 }
@@ -521,21 +660,89 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Blocks of sweep_mma<kPrec, kRayTiles, kCensus> an SM holds with `smem`
+// bytes of window. The first call on a device allows the largest window
+// (cudaFuncSetAttribute once, not on every launch); the answer for the
+// last size asked is kept per device.
+template <int kPrec, int kRayTiles, bool kCensus>
+cudaError_t mma_blocks_per_sm(int smem, int* blocks) {
+  static int cached_smem[kMaxDevices], cached[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool keep = dev >= 0 && dev < kMaxDevices;
+  if (keep && cached[dev] > 0 && cached_smem[dev] == smem) {
+    *blocks = cached[dev];
+    return cudaSuccess;
+  }
+  const void* fn = reinterpret_cast<const void*>(sweep_mma<kPrec, kRayTiles, kCensus>);
+  if (!keep || cached[dev] == 0) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmemBytes);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (*blocks < 1) return cudaErrorInvalidConfiguration;
+  if (keep) {
+    cached_smem[dev] = smem;
+    cached[dev] = *blocks;
+  }
+  return cudaSuccess;
+}
+
+template <int kPrec, int kRayTiles, bool kCensus>
+int launch_mma(const float* amats, int cs, int n_tiles, int window, int smem, const float* rays,
+               int packed, int n_rays, int iters, int splits, long long blocks, float* t_out,
+               int* i_out, unsigned long long* census, cudaStream_t s) {
+  sweep_mma<kPrec, kRayTiles, kCensus><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+      amats, cs, n_tiles, window, rays, packed, n_rays, iters, splits, t_out, i_out, census);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sweep_mma's launch: the window of tiles a block stages; 8-ray tiles of 4
+// (kRayTiles 4) where the 32-ray groups fill the warps the card holds at
+// once, else of 1; the warps that share a ray group (splits, a power of
+// two up to the tiles of a window) doubled while the warps the groups then
+// take still fit the card; a grid of the blocks the card holds at once, or
+// fewer. A census launch takes groups of 32 rays.
 template <int kPrec>
 int launch_sweep_mma(const float* amats, int n_chunks, int cs, const float* rays, int packed,
-                     int n_rays, int iters, float* t_out, int* i_out, cudaStream_t s) {
+                     int n_rays, int iters, float* t_out, int* i_out, unsigned long long* census,
+                     cudaStream_t s) {
   const int n_tiles = n_chunks * (cs / 16);
   const int tile_bytes = kTileFloats * 4 * (kPrec == kTf32x3 ? 2 : 1);
   const int window = min(n_tiles, kMmaSmemBytes / tile_bytes);
   const int smem = window * tile_bytes;
-  cudaError_t err = cudaFuncSetAttribute(sweep_mma<kPrec>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int sms = 0, per_sm = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess) {
+    err = census ? mma_blocks_per_sm<kPrec, kWideTiles, true>(smem, &per_sm)
+                 : mma_blocks_per_sm<kPrec, kWideTiles, false>(smem, &per_sm);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rays_a_block = 8LL * kRayTiles * kWarps;
-  const unsigned blocks = static_cast<unsigned>((n_rays + rays_a_block - 1) / rays_a_block);
-  sweep_mma<kPrec><<<blocks, kThreads, smem, s>>>(amats, cs, n_tiles, window, rays, packed,
-                                                  n_rays, iters, t_out, i_out);
-  return static_cast<int>(cudaGetLastError());
+  constexpr int kWideRays = 8 * kWideTiles;
+  const bool narrow = !census &&
+                      (n_rays + kWideRays - 1LL) / kWideRays < 1LL * sms * per_sm * kWarps;
+  if (narrow) {
+    err = mma_blocks_per_sm<kPrec, 1, false>(smem, &per_sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long resident = 1LL * sms * per_sm;  // blocks
+  const int group_rays = narrow ? 8 : kWideRays;
+  const long long n_groups = (n_rays + group_rays - 1LL) / group_rays;
+  int splits = 1;
+  while (splits < kWarps && 2 * splits <= window &&
+         n_groups * splits * 2 <= resident * kWarps) {
+    splits *= 2;
+  }
+  const long long groups = kWarps / splits;  // a block's at once
+  const long long need = (n_groups + groups - 1) / groups;
+  const long long blocks = min(need, resident);
+  auto launch = census ? launch_mma<kPrec, kWideTiles, true>
+               : narrow ? launch_mma<kPrec, 1, false>
+                        : launch_mma<kPrec, kWideTiles, false>;
+  return launch(amats, cs, n_tiles, window, smem, rays, packed, n_rays, iters, splits, blocks,
+                t_out, i_out, census, s);
 }
 
 // The rows of A a dot_mma block takes: 64, halved (down to min_rows) while
@@ -599,23 +806,43 @@ int wrt_sweep_fma(const float* spheres, int n_spheres, int chunk, const float* r
   return static_cast<int>(cudaGetLastError());
 }
 
-// The closest hit over the spheres of amats [n_chunks, 8, 2 cs] (cs a
-// multiple of 16) with the products at prec 1 (TF32) or 2 (3xTF32).
-int wrt_sweep_mma(const float* amats, int n_chunks, int cs, const float* rays, int packed,
-                  int n_rays, int iters, int prec, float* t_out, int* i_out, void* stream) {
+// wrt_sweep_mma (below), and with census non-null (three zeroed counters)
+// its census instantiation: census[0] += the pairs the pre-test keeps, [1]
+// += the root rounds the warps take, [2] += their (16-sphere tile, 8-ray
+// tile) steps (128 pairs each), every pass counted.
+int wrt_sweep_mma_census(const float* amats, int n_chunks, int cs, const float* rays, int packed,
+                         int n_rays, int iters, int prec, float* t_out, int* i_out,
+                         unsigned long long* census, void* stream) {
   if (n_chunks <= 0 || cs <= 0 || cs % 16 || n_rays <= 0 || iters <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (prec == kTf32) {
     return launch_sweep_mma<kTf32>(amats, n_chunks, cs, rays, packed, n_rays, iters, t_out,
-                                   i_out, s);
+                                   i_out, census, s);
   }
   if (prec == kTf32x3) {
     return launch_sweep_mma<kTf32x3>(amats, n_chunks, cs, rays, packed, n_rays, iters, t_out,
-                                     i_out, s);
+                                     i_out, census, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The closest hit over the spheres of amats [n_chunks, 8, 2 cs] (cs a
+// multiple of 16) with the products at prec 1 (TF32) or 2 (3xTF32).
+int wrt_sweep_mma(const float* amats, int n_chunks, int cs, const float* rays, int packed,
+                  int n_rays, int iters, int prec, float* t_out, int* i_out, void* stream) {
+  return wrt_sweep_mma_census(amats, n_chunks, cs, rays, packed, n_rays, iters, prec, t_out,
+                              i_out, nullptr, stream);
+}
+
+// sweep_mma's __launch_bounds__ at prec 1 or 2: threads a block and
+// blocks an SM (0: no minimum), which fix its register budget.
+int wrt_sweep_mma_launch_bounds(int prec, int* threads, int* min_blocks) {
+  if (prec != kTf32 && prec != kTf32x3) return static_cast<int>(cudaErrorInvalidValue);
+  *threads = kThreads;
+  *min_blocks = prec == kTf32x3 ? kMmaBlocks3x : kMmaBlocksTf32;
+  return 0;
 }
 
 // c [m, n] = a [m, 8] . b [8, n] at prec 0 (FP32, k order), 1 (TF32) or 2
@@ -663,18 +890,23 @@ int wrt_layout_chain(const float* in, float* out, long long n, int steps, int ch
 
 // Registers per thread and local (spill) bytes of one kernel, as the CUDA
 // runtime reports them; returns a cudaError_t. `which`: 0 sweep_fma, 1/2
-// sweep_mma TF32/3xTF32, 3/4/5 dot_mma FP32/TF32/3xTF32, 6/7 layout
-// remap/chain.
+// sweep_mma TF32/3xTF32 (four 8-ray tiles a warp), 3/4/5 dot_mma
+// FP32/TF32/3xTF32, 6/7 layout remap/chain, 8/9 sweep_mma TF32/3xTF32 with
+// one 8-ray tile a warp, 10/11 their census instantiations.
 int wrt_sweep_attributes(int which, int* num_regs, int* local_bytes) {
   const void* fns[] = {
       reinterpret_cast<const void*>(sweep_fma),
-      reinterpret_cast<const void*>(sweep_mma<kTf32>),
-      reinterpret_cast<const void*>(sweep_mma<kTf32x3>),
+      reinterpret_cast<const void*>(sweep_mma<kTf32, kWideTiles, false>),
+      reinterpret_cast<const void*>(sweep_mma<kTf32x3, kWideTiles, false>),
       reinterpret_cast<const void*>(dot_fp32),
       reinterpret_cast<const void*>(dot_tc<kTf32>),
       reinterpret_cast<const void*>(dot_tc<kTf32x3>),
       reinterpret_cast<const void*>(layout_remap),
       reinterpret_cast<const void*>(layout_chain),
+      reinterpret_cast<const void*>(sweep_mma<kTf32, 1, false>),
+      reinterpret_cast<const void*>(sweep_mma<kTf32x3, 1, false>),
+      reinterpret_cast<const void*>(sweep_mma<kTf32, kWideTiles, true>),
+      reinterpret_cast<const void*>(sweep_mma<kTf32x3, kWideTiles, true>),
   };
   if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0]))) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -79,6 +79,26 @@ KERNEL_NAMES = ("table_gather_global", "table_gather_shared", "table_gather_arit
                 "smem_rw_direct_1", "smem_rw_direct_4", "row_sort", "lane_scan")
 
 _BUILT = None  # the loaded library, its functions bound, after the first call
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+# the library's C functions and their arguments (each returns an int)
+SIGNATURES = {
+    "wrt_table_gather": [_vp, _i, _vp, _i, _i, _i, _i, _vp, _vp],
+    "wrt_lane_gather": [_vp, _i, _vp, _vp, _vp, _i, _i, _i, _vp, _vp],
+    "wrt_smem_rw": [_vp, _i, _i, _vp, _vp, _i, _i, _vp, _i, _i, _i, _vp, _vp],
+    "wrt_row_sort": [_vp, _i, _vp, _vp],
+    "wrt_lane_scan": [_vp, _i, _vp, _vp],
+    "wrt_access_attributes": [_i, ctypes.POINTER(_i), ctypes.POINTER(_i), ctypes.POINTER(_i)],
+}
+
+
+def bind(lib) -> None:
+    """Set SIGNATURES on the functions ``lib`` (a ctypes.CDLL of access.cu)
+    exports."""
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
 
 
 def _library():
@@ -88,22 +108,7 @@ def _library():
     if _BUILT is not None:
         return _BUILT
     built = load_library(*LIBRARY)
-    lib = built.lib
-    if lib.wrt_table_gather.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        pi = ctypes.POINTER(i)
-        sigs = {
-            "wrt_table_gather": [vp, i, vp, i, i, i, i, vp, vp],
-            "wrt_lane_gather": [vp, i, vp, vp, vp, i, i, i, vp, vp],
-            "wrt_smem_rw": [vp, i, i, vp, vp, i, i, vp, i, i, i, vp, vp],
-            "wrt_row_sort": [vp, i, vp, vp],
-            "wrt_lane_scan": [vp, i, vp, vp],
-            "wrt_access_attributes": [i, pi, pi, pi],
-        }
-        for name, argtypes in sigs.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    bind(built.lib)
     _BUILT = built
     return built
 

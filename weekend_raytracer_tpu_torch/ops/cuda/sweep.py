@@ -52,15 +52,42 @@ MIN_T = 1.0e-3  # probe_mxu_sweep.py:45, bounce.cuh's kMinT
 MAX_T = 3.0e38  # probe_mxu_sweep.py:44, the miss value
 PRECISIONS = ("fp32", "tf32", "3xtf32")  # sweep.cu's Prec: 0, 1, 2
 MMA_TILE = 16  # spheres of an A tile: a chunk of sweep_mma is a multiple
+MMA_GROUP_RAYS = 16  # a warp's rays in a census launch (sweep.cu kWideTiles 8-ray tiles)
 MAX_FMA_CHUNK = 2048  # spheres sweep_fma stages at once (32 KiB)
 CHAIN_C = 1.0e-7  # p4's addend
 
-# sweep.cu wrt_sweep_attributes index -> kernel
+# sweep.cu wrt_sweep_attributes index -> kernel ("narrow": one 8-ray tile
+# a warp, sweep_mma's launch at the probe's 4,096 rays; "census": the
+# counting instantiation of sweep_mma_census)
 KERNEL_NAMES = ("sweep_fma", "sweep_mma_tf32", "sweep_mma_3xtf32", "dot_mma_fp32",
-                "dot_mma_tf32", "dot_mma_3xtf32", "layout_remap", "layout_chain")
+                "dot_mma_tf32", "dot_mma_3xtf32", "layout_remap", "layout_chain",
+                "sweep_mma_tf32_narrow", "sweep_mma_3xtf32_narrow", "sweep_mma_tf32_census",
+                "sweep_mma_3xtf32_census")
 
 
 _BUILT = None  # the loaded library, its functions bound, after the first call
+_vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# the library's C functions and their arguments (each returns an int)
+SIGNATURES = {
+    "wrt_sweep_fma": [_vp, _i, _i, _vp, _i, _i, _vp, _vp, _vp],
+    "wrt_sweep_mma": [_vp, _i, _i, _vp, _i, _i, _i, _i, _vp, _vp, _vp],
+    "wrt_sweep_mma_census": [_vp, _i, _i, _vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp],
+    "wrt_sweep_mma_launch_bounds": [_i, ctypes.POINTER(_i), ctypes.POINTER(_i)],
+    "wrt_dot_mma": [_vp, _vp, _vp, _i, _i, _i, _vp],
+    "wrt_layout_remap": [_vp, _vp, _i, _i, _i, _i, _f, _f, _vp],
+    "wrt_layout_chain": [_vp, _vp, _ll, _i, _i, _f, _vp],
+    "wrt_sweep_attributes": [_i, ctypes.POINTER(_i), ctypes.POINTER(_i)],
+}
+
+
+def bind(lib) -> None:
+    """Set SIGNATURES on the functions ``lib`` (a ctypes.CDLL of sweep.cu)
+    exports."""
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
 
 
 def _library():
@@ -70,21 +97,7 @@ def _library():
     if _BUILT is not None:
         return _BUILT
     built = load_library(*LIBRARY)
-    lib = built.lib
-    if lib.wrt_sweep_fma.argtypes is None:
-        vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        sigs = {
-            "wrt_sweep_fma": [vp, i, i, vp, i, i, vp, vp, vp],
-            "wrt_sweep_mma": [vp, i, i, vp, i, i, i, i, vp, vp, vp],
-            "wrt_dot_mma": [vp, vp, vp, i, i, i, vp],
-            "wrt_layout_remap": [vp, vp, i, i, i, i, f, f, vp],
-            "wrt_layout_chain": [vp, vp, ll, i, i, f, vp],
-            "wrt_sweep_attributes": [i, ctypes.POINTER(i), ctypes.POINTER(i)],
-        }
-        for name, argtypes in sigs.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    bind(built.lib)
     _BUILT = built
     return built
 
@@ -99,6 +112,19 @@ def kernel_attributes() -> dict:
         if err:
             raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
         out[name] = {"registers": regs.value, "local_bytes": local.value}
+    return out
+
+
+def launch_bounds() -> dict:
+    """sweep_mma's ``__launch_bounds__`` per precision: (threads a block,
+    blocks an SM), which fix its register budget (sweep.cu kMmaBlocks*)."""
+    out = {}
+    for prec in PRECISIONS[1:]:
+        threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        if _library().lib.wrt_sweep_mma_launch_bounds(PRECISIONS.index(prec),
+                                                      ctypes.byref(threads), ctypes.byref(blocks)):
+            raise RuntimeError(f"wrt_sweep_mma_launch_bounds refused {prec!r}")
+        out[prec] = (threads.value, blocks.value)
     return out
 
 
@@ -266,6 +292,55 @@ def sweep_plain(spheres: torch.Tensor, rays: torch.Tensor, prec: str = "fma"):
     return bt, bi
 
 
+def survivor_plain(amats: torch.Tensor, rays: torch.Tensor, prec: str = "3xtf32",
+                   iters: int = 1):
+    """``sweep_mma_census``'s twin: the kernel's survivor walk on the
+    twin's products (``dot_plain`` at ``prec``), rays in groups of
+    MMA_GROUP_RAYS. Lane (g, q) of a warp takes spheres 16 j + g and
+    16 j + g + 8 of each 16-sphere tile j against rays 2q and 2q + 1 of
+    each 8-ray tile, keeps the pairs the pre-test passes (a real root:
+    disc > 0, which is sq > 0), takes their roots in sphere order against
+    a running best of its own, and the eight lanes of a ray merge on (t,
+    index), the first index winning. A warp takes a root round for each of
+    its four pairs of an 8-ray tile that any lane keeps. Returns ((t [R],
+    index [R]), census) with ``sweep_mma_census``'s counts; passes repeat
+    one sweep, so ``iters`` scales the counts."""
+    bm = rays if rays.shape[0] == 8 else packed_b(rays)
+    n = bm.shape[1]
+    padded = -(-n // MMA_GROUP_RAYS) * MMA_GROUP_RAYS
+    od = bm[0] * bm[3] + bm[1] * bm[4] + bm[2] * bm[5]
+    oo = bm[3] * bm[3] + bm[4] * bm[4] + bm[5] * bm[5]
+    bt = torch.full((8, n), MAX_T, dtype=_F32, device=bm.device)  # a running best per g
+    bi = torch.full((8, n), -1, dtype=_I32, device=bm.device)
+    cs = amats.shape[2] // 2
+    kept = rounds = 0
+    for c in range(amats.shape[0]):
+        out = dot_plain(amats[c].transpose(0, 1), bm, prec)  # [2 cs, R]
+        b = out[:cs] - od
+        disc = b * b - (oo + out[cs:])
+        keep = disc > 0.0
+        # [tile, sphere g or g + 8, g, 8-ray tile, q, ray 2q or 2q + 1]:
+        # a round for each pair (sphere g or g + 8, ray 2q or 2q + 1) of an
+        # 8-ray tile that any lane (g, q) keeps
+        lanes = torch.nn.functional.pad(keep, (0, padded - n)).reshape(
+            cs // MMA_TILE, 2, 8, padded // 8, 4, 2)
+        kept += int(lanes.sum())
+        rounds += int(lanes.any(dim=4).any(dim=2).sum())
+        for j in range(cs):
+            sq = torch.sqrt(disc[j])
+            t0, t1 = b[j] - sq, b[j] + sq
+            ts = torch.where(t0 > MIN_T, t0, t1)
+            valid = keep[j] & (sq > 0.0) & (ts > MIN_T)
+            g = j % 8
+            bt[g], bi[g] = _take(bt[g], bi[g], ts, valid, c * cs + j)
+    t = bt.min(dim=0).values
+    idx = torch.where(bt == t, bi, torch.iinfo(torch.int32).max).min(dim=0).values
+    steps = amats.shape[0] * cs // MMA_TILE * padded // 8
+    census = {"pairs": padded * amats.shape[0] * cs * iters, "kept": kept * iters,
+              "rounds": rounds * iters, "steps": steps * iters}
+    return (t, idx.to(_I32)), census
+
+
 def remap_plain(x: torch.Tensor, reverse: bool = False, affine=None) -> torch.Tensor:
     """``layout_remap``'s twin: rows reversed, and x * scale + bias with
     the multiply and the add rounded apart."""
@@ -311,11 +386,8 @@ def sweep_fma(table: torch.Tensor, rays: torch.Tensor, chunk: int = None, iters:
     return t, idx
 
 
-def sweep_mma(amats: torch.Tensor, rays: torch.Tensor, prec: str = "3xtf32", iters: int = 1):
-    """The closest hit of each ray over the spheres of ``amats`` [n_chunks,
-    8, 2 cs] (``sphere_amats``; cs a multiple of 16), the products on the
-    tensor cores at ``prec`` ("tf32" or "3xtf32"), ``iters`` passes. Rays:
-    planes [6, R] or the packed B [8, R]. Returns (t [R], index [R])."""
+def _mma_args(amats: torch.Tensor, rays: torch.Tensor, prec: str, iters: int):
+    """Check sweep_mma's inputs: (n_chunks, cs, packed, device type)."""
     _check(amats, "amats", 3)
     packed = _rays(rays, packed_ok=True)
     nc, k, cs2 = amats.shape
@@ -324,20 +396,56 @@ def sweep_mma(amats: torch.Tensor, rays: torch.Tensor, prec: str = "3xtf32", ite
         raise ValueError(f"sweep_mma takes amats [n_chunks > 0, 8, 2 cs], cs a multiple of "
                          f"{MMA_TILE}, precision tf32 or 3xtf32 and iters >= 1, got "
                          f"{tuple(amats.shape)}, {prec!r}, {iters}")
-    kind = _same_device(amats, rays)
-    if kind == "cpu":
-        return sweep_plain(amats, rays, prec)
-    t, idx = _outputs(rays)
-    err = _library().lib.wrt_sweep_mma(amats.data_ptr(), nc, cs2 // 2, rays.data_ptr(),
-                                       int(packed), rays.shape[1], iters,
-                                       PRECISIONS.index(prec), t.data_ptr(), idx.data_ptr(),
-                                       _stream_handle(rays.device))
-    _raise_on(err, f"sweep_mma ({prec})")
+    return nc, cs2 // 2, packed, _same_device(amats, rays)
+
+
+def _count_mma(prec: str) -> None:
     if prec == "tf32":
         sweep_mma.tf32_launches += 1
     else:
         sweep_mma.tf32x3_launches += 1
+
+
+def sweep_mma(amats: torch.Tensor, rays: torch.Tensor, prec: str = "3xtf32", iters: int = 1):
+    """The closest hit of each ray over the spheres of ``amats`` [n_chunks,
+    8, 2 cs] (``sphere_amats``; cs a multiple of 16), the products on the
+    tensor cores at ``prec`` ("tf32" or "3xtf32"), ``iters`` passes. Rays:
+    planes [6, R] or the packed B [8, R]. Returns (t [R], index [R])."""
+    nc, cs, packed, kind = _mma_args(amats, rays, prec, iters)
+    if kind == "cpu":
+        return sweep_plain(amats, rays, prec)
+    t, idx = _outputs(rays)
+    err = _library().lib.wrt_sweep_mma(amats.data_ptr(), nc, cs, rays.data_ptr(), int(packed),
+                                       rays.shape[1], iters, PRECISIONS.index(prec),
+                                       t.data_ptr(), idx.data_ptr(), _stream_handle(rays.device))
+    _raise_on(err, f"sweep_mma ({prec})")
+    _count_mma(prec)
     return t, idx
+
+
+def sweep_mma_census(amats: torch.Tensor, rays: torch.Tensor, prec: str = "3xtf32",
+                     iters: int = 1):
+    """``sweep_mma`` through its census instantiation (rays in groups of
+    MMA_GROUP_RAYS): ((t [R], index [R]), census), census = {"pairs": the
+    pairs tested (R rounded up to the group, times the spheres and
+    ``iters``), "kept": those the pre-test kept, "rounds": the root rounds
+    the warps took (one for each of a lane's four pairs of an 8-ray tile
+    that any lane of the warp keeps), "steps": their (16-sphere tile, 8-ray
+    tile) steps, 128 pairs each}. Counted as a launch of sweep_mma at
+    ``prec``. For CPU tensors, ``survivor_plain``."""
+    nc, cs, packed, kind = _mma_args(amats, rays, prec, iters)
+    if kind == "cpu":
+        return survivor_plain(amats, rays, prec, iters)
+    t, idx = _outputs(rays)
+    counts = torch.zeros(3, dtype=torch.int64, device=rays.device)
+    err = _library().lib.wrt_sweep_mma_census(
+        amats.data_ptr(), nc, cs, rays.data_ptr(), int(packed), rays.shape[1], iters,
+        PRECISIONS.index(prec), t.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+        _stream_handle(rays.device))
+    _raise_on(err, f"sweep_mma census ({prec})")
+    _count_mma(prec)
+    kept, rounds, steps = (int(c) for c in counts.cpu())
+    return (t, idx), {"pairs": 128 * steps, "kept": kept, "rounds": rounds, "steps": steps}
 
 
 def dot_mma(a: torch.Tensor, b: torch.Tensor, prec: str = "fp32") -> torch.Tensor:
@@ -426,6 +534,7 @@ def zero_launch_counts() -> None:
 zero_launch_counts()
 
 
-__all__ = ["sweep_fma", "sweep_mma", "dot_mma", "layout_remap", "layout_chain", "sweep_plain",
-           "dot_plain", "remap_plain", "chain_plain", "tf32_round", "sphere_amats", "packed_b",
-           "launch_counts", "zero_launch_counts"]
+__all__ = ["sweep_fma", "sweep_mma", "sweep_mma_census", "dot_mma", "layout_remap",
+           "layout_chain", "sweep_plain", "survivor_plain", "dot_plain", "remap_plain",
+           "chain_plain", "tf32_round", "sphere_amats", "packed_b", "launch_counts",
+           "zero_launch_counts"]

@@ -4,7 +4,7 @@ scripts, asked of the port's own kernels on the card.
     python -m weekend_raytracer_tpu_torch.probes.dma [name ...]
     python -m weekend_raytracer_tpu_torch.probes.binned [cut] [rtiow|random10k] [quick] [dump]
     python -m weekend_raytracer_tpu_torch.probes.mxu_sweep [p1 ... p8c16 fill]
-    python -m weekend_raytracer_tpu_torch.probes.gather_cost [gather_cost texture]
+    python -m weekend_raytracer_tpu_torch.probes.gather_cost [gather_cost texture fill]
     python -m weekend_raytracer_tpu_torch.probes.place [p1 p2 p3 p4]
     python -m weekend_raytracer_tpu_torch.probes.mosaic [take_along_sublane ...]
 """

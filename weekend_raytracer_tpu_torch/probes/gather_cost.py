@@ -11,20 +11,24 @@ a (32, 128) tile touches, the texture LUT's primitive.
                  exact below 2^24): at DEFAULT_TEXTURE_BUDGET (the mipped
                  LUT, 128 rows) and at full procedural size (2048 rows),
                  spans 1, 2, 4, ... up to the whole pool
+    fill         the card-filling case: 4,096 tiles (2^24 lanes) of the
+                 probe's index distribution over its table, spans 1-16
 
 Each span runs every route: "global" (each lane loads its own address
 through the L1), "shared" (the tile's span staged in shared memory first;
 while span x 512 B fits a block) and "arith" (the same index math with no
 load: the probe's pure-arithmetic baseline, which adds the value an arange
 table holds at each address). Each is held bit for bit against its twin
-and, for ``gather_cost``, the probe's numpy oracle (every sum an exact
-integer), then timed beside its bound: the larger of the bytes that must
-cross HBM (the table, the indices and the sums, once) and the 16 lookups a
-lane at the shared-memory rate (128 B a clock on each SM at the card's
-maximum SM clock). ``gather_cost`` adds each kernel's device time from the
-profiler. No one library call computes the function.
+and, for ``gather_cost`` and ``fill`` (on every ORACLE_EVERY-th tile),
+the probe's numpy oracle (every sum an exact integer), then timed beside
+its bound: the larger of the bytes that must cross HBM (the table, the
+indices and the sums, once) and the 16 lookups a lane at the
+shared-memory rate (128 B a clock on each SM at the card's maximum SM
+clock). ``gather_cost`` and ``fill`` add each kernel's device time from
+the profiler (``fill`` only from traces that kept every event). No one
+library call computes the function.
 
-    python -m weekend_raytracer_tpu_torch.probes.gather_cost [gather_cost texture]
+    python -m weekend_raytracer_tpu_torch.probes.gather_cost [gather_cost texture fill]
 
 One JSON line per probe. Runs on the CUDA device; ``device="cpu"`` runs the
 twins (no timing means anything there).
@@ -44,6 +48,8 @@ from .place import (DEVICE_REPS, REPS, case_launches, check, dev, equal_to, hold
 
 _F32 = torch.float32
 PROBE = dict(table_rows=128, n_tiles=512, spans=(1, 2, 4, 8, 16))  # :52-57
+FILL_TILES = 4096  # the card-filling case: 2^24 lanes, 134 MB of indices and sums
+ORACLE_EVERY = 32  # of the fill's tiles, those held to the numpy oracle as well
 TEXTURE_SCENE = "textured"
 FULL_TEXTURE_BUDGET = 512 * 256  # the procedural earth's and moon's texels: no mip
 
@@ -86,12 +92,12 @@ def routes_for(span: int, routes=ac.GATHER_ROUTES) -> tuple:
 
 
 def span_cases(tab: torch.Tensor, idx: torch.Tensor, span: int, rate: dict, device, reps: int,
-               want=None) -> dict:
+               expect=None) -> dict:
     """Every route of one span: held bit for bit against its twin and, with
-    ``want``, the probe's oracle (on the probe's arange table, "arith"
+    ``expect``, the probe's oracle (on the probe's arange table, "arith"
     adds what the table holds), timed beside the bound; ps a lane fetch."""
     bound = gather_bound(tab, idx, rate)
-    expect = equal_to(want) if want is not None else (lambda got: True)
+    expect = expect or (lambda got: True)
     kernels = {route: (lambda route=route: ac.table_gather(tab, idx, span, route=route))
                for route in routes_for(span)}
     plain_ms = {route: hold(fn, lambda route=route: ac.table_gather_plain(tab, idx, span,
@@ -111,6 +117,14 @@ def span_launches(span: int, reps: int, device_reps: int = 0) -> int:
     return case_launches(len(routes_for(span)), reps, device_reps)
 
 
+def probe_indices(n_tiles: int = PROBE["n_tiles"]) -> dict:
+    """{span: int32 [n_tiles * 32, 128]}: each of the probe's spans'
+    seeded indices over its table, in the probe's draw order."""
+    rng = np.random.default_rng(0)
+    return {span: span_indices(rng, PROBE["table_rows"], span, n_tiles)
+            for span in PROBE["spans"]}
+
+
 def gather_cost(device="cuda", n_tiles: int = PROBE["n_tiles"], reps: int = REPS) -> dict:
     """The probe's run: each span's seeded indices (in the probe's draw
     order) against the (128, 128) arange table, every route, then the
@@ -119,13 +133,11 @@ def gather_cost(device="cuda", n_tiles: int = PROBE["n_tiles"], reps: int = REPS
     rows = PROBE["table_rows"]
     tab_np = np.arange(rows * 128, dtype=np.float32).reshape(rows, 128)
     tab = dev(tab_np, device)
-    rng = np.random.default_rng(0)
     out, timed = {"smem_rate": rate}, {}
-    for span in PROBE["spans"]:
-        idx_np = span_indices(rng, rows, span, n_tiles)
+    for span, idx_np in probe_indices(n_tiles).items():
         idx = dev(idx_np, device)
         out[f"span{span}"] = span_cases(tab, idx, span, rate, device, reps,
-                                        oracle(tab_np, idx_np, span))
+                                        equal_to(oracle(tab_np, idx_np, span)))
         for route in routes_for(span):
             timed[(span, route)] = (lambda idx=idx, span=span, route=route:
                                     ac.table_gather(tab, idx, span, route=route))
@@ -161,17 +173,26 @@ def pool_spans(rows: int) -> tuple:
     return (*spans, rows)
 
 
+def texture_cases(device, n_tiles: int = PROBE["n_tiles"]) -> dict:
+    """{rows: (texels budget, pool, {span: indices})}: each texture pool
+    with its spans' seeded indices, in ``texture``'s draw order."""
+    rng = np.random.default_rng(1)
+    out = {}
+    for budget, tab in texture_pools(device).items():
+        rows = tab.shape[0]
+        out[rows] = (budget, tab, {span: dev(span_indices(rng, rows, span, n_tiles), device)
+                                   for span in pool_spans(rows)})
+    return out
+
+
 def texture(device="cuda", n_tiles: int = PROBE["n_tiles"], reps: int = REPS) -> dict:
     """The texture pools' spans, every route, held against the twin and
     timed (the card-filling shape: the probe's 512 tiles)."""
     rate = smem_rate(device)
-    rng = np.random.default_rng(1)
     out = {"smem_rate": rate}
-    for budget, tab in texture_pools(device).items():
-        rows = tab.shape[0]
+    for rows, (budget, tab, spans) in texture_cases(device, n_tiles).items():
         cases = {}
-        for span in pool_spans(rows):
-            idx = dev(span_indices(rng, rows, span, n_tiles), device)
+        for span, idx in spans.items():
             cases[f"span{span}"] = span_cases(tab, idx, span, rate, device, reps)
         sync(device)
         out[f"pool{rows}"] = {"budget_texels": budget, "rows": rows, **cases}
@@ -182,8 +203,85 @@ def texture(device="cuda", n_tiles: int = PROBE["n_tiles"], reps: int = REPS) ->
     return out
 
 
-PROBES = [("gather_cost", gather_cost), ("texture", texture)]
-ROWS = {"gather_cost": "12", "texture": "12"}
+def fill_indices(gen: torch.Generator, table_rows: int, span: int, n_tiles: int,
+                 device) -> torch.Tensor:
+    """``span_indices``' distribution drawn on ``device`` from ``gen``: per
+    tile a first row lo < table_rows - span, then lanes uniform over span
+    rows from it. int32 [n_tiles * 32, 128]."""
+    lo = torch.randint(0, max(table_rows - span, 1), (n_tiles, 1, 1), generator=gen,
+                       device=device)
+    lanes = torch.randint(0, span * 128, (n_tiles, 32, 128), generator=gen, device=device)
+    return (lo * 128 + lanes).to(torch.int32).reshape(n_tiles * 32, 128)
+
+
+def fill_cases(device, n_tiles: int = FILL_TILES) -> dict:
+    """{span: indices}: the card-filling case's seeded draws, in ``fill``'s
+    order."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    return {span: fill_indices(gen, PROBE["table_rows"], span, n_tiles, device)
+            for span in PROBE["spans"]}
+
+
+def edge_cases(device) -> dict:
+    """{name: (table, indices, span, n_fetch)} where the kernel's stepped
+    walk must wrap or give way to the two modulos: spans longer than the
+    table, tables of 24 and 100 rows (not powers of two), negative
+    indices, n_fetch 0 and 1, a tile near 2^31 (its span passes it) and a
+    tile spread over 2^31 (seeded)."""
+    rng = np.random.default_rng(5)
+    top = rng.integers(2**31 - 3000, 2**31 - 1, size=(32, 128)).astype(np.int32)
+    spread = rng.integers(-2**31, 2**31 - 1, size=(32, 128), dtype=np.int64).astype(np.int32)
+    spread[0, :2] = (-2**31, 2**31 - 1)
+    out = {}
+    for rows in (24, 100):
+        tab = dev(rng.standard_normal((rows, 128)).astype(np.float32), device)
+        negative = rng.integers(-40 * 128, 40 * 128, size=(8 * 32, 128)).astype(np.int32)
+        for name, idx_np in (("negative", negative), ("top", top), ("spread", spread)):
+            idx = torch.as_tensor(idx_np, device=device)
+            for span in (3, rows, 40):
+                for n_fetch in (0, 1, ac.N_FETCH):
+                    out[f"rows{rows}_{name}_span{span}_fetch{n_fetch}"] = (tab, idx, span,
+                                                                           n_fetch)
+    return out
+
+
+def fill(device="cuda", n_tiles: int = FILL_TILES, reps: int = REPS) -> dict:
+    """The card-filling case (the probe's 512 tiles move 16.8 MB, less than
+    a call's host side takes): ``n_tiles`` tiles of the probe's index
+    distribution (``fill_indices``, seeded) against its (128, 128) arange
+    table, spans 1-16, every route held bit for bit against its twin on
+    every tile and against the probe's oracle on every ORACLE_EVERY-th,
+    timed in turns beside the bound; then each kernel's device time from
+    the profiler, kept only where its trace recorded every event."""
+    rate = smem_rate(device)
+    rows = PROBE["table_rows"]
+    tab_np = np.arange(rows * 128, dtype=np.float32).reshape(rows, 128)
+    tab = dev(tab_np, device)
+    out, timed = {"smem_rate": rate, "n_tiles": n_tiles, "oracle_every": ORACLE_EVERY}, {}
+    for span, idx in fill_cases(device, n_tiles).items():
+        sampled = idx.reshape(n_tiles, 32, 128)[::ORACLE_EVERY].reshape(-1, 128)
+        want = equal_to(oracle(tab_np, sampled.cpu().numpy(), span))
+
+        def expect(got, want=want):
+            return want(got.reshape(n_tiles, 32, 128)[::ORACLE_EVERY].reshape(-1, 128))
+
+        out[f"span{span}"] = span_cases(tab, idx, span, rate, device, reps, expect)
+        for route in routes_for(span):
+            timed[(span, route)] = (lambda idx=idx, span=span, route=route:
+                                    ac.table_gather(tab, idx, span, route=route))
+    for (span, route), dev_ms in (device_times(timed, DEVICE_REPS, device, several=tuple(timed))
+                                  or {}).items():
+        if dev_ms["device_ms_by"] == "profiler":
+            out[f"span{span}"][route].update(dev_ms)
+    out["message"] = f"{n_tiles} tiles: " + "; ".join(
+        f"span {s}: " + ", ".join(f"{r} {c['ms'] * 1e3:.1f} us ({c['share']:.1%})"
+                                  for r, c in out[f"span{s}"].items())
+        for s in PROBE["spans"])
+    return out
+
+
+PROBES = [("gather_cost", gather_cost), ("texture", texture), ("fill", fill)]
+ROWS = {"gather_cost": "12", "texture": "12", "fill": "12"}
 
 
 def launches(name: str, reps: int = REPS, device_reps: int = DEVICE_REPS,
@@ -194,6 +292,10 @@ def launches(name: str, reps: int = REPS, device_reps: int = DEVICE_REPS,
     out = dict.fromkeys(ac.KERNELS, 0)
     if name == "gather_cost":
         out["table_gather"] = sum(span_launches(s, reps, device_reps) for s in PROBE["spans"])
+    elif name == "fill":  # each device time also traces one call alone
+        out["table_gather"] = sum(span_launches(s, reps, device_reps)
+                                  + (len(routes_for(s)) if device_reps else 0)
+                                  for s in PROBE["spans"])
     elif name == "texture":
         out["table_gather"] = sum(span_launches(s, reps) for rows in pool_rows
                                   for s in pool_spans(rows))

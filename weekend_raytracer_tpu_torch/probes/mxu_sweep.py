@@ -56,14 +56,17 @@ from . import (FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS, TF32_PEAK, card, check, dev
                host_ms, same_bits, sync, time_call, time_mean)
 
 _F32 = torch.float32
-# what sweep_mma leaves on the FP32 units per pair (b, cq, b^2, - cq, sqrt,
-# t0, t1: SPHERE_TEST_OPS less the products), and the products' flops the
-# sweep needs per pair: c.d (depth 3) and -2 c.o + kq (depth 4), multiply
-# and add, once for TF32 and three times for 3xTF32
-MMA_EPILOGUE_OPS = 7
+# what sweep_mma leaves on the FP32 units: per pair b, cq and b^2 - cq, and
+# per pair with a real root (the pairs its pre-test keeps) the root, t0 and
+# t1; and the products' flops the sweep needs per pair: c.d (depth 3) and
+# -2 c.o + kq (depth 4), multiply and add, once for TF32 and three times
+# for 3xTF32
+MMA_EPILOGUE_OPS = 4
+MMA_ROOT_OPS = 3
 MMA_FLOPS_PER_PAIR = 2 * (3 + 4)
 PROBE = dict(spheres=32, rays=4096, iters=64, reps=30)  # p5, p7 (:258, :357)
-P8 = dict(rays=4096, iters=16, reps=20)  # :535
+P8 = dict(rays=4096, iters=16, reps=20, n_chunks=10, cs=32)  # :535
+P8C16 = dict(n_chunks=20, cs=16)  # p8c16: p8 in chunks of 16
 FILL = dict(rays=2_097_152, scene="rtiow", cs=16, iters=1, reps=20)
 BIG = 1 << 24  # values of p1's, p2's and p4's card-filling arrays
 CHAIN_SHAPES = ((32, 128), (8, 512), (1, 4096), (4, 4096), (32, 4096))  # :131
@@ -183,15 +186,33 @@ def fma_bound(n_spheres: int, n_rays: int, iters: int) -> dict:
     return _bound(pairs * SPHERE_TEST_OPS / FP32_PEAK * 1e3, _sweep_bytes(n_spheres, n_rays))
 
 
-def mma_bound(n_spheres: int, n_rays: int, iters: int, prec: str, packed: bool) -> dict:
+def mma_bound(n_spheres: int, n_rays: int, iters: int, prec: str, packed: bool,
+              kept: int = 0) -> dict:
     """The larger of the products' flops the sweep needs over the TF32 rate
-    (three products for 3xTF32) and the epilogue's FP32 operations, or the
-    bytes."""
+    (three products for 3xTF32) and the epilogue's FP32 operations (those
+    of every pair, and the root's of the ``kept`` pairs a pass that have a
+    real root: ``real_root_pairs``), or the bytes."""
     pairs = n_spheres * n_rays * iters
     mma_ms = pairs * MMA_FLOPS_PER_PAIR * (3 if prec == "3xtf32" else 1) / TF32_PEAK * 1e3
-    epilogue_ms = pairs * MMA_EPILOGUE_OPS / FP32_PEAK * 1e3
+    epilogue_ms = (pairs * MMA_EPILOGUE_OPS + kept * iters * MMA_ROOT_OPS) / FP32_PEAK * 1e3
     return {**_bound(max(mma_ms, epilogue_ms), _sweep_bytes(n_spheres, n_rays, packed)),
             "mma_ms": mma_ms, "epilogue_ms": epilogue_ms}
+
+
+def real_root_pairs(table: torch.Tensor, rays: torch.Tensor, chunk: int = 16) -> int:
+    """The (sphere, ray) pairs of one pass with a real root, b^2 - cq > 0
+    in float32 from the sweep table [n, 4] and the planes [6, R]: the pairs
+    whose root sweep_mma's pre-test lets through (sweep.cu may_take)."""
+    o, d = rays[0:3], rays[3:6]
+    od = (o * d).sum(0)
+    oo = (o * o).sum(0)
+    n = 0
+    for s in range(0, table.shape[0], chunk):
+        c = table[s:s + chunk, :, None]
+        b = c[:, 0] * d[0] + c[:, 1] * d[1] + c[:, 2] * d[2] - od
+        cq = oo - 2 * (c[:, 0] * o[0] + c[:, 1] * o[1] + c[:, 2] * o[2]) + c[:, 3]
+        n += int((b * b - cq > 0).sum())
+    return n
 
 
 def t_tolerance(table: torch.Tensor, rays: torch.Tensor, idx: torch.Tensor,
@@ -489,6 +510,27 @@ def _probe_sweep_inputs(n_spheres: int, n_rays: int, device):
     return c, kq, o, d, probe_table(c, kq, device), probe_planes(o, d, device)
 
 
+def mma_inputs(name: str, device):
+    """The inputs sweep_mma takes in the probe ``name`` ("p5_p7", "p8",
+    "p8c16", "window" or "fill"), as the probe makes them: (amats, the sweep
+    table, the planes, iters)."""
+    if name == "fill":
+        table, planes = fill_inputs(device)
+        return sw.sphere_amats(table, FILL["cs"]), table, planes, FILL["iters"]
+    if name == "p5_p7":
+        c, kq, _, _, table, planes = _probe_sweep_inputs(PROBE["spheres"], PROBE["rays"], device)
+        return _dev(probe_amat(c, kq).T[None], device), table, planes, PROBE["iters"]
+    n_chunks, cs, rays, iters = {
+        "p8": (P8["n_chunks"], P8["cs"], P8["rays"], P8["iters"]),
+        "p8c16": (P8C16["n_chunks"], P8C16["cs"], P8["rays"], P8["iters"]),
+        "window": (WINDOW["spheres"] // WINDOW["cs"], WINDOW["cs"], WINDOW["rays"], 1)}[name]
+    c, kq, _, _, table, planes = _probe_sweep_inputs(n_chunks * cs, rays, device)
+    return _dev(probe_amats(c, kq, n_chunks, cs), device), table, planes, iters
+
+
+MMA_INPUTS = ("p5_p7", "p8", "p8c16", "window", "fill")  # mma_inputs' names
+
+
 def _fill_sweeps(prec: str, packed: bool, device, rays: int, reps: int, fma: bool) -> dict:
     """The card-filling shape: the FMA sweep (``fma``) and the tensor-core
     sweep at ``prec`` from the planes or the packed B, each held against
@@ -506,7 +548,8 @@ def _fill_sweeps(prec: str, packed: bool, device, rays: int, reps: int, fma: boo
     rays_in = sw.packed_b(planes) if packed else planes
     out["mma"] = _sweep_case(lambda: sw.sweep_mma(amats, rays_in, prec, iters),
                              lambda: sw.sweep_plain(amats, rays_in, prec),
-                             mma_bound(n, rays, iters, prec, packed), pairs, table, planes,
+                             mma_bound(n, rays, iters, prec, packed,
+                                       real_root_pairs(table, planes)), pairs, table, planes,
                              reps, device, f"sweep_mma {prec} at the card-filling shape",
                              FILL_WRONG_SHARE)
     if fma:
@@ -548,7 +591,8 @@ def p5(precision="highest", device="cuda", fill_rays: int = FILL["rays"],
                     table, planes, reps, device, "p5 sweep_fma")
     m = _sweep_case(lambda: sw.sweep_mma(amats, bmat, prec, iters),
                     lambda: sw.sweep_plain(amats, bmat, prec),
-                    mma_bound(s, n, iters, prec, True), pairs, table, planes, reps, device,
+                    mma_bound(s, n, iters, prec, True, real_root_pairs(table, planes)), pairs,
+                    table, planes, reps, device,
                     f"p5 sweep_mma {prec}")
     forms = _form_agree(v["result"], m["result"], 1e-5)
     fill = _fill_sweeps(prec, True, device, fill_rays, FILL["reps"], fma=True)
@@ -589,7 +633,8 @@ def p7(precision="highest", device="cuda", fill_rays: int = FILL["rays"],
     amats = _dev(probe_amat(c, kq).T[None], device)
     m = _sweep_case(lambda: sw.sweep_mma(amats, planes, prec, iters),
                     lambda: sw.sweep_plain(amats, planes, prec),
-                    mma_bound(s, n, iters, prec, False), s * n * iters, table, planes, reps,
+                    mma_bound(s, n, iters, prec, False, real_root_pairs(table, planes)),
+                    s * n * iters, table, planes, reps,
                     device, f"p7 sweep_mma {prec}")
     ref = torch.from_numpy(numpy_closest(c, kq, o, d))
     agree = float(torch.isclose(ref, m["result"][0].cpu(), rtol=1e-4, atol=1e-4).float().mean())
@@ -599,7 +644,7 @@ def p7(precision="highest", device="cuda", fill_rays: int = FILL["rays"],
                         f" t agree(1e-4) {agree:.4f}; " + _fill_message(fill))}
 
 
-def p8(precision="highest", n_chunks: int = 10, cs: int = 32, device="cuda",
+def p8(precision="highest", n_chunks: int = P8["n_chunks"], cs: int = P8["cs"], device="cuda",
        fill_rays: int = FILL["rays"], reps: int = P8["reps"]) -> dict:
     """The chunked FMA sweep against the chunked tensor-core sweep
     (:530-598), n_chunks x cs spheres x 4096 rays x 16 passes; then the
@@ -615,7 +660,8 @@ def p8(precision="highest", n_chunks: int = 10, cs: int = 32, device="cuda",
                     table, planes, reps, device, "p8 sweep_fma")
     m = _sweep_case(lambda: sw.sweep_mma(amats, planes, prec, iters),
                     lambda: sw.sweep_plain(amats, planes, prec),
-                    mma_bound(s, n, iters, prec, False), pairs, table, planes, reps, device,
+                    mma_bound(s, n, iters, prec, False, real_root_pairs(table, planes)), pairs,
+                    table, planes, reps, device,
                     f"p8 sweep_mma {prec}")
     forms = _form_agree(v["result"], m["result"], 1e-4)
     fill = _fill_sweeps(prec, False, device, fill_rays, FILL["reps"], fma=True)
@@ -693,22 +739,44 @@ def fill(device="cuda", rays: int = FILL["rays"], reps: int = FILL["reps"]) -> d
             lambda: sw.sweep_plain(table if prec == "fma" else amats, planes, prec), device)
     control = tile_control(plain["fma"][1], n)
     check(control > FILL_WRONG_SHARE, ("the fill gate cannot see a lost tile", control))
+    kept = real_root_pairs(table, planes)
     out = {"rays": rays, "spheres": n, "pairs": pairs, "wrong_share": FILL_WRONG_SHARE,
-           "control": control}
+           "control": control, "real_root_pairs": kept}
     for name, fn in kernels.items():
         prec = "fma" if name.startswith("fma") else name.split("_")[1]
         got = fn()
         sync(device)
         held = hold_sweep(got, plain[prec], table, planes, f"fill {name}", FILL_WRONG_SHARE)
         bound = (fma_bound(n, rays, iters) if prec == "fma"
-                 else mma_bound(n, rays, iters, prec, False))
+                 else mma_bound(n, rays, iters, prec, False, kept))
         out[name] = {"plain_ms": plain_ms[prec], **bound, **held}
     for name, ms in _turns(kernels, reps, device).items():
         out[name].update(ms=ms, share=out[name]["bound_ms"] / ms,
                          gtest_per_s=pairs / ms / 1e6)
+    out["census"] = survivor_census(amats, planes, device)
     out["message"] = "; ".join(f"{k} {out[k]['ms']:.4f} ms ({out[k]['share']:.1%} of "
                                f"{out[k]['bound_ms']:.4f})" for k in kernels) + (
-        f"; gate {FILL_WRONG_SHARE:g} of rays, control (fewest rays a tile holds) {control:.3g}")
+        f"; gate {FILL_WRONG_SHARE:g} of rays, control (fewest rays a tile holds) {control:.3g}"
+        "; survivors " + ", ".join(f"{p} {c['kept_share']:.3%} ({c['rounds_per_step']:.3f} "
+                                   "rounds a step)" for p, c in out["census"].items()))
+    return out
+
+
+def survivor_census(amats, rays, device) -> dict:
+    """sweep_mma's survivor census at each precision (``sweep_mma_census``,
+    one launch each; the twin's census, ``survivor_plain``, on the CPU):
+    the share of pairs whose pre-test kept them for a root, the survivor
+    rounds a warp walked per (16-sphere tile, 8-ray tile) step, and the
+    census launch's (t, index) equal to sweep_mma's in every bit."""
+    out = {}
+    for prec in ("tf32", "3xtf32"):
+        got, census = sw.sweep_mma_census(amats, rays, prec)
+        want = sw.sweep_mma(amats, rays, prec) if torch.device(device).type == "cuda" else got
+        sync(device)
+        check(same_bits(got[0], want[0]) and torch.equal(got[1], want[1]),
+              ("the census launch's sweep is sweep_mma's", prec))
+        out[prec] = {**census, "kept_share": census["kept"] / census["pairs"],
+                     "rounds_per_step": census["rounds"] / census["steps"]}
     return out
 
 
@@ -747,7 +815,7 @@ PROBES = [
     ("p6", p6),
     ("p7", _variant(p7, precision="highest")), ("p7bf16", _variant(p7, precision=None)),
     ("p8", _variant(p8, precision="highest")), ("p8bf16", _variant(p8, precision=None)),
-    ("p8c16", _variant(p8, precision="highest", cs=16, n_chunks=20)),
+    ("p8c16", _variant(p8, precision="highest", **P8C16)),
     ("fill", fill), ("window", window),
 ]
 
