@@ -71,7 +71,13 @@ computes the same function.
 ``[reorder]`` runs probes/dma.py's record-DMA probes (benchmarks/probe_dma.py
 and probe_mosaic.py:143) at the TPU probes' shapes, each kernel against its
 twin bit for bit, and times dma_rate over the probe's (64800, 11, 128) pool
-beside its byte bound and index_select + sum. ``[binned]`` drives
+beside its byte bound and index_select + sum; the gather and the scatter
+at further widths, both scatter routes (a permutation of dst's records,
+inverted and gathered through; a shorter list, stored where it points);
+and, in a child process (``--child tiny``, where the profiler keeps every
+event), the tiny probes' and index_select_bw's event, device and host ms
+beside index_select's or index_copy_'s, and lane_scan's beside cumsum's at
+its probe shape (row 10g). ``[binned]`` drives
 probes/binned.py (benchmarks/probe_binned.py's path): K0 and PACK to cut 3,
 then for every bin scheme a stable sort, the permutation (record_gather), K1
 timed on it, the scatter back (record_scatter) held in every bit to the
@@ -104,8 +110,7 @@ among them) also with each call's host time, and at the fill with the
 library call's device and host time, each case's calls rotating over copies
 of its scratches until a round of them outgrows the L2 (``warm_l2`` lists
 the cases too small for that), and a call's host side by piece
-(``case=smem_rw_host_parts_ms``). It also gives the device time of the
-record-DMA probes at their tiny shapes.
+(``case=smem_rw_host_parts_ms``).
 
 ``[xla]`` drives the ``"xla"`` backend, the JAX package's XLA tracer in
 plain PyTorch, through ``Renderer(backend="xla", device="cuda")``: RTiOW at
@@ -1655,8 +1660,9 @@ def _reorder_probes(ro, dma) -> dict:
     dma_rate over the probe's full (64800, 11, 128) pool, against its twin
     in every bit and timed beside its bound and index_select + sum. Then,
     outside the count, dma_rate on uniform data and the gather and scatter
-    at further record widths, each against its twin bit for bit, and the
-    library yardsticks."""
+    at further record widths and SoA plane counts, each against its twin
+    bit for bit and the scatter's route checked, and the library
+    yardsticks."""
     torch.cuda.synchronize()
     for k in REORDER_KERNELS:
         getattr(ro, k).launches = 0
@@ -1672,8 +1678,7 @@ def _reorder_probes(ro, dma) -> dict:
     # each small probe's kernel at its own shape, where a launch is all it
     # costs: beside its twin, its byte bound and index_select / index_copy_
     at_shape = {}
-    for name in ("single_dma_2d", "single_dma_3d", "gather32_pipelined", "scatter_dma",
-                 "manual_dma_gather_rows"):
+    for name in dma.RECORD_PROBES:
         src, idx, held = dma.probe_inputs(name, "cuda")
         idx_long = idx.long()
         if held is None:
@@ -1700,19 +1705,35 @@ def _reorder_probes(ro, dma) -> dict:
            "dma_rate against its twin on uniform data")
     out["dma_rate_plain_ms"] = _time_ms(lambda: ro.dma_rate_plain(pool, perm), 2)
     del pool
+    # records along dim 0 (rows of several widths) and along dim 1 (columns
+    # of 16 planes, as the binned pool's, and of 5): a short list and a
+    # permutation each. The scatter's route is read from its launches: a
+    # short list must keep what dst held elsewhere, so it stores where it
+    # points (scatter_cols, reorder_rows: one launch); a permutation of
+    # records whose contiguous bytes are fewer than a 32-byte sector's is
+    # inverted and gathered through (invert + gather_cols: two launches).
     widths = {}
-    for shape in ((4099, 3), (2048, 128), (1024, 11, 128), (777, 5, 16)):
+    for shape, dim in (((4099, 3), 0), ((2048, 128), 0), ((1024, 11, 128), 0),
+                       ((777, 5, 16), 0), ((16, 4099), 1), ((5, 1031), 1)):
+        records = shape[dim]
+        # the bytes of a record that lie together: a row, or a value a plane
+        record_bytes = 4 * torch.Size(shape).numel() // records if dim == 0 else 4
         src = torch.randn(shape, generator=gen, device="cuda")
-        idx = torch.randperm(shape[0], generator=gen, device="cuda").to(torch.int32)[:shape[0] - 3]
-        got = ro.record_gather(src, idx)
-        _check(_same_bits(got, ro.gather_plain(src, idx, torch.empty_like(got))),
-               ("record_gather against its twin", shape))
-        dst = torch.randn(shape, generator=gen, device="cuda")
-        ref = dst.clone()
-        ro.record_scatter(got, idx, dst)
-        ro.scatter_plain(got, idx, ref)
-        _check(_same_bits(dst, ref), ("record_scatter against its twin", shape))
-        widths[str(shape)] = "bit-exact"
+        perm = torch.randperm(records, generator=gen, device="cuda").to(torch.int32)
+        for cover, idx in (("short", perm[:records - 3]), ("permutation", perm)):
+            got = ro.record_gather(src, idx, dim=dim)
+            _check(_same_bits(got, ro.gather_plain(src, idx, torch.empty_like(got), dim)),
+                   ("record_gather against its twin", shape, dim, cover))
+            dst = torch.randn(shape, generator=gen, device="cuda")
+            ref = dst.clone()
+            before = ro.record_scatter.launches
+            ro.record_scatter(got, idx, dst, dim)
+            route = {1: "direct", 2: "inverse"}.get(ro.record_scatter.launches - before)
+            ro.scatter_plain(got, idx, ref, dim)
+            _check(_same_bits(dst, ref), ("record_scatter against its twin", shape, dim, cover))
+            want = "inverse" if cover == "permutation" and record_bytes < 32 else "direct"
+            _check(route == want, ("record_scatter route", shape, dim, cover, route, want))
+            widths[f"{shape} dim {dim} {cover}"] = f"bit-exact ({route})"
     out["widths"] = widths
     out["index_select_bw"] = dma.probe_index_select_bw("cuda")
     out["sort_cost"] = dma.probe_sort_cost("cuda")
@@ -1749,8 +1770,11 @@ def _binned_run(mk, rg, wf, ro, sw, binned, scene: str, quick: bool) -> dict:
     torch.cuda.synchronize()
     launches = {k: v - extra.get(k, 0) for k, v in _launch_counts(mk, rg, wf, ro, sw).items()}
     n_s, reps = len(rows), (3 if quick else 5)
+    # each scheme but home scatters back twice (records, radiance), each a
+    # permutation of all its pool's records, one value a plane: the inverse
+    # route, two launches (invert, gather_cols) a scatter
     want = {**dict.fromkeys(launches, 0), "k0": 1, "pack": 1, "k1": 1 + n_s * reps,
-            "k1_stats": n_s, "record_gather": n_s, "record_scatter": 2 * (n_s - 1)}
+            "k1_stats": n_s, "record_gather": n_s, "record_scatter": 2 * (n_s - 1) * 2}
     _check(launches == want, ("binned launches", scene, launches, want))
     _check(all(r["in_sum_rel_err"] < 1e-9 for r in rows), ("binned live sums", rows))
     return {"pool": head[0], "live_records": head[1]["n"], "rows": rows,
@@ -1947,24 +1971,72 @@ def _access_probes(mk, rg, wf, ro, sw, modules) -> dict:
     return out
 
 
-def _tiny_device_ms(ro, dma, reps: int = 20) -> dict:
-    """Rows 9a-9d and 10f at the TPU probes' tiny shapes: the CUDA-event
-    time of a call (time_mean over ``reps``) beside the kernel's device time
-    under the profiler (probes.device_times). Row 13c's are p3's own."""
-    from weekend_raytracer_tpu_torch.probes import device_times, time_mean
+def _child_tiny(event_reps: int = 100, device_reps: int = 20, host_reps: int = 200) -> int:
+    """``--child tiny``: rows 9a-9d and 10f at the TPU probes' tiny shapes,
+    record_gather at index_select_bw's three shapes, and lane_scan at its
+    probe shape (row 10g), in this process, where the profiler keeps every
+    event (PERF.md §7): each kernel's and its library call's (index_select,
+    index_copy_, cumsum) CUDA-event ms (probes.time_mean), device ms
+    (probes.device_times; the library call's from traces that kept every
+    event) and host ms (probes.host_ms), printed as one JSON line."""
+    import numpy as np
 
-    fns = {}
-    for name in ("single_dma_2d", "single_dma_3d", "gather32_pipelined", "scatter_dma",
-                 "manual_dma_gather_rows"):
+    from weekend_raytracer_tpu_torch.ops.cuda import access as ac
+    from weekend_raytracer_tpu_torch.ops.cuda import reorder as ro
+    from weekend_raytracer_tpu_torch.probes import device_times, dma, host_ms, time_mean
+
+    pairs = {}
+    for name in dma.RECORD_PROBES:
         src, idx, held = dma.probe_inputs(name, "cuda")
+        idx_long = idx.long()
         if held is None:
             dst = torch.empty((idx.numel(), *src.shape[1:]), device="cuda")
-            fns[name] = lambda src=src, idx=idx, dst=dst: ro.record_gather(src, idx, dst)
+            pairs[name] = (lambda src=src, idx=idx, dst=dst: ro.record_gather(src, idx, dst),
+                           lambda src=src, i=idx_long: src.index_select(0, i))
         else:
-            fns[name] = lambda src=src, idx=idx, held=held: ro.record_scatter(src, idx, held)
-    event = {k: time_mean(fn, reps, "cuda") for k, fn in fns.items()}
-    dev = device_times(fns, reps, "cuda")
-    return {k: {"event_ms": event[k], **dev[k]} for k in fns}
+            pairs[name] = (lambda src=src, idx=idx, held=held: ro.record_scatter(src, idx, held),
+                           lambda src=src, i=idx_long, held=held: held.index_copy_(0, i, src))
+    for rows, width in dma.INDEX_SELECT_BW:
+        src, idx = dma.index_select_bw_inputs(rows, width, "cuda")
+        dst, idx_long = torch.empty_like(src), idx.long()
+        pairs[f"{rows}x{width}"] = (
+            lambda src=src, idx=idx, dst=dst: ro.record_gather(src, idx, dst),
+            lambda src=src, i=idx_long: src.index_select(0, i))
+    x = torch.from_numpy((np.random.default_rng(0).random((32, 128)) < 0.5)
+                         .astype(np.float32)).cuda()  # mosaic.cumsum_lanes's probe input
+    pairs["lane_scan"] = (lambda: ac.lane_scan(x), lambda: torch.cumsum(x, 1))
+    fns = {**{k: f for k, (f, _) in pairs.items()},
+           **{f"{k}.library": g for k, (_, g) in pairs.items()}}
+    dev = device_times(fns, device_reps, "cuda",
+                       several=tuple(k for k in fns if k.endswith(".library")))
+    out = {}
+    for k in pairs:
+        case = {}
+        for prefix, label in (("", k), ("library_", f"{k}.library")):
+            case[f"{prefix}event_ms"] = time_mean(fns[label], event_reps, "cuda")
+            case[f"{prefix}device_ms"] = dev[label]["device_ms"]
+            case[f"{prefix}device_ms_by"] = dev[label]["device_ms_by"]
+            case[f"{prefix}host_ms"] = host_ms(fns[label], host_reps, "cuda")
+        out[k] = case
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _tiny_in_child() -> dict:
+    """_child_tiny's cases from a child process (with a time limit)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", "tiny"],
+                         capture_output=True, text=True, timeout=300)
+    _check(out.returncode == 0, ("the tiny-shapes child failed", out.stderr[-3000:]))
+    return {"cases": json.loads(out.stdout.strip().splitlines()[-1]),
+            "child_s": round(time.perf_counter() - t0, 1)}
+
+
+def _tiny_line(case: dict) -> list:
+    """[event, device, host, library event, library device, library host]
+    ms of a _child_tiny case."""
+    return [_sig(case[k]) for k in ("event_ms", "device_ms", "host_ms", "library_event_ms",
+                                    "library_device_ms", "library_host_ms")]
 
 
 def _sig(x, digits: int = 4):
@@ -2568,6 +2640,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    if args.child == "tiny":  # the tiny shapes' device times, in a process of their own
+        return _child_tiny()
     if args.child:  # [cull]'s census of one case, in a process of its own
         return _child_census(args.child)
     from weekend_raytracer_tpu_torch import (SCENES, RenderParams, Renderer,
@@ -3351,6 +3425,19 @@ def main(argv=None) -> int:
     _say("reorder", case="widths_and_yardsticks", widths=json.dumps(rp["widths"]),
          index_select_bw=json.dumps(rp["index_select_bw"]),
          sort_ms=json.dumps(rp["sort_cost"]["ms"]), card=repr(smi))
+    # rows 9a-9d, 10f, index_select_bw's shapes and row 10g by device time,
+    # in a child process whose profiler traces keep their events
+    tiny = _tiny_in_child()
+    rp["tiny_shapes"] = tiny
+    _say("reorder", case="tiny_shapes_ms", ev_dev_host_library_ev_dev_host=json.dumps(
+        {k: _tiny_line(v) for k, v in tiny["cases"].items() if k != "lane_scan"}),
+         device_ms_by_cuda_events=json.dumps(
+             [f"{k}{p}" for k, v in tiny["cases"].items() for p in ("", ".library")
+              if v[f"{'library_' if p else ''}device_ms_by"] == "cuda_events"]),
+         child_s=tiny["child_s"], card=repr(smi))
+    _say("reorder", case="lane_scan_probe_shape", row="10g",
+         ev_dev_host_cumsum_ev_dev_host=json.dumps(_tiny_line(tiny["cases"]["lane_scan"])),
+         card=repr(smi))
     record["reorder"] = rp
     torch.cuda.empty_cache()
 
@@ -3434,8 +3521,7 @@ def main(argv=None) -> int:
 
     # 13. the indexed-access probes (probes/place.py, mosaic.py,
     # gather_cost.py) on csrc/access.cu's kernels, each with its launches
-    # counted from 0; then the tiny probes' device time beside their event
-    # time (rows 9a-9d, 10f)
+    # counted from 0
     t0 = time.perf_counter()
     access = _access_probes(mk, rg, wf, ro, sw, (place, mosaic, gather_cost))
     for mod in (place, mosaic, gather_cost):
@@ -3448,16 +3534,11 @@ def main(argv=None) -> int:
                  warm_l2=json.dumps(_warm_l2(access[name])))
     _say("access", case="smem_rw_host_parts_ms", parts=json.dumps(
         {k: _sig(v) for k, v in access["p2"]["host_parts"].items()}), card=repr(smi))
-    tiny = _tiny_device_ms(ro, dma)
     # profiler traces that recorded no device event, timed by CUDA events
     by_events = sum(len(_by_events(access[name])) for mod in (place, mosaic, gather_cost)
-                    for name, _ in mod.PROBES) + len(_by_events(tiny))
+                    for name, _ in mod.PROBES)
     rate = access["gather_cost"]["smem_rate"]
     access_s = time.perf_counter() - t0
-    _say("access", case="tiny_shapes_event_vs_device_ms",
-         ms=json.dumps({k: [round(v["event_ms"], 5), round(v["device_ms"], 5)]
-                        for k, v in tiny.items()}),
-         device_ms_by_cuda_events=json.dumps(_by_events(tiny)), card=repr(smi))
     picks = {"table_gather": access["fill"]["span16"]["global"],
              "lane_gather": access["take_along_lane_32"]["fill"]["shfl"],
              "smem_rw": access["p2"]["fill"]["rotate"]["smem"],
@@ -3474,7 +3555,7 @@ def main(argv=None) -> int:
          launches=json.dumps(access["launches"]), sms=rate["sms"], max_sm_mhz=rate["max_sm_mhz"],
          smem_bytes_per_s=f"{rate['bytes_per_s']:.4e}", seconds=f"{access_s:.1f}",
          traces_by_cuda_events=by_events, card=repr(smi))
-    record["access"] = {**access, "tiny_shapes": tiny, "seconds": access_s,
+    record["access"] = {**access, "seconds": access_s,
                         "traces_by_cuda_events": by_events}
     torch.cuda.empty_cache()
 

@@ -39,6 +39,8 @@ frames on the CPU at the statistical gates and launches no kernel of the
 port; a checkpoint saved on the card resumes there in every bit, for
 regroup and for xla.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -901,7 +903,9 @@ def test_binned_k1_scattered_back_equals_home_k1(cuda):
     assert all(r["scatter_back"] in ("home", "bit-exact") for r in rows)
     after = (ro.record_gather.launches, ro.record_scatter.launches, rg.launch_k1.launches,
              rg.launch_k1.stats_launches)
-    assert [a - b for a, b in zip(after, before)] == [1 + 7, 14, 1 + 8, 8]
+    # each scatter back names every record of a narrow-record pool: the
+    # inverse route, two launches
+    assert [a - b for a, b in zip(after, before)] == [1 + 7, 2 * 14, 1 + 8, 8]
 
 
 @pytest.mark.cuda
@@ -913,6 +917,50 @@ def test_reorder_launch_error_raises(cuda):
     with pytest.raises(RuntimeError, match="record_gather launch failed: CUDA error"):
         ro.record_gather(src, torch.arange(8, dtype=torch.int32, device=cuda), dim=1)
     assert ro.record_gather.launches == before
+
+
+@pytest.mark.cuda
+def test_reorder_refuses_2_31_values(cuda):
+    """A move of 2^31 values (two records of 2^30) the library refuses
+    before any launch: it raises, and is not counted."""
+    before = ro.record_gather.launches
+    src = torch.empty((1, 1 << 30), device=cuda)
+    with pytest.raises(RuntimeError, match="record_gather launch failed: CUDA error"):
+        ro.record_gather(src, torch.zeros(2, dtype=torch.int32, device=cuda))
+    assert ro.record_gather.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim", [((16, 50001), 1), ((3, 4097), 1), ((4099, 3), 0),
+                                       ((777, 5, 16), 0), ((1025, 7), 0), ((257, 300), 0),
+                                       ((2048, 4096), 0)])
+@pytest.mark.parametrize("cover", ["permutation", "short"])
+def test_record_scatter_routes_match_plain(shape, dim, cover, cuda):
+    """record_scatter's two routes against scatter_plain bit for bit: a
+    permutation of dst's records (the inverse route where records are
+    narrower than a sector, two launches) and a shorter list (stores where
+    it points, one launch; the records not named keep their bits); and
+    record_gather by the same list against gather_plain, at column,
+    narrow-row (4-byte) and wide-row (16-byte) widths."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    records = shape[dim]
+    idx = torch.randperm(records, generator=gen, device=cuda).to(torch.int32)
+    if cover == "short":
+        idx = idx[:records - 11]
+    src = torch.randn(shape, generator=gen, device=cuda)
+    dst = torch.randn(shape, generator=gen, device=cuda)
+    ref = dst.clone()
+    width = 1 if dim == 1 else math.prod(shape[1:])
+    inverse = ro.inverts(idx.numel(), records, width)
+    assert inverse == (cover == "permutation" and width < ro.SECTOR_FLOATS)
+    before = (ro.record_gather.launches, ro.record_scatter.launches)
+    ro.record_scatter(src, idx, dst, dim=dim)
+    got = ro.record_gather(src, idx, torch.zeros_like(src), dim=dim)
+    torch.cuda.synchronize()
+    assert _same_bits(dst, ro.scatter_plain(src, idx, ref, dim=dim))
+    assert _same_bits(got, ro.gather_plain(src, idx, torch.zeros_like(src), dim=dim))
+    assert (ro.record_gather.launches - before[0],
+            ro.record_scatter.launches - before[1]) == (1, 2 if inverse else 1)
 
 
 # --- the sweep probe kernels (csrc/sweep.cu) -------------------------------

@@ -472,26 +472,83 @@ def test_cpu_tensors_never_reach_the_library(monkeypatch):
 @pytest.mark.parametrize("form", ["rows", "rows_odd", "columns"])
 def test_reorder_wrappers_launch_for_cuda_tensors(form, stub_library):
     if form == "rows":
-        src, dim, want = torch.zeros((300, 8, 128)), 0, (1, 1024, 0, 0, 1)
+        src, dim, want = torch.zeros((300, 8, 128)), 0, (1, 1024, 0, 0)
     elif form == "rows_odd":
-        src, dim, want = torch.zeros((30, 3)), 0, (1, 3, 0, 0, 0)
+        src, dim, want = torch.zeros((30, 3)), 0, (1, 3, 0, 0)
     else:
-        src, dim, want = torch.zeros((16, 4096)), 1, (16, 1, 4096, 8192, 0)
+        src, dim, want = torch.zeros((16, 4096)), 1, (16, 1, 4096, 8192)
     idx = torch.tensor([5, 0, 7], dtype=torch.int32)
     dst = torch.zeros((16, 8192)) if dim == 1 else None
     before = (ro.record_gather.launches, ro.record_scatter.launches)
     out = ro.record_gather(src, idx, dst, dim=dim)
     (args,) = stub_library["wrt_record_gather"].calls
     assert args[:4] == (src.data_ptr(), out.data_ptr(), idx.data_ptr(), 3)
-    assert args[4:9] == want and args[9] == 77
+    assert args[4:8] == want and args[8] == 77
     ro.record_scatter(out, idx, src, dim=dim)
     (args,) = stub_library["wrt_record_scatter"].calls
     assert args[:4] == (out.data_ptr(), src.data_ptr(), idx.data_ptr(), 3)
-    assert args[4:6] == want[:2]
+    assert args[4:6] == want[:2] and args[8] is None and args[9] == 77
     assert (ro.record_gather.launches, ro.record_scatter.launches) == (before[0] + 1,
                                                                        before[1] + 1)
     ro.record_gather(src, idx[:0], dst, dim=dim)  # nothing to move: no launch
     assert ro.record_gather.launches == before[0] + 1
+
+
+@pytest.mark.parametrize("form", ["columns", "rows_narrow", "rows_wide"])
+def test_record_scatter_inverts_exactly_when_the_list_covers_dst(form, stub_library):
+    """A list that names every record of dst, of records narrower than an
+    L2 sector, takes the inverse route (int32 scratch of n values, two
+    launches counted); a shorter list, or wide records, store where the
+    list points (no scratch, one launch)."""
+    shape, dim = {"columns": ((16, 6), 1), "rows_narrow": ((6, 3), 0),
+                  "rows_wide": ((6, 8), 0)}[form]
+    src, dst = torch.zeros(shape), torch.zeros(shape)
+    for idx, inverse in ((torch.tensor([3, 0, 5, 1, 4, 2], dtype=torch.int32),
+                          form != "rows_wide"),
+                         (torch.tensor([3, 0, 5], dtype=torch.int32), False)):
+        stub_library["wrt_record_scatter"].calls.clear()
+        before = ro.record_scatter.launches
+        ro.record_scatter(src, idx, dst, dim=dim)
+        (args,) = stub_library["wrt_record_scatter"].calls
+        assert args[3] == idx.numel() and (args[8] is not None) == inverse
+        assert ro.record_scatter.launches == before + (2 if inverse else 1)
+    assert [ro.inverts(n, 6, w) for n, w in ((6, 1), (6, 7), (6, 8), (5, 1))] == [
+        True, True, False, False]
+
+
+def test_short_scatter_keeps_the_records_it_does_not_name():
+    """The direct route's function, on the twin: records not named keep
+    what dst held, in every bit."""
+    src = torch.arange(48.0).reshape(16, 3).T.contiguous()
+    dst = torch.full((3, 10), -7.0)
+    idx = torch.tensor([9, 2, 4], dtype=torch.int32)
+    ro.record_scatter(src, idx, dst, dim=1)
+    named = torch.zeros(10, dtype=torch.bool)
+    named[idx.long()] = True
+    assert bool((dst[:, ~named] == -7.0).all()) and torch.equal(dst[:, idx.long()], src[:, :3])
+
+
+def test_reorder_library_is_bound_and_looked_up_once(monkeypatch):
+    """The library is built, loaded and bound on the first call and kept:
+    later calls neither walk load_library again nor rebind."""
+    loads, binds = [], []
+    stub = _Stub()
+
+    class _Lib:
+        wrt_record_gather = stub
+
+    class _Built:
+        lib = _Lib()
+
+    monkeypatch.setattr(ro, "_BUILT", None)
+    monkeypatch.setattr(ro, "load_library", lambda *a: loads.append(a) or _Built())
+    monkeypatch.setattr(ro, "bind", lambda lib: binds.append(lib))
+    monkeypatch.setattr(ro, "_device_type", lambda t: "cuda")
+    monkeypatch.setattr(ro, "_stream_handle", lambda device: 77)
+    src, idx = torch.zeros((10, 4)), torch.tensor([3, 1], dtype=torch.int32)
+    for _ in range(3):
+        ro.record_gather(src, idx)
+    assert loads == [ro.LIBRARY] and len(binds) == 1 and len(stub.calls) == 3
 
 
 def test_dma_rate_launches_for_cuda_tensors(stub_library):

@@ -13,10 +13,13 @@ probe_mosaic.py (csrc/reorder.cu says what bounds them on the card):
 A record is a row of an array (``dim=0``: ``src[r]``, all trailing values
 of row r, contiguous) or a column of a 2-D SoA array (``dim=1``:
 ``src[:, r]``, as in the regroup pipeline's pool [16, cap]). Each wrapper
-launches the CUDA kernel for CUDA tensors (counted in its ``.launches``)
-or raises, and runs its plain PyTorch twin for CPU tensors. The index list
-is int32 and in range; a scatter's indices must not repeat (a permutation's
-never do).
+launches the CUDA kernel for CUDA tensors (each launch counted in its
+``.launches``) or raises, and runs its plain PyTorch twin for CPU tensors.
+The index list is int32 and in range; a scatter's indices must not repeat
+(a permutation's never do); the library refuses a move of 2^31 values or
+more (a RuntimeError). A wrapper's host side is most of a call at the
+probes' shapes, so the library is loaded and bound once and the stream is
+read as a raw handle.
 """
 from __future__ import annotations
 
@@ -47,44 +50,70 @@ RATE_OUT = (8, 128)  # each tile's output block
 MAX_RATE_RECORD_FLOATS = (232448 - 1024) // (4 * RATE_RECORDS)
 
 # reorder.cu wrt_reorder_attributes index -> kernel
-KERNEL_NAMES = ("record_gather", "record_gather_vec4", "record_scatter",
-                "record_scatter_vec4", "dma_rate")
+KERNEL_NAMES = ("gather_cols", "scatter_cols", "invert",
+                *(f"{k}_rows{v}_{u}" for u in ("one", "vecs") for k in ("gather", "scatter")
+                  for v in ("", "_vec4")),
+                "dma_rate")
+# a record narrower than an L2 sector (32 bytes): a direct scatter's stores
+# would be partial sectors, so a scatter that names every record of dst
+# inverts the list and gathers through it (reorder.cu)
+SECTOR_FLOATS = 8
+
+_BUILT = None  # the loaded library, its functions bound, after the first call
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the library's C functions and their arguments (each returns an int)
+SIGNATURES = {
+    "wrt_record_gather": [_vp, _vp, _vp, _ll, _i, _ll, _ll, _ll, _vp],
+    "wrt_record_scatter": [_vp, _vp, _vp, _ll, _i, _ll, _ll, _ll, _vp, _vp],
+    "wrt_dma_rate": [_vp, _vp, _vp, _i, _i, _i, _vp],
+    "wrt_reorder_attributes": [_i, ctypes.POINTER(_i), ctypes.POINTER(_i), ctypes.POINTER(_i)],
+}
 
 
-def _library():
-    """Build (first use) and load the kernel library; raises on failure."""
-    built = load_library(*LIBRARY)
-    lib = built.lib
-    if lib.wrt_record_gather.argtypes is None:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        sigs = {
-            "wrt_record_gather": [vp, vp, vp, ll, i, ll, ll, ll, i, vp],
-            "wrt_record_scatter": [vp, vp, vp, ll, i, ll, ll, ll, i, vp],
-            "wrt_dma_rate": [vp, vp, vp, i, i, i, vp],
-            "wrt_reorder_attributes": [i, ctypes.POINTER(i), ctypes.POINTER(i)],
-        }
-        for name, argtypes in sigs.items():
+def bind(lib) -> None:
+    """Set SIGNATURES on the functions ``lib`` (a ctypes.CDLL of
+    reorder.cu) exports."""
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+
+
+def _library():
+    """Build (first use) and load the kernel library; raises on failure.
+    The library, its functions bound, is kept after the first call."""
+    global _BUILT
+    if _BUILT is not None:
+        return _BUILT
+    built = load_library(*LIBRARY)
+    bind(built.lib)
+    _BUILT = built
     return built
 
 
 def kernel_attributes() -> dict:
-    """Registers per thread and local-memory bytes of each built kernel."""
+    """Registers per thread, local-memory bytes per thread and the blocks
+    the card holds at once (what a row kernel's grid is sized by; 0 for the
+    column kernels and dma_rate, whose grid is their tiles) of each built
+    kernel."""
     lib = _library().lib
     out = {}
     for which, name in enumerate(KERNEL_NAMES):
-        regs, local = ctypes.c_int(0), ctypes.c_int(0)
-        err = lib.wrt_reorder_attributes(which, ctypes.byref(regs), ctypes.byref(local))
+        regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        err = lib.wrt_reorder_attributes(which, ctypes.byref(regs), ctypes.byref(local),
+                                         ctypes.byref(blocks))
         if err:
             raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
-        out[name] = {"registers": regs.value, "local_bytes": local.value}
+        out[name] = {"registers": regs.value, "local_bytes": local.value,
+                     "resident_blocks": blocks.value}
     return out
 
 
 def _stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of ``device`` as a raw handle, with no Stream
+    object built."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -96,51 +125,32 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def _layout(t: torch.Tensor, dim: int, what: str):
-    """(records, planes, width, plane stride) of a contiguous f32 array
-    whose records lie along ``dim``."""
-    if t.dtype != _F32 or not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous float32, got {t.dtype}")
-    if dim == 0 and t.dim() >= 1:
-        return t.shape[0], 1, math.prod(t.shape[1:]), 0
-    if dim == 1 and t.dim() == 2:
-        return t.shape[1], t.shape[0], 1, t.shape[1]
-    raise ValueError(f"records along dim {dim} of a {t.dim()}-D {what} are not supported "
-                     "(dim 0: rows; dim 1: columns of a 2-D array)")
-
-
-def _check_pair(src, dst, idx, dim, n_dst_min: int, n_src_min: int):
-    for t in (src, dst, idx):
-        if t.device != src.device:
-            raise ValueError(f"tensors on {src.device} and {t.device}")
+def _pair(src, dst, idx, dim: int, n_dst_min: int, n_src_min: int):
+    """(planes, width, src plane stride, dst plane stride, dst records) of
+    a move between contiguous float32 arrays whose records lie along
+    ``dim`` (0: rows; 1: columns of a 2-D array) by a contiguous 1-D int32
+    list; raises ValueError for anything else."""
+    if (src.dtype != _F32 or dst.dtype != _F32 or not src.is_contiguous()
+            or not dst.is_contiguous()):
+        raise ValueError(f"source and destination must be contiguous float32, got "
+                         f"{src.dtype} and {dst.dtype}")
     if idx.dtype != _I32 or idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError(f"index list must be a contiguous 1-D int32 tensor, got {idx.dtype}")
-    rs, ps, ws, lds = _layout(src, dim, "source")
-    rd, pd, wd, ldd = _layout(dst, dim, "destination")
-    if (ps, ws) != (pd, wd) or (dim == 0 and src.shape[1:] != dst.shape[1:]):
-        raise ValueError(f"records of {tuple(src.shape)} and {tuple(dst.shape)} differ")
+    device = src.device
+    if dst.device != device or idx.device != device:
+        raise ValueError(f"tensors on {device}, {dst.device} and {idx.device}")
+    ss, ds = src.shape, dst.shape
+    if dim == 0 and len(ss) >= 1 and ss[1:] == ds[1:]:
+        rs, rd, planes, width, lds, ldd = ss[0], ds[0], 1, math.prod(ss[1:]), 0, 0
+    elif dim == 1 and len(ss) == 2 and len(ds) == 2 and ss[0] == ds[0]:
+        rs, rd, planes, width, lds, ldd = ss[1], ds[1], ss[0], 1, ss[1], ds[1]
+    else:
+        raise ValueError(f"records along dim {dim} of {tuple(ss)} and {tuple(ds)} differ or are "
+                         "not supported (dim 0: rows; dim 1: columns of a 2-D array)")
     if rd < n_dst_min or rs < n_src_min:
-        raise ValueError(f"{idx.numel()} records do not fit {tuple(src.shape)} -> "
-                         f"{tuple(dst.shape)} along dim {dim}")
-    return ps, ws, lds, ldd
-
-
-def _vec4(src, dst, width: int, lds: int, ldd: int) -> int:
-    """1 where every access can be 16 bytes wide."""
-    return int(width % 4 == 0 and lds % 4 == 0 and ldd % 4 == 0
-               and src.data_ptr() % 16 == 0 and dst.data_ptr() % 16 == 0)
-
-
-def _launch(name: str, src, dst, idx, planes, width, lds, ldd) -> None:
-    n = idx.numel()
-    if n * width >= 1 << 31:
-        raise ValueError(f"{n} records of {width} values: {name} takes fewer than 2^31")
-    if n == 0:
-        return
-    fn = getattr(_library().lib, f"wrt_{name}")
-    err = fn(src.data_ptr(), dst.data_ptr(), idx.data_ptr(), n, planes, width, lds, ldd,
-             _vec4(src, dst, width, lds, ldd), _stream_handle(src.device))
-    _raise_on(err, name)
+        raise ValueError(f"{idx.numel()} records do not fit {tuple(ss)} -> {tuple(ds)} along "
+                         f"dim {dim}")
+    return planes, width, lds, ldd, rd
 
 
 def gather_plain(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
@@ -175,32 +185,56 @@ def record_gather(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor = None
     if out is None:
         shape = (n, *src.shape[1:]) if dim == 0 else (src.shape[0], n)
         out = torch.empty(shape, dtype=src.dtype, device=src.device)
-    planes, width, lds, ldd = _check_pair(src, out, idx, dim, n, 0)
+    planes, width, lds, ldd, _ = _pair(src, out, idx, dim, n, 0)
     kind = _device_type(src)
     if kind == "cpu":
         return gather_plain(src, idx, out, dim)
     if kind != "cuda":
         raise ValueError(f"unsupported device {src.device}")
-    _launch("record_gather", src, out, idx, planes, width, lds, ldd)
     if n:
+        err = _library().lib.wrt_record_gather(src.data_ptr(), out.data_ptr(), idx.data_ptr(),
+                                               n, planes, width, lds, ldd,
+                                               _stream_handle(src.device))
+        _raise_on(err, "record_gather")
         record_gather.launches += 1
     return out
+
+
+def inverts(n: int, dst_records: int, width: int) -> bool:
+    """Whether record_scatter takes its inverse route: the list names every
+    record of dst (n of them; indices never repeat) and a record is
+    narrower than an L2 sector. A shorter list must leave the records it
+    does not name as they were, so it stores where the list points. On the
+    card a list of full length must be a permutation: one with a repeated
+    index leaves inverse entries unwritten, and the gather through them
+    reads out of bounds."""
+    return n == dst_records and width < SECTOR_FLOATS
 
 
 def record_scatter(src: torch.Tensor, idx: torch.Tensor, dst: torch.Tensor,
                    dim: int = 0) -> torch.Tensor:
     """The first idx.numel() records of ``src`` (along ``dim``) into
     records idx of ``dst``, in place; the others keep what they held.
-    Returns ``dst``."""
-    planes, width, lds, ldd = _check_pair(src, dst, idx, dim, 0, idx.numel())
+    Returns ``dst``. On the card a list that names every record of a
+    narrow-record dst (``inverts``) is inverted into int32 scratch and dst
+    gathered through it: two launches, both counted. Such a list must be a
+    permutation of dst's records: with a repeated index the kernels read
+    out of bounds (the callers pass sort orders, which are permutations)."""
+    n = idx.numel()
+    planes, width, lds, ldd, rd = _pair(src, dst, idx, dim, 0, n)
     kind = _device_type(src)
     if kind == "cpu":
         return scatter_plain(src, idx, dst, dim)
     if kind != "cuda":
         raise ValueError(f"unsupported device {src.device}")
-    _launch("record_scatter", src, dst, idx, planes, width, lds, ldd)
-    if idx.numel():
-        record_scatter.launches += 1
+    if n:
+        inverse = (torch.empty(n, dtype=_I32, device=src.device) if inverts(n, rd, width)
+                   else None)
+        err = _library().lib.wrt_record_scatter(
+            src.data_ptr(), dst.data_ptr(), idx.data_ptr(), n, planes, width, lds, ldd,
+            None if inverse is None else inverse.data_ptr(), _stream_handle(src.device))
+        _raise_on(err, "record_scatter")
+        record_scatter.launches += 1 if inverse is None else 2
     return dst
 
 
@@ -275,4 +309,4 @@ for _fn in (record_gather, record_scatter, dma_rate):
 
 
 __all__ = ["record_gather", "record_scatter", "dma_rate", "gather_plain", "scatter_plain",
-           "dma_rate_plain"]
+           "dma_rate_plain", "inverts", "kernel_attributes"]

@@ -39,6 +39,11 @@ from . import HBM_RATE, card, check, same_bits, sync, time_mean
 _F32 = torch.float32
 _I32 = torch.int32
 RATE_PROBE = dict(records=64800, comps=11, width=128, reps=10)  # probe_dma.py:171, 216
+# the gather and scatter probes at the TPU probes' tiny shapes (probe_inputs)
+RECORD_PROBES = ("single_dma_2d", "single_dma_3d", "gather32_pipelined", "scatter_dma",
+                 "manual_dma_gather_rows")
+# (rows, row values) of the row-gather bandwidth probe (probe_mosaic.py:157-179)
+INDEX_SELECT_BW = ((65536, 128), (8192, 1024), (2048, 4096))
 
 
 def probe_inputs(name: str, device="cuda"):
@@ -155,14 +160,20 @@ def probe_dma_rate(device="cuda", reps: int = RATE_PROBE["reps"]) -> dict:
             "max_abs_err": 0.0, **bound}
 
 
+def index_select_bw_inputs(rows: int, row_elems: int, device="cuda"):
+    """(arange table [rows, row_elems], int32 seeded permutation of its
+    rows) of the row-gather bandwidth probe."""
+    src = torch.arange(rows * row_elems, dtype=_F32, device=device).reshape(rows, row_elems)
+    perm = np.random.default_rng(0).permutation(rows).astype(np.int32)
+    return src, torch.from_numpy(perm).to(device)
+
+
 def probe_index_select_bw(device="cuda", reps: int = 5) -> dict:
     """Row-gather bandwidth by a permutation (probe_mosaic.py:157-179),
     read + written bytes, of index_select and of record_gather."""
     out = {}
-    for rows, row_elems in [(65536, 128), (8192, 1024), (2048, 4096)]:
-        src = torch.arange(rows * row_elems, dtype=_F32, device=device).reshape(rows, row_elems)
-        perm = np.random.default_rng(0).permutation(rows).astype(np.int32)
-        idx = torch.from_numpy(perm).to(device)
+    for rows, row_elems in INDEX_SELECT_BW:
+        src, idx = index_select_bw_inputs(rows, row_elems, device)
         idx_long = idx.long()
         gb = rows * row_elems * 4 * 2 / 1e9
         lib = time_mean(lambda: src.index_select(0, idx_long), reps, device)
