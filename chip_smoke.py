@@ -102,8 +102,10 @@ layout kernels, each against its twin and its bound.
 fifteen pallas_calls on csrc/access.cu's five kernels, each probe with its
 launches counted from 0 and held to exact counts): every route of
 table_gather, lane_gather, smem_rw, row_sort and lane_scan against its twin
-bit for bit, at the probes' shapes (with the profiler's device time beside
-the event time) and at card-filling shapes (2^24 values; the texture
+bit for bit (row_sort also on p3's edge keys: NaN payloads, both zeros,
+infinities, denormals and runs, each row a permutation), at the probes'
+shapes (with the profiler's device time beside the event time) and at
+card-filling shapes (2^24 values; the texture
 pools of textured_spheres at the LUT's budget and at full size), each
 beside its bound and a library call; smem_rw's three routes ("direct"
 among them) also with each call's host time, and at the fill with the
@@ -202,6 +204,12 @@ WAVEFRONT_KERNELS = ("k0", "compact", "k1")
 REORDER_KERNELS = ("record_gather", "record_scatter", "dma_rate")
 SWEEP_KERNELS = ("sweep_fma", "sweep_mma_tf32", "sweep_mma_3xtf32", "dot_mma", "layout")
 ACCESS_KERNELS = ("table_gather", "lane_gather", "smem_rw", "row_sort", "lane_scan")
+# (n_rays, n_spheres, iters) at which [build] holds sweep_fma's launch plan
+# to its mirror: the [sweep] shapes (p5, p8, window, fill), a few rays, and
+# a table of more than one window
+FMA_PLAN_SHAPES = {"p5": (4096, 32, 64), "p8": (4096, 320, 16), "window": (4096, 1024, 1),
+                   "fill": (2_097_152, 496, 1), "few_rays": (100, 5, 3),
+                   "windows": (50_000, 3000, 2)}
 # the wavefront's cut schedules held equal in every bit: none (the
 # Renderer's), the main path's first cut, its cuts, and a cut at every bounce
 _WF_SCHEDULES = ((), (2,), _CUTS, (1, 2, 3, 4, 5, 6, 7))
@@ -2730,6 +2738,22 @@ def main(argv=None) -> int:
                                 if k.startswith("sweep_mma")}),
          ptxas=json.dumps({k: v for k, v in ptxas["sweep"].items() if "sweep_mma" in k}))
     record["build"]["sweep_mma"] = {"launch_bounds": sw.launch_bounds()}
+    # sweep_fma (kFmaRays rays a thread, and one) and row_sort: registers
+    # and spills (none allowed, above); sweep_fma's launch plan as the
+    # library derives it, held to its mirror (sw.fma_plan) on this card
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fma_plans = {k: sw.fma_plan(*shape, sms) for k, shape in FMA_PLAN_SHAPES.items()}
+    built_plans = {k: sw.fma_plan_built(*shape, sms) for k, shape in FMA_PLAN_SHAPES.items()}
+    _check(fma_plans == built_plans, ("sweep_fma's plan against its mirror", fma_plans,
+                                      built_plans))
+    fma_sort_attrs = {**{k: attrs["sweep"][k] for k in ("sweep_fma", "sweep_fma_narrow")},
+                      "row_sort": attrs["access"]["row_sort"]}
+    _say("build", case="sweep_fma_row_sort", attributes=json.dumps(fma_sort_attrs),
+         ptxas=json.dumps({k: v for lib in ("sweep", "access") for k, v in ptxas[lib].items()
+                           if "sweep_fma" in k or "row_sort" in k}),
+         fma_plans=json.dumps(fma_plans), sms=sms)
+    record["build"]["sweep_fma_row_sort"] = {"attributes": fma_sort_attrs,
+                                             "fma_plans": fma_plans}
 
     # 3. megakernel against plain, both on the card
     record["plain"] = {}

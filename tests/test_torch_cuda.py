@@ -1157,6 +1157,54 @@ def test_sweep_fma_matches_plain(name, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["narrow", "wide"])
+def test_sweep_fma_windows_match_plain(case, cuda):
+    """sweep_fma over more spheres than a block stages at once
+    (FMA_WINDOW): each window restaged behind a barrier, each warp's run of
+    every window. narrow: 2,500 spheres x 4,096 rays x 2 passes, one ray a
+    thread, a ray group's passes and spheres split over the warps of a
+    block; wide: 2,100 spheres over enough rays that the plan takes
+    FMA_RAYS rays a thread. Every ray in every bit as the least (t, index)
+    of the windows swept apart, each window holding closest hits, and as
+    its twin's (hold_sweep, no ray parted); the first 64 rays hit
+    nothing."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if case == "narrow":
+        n_spheres, n_rays, iters = 2500, 4096, 2
+    else:
+        n_spheres, iters = 2100, 1
+        n_rays = sms * sw.FMA_BLOCKS * (sw.FMA_THREADS // 32) * 32 * sw.FMA_RAYS + 77
+    plan = sw.fma_plan(n_rays, n_spheres, iters, sms)
+    assert plan == sw.fma_plan_built(n_rays, n_spheres, iters, sms)
+    assert plan["window"] == sw.FMA_WINDOW < n_spheres
+    if case == "narrow":
+        assert plan["rays"] == 1 and plan["splits"] > plan["pass_parts"] > 1, plan
+    else:
+        assert plan["rays"] == sw.FMA_RAYS and plan["splits"] == 1, plan
+    c, r, o, d = mxu_sweep.scene(n_spheres, n_rays)
+    table = mxu_sweep.probe_table(c, mxu_sweep.sphere_kq(c, r), cuda)
+    planes = mxu_sweep.probe_planes(o, d, cuda)
+    planes[:, :64] = _far_planes(64, cuda)
+    before = sw.sweep_fma.launches
+    got = sw.sweep_fma(table, planes, 16, iters)
+    torch.cuda.synchronize()
+    assert sw.sweep_fma.launches == before + 1
+    assert bool((got[1][:64] == -1).all()) and bool((got[0][:64] == sw.MAX_T).all())
+    t, i = got
+    want_t = torch.full_like(t, sw.MAX_T)
+    want_i = torch.full_like(i, -1)
+    for w0 in range(0, n_spheres, sw.FMA_WINDOW):
+        assert bool(((i >= w0) & (i < w0 + sw.FMA_WINDOW)).any()), (case, w0)
+        tw, iw = sw.sweep_fma(table[w0:w0 + sw.FMA_WINDOW].contiguous(), planes, 16, iters)
+        iw = torch.where(iw >= 0, iw + w0, iw)
+        take = (tw < want_t) | ((tw == want_t) & (iw < want_i))
+        want_t, want_i = torch.where(take, tw, want_t), torch.where(take, iw, want_i)
+    torch.cuda.synchronize()
+    assert _same_bits(t, want_t) and torch.equal(i, want_i)
+    _held_everywhere(got, sw.sweep_plain(table, planes, "fma"), table, planes, case)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["p5", "p8"])
 @pytest.mark.parametrize("prec", ["tf32", "3xtf32"])
 @pytest.mark.parametrize("packed", [False, True])
@@ -1305,8 +1353,8 @@ def test_mxu_sweep_probes_pass(name, cuda):
 @pytest.mark.cuda
 def test_sweep_launch_error_raises(monkeypatch, cuda):
     """A launch the library refuses raises, and is not counted: with the
-    wrapper's chunk limit lifted, a chunk of 4000 spheres (64 KB of shared
-    memory) reaches wrt_sweep_fma, which refuses it."""
+    wrapper's chunk limit lifted, a chunk of 4000 spheres (over the 2048
+    the C interface takes) reaches wrt_sweep_fma, which refuses it."""
     table, planes, _, _ = _probe_case("p8", cuda)
     monkeypatch.setattr(sw, "MAX_FMA_CHUNK", 4096)
     before = sw.sweep_fma.launches

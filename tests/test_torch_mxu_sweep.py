@@ -493,18 +493,20 @@ def test_tile_control_is_the_fewest_hits_a_tile_holds():
 
 
 def test_sweep_bounds_count_what_the_sweep_needs():
-    """fill's bounds: 21 FP32 operations a test for the FMA sweep; for the
-    tensor-core sweep the larger of 14 product flops a pair (42 for
-    3xTF32) over the TF32 rate and the epilogue over the FP32 rate: 4
-    operations a pair (b, cq, b^2 - cq) and 3 more (the root, t0, t1) for
-    each pair a pass with a real root. At the fill's 0.46% of such pairs
-    that is the epilogue at TF32 and the products at 3xTF32."""
+    """fill's bounds: for the FMA sweep 15 FP32 operations a pair (2c is
+    staged) and 3 more (the root, t0, t1) for each pair a pass with a real
+    root; for the tensor-core sweep the larger of 14 product flops a pair
+    (42 for 3xTF32) over the TF32 rate and the epilogue over the FP32 rate:
+    4 operations a pair (b, cq, b^2 - cq) and the same 3 for each pair a
+    pass with a real root. At the fill's 0.46% of such pairs that is the
+    epilogue at TF32 and the products at 3xTF32."""
     n, r = 496, 2_097_152
     pairs = n * r
     kept = int(pairs * 0.0046)
-    fma = ms.fma_bound(n, r, 1)
+    fma = ms.fma_bound(n, r, 1, kept)
     assert fma["bound_by"] == "operations"
-    assert fma["bound_ms"] == pytest.approx(pairs * 21 / 67e12 * 1e3)
+    assert fma["bound_ms"] == pytest.approx((pairs * 15 + kept * 3) / 67e12 * 1e3)
+    assert ms.fma_bound(n, r, 2, kept)["bound_ms"] == pytest.approx(2 * fma["bound_ms"])
     for prec, products, by in (("tf32", 1, "epilogue_ms"), ("3xtf32", 3, "mma_ms")):
         b = ms.mma_bound(n, r, 1, prec, False, kept)
         assert b["mma_ms"] == pytest.approx(pairs * 14 * products / 495e12 * 1e3)

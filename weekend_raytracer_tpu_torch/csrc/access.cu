@@ -666,53 +666,141 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // row_sort: each row of 128 floats through probe_place.py p3's bitonic
-// network (:88-99): for k = 2, 4, ..., 128 and j = k / 2, ..., 1, lane L
-// pairs with L ^ j; the pair is put in ascending order where L & k is 0
+// network (:88-99): for k = 2, 4, ..., 128 and j = k / 2, ..., 1, key l
+// pairs with l ^ j; the pair is put in ascending order where l & k is 0
 // and in descending order elsewhere.
 //
 // Replaces benchmarks/probe_place.py:104. Bound on an H100 by bytes (a key
-// read and written once; the network's 28 compare-exchange stages are 28
-// min/max a key, a sixth of the byte time at the FP32 rate). The compare
-// form: the pair's lower-lane value lo and higher-lane value hi swap when
-// hi < lo (ascending) or lo < hi (descending), and both lanes of a pair
-// take the same decision, so every stage permutes its row: NaN never
-// swaps, and -0.0 and +0.0 compare equal and keep their places (the
+// read and written once; the network's 28 compare-exchange stages, 28
+// min/max a key, are a sixth of the byte time at the FP32 rate). The
+// compare form: the pair's lower-index value lo and higher-index value hi
+// swap when hi < lo (ascending) or lo < hi (descending), and both keys of
+// a pair take the same decision, so every stage permutes its row: NaN
+// never swaps, and -0.0 and +0.0 compare equal and keep their places (the
 // probe's jnp.minimum / jnp.maximum would spread NaN, and its min and max
-// of two zeros depend on their order; the twin uses this form). Design: a
-// warp per row, four keys a lane (lanes t, t + 32, t + 64, t + 96); a
-// partner closer than 32 lanes comes by __shfl_xor_sync, a farther one is
-// the lane's own register q ^ (j >> 5). The network unrolls fully.
-__global__ void __launch_bounds__(kThreads)
-    row_sort(const float* __restrict__ x, int rows, float* __restrict__ out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long r = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (r >= rows) return;  // the whole warp
-  float v[4];
+// of two zeros depend on their order; the twin uses this form).
+// Design: kSortKeys consecutive keys a thread (key l = kSortKeys t + q, read
+// and written as 16-byte words), 128 / kSortKeys threads a row. The stages
+// with j < kSortKeys (22 of the 28 at 16 keys) pair a thread's own
+// registers; the stages with j >= kSortKeys (j = 16; 32, 16; 64, 32, 16)
+// exchange each key with lane ^ (j / kSortKeys) of the row by
+// __shfl_xor_sync, the row's lanes sharing one direction, a lane keeping the
+// pair's min or max by one per-thread predicate that orders the pair for a
+// single compare (a compare each way and a select between them cost a
+// quarter more time at the fill). Where a phase k (16 to 64) sorts a
+// thread's keys in descending order, the thread holds them in reverse (a
+// select per key at a phase's start where its direction changes), so every
+// register stage runs ascending: a compare and two selects a pair, the
+// direction known at compile time (with the direction taken pair by pair,
+// ptxas ran short of predicates and spent about as many instructions again
+// moving them to and from registers). A grid of the blocks the card holds at
+// once walks the rows, each warp loading its next rows before it sorts the
+// ones it holds, so the loads of one group overlap the network of the other
+// (one group a warp, the network and the memory took their two times in sum;
+// staging a warp's rows through shared memory, to read and write them as
+// consecutive words, cost more instructions than the partial sectors it
+// saved). The network unrolls fully.
+constexpr int kSortKeys = 16;
+constexpr int kSortRowThreads = kWidth / kSortKeys;
+constexpr int kSortBlocks = 4;  // row_sort's blocks an SM: its register budget and its grid
+
+// lo (the lower index) and hi of a pair in the network's order: swapped
+// when hi < lo (ascending) or lo < hi (descending).
+__device__ __forceinline__ void order_pair(float& lo, float& hi, bool desc) {
+  const bool swap = desc ? lo < hi : hi < lo;
+  const float a = lo;
+  lo = swap ? hi : lo;
+  hi = swap ? a : hi;
+}
+
+// The thread's keys in reverse where `flip`.
+template <int kKeys>
+__device__ __forceinline__ void reverse_if(float (&v)[kKeys], bool flip) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) v[q] = x[r * kWidth + lane + 32 * q];
+  for (int q = 0; q < kKeys / 2; ++q) {
+    const float a = v[q];
+    v[q] = flip ? v[kKeys - 1 - q] : a;
+    v[kKeys - 1 - q] = flip ? a : v[kKeys - 1 - q];
+  }
+}
+
+// The network on thread t's keys of a row (the row's other threads hold
+// the rest, in lanes of the same warp).
+__device__ __forceinline__ void sort_network(float (&v)[kSortKeys], int t) {
+  bool held = false;  // whether the thread holds its keys in reverse
 #pragma unroll
   for (int ks = 1; ks <= 7; ++ks) {
     const int k = 1 << ks;
+    const bool desc = k < kWidth && ((kSortKeys * t) & k) != 0;  // k >= kSortKeys
+    if (k >= kSortKeys) {
+      reverse_if(v, desc != held);
+      held = desc;
+    }
 #pragma unroll
     for (int js = ks - 1; js >= 0; --js) {
       const int j = 1 << js;
-      float nv[4];
+      if (j >= kSortKeys) {
+        const int tj = j / kSortKeys;
+        const bool keep_min = ((t & tj) == 0) != desc;  // the lower key of an ascending pair
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int l = lane + 32 * q;
-        const float pv = j >= 32 ? v[q ^ (j >> 5)] : __shfl_xor_sync(kFull, v[q], j);
-        const bool lower = (l & j) == 0;
-        const float lo = lower ? v[q] : pv;
-        const float hi = lower ? pv : v[q];
-        const bool swap = (l & k) == 0 ? (hi < lo) : (lo < hi);
-        nv[q] = swap ? pv : v[q];
+        for (int q = 0; q < kSortKeys; ++q) {
+          const float pv = __shfl_xor_sync(kFull, v[q], tj);
+          // swap where pv < v (keep_min) or v < pv: one compare of the
+          // pair ordered by keep_min
+          const float a = keep_min ? pv : v[q];
+          const float b = keep_min ? v[q] : pv;
+          v[q] = a < b ? pv : v[q];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kSortKeys; ++q) {
+          if (q & j) continue;
+          order_pair(v[q], v[q + j], k < kSortKeys && (q & k) != 0);
+        }
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = nv[q];
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads, kSortBlocks)
+    row_sort(const float4* __restrict__ x, int rows, float4* __restrict__ out) {
+  constexpr int kVecs = kSortKeys / 4;  // a thread's 16-byte words
+  constexpr int kGroupRows = 32 / kSortRowThreads;  // the rows a warp sorts at once
+  const int lane = threadIdx.x & 31;
+  const int t = lane & (kSortRowThreads - 1);
+  const long long n_groups = (rows + kGroupRows - 1LL) / kGroupRows;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  float4 words[kVecs];
+  // group grp's words of this thread (a lane past the last row reads the
+  // last row, sorts it and stores nothing)
+  auto load = [&](long long grp) {
+    const long long r = min(grp * kGroupRows + lane / kSortRowThreads, rows - 1LL);
+    const float4* src = x + r * (kWidth / 4) + t * kVecs;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) out[r * kWidth + lane + 32 * q] = v[q];
+    for (int i = 0; i < kVecs; ++i) words[i] = src[i];
+  };
+  long long g = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  if (g < n_groups) load(g);
+  for (; g < n_groups; g += stride) {  // warp-uniform
+    float v[kSortKeys];
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      v[4 * i] = words[i].x;
+      v[4 * i + 1] = words[i].y;
+      v[4 * i + 2] = words[i].z;
+      v[4 * i + 3] = words[i].w;
+    }
+    if (g + stride < n_groups) load(g + stride);
+    sort_network(v, t);
+    const long long r = g * kGroupRows + lane / kSortRowThreads;
+    if (r < rows) {
+      float4* dst = out + r * (kWidth / 4) + t * kVecs;
+#pragma unroll
+      for (int i = 0; i < kVecs; ++i) {
+        dst[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      }
+    }
+  }
 }
 
 // lane_scan: out[r, c] = x[r, 0] + ... + x[r, c], as a warp computes it:
@@ -926,11 +1014,19 @@ int wrt_smem_rw(const uint32_t* base, int batch, int words, const uint32_t* vals
   return static_cast<int>(cudaGetLastError());
 }
 
-// x and out [rows, 128] f32.
+// x and out [rows, 128] f32, 16-byte aligned.
 int wrt_row_sort(const float* x, int rows, float* out, void* stream) {
-  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  row_sort<<<blocks_for(rows, kWarps), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, rows, out);
+  if (rows <= 0 || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(out) & 15)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = min(blocks_for(rows, kThreads / kSortRowThreads),
+                              static_cast<unsigned>(sms * kSortBlocks));
+  row_sort<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), rows, reinterpret_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,10 +3,13 @@
 // sweep's two dot products (c.d and c.o) can ride the matrix unit, at what
 // speed and what error:
 //
-//   sweep_fma      the sweep as the port runs it: one thread per ray, every
-//                  sphere through bounce.cuh's own sweep_sphere (strict <,
-//                  first index wins). _vpu_sweep_kernel (:164, pallas_call
-//                  at :273) and _chunked_vpu_kernel (:430, at :561).
+//   sweep_fma      the sweep as the port runs it: every sphere in
+//                  bounce.cuh's sweep_sphere rounding (strict <, first
+//                  index wins), the table staged once a block with 2c, 4
+//                  rays a thread, or one with a ray's passes and spheres
+//                  split over warps where the rays leave the card idle.
+//                  _vpu_sweep_kernel (:164, pallas_call at :273) and
+//                  _chunked_vpu_kernel (:430, at :561).
 //   sweep_mma      the same sweep with c.d and -2 c.o + kq from TF32
 //                  mma.sync (kPrec = TF32, one product, or 3xTF32, three),
 //                  the root select and argmin on the accumulator fragments.
@@ -65,6 +68,20 @@ constexpr int kMmaSmemBytes = 64 * 1024;
 constexpr int kMmaBlocksTf32 = 3;
 constexpr int kMmaBlocks3x = 2;
 constexpr int kWideTiles = 2;
+// sweep_fma: rays a thread where the rays fill the card, and its register
+// budget there in blocks of kThreads an SM; at one ray a thread, a block
+// of kFmaNarrowThreads and its budget; the spheres a block stages at once
+// (32 B each: 32 KiB); the spheres whose discriminants a thread forms
+// before their roots, at kFmaRays rays a thread and at one; and the warps
+// that may share a ray group where the rays leave the card idle
+constexpr int kFmaRays = 4;
+constexpr int kFmaBlocks = 3;
+constexpr int kFmaNarrowThreads = 1024;
+constexpr int kFmaBlocksNarrow = 1;
+constexpr int kFmaWindow = 1024;
+constexpr int kFmaUnroll = 2;
+constexpr int kFmaUnrollNarrow = 1;
+constexpr int kFmaMaxSplits = 32;
 constexpr int kDotThreads = 128;  // dot_mma: four warps a block
 constexpr int kDotWarps = kDotThreads / 32;
 constexpr int kDotMaxRows = 64;  // dot_mma: rows of A a block stages at most
@@ -120,59 +137,6 @@ __device__ __forceinline__ float ray_component(const float* __restrict__ rays, b
   return k == 6 ? 1.0f : 0.0f;
 }
 
-// sweep_fma: the closest hit of each ray over n_spheres (cx, cy, cz, kq),
-// staged chunk by chunk into shared memory, `iters` passes.
-//
-// Replaces benchmarks/probe_mxu_sweep.py:164 _vpu_sweep_kernel (pallas_call
-// at :273) and :430 _chunked_vpu_kernel (at :561). Bound on an H100 by
-// instruction throughput: 21 counted operations a test, but sweep_sphere
-// runs more instructions than that (the IEEE sqrtf's range check,
-// reciprocal square root and correction, three compares, two selects, the
-// c + c adds) where it hits; a miss, most tests, skips the root. Design:
-// one thread per ray so that nothing crosses lanes; a chunk's spheres are
-// one shared-memory broadcast load (LDS.128) each; the block stages the
-// next chunk between two barriers, with a runtime chunk size as the TPU
-// kernel's fori over chunks. The pass index rides dx at
-// zero weight (x + 0 * it is not foldable without fast math). Four blocks
-// an SM: with sweep_sphere's branch around the root ptxas would otherwise
-// hold it to 48 registers and spill 8 bytes.
-__global__ void __launch_bounds__(kThreads, 4)
-    sweep_fma(const float4* __restrict__ spheres, int n_spheres, int chunk,
-              const float* __restrict__ rays, int n_rays, int iters, float* __restrict__ t_out,
-              int* __restrict__ i_out) {
-  extern __shared__ float4 staged[];  // chunk
-  const long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long nr = n_rays;
-  const bool live = r < nr;
-  float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
-  if (live) {
-    for (int k = 0; k < 3; ++k) {
-      o[k] = rays[k * nr + r];
-      d[k] = rays[(k + 3) * nr + r];
-    }
-  }
-  const float od = o[0] * d[0] + o[1] * d[1] + o[2] * d[2];
-  const float oo = o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
-  float bt = kProbeMaxT;
-  int bi = -1;
-  for (int it = 0; it < iters; ++it) {
-    const float dxj = d[0] + static_cast<float>(it) * 0.0f;
-    for (int c0 = 0; c0 < n_spheres; c0 += chunk) {
-      const int n = min(chunk, n_spheres - c0);
-      __syncthreads();
-      for (int j = threadIdx.x; j < n; j += kThreads) staged[j] = spheres[c0 + j];
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        sweep_sphere(staged[j], c0 + j, o[0], o[1], o[2], dxj, d[1], d[2], od, oo, bt, bi);
-      }
-    }
-  }
-  if (live) {
-    t_out[r] = bt;
-    i_out[r] = bi;
-  }
-}
-
 // The root test of one (sphere s, ray) pair of the tensor-core sweep, from
 // b = c.d - o.d and the discriminant b^2 - cq (the probe's epilogue,
 // :236-243), the running best kept as sweep_sphere keeps it: the nearer
@@ -210,6 +174,195 @@ __device__ __forceinline__ void put_ray(float* __restrict__ t_out, int* __restri
   if (merge) take_least(t, i, t_out[r], i_out[r]);
   t_out[r] = t;
   i_out[r] = i;
+}
+
+// x0 y0 + x1 y1 + x2 y2 rounded as nvcc contracts that sum written out
+// (bounce.cuh sweep_sphere's c.d and 2c.o, and o.d and |o|^2 as sweep_fma
+// wrote them before): x1 y1 first, x0 y0 fused onto it, x2 y2 onto that,
+// as the SASS of the written sum shows; spelt out so that every
+// instantiation rounds alike.
+__device__ __forceinline__ float dot3(float x0, float y0, float x1, float y1, float x2,
+                                      float y2) {
+  return __fmaf_rn(x2, y2, __fmaf_rn(x0, y0, __fmul_rn(x1, y1)));
+}
+
+// A ray of sweep_fma: origin, direction, o.d, |o|^2 and its running (t, index).
+template <int kR>
+struct FmaRays {
+  float ox[kR], oy[kR], oz[kR], dx[kR], dy[kR], dz[kR], od[kR], oo[kR], bt[kR];
+  int bi[kR];
+};
+
+// kU spheres from staged[s] on (index of the first: `index`) against the
+// thread's kR rays: every pair's bq = c.d - o.d and discriminant bq^2 -
+// (|o|^2 - 2c.o + kq) in sweep_sphere's order first, then, where the
+// thread has a positive one, the roots of those pairs in sphere order (the
+// nearer root above kMinT, taken below the running best: the first index
+// wins a tie).
+template <int kR, int kU>
+__device__ __forceinline__ void fma_run(const float4* __restrict__ staged, int s, int index,
+                                        FmaRays<kR>& ray) {
+  float bq[kU][kR], disc[kU][kR];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const float4 c = staged[2 * (s + u)];
+    const float4 c2 = staged[2 * (s + u) + 1];
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      const float cd = dot3(c.x, ray.dx[k], c.y, ray.dy[k], c.z, ray.dz[k]);
+      const float co2 = dot3(c2.x, ray.ox[k], c2.y, ray.oy[k], c2.z, ray.oz[k]);
+      bq[u][k] = __fsub_rn(cd, ray.od[k]);
+      const float cq = __fadd_rn(__fsub_rn(ray.oo[k], co2), c.w);
+      disc[u][k] = __fmaf_rn(bq[u][k], bq[u][k], -cq);
+    }
+  }
+  float most = disc[0][0];  // fmaxf drops a NaN, which has no root
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+#pragma unroll
+    for (int k = 0; k < kR; ++k) most = fmaxf(most, disc[u][k]);
+  }
+  if (!(most > 0.0f)) return;
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      if (disc[u][k] > 0.0f) {
+        const float sq = sqrtf(disc[u][k]);
+        const float t0 = bq[u][k] - sq;
+        const float t1 = bq[u][k] + sq;
+        const float ts = t0 > kMinT ? t0 : t1;
+        if (ts > kMinT && ts < ray.bt[k]) {
+          ray.bt[k] = ts;
+          ray.bi[k] = index + u;
+        }
+      }
+    }
+  }
+}
+
+// sweep_fma<kR, kBlock>: the closest hit of each ray over n_spheres (cx,
+// cy, cz, kq), `iters` passes, kR rays a thread, blocks of kBlock.
+//
+// Replaces benchmarks/probe_mxu_sweep.py:164 _vpu_sweep_kernel (pallas_call
+// at :273) and :430 _chunked_vpu_kernel (at :561). Bound on an H100 by
+// instruction issue: a pair is 10 FP32 instructions that every input
+// needs in sweep_sphere's rounding (cd and 2c.o 3 each, bq, cq 2,
+// disc), counted as 15 operations in the bound (an FMA as two); the root
+// (the IEEE sqrtf's MUFU, corrections and range check, t0, t1, compares,
+// selects) only where a lane has a real root (0.46% of RTiOW's fill
+// pairs), counted as 3 operations (sqrt, t0, t1) for each such pair.
+// Design:
+//  - the block stages its window of the table (all of it up to kFmaWindow
+//    spheres) once, each sphere as (cx, cy, cz, kq) and (2cx, 2cy, 2cz):
+//    c + c is exact, so 2c.o rounds as sweep_sphere's (c + c).o does, and
+//    a pair loses its three adds; a warp reads a sphere as two broadcast
+//    16-byte loads;
+//  - a thread carries kR rays (a sphere's loads serve kR independent
+//    chains) and forms kFmaUnroll spheres' discriminants before any root,
+//    then skips the roots where it has no positive one (a warp vote, or a
+//    test ray by ray, cost more than it skipped);
+//  - where the rays leave the card idle (the probes' 4,096), one ray a
+//    thread in blocks of kFmaNarrowThreads, and `splits` warps of a block
+//    (up to kFmaMaxSplits) share a ray group, each over its runs of passes
+//    and of each window's spheres (fma_plan), merged in shared memory by
+//    the least (t, index): a later pass takes nothing (strict <) and the
+//    least index wins a tie, so every split gives the sequential sweep's
+//    bits;
+//  - the pass index rides dx at zero weight (x + 0 * it is not foldable
+//    without fast math), so each pass runs its own pairs; dx takes it in
+//    place, since no pass needs the d.x before it.
+// Each warp walks its spheres in increasing index within a pass, and its
+// passes in order, so its strict < keeps the least (t, index) of its pairs.
+template <int kR, int kBlock>
+__global__ void __launch_bounds__(kBlock, kBlock == kThreads ? kFmaBlocks : kFmaBlocksNarrow)
+    sweep_fma(const float4* __restrict__ spheres, int n_spheres, int window,
+              const float* __restrict__ rays, int n_rays, int iters, int splits,
+              int pass_parts, float* __restrict__ t_out, int* __restrict__ i_out) {
+  constexpr int kBlockWarps = kBlock / 32;
+  constexpr int kU = kR == 1 ? kFmaUnrollNarrow : kFmaUnroll;
+  extern __shared__ float4 fma_staged[];  // [window][2]: (c, kq), (2c, 0)
+  __shared__ float part_t[kR == 1 ? kBlockWarps : 1][32];
+  __shared__ int part_i[kR == 1 ? kBlockWarps : 1][32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int slot = warp / splits;  // the block's ray group this warp sweeps
+  const int part = warp - slot * splits;  // its share of that group's work
+  const int sphere_parts = splits / pass_parts;
+  const int pass_part = part / sphere_parts;
+  const int sphere_part = part - pass_part * sphere_parts;
+  const long long nr = n_rays;
+  const long long n_groups = (nr + 32 * kR - 1) / (32 * kR);
+  const long long grp = static_cast<long long>(blockIdx.x) * (kBlockWarps / splits) + slot;
+  const bool busy = grp < n_groups;  // warp-uniform
+  const long long r0 = grp * (32 * kR) + lane;  // this lane's rays: r0 + 32 k
+  FmaRays<kR> ray;
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const long long r = r0 + 32 * k;
+    const bool live = busy && r < nr;
+    ray.ox[k] = live ? rays[r] : 0.0f;
+    ray.oy[k] = live ? rays[nr + r] : 0.0f;
+    ray.oz[k] = live ? rays[2 * nr + r] : 0.0f;
+    ray.dx[k] = live ? rays[3 * nr + r] : 0.0f;
+    ray.dy[k] = live ? rays[4 * nr + r] : 0.0f;
+    ray.dz[k] = live ? rays[5 * nr + r] : 0.0f;
+    ray.od[k] = dot3(ray.ox[k], ray.dx[k], ray.oy[k], ray.dy[k], ray.oz[k], ray.dz[k]);
+    ray.oo[k] = dot3(ray.ox[k], ray.ox[k], ray.oy[k], ray.oy[k], ray.oz[k], ray.oz[k]);
+    ray.bt[k] = kProbeMaxT;
+    ray.bi[k] = -1;
+  }
+  const int it_lo = static_cast<int>(1LL * pass_part * iters / pass_parts);
+  const int it_hi = static_cast<int>(1LL * (pass_part + 1) * iters / pass_parts);
+  for (int w0 = 0; w0 < n_spheres; w0 += window) {
+    const int nw = min(window, n_spheres - w0);
+    if (w0 > 0) __syncthreads();
+    for (int j = threadIdx.x; j < nw; j += kBlock) {
+      const float4 c = spheres[w0 + j];
+      fma_staged[2 * j] = c;
+      fma_staged[2 * j + 1] = make_float4(c.x + c.x, c.y + c.y, c.z + c.z, 0.0f);
+    }
+    __syncthreads();
+    if (!busy) continue;
+    const int s_lo = sphere_part * nw / sphere_parts;
+    const int s_hi = (sphere_part + 1) * nw / sphere_parts;
+    for (int it = it_lo; it < it_hi; ++it) {
+      // dx + 0 is dx but for -0.0, and every pass adds the same +0.0: each
+      // pass sees d.x + it * 0, as a sum taken afresh each pass would give
+#pragma unroll
+      for (int k = 0; k < kR; ++k) ray.dx[k] += static_cast<float>(it) * 0.0f;
+      int s = s_lo;
+      for (; s + kU <= s_hi; s += kU) fma_run<kR, kU>(fma_staged, s, w0 + s, ray);
+      for (; s < s_hi; ++s) fma_run<kR, 1>(fma_staged, s, w0 + s, ray);
+    }
+  }
+  if constexpr (kR == 1) {  // fma_plan splits a ray group only at one ray a thread
+    if (splits > 1) {
+      if (busy) {
+        part_t[warp][lane] = ray.bt[0];
+        part_i[warp][lane] = ray.bi[0];
+      }
+      __syncthreads();
+      if (busy && part == 0 && r0 < nr) {
+        float t = ray.bt[0];
+        int i = ray.bi[0];
+        for (int p = 1; p < splits; ++p) take_least(t, i, part_t[warp + p][lane],
+                                                    part_i[warp + p][lane]);
+        t_out[r0] = t;
+        i_out[r0] = i;
+      }
+      return;
+    }
+  }
+  if (!busy) return;
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const long long r = r0 + 32 * k;
+    if (r < nr) {
+      t_out[r] = ray.bt[k];
+      i_out[r] = ray.bi[k];
+    }
+  }
 }
 
 // sweep_mma<kPrec, kRayTiles, kCensus>: the closest hit of each ray over
@@ -745,6 +898,61 @@ int launch_sweep_mma(const float* amats, int n_chunks, int cs, const float* rays
                 t_out, i_out, census, s);
 }
 
+// sweep_fma's launch (mirrored by ops/cuda/sweep.py fma_plan): kFmaRays
+// rays a thread where those warps fill the warps the card holds at once,
+// else one; then, at one ray a thread, the warps that share a ray group
+// (splits, a power of two up to kFmaMaxSplits and the (pass, sphere) pairs
+// of a window) doubled while the warps the groups then take still fit the
+// card, pass_parts of them over runs of passes (a power of two up to
+// iters) and splits / pass_parts over runs of each window's spheres; a
+// block of kWarps / splits ray groups.
+struct FmaPlan {
+  bool wide;  // kFmaRays rays a thread in blocks of kThreads, else one in kFmaNarrowThreads
+  int rays, threads, splits, pass_parts, window;
+  long long blocks;
+};
+
+FmaPlan fma_plan(int n_rays, int n_spheres, int iters, int sms) {
+  FmaPlan p;
+  p.window = min(n_spheres, kFmaWindow);
+  const long long wide_groups = (n_rays + 32LL * kFmaRays - 1) / (32LL * kFmaRays);
+  const bool wide = wide_groups >= 1LL * sms * kFmaBlocks * kWarps;
+  p.wide = wide;
+  p.rays = wide ? kFmaRays : 1;
+  p.threads = wide ? kThreads : kFmaNarrowThreads;
+  const int block_warps = p.threads / 32;
+  const long long n_groups = (n_rays + 32LL * p.rays - 1) / (32LL * p.rays);
+  const long long resident = 1LL * sms * (wide ? kFmaBlocks : kFmaBlocksNarrow) * block_warps;
+  p.splits = 1;
+  while (!wide && 2 * p.splits <= min(kFmaMaxSplits, block_warps) &&
+         2LL * p.splits <= 1LL * iters * p.window && n_groups * 2 * p.splits <= resident) {
+    p.splits *= 2;
+  }
+  p.pass_parts = 1;
+  while (2 * p.pass_parts <= p.splits && 2 * p.pass_parts <= iters) p.pass_parts *= 2;
+  const int groups = block_warps / p.splits;
+  p.blocks = (n_groups + groups - 1) / groups;
+  return p;
+}
+
+int launch_sweep_fma(const float4* spheres, int n_spheres, const float* rays, int n_rays,
+                     int iters, float* t_out, int* i_out, cudaStream_t s) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const FmaPlan p = fma_plan(n_rays, n_spheres, iters, sms);
+  const int smem = p.window * 2 * static_cast<int>(sizeof(float4));
+  const unsigned blocks = static_cast<unsigned>(p.blocks);
+  if (p.wide) {
+    sweep_fma<kFmaRays, kThreads><<<blocks, kThreads, smem, s>>>(
+        spheres, n_spheres, p.window, rays, n_rays, iters, p.splits, p.pass_parts, t_out, i_out);
+  } else {
+    sweep_fma<1, kFmaNarrowThreads><<<blocks, kFmaNarrowThreads, smem, s>>>(
+        spheres, n_spheres, p.window, rays, n_rays, iters, p.splits, p.pass_parts, t_out, i_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The rows of A a dot_mma block takes: 64, halved (down to min_rows) while
 // the grid would hold fewer blocks than the card's sms.
 int dot_rows(int m, long long col_blocks, int min_rows, int sms) {
@@ -790,20 +998,33 @@ extern "C" {
 // dz, ox, oy, oz, 1, 0). Outputs: t [n_rays] (3.0e38 for a miss) and the
 // closest sphere's index [n_rays] (-1 for a miss).
 
-// The closest hit over spheres [n_spheres] (cx, cy, cz, kq) in chunks of
-// `chunk` (1 to 2048) staged in shared memory, `iters` passes.
+// The closest hit over spheres [n_spheres] (cx, cy, cz, kq), `iters`
+// passes. `chunk` (1 to 2048) names the TPU kernel's chunk; the kernel
+// stages its own window, and no result depends on it.
 int wrt_sweep_fma(const float* spheres, int n_spheres, int chunk, const float* rays,
                   int n_rays, int iters, float* t_out, int* i_out, void* stream) {
   if (n_spheres <= 0 || chunk <= 0 || chunk > 2048 || n_rays <= 0 || iters <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>((n_rays + kThreads - 1) / kThreads);
-  const int smem = chunk * static_cast<int>(sizeof(float4));
-  const float4* sp = reinterpret_cast<const float4*>(spheres);
-  sweep_fma<<<blocks, kThreads, smem, s>>>(sp, n_spheres, chunk, rays, n_rays, iters, t_out,
-                                           i_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sweep_fma(reinterpret_cast<const float4*>(spheres), n_spheres, rays, n_rays,
+                          iters, t_out, i_out, static_cast<cudaStream_t>(stream));
+}
+
+// sweep_fma's launch for (n_rays, n_spheres, iters) on a card of `sms`
+// SMs: plan[0..5] = rays a thread, threads a block, splits, pass_parts,
+// window, blocks.
+int wrt_sweep_fma_plan(int n_rays, int n_spheres, int iters, int sms, long long* plan) {
+  if (n_rays <= 0 || n_spheres <= 0 || iters <= 0 || sms <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FmaPlan p = fma_plan(n_rays, n_spheres, iters, sms);
+  plan[0] = p.rays;
+  plan[1] = p.threads;
+  plan[2] = p.splits;
+  plan[3] = p.pass_parts;
+  plan[4] = p.window;
+  plan[5] = p.blocks;
+  return 0;
 }
 
 // wrt_sweep_mma (below), and with census non-null (three zeroed counters)
@@ -889,13 +1110,15 @@ int wrt_layout_chain(const float* in, float* out, long long n, int steps, int ch
 }
 
 // Registers per thread and local (spill) bytes of one kernel, as the CUDA
-// runtime reports them; returns a cudaError_t. `which`: 0 sweep_fma, 1/2
-// sweep_mma TF32/3xTF32 (four 8-ray tiles a warp), 3/4/5 dot_mma
-// FP32/TF32/3xTF32, 6/7 layout remap/chain, 8/9 sweep_mma TF32/3xTF32 with
-// one 8-ray tile a warp, 10/11 their census instantiations.
+// runtime reports them; returns a cudaError_t. `which`: 0 sweep_fma
+// (kFmaRays rays a thread), 1/2 sweep_mma TF32/3xTF32 (kWideTiles 8-ray
+// tiles a warp), 3/4/5 dot_mma FP32/TF32/3xTF32, 6/7 layout remap/chain,
+// 8/9 sweep_mma TF32/3xTF32 with one 8-ray tile a warp, 10/11 their
+// census instantiations, 12 sweep_fma with one ray a thread (blocks of
+// kFmaNarrowThreads).
 int wrt_sweep_attributes(int which, int* num_regs, int* local_bytes) {
   const void* fns[] = {
-      reinterpret_cast<const void*>(sweep_fma),
+      reinterpret_cast<const void*>(sweep_fma<kFmaRays, kThreads>),
       reinterpret_cast<const void*>(sweep_mma<kTf32, kWideTiles, false>),
       reinterpret_cast<const void*>(sweep_mma<kTf32x3, kWideTiles, false>),
       reinterpret_cast<const void*>(dot_fp32),
@@ -907,6 +1130,7 @@ int wrt_sweep_attributes(int which, int* num_regs, int* local_bytes) {
       reinterpret_cast<const void*>(sweep_mma<kTf32x3, 1, false>),
       reinterpret_cast<const void*>(sweep_mma<kTf32, kWideTiles, true>),
       reinterpret_cast<const void*>(sweep_mma<kTf32x3, kWideTiles, true>),
+      reinterpret_cast<const void*>(sweep_fma<1, kFmaNarrowThreads>),
   };
   if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0]))) {
     return static_cast<int>(cudaErrorInvalidValue);

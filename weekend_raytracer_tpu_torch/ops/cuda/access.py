@@ -420,12 +420,22 @@ def _rows_of_128(x: torch.Tensor, what: str) -> None:
 
 
 def row_sort(x: torch.Tensor) -> torch.Tensor:
-    """Each row of ``x`` [rows, 128] float32 through probe_place.py p3's
-    bitonic network (ascending)."""
+    """Each row of ``x`` [rows, 128] float32 (16-byte aligned) through
+    probe_place.py p3's bitonic network (ascending).
+
+    A CUDA ``x`` must start on a 16-byte boundary, since the kernel moves a
+    thread's 16 keys as four 16-byte words. This narrows the contract: the
+    earlier kernel, one key a lane, took any float32 address. A view that
+    starts inside a word raises ValueError; ``.clone()`` it first. The
+    kernel keeps no scalar path for such views: every caller in the port
+    passes a tensor of its own allocation, and a second load path would
+    double the kernel's variants for none of them."""
     _rows_of_128(x, "row_sort")
     if _same_device(x) == "cpu":
         return row_sort_plain(x)
     out = torch.empty_like(x)
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("row_sort moves 16 bytes at a time: x must be 16-byte aligned")
     err = _library().lib.wrt_row_sort(x.data_ptr(), x.shape[0], out.data_ptr(),
                                       _stream_handle(x.device))
     _raise_on(err, "row_sort")

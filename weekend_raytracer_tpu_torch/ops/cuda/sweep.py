@@ -4,8 +4,8 @@ Counterparts of the nine pallas_calls of benchmarks/probe_mxu_sweep.py
 (csrc/sweep.cu says what bounds each on the card):
 
   sweep_fma    the closest hit of each ray over a sphere table [n, 4]
-               (cx, cy, cz, kq), through bounce.cuh's sweep_sphere (p5's
-               and p8's VPU forms).
+               (cx, cy, cz, kq), in bounce.cuh's sweep_sphere rounding
+               (p5's and p8's VPU forms); its launch plan is ``fma_plan``.
   sweep_mma    the same, with c.d and -2 c.o + kq from TF32 mma.sync at
                "tf32" (one product; the probe's default precision, bf16
                passes on the TPU) or "3xtf32" (three; its "highest"), from
@@ -53,16 +53,29 @@ MAX_T = 3.0e38  # probe_mxu_sweep.py:44, the miss value
 PRECISIONS = ("fp32", "tf32", "3xtf32")  # sweep.cu's Prec: 0, 1, 2
 MMA_TILE = 16  # spheres of an A tile: a chunk of sweep_mma is a multiple
 MMA_GROUP_RAYS = 16  # a warp's rays in a census launch (sweep.cu kWideTiles 8-ray tiles)
-MAX_FMA_CHUNK = 2048  # spheres sweep_fma stages at once (32 KiB)
+MAX_FMA_CHUNK = 2048  # the largest chunk sweep_fma takes (it names the TPU kernel's chunk)
+# sweep.cu's sweep_fma constants, which fma_plan mirrors: rays a thread
+# where the rays fill the card, threads a block there and its blocks an SM
+# (its register budget), threads a block at one ray a thread and its
+# blocks an SM, spheres a block stages at once, the most warps that share a
+# ray group
+FMA_RAYS = 4
+FMA_THREADS = 256
+FMA_BLOCKS = 3
+FMA_NARROW_THREADS = 1024
+FMA_BLOCKS_NARROW = 1
+FMA_WINDOW = 1024
+FMA_MAX_SPLITS = 32
 CHAIN_C = 1.0e-7  # p4's addend
 
 # sweep.cu wrt_sweep_attributes index -> kernel ("narrow": one 8-ray tile
-# a warp, sweep_mma's launch at the probe's 4,096 rays; "census": the
-# counting instantiation of sweep_mma_census)
+# a warp, sweep_mma's launch at the probe's 4,096 rays, or one ray a
+# thread, sweep_fma's there; "census": the counting instantiation of
+# sweep_mma_census)
 KERNEL_NAMES = ("sweep_fma", "sweep_mma_tf32", "sweep_mma_3xtf32", "dot_mma_fp32",
                 "dot_mma_tf32", "dot_mma_3xtf32", "layout_remap", "layout_chain",
                 "sweep_mma_tf32_narrow", "sweep_mma_3xtf32_narrow", "sweep_mma_tf32_census",
-                "sweep_mma_3xtf32_census")
+                "sweep_mma_3xtf32_census", "sweep_fma_narrow")
 
 
 _BUILT = None  # the loaded library, its functions bound, after the first call
@@ -70,6 +83,7 @@ _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longl
 # the library's C functions and their arguments (each returns an int)
 SIGNATURES = {
     "wrt_sweep_fma": [_vp, _i, _i, _vp, _i, _i, _vp, _vp, _vp],
+    "wrt_sweep_fma_plan": [_i, _i, _i, _i, ctypes.POINTER(_ll)],
     "wrt_sweep_mma": [_vp, _i, _i, _vp, _i, _i, _i, _i, _vp, _vp, _vp],
     "wrt_sweep_mma_census": [_vp, _i, _i, _vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp],
     "wrt_sweep_mma_launch_bounds": [_i, ctypes.POINTER(_i), ctypes.POINTER(_i)],
@@ -126,6 +140,44 @@ def launch_bounds() -> dict:
             raise RuntimeError(f"wrt_sweep_mma_launch_bounds refused {prec!r}")
         out[prec] = (threads.value, blocks.value)
     return out
+
+
+def fma_plan(n_rays: int, n_spheres: int, iters: int, sms: int) -> dict:
+    """sweep_fma's launch on a card of ``sms`` SMs, as sweep.cu fma_plan
+    derives it: ``rays`` a thread and ``threads`` a block (FMA_RAYS in
+    blocks of FMA_THREADS where those warps fill the warps the card holds at
+    once, else 1 in blocks of FMA_NARROW_THREADS); at one ray a thread
+    ``splits``, the warps that share a ray group (a power of two up to
+    FMA_MAX_SPLITS, a block's warps and the (pass, sphere) pairs of a
+    window, doubled while the groups' warps fit the card), ``pass_parts`` of
+    them over runs of passes and the rest over runs of each window's spheres;
+    ``window``, the spheres a block stages at once; ``blocks``, each of
+    threads / 32 / splits ray groups."""
+    window = min(n_spheres, FMA_WINDOW)
+    wide = -(-n_rays // (32 * FMA_RAYS)) >= sms * FMA_BLOCKS * (FMA_THREADS // 32)
+    rays = FMA_RAYS if wide else 1
+    threads = FMA_THREADS if wide else FMA_NARROW_THREADS
+    warps = threads // 32
+    n_groups = -(-n_rays // (32 * rays))
+    resident = sms * (FMA_BLOCKS if wide else FMA_BLOCKS_NARROW) * warps
+    splits = 1
+    while (not wide and 2 * splits <= min(FMA_MAX_SPLITS, warps) and 2 * splits <= iters * window
+           and n_groups * 2 * splits <= resident):
+        splits *= 2
+    pass_parts = 1
+    while 2 * pass_parts <= splits and 2 * pass_parts <= iters:
+        pass_parts *= 2
+    return {"rays": rays, "threads": threads, "splits": splits, "pass_parts": pass_parts,
+            "window": window, "blocks": -(-n_groups // (warps // splits))}
+
+
+def fma_plan_built(n_rays: int, n_spheres: int, iters: int, sms: int) -> dict:
+    """``fma_plan`` as the built library derives it (wrt_sweep_fma_plan)."""
+    plan = (ctypes.c_longlong * 6)()
+    err = _library().lib.wrt_sweep_fma_plan(n_rays, n_spheres, iters, sms, plan)
+    if err:
+        raise RuntimeError(f"wrt_sweep_fma_plan refused {(n_rays, n_spheres, iters, sms)}")
+    return dict(zip(("rays", "threads", "splits", "pass_parts", "window", "blocks"), plan))
 
 
 def _stream_handle(device: torch.device) -> int:
@@ -365,8 +417,9 @@ def chain_plain(x: torch.Tensor, steps: int = 256, c: float = CHAIN_C) -> torch.
 
 def sweep_fma(table: torch.Tensor, rays: torch.Tensor, chunk: int = None, iters: int = 1):
     """The closest hit of each ray of ``rays`` [6, R] over ``table`` [n, 4]
-    (cx, cy, cz, kq), staged ``chunk`` spheres at a time (all at once when
-    None; at most MAX_FMA_CHUNK), ``iters`` passes: (t [R], index [R])."""
+    (cx, cy, cz, kq), ``iters`` passes: (t [R], index [R]). ``chunk`` (n
+    when None; at most MAX_FMA_CHUNK) names the TPU kernel's chunk; the
+    kernel stages its own window (``fma_plan``), and no bit depends on it."""
     _check(table, "sphere table", 2)
     _rays(rays, packed_ok=False)
     n = table.shape[0]
@@ -537,4 +590,4 @@ zero_launch_counts()
 __all__ = ["sweep_fma", "sweep_mma", "sweep_mma_census", "dot_mma", "layout_remap",
            "layout_chain", "sweep_plain", "survivor_plain", "dot_plain", "remap_plain",
            "chain_plain", "tf32_round", "sphere_amats", "packed_b", "launch_counts",
-           "zero_launch_counts"]
+           "zero_launch_counts", "fma_plan"]

@@ -52,17 +52,20 @@ import numpy as np
 import torch
 
 from ..ops.cuda import sweep as sw
-from . import (FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS, TF32_PEAK, card, check, device_times,
+from . import (FP32_PEAK, HBM_RATE, TF32_PEAK, card, check, device_times,
                host_ms, same_bits, sync, time_call, time_mean)
 
 _F32 = torch.float32
-# what sweep_mma leaves on the FP32 units: per pair b, cq and b^2 - cq, and
-# per pair with a real root (the pairs its pre-test keeps) the root, t0 and
-# t1; and the products' flops the sweep needs per pair: c.d (depth 3) and
-# -2 c.o + kq (depth 4), multiply and add, once for TF32 and three times
-# for 3xTF32
+# FP32 operations of sweep_fma's pair, an FMA as two: cd 5, 2c.o 5 (2c is
+# staged, so the sphere test's three c + c are not the pair's), bq 1, cq 2,
+# bq^2 - cq 2; what sweep_mma leaves on the FP32 units: per pair b, cq and
+# b^2 - cq; per pair with a real root (the pairs either sweep takes a root
+# of) the root, t0 and t1; and the products' flops the sweep needs per
+# pair: c.d (depth 3) and -2 c.o + kq (depth 4), multiply and add, once for
+# TF32 and three times for 3xTF32
+FMA_PAIR_OPS = 15
 MMA_EPILOGUE_OPS = 4
-MMA_ROOT_OPS = 3
+ROOT_OPS = 3
 MMA_FLOPS_PER_PAIR = 2 * (3 + 4)
 PROBE = dict(spheres=32, rays=4096, iters=64, reps=30)  # p5, p7 (:258, :357)
 P8 = dict(rays=4096, iters=16, reps=20, n_chunks=10, cs=32)  # :535
@@ -181,9 +184,13 @@ def _sweep_bytes(n_spheres: int, n_rays: int, packed: bool = False) -> int:
     return n_rays * 4 * (8 if packed else 6) + n_spheres * 16 + n_rays * 8
 
 
-def fma_bound(n_spheres: int, n_rays: int, iters: int) -> dict:
+def fma_bound(n_spheres: int, n_rays: int, iters: int, kept: int = 0) -> dict:
+    """sweep_fma's FP32 operations over the FP32 rate, or the bytes: those
+    of every pair (FMA_PAIR_OPS) and the root's of the ``kept`` pairs a
+    pass that have a real root (``real_root_pairs``)."""
     pairs = n_spheres * n_rays * iters
-    return _bound(pairs * SPHERE_TEST_OPS / FP32_PEAK * 1e3, _sweep_bytes(n_spheres, n_rays))
+    ops_ms = (pairs * FMA_PAIR_OPS + kept * iters * ROOT_OPS) / FP32_PEAK * 1e3
+    return _bound(ops_ms, _sweep_bytes(n_spheres, n_rays))
 
 
 def mma_bound(n_spheres: int, n_rays: int, iters: int, prec: str, packed: bool,
@@ -194,7 +201,7 @@ def mma_bound(n_spheres: int, n_rays: int, iters: int, prec: str, packed: bool,
     real root: ``real_root_pairs``), or the bytes."""
     pairs = n_spheres * n_rays * iters
     mma_ms = pairs * MMA_FLOPS_PER_PAIR * (3 if prec == "3xtf32" else 1) / TF32_PEAK * 1e3
-    epilogue_ms = (pairs * MMA_EPILOGUE_OPS + kept * iters * MMA_ROOT_OPS) / FP32_PEAK * 1e3
+    epilogue_ms = (pairs * MMA_EPILOGUE_OPS + kept * iters * ROOT_OPS) / FP32_PEAK * 1e3
     return {**_bound(max(mma_ms, epilogue_ms), _sweep_bytes(n_spheres, n_rays, packed)),
             "mma_ms": mma_ms, "epilogue_ms": epilogue_ms}
 
@@ -202,7 +209,8 @@ def mma_bound(n_spheres: int, n_rays: int, iters: int, prec: str, packed: bool,
 def real_root_pairs(table: torch.Tensor, rays: torch.Tensor, chunk: int = 16) -> int:
     """The (sphere, ray) pairs of one pass with a real root, b^2 - cq > 0
     in float32 from the sweep table [n, 4] and the planes [6, R]: the pairs
-    whose root sweep_mma's pre-test lets through (sweep.cu may_take)."""
+    whose root sweep_mma's pre-test lets through (sweep.cu may_take) and
+    sweep_fma takes (disc > 0)."""
     o, d = rays[0:3], rays[3:6]
     od = (o * d).sum(0)
     oo = (o * o).sum(0)
@@ -538,18 +546,19 @@ def _fill_sweeps(prec: str, packed: bool, device, rays: int, reps: int, fma: boo
     table, planes = fill_inputs(device, rays)
     n, cs, iters = table.shape[0], FILL["cs"], FILL["iters"]
     pairs = n * rays * iters
+    kept = real_root_pairs(table, planes)
     out = {"rays": rays}
     if fma:
         out["fma"] = _sweep_case(lambda: sw.sweep_fma(table, planes, cs, iters),
                                  lambda: sw.sweep_plain(table, planes, "fma"),
-                                 fma_bound(n, rays, iters), pairs, table, planes, reps, device,
+                                 fma_bound(n, rays, iters, kept), pairs, table, planes, reps,
+                                 device,
                                  "sweep_fma at the card-filling shape", FILL_WRONG_SHARE)
     amats = sw.sphere_amats(table, cs)
     rays_in = sw.packed_b(planes) if packed else planes
     out["mma"] = _sweep_case(lambda: sw.sweep_mma(amats, rays_in, prec, iters),
                              lambda: sw.sweep_plain(amats, rays_in, prec),
-                             mma_bound(n, rays, iters, prec, packed,
-                                       real_root_pairs(table, planes)), pairs, table, planes,
+                             mma_bound(n, rays, iters, prec, packed, kept), pairs, table, planes,
                              reps, device, f"sweep_mma {prec} at the card-filling shape",
                              FILL_WRONG_SHARE)
     if fma:
@@ -586,12 +595,13 @@ def p5(precision="highest", device="cuda", fill_rays: int = FILL["rays"],
     amats = _dev(probe_amat(c, kq).T[None], device)
     bmat = _dev(probe_bmat(o, d), device)
     pairs = s * n * iters
+    kept = real_root_pairs(table, planes)
     v = _sweep_case(lambda: sw.sweep_fma(table, planes, s, iters),
-                    lambda: sw.sweep_plain(table, planes, "fma"), fma_bound(s, n, iters), pairs,
-                    table, planes, reps, device, "p5 sweep_fma")
+                    lambda: sw.sweep_plain(table, planes, "fma"), fma_bound(s, n, iters, kept),
+                    pairs, table, planes, reps, device, "p5 sweep_fma")
     m = _sweep_case(lambda: sw.sweep_mma(amats, bmat, prec, iters),
                     lambda: sw.sweep_plain(amats, bmat, prec),
-                    mma_bound(s, n, iters, prec, True, real_root_pairs(table, planes)), pairs,
+                    mma_bound(s, n, iters, prec, True, kept), pairs,
                     table, planes, reps, device,
                     f"p5 sweep_mma {prec}")
     forms = _form_agree(v["result"], m["result"], 1e-5)
@@ -655,12 +665,13 @@ def p8(precision="highest", n_chunks: int = P8["n_chunks"], cs: int = P8["cs"], 
     c, kq, o, d, table, planes = _probe_sweep_inputs(s, n, device)
     amats = _dev(probe_amats(c, kq, n_chunks, cs), device)
     pairs = s * n * iters
+    kept = real_root_pairs(table, planes)
     v = _sweep_case(lambda: sw.sweep_fma(table, planes, cs, iters),
-                    lambda: sw.sweep_plain(table, planes, "fma"), fma_bound(s, n, iters), pairs,
-                    table, planes, reps, device, "p8 sweep_fma")
+                    lambda: sw.sweep_plain(table, planes, "fma"), fma_bound(s, n, iters, kept),
+                    pairs, table, planes, reps, device, "p8 sweep_fma")
     m = _sweep_case(lambda: sw.sweep_mma(amats, planes, prec, iters),
                     lambda: sw.sweep_plain(amats, planes, prec),
-                    mma_bound(s, n, iters, prec, False, real_root_pairs(table, planes)), pairs,
+                    mma_bound(s, n, iters, prec, False, kept), pairs,
                     table, planes, reps, device,
                     f"p8 sweep_mma {prec}")
     forms = _form_agree(v["result"], m["result"], 1e-4)
@@ -747,7 +758,7 @@ def fill(device="cuda", rays: int = FILL["rays"], reps: int = FILL["reps"]) -> d
         got = fn()
         sync(device)
         held = hold_sweep(got, plain[prec], table, planes, f"fill {name}", FILL_WRONG_SHARE)
-        bound = (fma_bound(n, rays, iters) if prec == "fma"
+        bound = (fma_bound(n, rays, iters, kept) if prec == "fma"
                  else mma_bound(n, rays, iters, prec, False, kept))
         out[name] = {"plain_ms": plain_ms[prec], **bound, **held}
     for name, ms in _turns(kernels, reps, device).items():

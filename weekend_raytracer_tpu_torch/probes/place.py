@@ -10,7 +10,8 @@ Each probe is built from the TPU probe's own inputs and runs through
     p2   four int32 written to a 128-word scratch at [7, 93, 12, 64],      smem_rw
          read back at the indices rotated by one: [101, 102, 103, 100]
     p3   the per-row bitonic sort of an (8, 128) table of seeded          row_sort
-         integers, against np.sort
+         integers, against np.sort; then edge keys (NaN payloads,
+         both zeros, infinities, denormals, runs) against the twin
     p4   each row of (8, 128) rotated by its own shift (row r by r)       lane_gather
 
 Every route of each kernel ("shfl", "smem", "local" for lane_gather;
@@ -48,6 +49,7 @@ _I32 = torch.int32
 REPS = 20  # calls a timing averages
 DEVICE_REPS = 10  # calls of each probe-shape kernel under the profiler
 FILL_ROWS = 131072  # 2^24 values as (FILL_ROWS, 128)
+EDGE_ROWS = 4096  # p3's edge keys (edge_keys)
 # compare-exchanges of the bitonic network over 128 keys: 7 * 8 / 2 stages,
 # each a min or a max for every key
 SORT_OPS_PER_KEY = 28
@@ -356,16 +358,53 @@ def fill_keys(rows: int, seed: int = 0) -> np.ndarray:
     return x
 
 
+def edge_keys(rows: int = EDGE_ROWS, seed: int = 0) -> np.ndarray:
+    """Seeded keys [rows, 128] that test the compare form: NaNs of several
+    payloads and both signs, both zeros, both infinities, denormals of both
+    signs, long runs of one repeated value, and normal keys; a quarter of
+    the rows are one repeated key with its zeros flipped in sign, so a
+    stage that swapped equal keys would move a bit."""
+    rng = np.random.default_rng(seed)
+    special = np.array([0x7FC00000, 0x7FC00001, 0x7FA00000, 0x7F800001, 0xFFC00000,
+                        0xFFFFFFFF, 0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                        0x00000001, 0x807FFFFF, 0x00400000, 0x80000010], np.uint32)
+    bits = rng.standard_normal((rows, ac.WIDTH)).astype(np.float32).view(np.uint32)
+    pick = rng.random((rows, ac.WIDTH)) < 0.4
+    bits[pick] = rng.choice(special, size=int(pick.sum()))
+    for r in range(0, rows, 3):  # a run of one value, 8 to 64 keys long
+        n = int(rng.integers(8, 65))
+        at = int(rng.integers(0, ac.WIDTH - n + 1))
+        bits[r, at:at + n] = bits[r, at]
+    flat = bits[::4]
+    flat[:] = np.float32(1.5).view(np.uint32)
+    flat[:, ::5] = 0x00000000
+    flat[:, 2::5] = 0x80000000
+    return bits.view(np.float32)
+
+
+def same_keys_per_row(x: np.ndarray):
+    """The check that each row of the output is a permutation of its input's
+    32-bit patterns."""
+    want = np.sort(x.view(np.uint32), axis=1)
+    return lambda got: bool((np.sort(got.numpy().view(np.uint32), axis=1) == want).all())
+
+
 def p3(device="cuda", fill_rows: int = FILL_ROWS, reps: int = REPS) -> dict:
     """The bitonic network of :85-115 on rng(0)'s (8, 128) integers: every
     row sorted, np.sort's bits. Fill: seeded finite keys with both zeros,
-    sorted in value as np.sort sorts them."""
+    sorted in value as np.sort sorts them. Edge keys (``edge_keys``): held
+    to the twin in every bit once, each row a permutation of its input."""
     x = np.random.default_rng(0).integers(0, 128, size=(8, 128)).astype(np.float32)
     probe = sort_case(dev(x, device), equal_to(np.sort(x, axis=1)), device, reps, DEVICE_REPS,
                       "p3")
     keys = fill_keys(fill_rows)
     fill = sort_case(dev(keys, device), sorted_in_value(keys), device, reps, 0, "p3 fill")
-    return {"probe_shape": probe, "fill": fill, "message": "rows sorted"}
+    edge = edge_keys()
+    xe = dev(edge, device)
+    hold(lambda: ac.row_sort(xe), lambda: ac.row_sort_plain(xe), same_keys_per_row(edge),
+         "p3 edge keys", device)
+    return {"probe_shape": probe, "fill": fill, "edge_rows": edge.shape[0],
+            "message": "rows sorted; edge keys as the twin, each row a permutation"}
 
 
 def rotations(x: np.ndarray, shift: np.ndarray) -> np.ndarray:
@@ -406,7 +445,7 @@ def launches(name: str, reps: int = REPS, device_reps: int = DEVICE_REPS) -> dic
     elif name == "p2":  # the probe's shape, two fill patterns, each with the profiler
         out["smem_rw"] = 3 * case_launches(len(ac.RW_ROUTES), reps, device_reps, host=True)
     elif name == "p3":
-        out["row_sort"] = case_launches(1, reps, device_reps) + case_launches(1, reps)
+        out["row_sort"] = case_launches(1, reps, device_reps) + case_launches(1, reps) + 1
     return out
 
 
