@@ -25,7 +25,8 @@ every bit.
 
 The ``[megakernel]`` phase holds the megakernel, which culls its sweep per
 warp and refills each lane's samples, in every bit against the stats
-megakernel (the full sweep, one sample after another) on RTiOW 1920x1080 x
+megakernel (the full sweep from a staged table, its samples refilled per
+lane too) on RTiOW 1920x1080 x
 32 spp, random_spheres(10000) at 3840x2160 x 4 spp, random_spheres(60000)
 at 1920x1080 x 1 spp (boxes in global memory), the first-hit scene and the
 textured scene; holds a 1080p band of the textured scene against its twin
@@ -42,7 +43,7 @@ against itself under four cut schedules; COMPACT against its twin bit for
 bit and K1 against its twin on the whole dense pool at the first cut.
 
 The ``[stats]`` phase holds the two stats kernels (the megakernel's and
-K1's kStats instantiations) against their twins at small sizes (a
+K1's) against their twins at small sizes (a
 super-chunk scene among them), then runs the counters' own path at full
 size, as benchmarks/kernel_stats.py and benchmarks/profile_regroup.py's
 ``stats`` run the TPU kernels: the megakernel with ``stats=True`` on RTiOW
@@ -50,8 +51,8 @@ size, as benchmarks/kernel_stats.py and benchmarks/profile_regroup.py's
 K0 -> PACK -> K1(stats) at the first cut of RTiOW 1920x1080 x 32 spp. Each
 full-size table is held against the twin on a part of it (the last row of
 TPU tiles, the last dense tiles); the phase prints the summaries and times
-each stats kernel against its kStats = false twin. ``[cull]`` holds
-regroup and the wavefront, whose K0 and K1 cull their sweep per warp,
+each stats kernel against the culled kernel it is the reference of.
+``[cull]`` holds regroup and the wavefront, whose K0 and K1 cull their sweep per warp,
 against the full-sweep wavefront (K0's and K1's kCull = false
 instantiations) in every bit, the wavefront at four cut schedules (RTiOW
 1920x1080 x 32 spp over two frames, random_spheres(10000) at 3840x2160 x 4
@@ -169,8 +170,8 @@ import time
 
 import torch
 
-from weekend_raytracer_tpu_torch.probes import (FP32_PEAK, HBM_RATE, SPHERE_TEST_OPS,
-                                                TRACE_PAD_S)
+from weekend_raytracer_tpu_torch.probes import (FP32_PEAK, HBM_RATE, SLAB_TEST_OPS,
+                                                SPHERE_TEST_OPS, TRACE_PAD_S, stats_bound)
 
 # name, w, h, frames, spp, bounces of the kernel-against-plain cases
 _PLAIN_CASES = (("first_hit", 64, 48, 1, 1, 1),
@@ -210,6 +211,14 @@ ACCESS_KERNELS = ("table_gather", "lane_gather", "smem_rw", "row_sort", "lane_sc
 FMA_PLAN_SHAPES = {"p5": (4096, 32, 64), "p8": (4096, 320, 16), "window": (4096, 1024, 1),
                    "fill": (2_097_152, 496, 1), "few_rays": (100, 5, 3),
                    "windows": (50_000, 3000, 2)}
+# (n_spheres, n_chunks, n_tests, n_super, chunk_size) at which [build] holds
+# the stats kernels' windows (csrc/bounce.cuh stats_plan) to their mirror:
+# RTiOW, random10k, random60k (boxes in global memory), the super-chunk
+# case, tables without chunks, and chunks too large for one window's share
+STATS_PLAN_SHAPES = {"rtiow": (496, 31, 31, 0, 16), "random10k": (10016, 313, 320, 20, 32),
+                     "random60k": (60000, 1875, 1888, 118, 32), "super": (1200, 75, 80, 5, 16),
+                     "no_chunks": (10016, 0, 0, 0, 16), "one_sphere": (1, 0, 0, 0, 16),
+                     "opt_in": (8192, 4, 4, 0, 2048)}
 # the wavefront's cut schedules held equal in every bit: none (the
 # Renderer's), the main path's first cut, its cuts, and a cut at every bounce
 _WF_SCHEDULES = ((), (2,), _CUTS, (1, 2, 3, 4, 5, 6, 7))
@@ -225,7 +234,6 @@ K1_SPAN_TILES = 32  # dense tiles of the 1080p pool held against k1_plain
 _STATS_MK = (("rtiow", 1920, 1080), ("random10k", 3840, 2160))
 _STATS_MK_RUN = dict(spp=4, bounces=8, frame=1)
 _STATS_K1 = dict(width=1920, height=1080, spp=32, bounces=8, frame=0)
-SLAB_TEST_OPS = 12  # per chunk or super-chunk box: 6 subtractions, 6 products
 # the [cull] phase: scene, width, height, spp, frames of regroup and the
 # wavefront (K0 and K1 culled per warp) against the full-sweep wavefront;
 # and the rows of the frame whose rays rg.cull_census counts (None: all,
@@ -598,8 +606,8 @@ def _stats_vs_plain(mk, rg) -> dict:
     megakernel on each _STATS_PLAIN_CASES case, K1 on RTiOW 96x64 x 4 spp.
     Equal per tile over one bounce, each column's sum within _sum_gate
     over more (8 for the megakernel, [2, 4) for K1), the invariants in
-    every tile, and the kStats image equal in every bit to the kStats =
-    false one; in the super-chunk case some tile enters fewer super-chunks
+    every tile, and the stats kernel's image equal in every bit to the
+    culled one; in the super-chunk case some tile enters fewer super-chunks
     than there are. Returns the counters' largest error at one bounce and
     the sums'."""
     dev = torch.device("cuda")
@@ -652,7 +660,7 @@ def _sum_gate(name: str) -> float:
 
 
 def _megakernel_band_vs_plain(mk, name, inp, w, h, run, table) -> dict:
-    """The kStats megakernel at full size against its twin on the image's
+    """The stats megakernel at full size against its twin on the image's
     last row of TPU tiles (a band of rows at full width through row_offset
     and full_height; its padding rows repeat the image's last row, as the
     full image's do): the kernel's rows of that band equal the twin's per
@@ -681,7 +689,7 @@ def _megakernel_band_vs_plain(mk, name, inp, w, h, run, table) -> dict:
 
 
 def _k1_span_vs_plain(rg, inp, dense, counts, n, t, frame, b_lo, b_hi, table) -> dict:
-    """K1's kStats kernel on the whole dense pool against k1_plain on its
+    """K1's stats kernel on the whole dense pool against k1_plain on its
     last K1_SPAN_TILES dense tiles (the last part full), moved to the front
     of a pool of their own: the kernel's rows equal the twin's per tile over
     [b_lo, b_lo + 1) (a launch of its own) and each column's sum within
@@ -733,7 +741,7 @@ def _stats_path(mk, rg, wf, ro, sw) -> dict:
     render_image_megakernel(stats=True) for each _STATS_MK case, and K0 ->
     PACK -> K1(stats) at the first cut of RTiOW 1080p x 32 spp. Each counter
     table is checked, summarised, and held against a second run in which the
-    kStats kernel is timed against its kStats = false twin (CUDA events, in
+    stats kernel is timed against the culled kernel (CUDA events, in
     turns); the 1080p stats image must equal the stats=False one in every
     bit. Returns the launches of the path, the summaries and the times."""
     dev = torch.device("cuda")
@@ -1169,7 +1177,7 @@ def _census_totals(census) -> dict:
 def _megakernel_census(inp, w, h, spp, bounces, frame=0) -> dict:
     """The megakernel's frame counted by cull.megakernel_census on the
     twin's rays, its warps' lanes in step (one sample and bounce at a
-    time, as the stats megakernel's loop runs them) and refilled
+    time) and refilled
     per lane (the kernel's); each lane's own counts are the same in both."""
     from weekend_raytracer_tpu_torch.ops.cuda import cull
 
@@ -1189,7 +1197,7 @@ def _megakernel_census(inp, w, h, spp, bounces, frame=0) -> dict:
 def _megakernel_paths(mk, rg, wf, ro, sw) -> dict:
     """``[megakernel]``: the megakernel (per-warp cull, samples
     refilled per lane) equals the stats megakernel, which sweeps every
-    sphere one sample after another, in every bit (_MK_CASES), with one
+    sphere from a staged table, in every bit (_MK_CASES), with one
     launch each, counted from 0; with each case's times (CUDA events), the
     cull placement and the kernel's registers. Then a 1080p band of the
     textured scene against its twin at the image gates, and the census of
@@ -1279,6 +1287,34 @@ def _bound(ops: float, nbytes: float) -> dict:
             "ops": ops, "bytes": nbytes}
 
 
+def _real_root_pairs(rg, inp, t, frame, b_lo: int, b_hi: int, real_only: bool = False) -> int:
+    """The pairs with a real root (b^2 - cq > 0, the pairs whose root a
+    stats kernel takes) of the rays alive at the start of each bounce of
+    [b_lo, b_hi) (K0 run to each depth: the same paths as every kernel's),
+    each against every sphere and, in a scene with chunks, the priors; of
+    the real pixels' slots only with ``real_only`` (the megakernel's)."""
+    from weekend_raytracer_tpu_torch.probes.mxu_sweep import real_root_pairs
+
+    dev = inp.sweep.device
+    table = inp.sweep
+    if inp.n_chunks:
+        table = torch.cat([table, table[inp.prior_idx.long()]])
+    x, y = _slot_pixels(t, dev)
+    real = (x < t.width) & (y < t.height)
+    pool = torch.empty((rg.N_COMP, t.cap), device=dev)
+    contrib = torch.empty((3, t.cap), device=dev)
+    kept = 0
+    for b in range(b_lo, b_hi):
+        rg.launch_k0(inp, pool, contrib, t, frame, b)
+        alive = pool[rg._AL] > 0.5
+        if real_only:
+            alive &= real
+        idx = torch.nonzero(alive).squeeze(1)
+        for r0 in range(0, idx.numel(), 1 << 21):
+            kept += real_root_pairs(table, pool[:6, idx[r0:r0 + (1 << 21)]])
+    return kept
+
+
 def _culled_ops(spans, own: bool = True) -> float:
     """FP32 operations of the culled sweep, counted by rg.cull_census over
     some of its kernels' bounces: each sphere test (the priors' included)
@@ -1323,25 +1359,26 @@ def _megakernel_bound(mk_census, pixels: int, full: dict) -> dict:
 
 
 def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
-            census=None, mk_census=None) -> dict:
+            census=None, mk_census=None, stats_kept=(0, 0)) -> dict:
     """Each kernel's bound at the [timing] shape, from this run's live
     counts: a live path segment (a path alive at the start of a bounce)
-    tests every prepared sphere; a kStats segment also tests the priors and
-    every chunk and super-chunk box. K0 and K1 cull per warp: with
+    tests every prepared sphere; a stats kernel's segment is
+    probes.stats_bound's (each pair, the priors' too, each box, and the
+    root of each pair with a real root: ``stats_kept``, the megakernel's
+    and K1's, _real_root_pairs). K0 and K1 cull per warp: with
     ``census`` (rg.cull_census of this frame) their bound counts the work
     each lane's own cull decisions need (``_culled_bounds``: beside it the
     warp vote's work and the full sweep's); so does the megakernel with
     ``mk_census`` (_megakernel_bound). The megakernels trace the real
     pixels' paths (the stats one counts the TPU's padded lanes without
-    tracing them); K1 stats traces the segments of its table's col 1
+    tracing them, so its segments are its table's col 1 less the padded
+    lanes' weight); K1 stats traces the segments of its table's col 1
     (``k1_stats``). Each record or value is read once and written once
     (csrc/regroup.cu's layout), and a stats table (``mk_stats``,
     ``k1_stats``) written once. The scatter, camera and sky add under 2%
     to a sweep of 496 spheres and are not counted."""
     n = inp.n_spheres
     sweep = SPHERE_TEST_OPS * n
-    counted = sweep + SPHERE_TEST_OPS * mk.N_PRIORS + SLAB_TEST_OPS * (inp.n_tests
-                                                                        + inp.n_super)
     pixels = t.width * t.height
     cuts = list(_CUTS)
     n_in = [t.cap] + [live_all[c] for c in cuts[:-1]]  # each PACK's input records
@@ -1367,12 +1404,14 @@ def _bounds(mk, inp, t, live_all, live_real, mk_stats=None, k1_stats=None,
     }
     if mk_census is not None:
         out["megakernel"] = _megakernel_bound(mk_census, pixels, out["megakernel"])
+    scene = (inp.n_spheres, inp.n_tests, inp.n_super, mk.N_PRIORS if inp.n_chunks else 0)
     if mk_stats is not None:
-        out["megakernel_stats"] = _bound(counted * sum(live_real),
-                                         pixels * 12 + mk_stats.numel() * 4)
+        out["megakernel_stats"] = stats_bound(sum(live_real), stats_kept[0],
+                                              pixels * 12 + mk_stats.numel() * 4, *scene)
     if k1_stats is not None:
-        out["k1_stats"] = _bound(counted * float(k1_stats[:, 1].sum()),
-                                 n_out[0] * (2 * RECORD_BYTES + 12) + k1_stats.numel() * 4)
+        out["k1_stats"] = stats_bound(float(k1_stats[:, 1].sum()), stats_kept[1],
+                                      n_out[0] * (2 * RECORD_BYTES + 12)
+                                      + k1_stats.numel() * 4, *scene)
     return out
 
 
@@ -1797,9 +1836,9 @@ def _binned_kernels(mk, rg, ro, binned) -> dict:
     (the scatter gives back the dense pool). Each is timed (CUDA events)
     beside its twin, its bound from this run's live counts (K0 and K1: the
     work each lane's own cull decisions need, rg.cull_census of this frame,
-    with the warp vote's and the full sweep's beside it; a kStats segment
-    tests every sphere, the priors and the chunk boxes; every value moved
-    once)
+    with the warp vote's and the full sweep's beside it; a stats segment
+    tests every sphere, the priors and the chunk boxes, probes.stats_bound;
+    every value moved once)
     and, where one computes the same function, one PyTorch call (PACK:
     nonzero + index_select; the gather: index_select; the scatter:
     index_copy_)."""
@@ -1866,7 +1905,6 @@ def _binned_kernels(mk, rg, ro, binned) -> dict:
         lambda: back_plain.index_copy_(1, order_long, src), reps)
 
     sweep = SPHERE_TEST_OPS * inp.n_spheres
-    counted = sweep + SPHERE_TEST_OPS * mk.N_PRIORS + SLAB_TEST_OPS * (inp.n_tests + inp.n_super)
     k0_bytes, k1_bytes = t.cap * (RECORD_BYTES + 12), n * (2 * RECORD_BYTES + 12)
     value = rg.N_COMP * 4
     census = rg.cull_census(inp, t, 0, (cut,), bounces)
@@ -1875,7 +1913,9 @@ def _binned_kernels(mk, rg, ro, binned) -> dict:
                          {"k0": _bound(sweep * sum(live_all[:cut]), k0_bytes),
                           "k1": _bound(sweep * segments, k1_bytes)}),
         "pack": _bound(0, t.cap * 8 + n * 2 * RECORD_BYTES),
-        "k1_stats": _bound(counted * segments, k1_bytes + table.numel() * 4),
+        "k1_stats": stats_bound(segments, _real_root_pairs(rg, inp, t, 0, cut, bounces),
+                                k1_bytes + table.numel() * 4, inp.n_spheres, inp.n_tests,
+                                inp.n_super, mk.N_PRIORS),
         "record_gather": _bound(0, end * (2 * value + 4)),
         "record_scatter": _bound(0, n * (2 * value + 4)),
     }
@@ -2683,10 +2723,13 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     ptxas = {k: b.ptxas_usage() for k, b in built.items()}
     attrs = {"megakernel": {("textured" if t else "plain") + suffix:
-                            mk.kernel_attributes(t, st, staged) for t in (False, True)
-                            for suffix, st, staged in (("", False, True),
-                                                       ("_global", False, False),
-                                                       ("_stats", True, True))},
+                            mk.kernel_attributes(t, st, staged, windowed) for t in (False, True)
+                            for suffix, st, staged, windowed in (
+                                ("", False, True, False), ("_global", False, False, False),
+                                ("_stats", True, True, False),
+                                ("_stats_global", True, False, False),
+                                ("_stats_windowed", True, True, True),
+                                ("_stats_global_windowed", True, False, True))},
              "regroup": rg.kernel_attributes(), "wavefront": wf.kernel_attributes(),
              "reorder": ro.kernel_attributes(), "sweep": sw.kernel_attributes(),
              "access": ac.kernel_attributes()}
@@ -2712,12 +2755,22 @@ def main(argv=None) -> int:
          rtiow_cull=json.dumps(rg.cull_placement(
              mk.kernel_inputs(*_case("rtiow", 96, 64, "cuda")))))
     record["build"]["regroup_k0_k1"] = {"launch_bounds": rg.launch_bounds()}
-    # the megakernel's chosen launch bounds, registers and spills (both
-    # placements of the boxes; the stats instantiation apart)
+    # the megakernel's and its stats kernel's launch bounds, registers and
+    # spills (both placements of the boxes); the stats kernels' windows as
+    # the library derives them, held to their mirror (mk.stats_plan), and
+    # K1's stats kernel's registers
+    stats_plans = {k: mk.stats_plan(*shape) for k, shape in STATS_PLAN_SHAPES.items()}
+    built_stats_plans = {k: mk.stats_plan_built(*shape) for k, shape in STATS_PLAN_SHAPES.items()}
+    _check(stats_plans == built_stats_plans, ("the stats kernels' plan against its mirror",
+                                              stats_plans, built_stats_plans))
     _say("build", case="megakernel", launch_bounds=json.dumps(mk.launch_bounds()),
          attributes=json.dumps(attrs["megakernel"]),
-         ptxas=json.dumps({k: v for k, v in ptxas["megakernel"].items() if "megakernel" in k}))
-    record["build"]["megakernel"] = {"launch_bounds": mk.launch_bounds()}
+         ptxas=json.dumps({k: v for k, v in ptxas["megakernel"].items() if "megakernel" in k}),
+         k1_stats_attributes=json.dumps({k: v for k, v in attrs["regroup"].items()
+                                         if k.startswith("k1_stats")}),
+         stats_plans=json.dumps(stats_plans))
+    record["build"]["megakernel"] = {"launch_bounds": mk.launch_bounds(),
+                                     "stats_plans": stats_plans}
     # the wavefront's K0 and K1: culled (boxes staged and in global memory)
     # and full-sweep, textured and not; the culled ones' launch bounds, the
     # most slices a K0 warp walks and K1's rows a block (wavefront.cu's
@@ -3306,8 +3359,10 @@ def main(argv=None) -> int:
     census_t = child_t["census"]
     mk_census_t = _megakernel_census(inp_t, tm["width"], tm["height"], tm["spp"],
                                      tm["bounces"])
+    stats_kept = (_real_root_pairs(rg, inp_t, t_t, 0, 0, tm["bounces"], real_only=True),
+                  _real_root_pairs(rg, inp_t, t_t, 0, _CUTS[0], _CUTS[1]))
     bounds = _bounds(mk, inp_t, t_t, live_all, live_real, mk_table, k1_table, census_t,
-                     mk_census_t)
+                     mk_census_t, stats_kept)
     library_ms = _library_ms(rg, inp_t, t_t, 0, tm["bounces"], live_all)
     del dense_t
     # the wavefront's: its rows per cut at this shape, and the profiler's

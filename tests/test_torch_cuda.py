@@ -19,8 +19,8 @@ and the wavefront's K0 and K1 cull their sweep per warp, with the boxes in
 shared or (a large scene) global memory, the megakernel and the
 wavefront's K0 refill each lane's samples and the wavefront's K1 regroups
 each block's live lanes, which changes no bit against the wavefront's
-full-sweep instantiations, the stats megakernel and the kStats K1 (which
-sweep every sphere), or with a last warp or block part full.
+full-sweep instantiations, the stats megakernel and K1's stats kernel (which
+sweep every sphere, in windows where the table is large), or with a last warp or block part full.
 The row-compacted wavefront runs the
 same body on the same slots: it gives regroup's image in every bit, and
 its COMPACT equals its twin bit for bit. The record reorder kernels equal
@@ -134,8 +134,8 @@ def test_row_band_reproduces_full_image(cuda):
 @pytest.mark.parametrize("name", ["rtiow", "textured", "first_hit"])
 def test_megakernel_is_the_full_sweep(name, cuda):
     """The megakernel (per-warp cull on RTiOW's chunks, samples refilled per
-    lane) equals the stats megakernel, which sweeps every sphere one sample
-    after another, in every bit: 3 spp, two frames, the second added."""
+    lane) equals the stats megakernel, which sweeps every sphere from a
+    staged table, in every bit: 3 spp, two frames, the second added."""
     w, h = 70, 40
     inp = _inputs(name, w, h, cuda)
     assert (inp.n_chunks > 0) == (name == "rtiow")
@@ -156,7 +156,8 @@ def test_megakernel_budget_has_no_spills(cuda):
     ones stay inside their launch bounds' register budget."""
     usage = {k: v for k, v in mk._library().ptxas_usage().items()
              if "megakernel" in k and "stats_finish" not in k}
-    assert len(usage) == 6  # 2 textures x (staged, global, stats)
+    # 2 textures x 2 box placements x (culled, stats staged whole, in windows)
+    assert len(usage) == 12
     assert all(v["spill_stores"] == 0 and v["spill_loads"] == 0 for v in usage.values()), usage
     threads, blocks = mk.launch_bounds()
     assert blocks > 0
@@ -343,7 +344,7 @@ def _stats_case(name, w, h, device):
 @pytest.mark.parametrize("name, w, h", [("rtiow", 96, 64), ("super", 96, 64),
                                          ("rtiow", 70, 66)])
 def test_megakernel_stats_match_plain(name, w, h, cuda):
-    """The kStats megakernel against its twin: equal per tile at one
+    """The stats megakernel against its twin: equal per tile at one
     bounce, each column's sum within 1% at eight; and its image is the
     kStats = false kernel's, bit for bit. 96 and 70 x 66 pad to whole
     64 x 64 TPU tiles, whose padded lanes count as the edge pixel's."""
@@ -396,6 +397,62 @@ def test_k1_stats_match_plain(cuda):
         else:
             torch.testing.assert_close(out[0].sum(0), out[1].sum(0), rtol=0.01, atol=0)
         assert bool((out[0][:live, 0] >= 1).all() and (out[0][:live, 1] > 0).all())
+
+
+def _random3000(w, h, device, **kw):
+    from weekend_raytracer_tpu_torch.models.scenes import random_spheres, random_spheres_camera
+
+    return mk.kernel_inputs(random_spheres(3000).build(device=device),
+                            to_sky_state(SkyParams(), device=device),
+                            CameraBasis.create(random_spheres_camera(), (w, h), device=device),
+                            **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_size", [None, 0])
+def test_stats_kernels_in_windows_match(chunk_size, cuda):
+    """random_spheres(3000), whose table (96 KB) the stats kernels sweep in
+    windows that the block walks in step, in chunks of 32 and without
+    chunks: the stats megakernel's image is the culled kernel's in every
+    bit and its counters the twin's per tile at one bounce; K1's stats
+    kernel (cut 2 of K0 and PACK) equals k1_plain per tile over one bounce
+    and its pool K1's."""
+    w, h, spp = 128, 64, 4
+    inp = _random3000(w, h, cuda, chunk_size=chunk_size)
+    plan = mk.stats_plan_of(inp)
+    assert plan["windows"] > 1 and (inp.n_chunks > 0) == (chunk_size is None)
+    assert mk.stats_plan_built(inp.n_spheres, inp.n_chunks, inp.n_tests, inp.n_super,
+                               inp.chunk_size) == plan
+    for bounces in (1, 8):
+        kw = dict(width=w, height=h, spp=spp, num_bounces=bounces)
+        img, st = mk.launch_megakernel(torch.zeros((w * h, 3), device=cuda), inp, 1, True,
+                                       stats=True, **kw)
+        culled = mk.launch_megakernel(torch.zeros((w * h, 3), device=cuda), inp, 1, True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(img, culled)
+        if bounces == 1:
+            _, ref = mk.render_plain_with_inputs(torch.zeros((w * h, 3), device=cuda), inp, 1,
+                                                 True, stats=True, **kw)
+            assert torch.equal(st, ref)
+            assert bool(st[:, 2].sum() > 0) == (inp.n_chunks > 0)
+    t, _ = rg.plan(w, h, spp, 8, (2, 4, 6))
+    pool = torch.empty((rg.N_COMP, t.cap), device=cuda)
+    rg.launch_k0(inp, pool, torch.empty((3, t.cap), device=cuda), t, 0, 2)
+    dense = torch.empty_like(pool)
+    counts = torch.tensor([t.cap, 0], dtype=torch.int32, device=cuda)
+    rg.launch_pack(pool, dense, torch.empty((t.cap,), dtype=torch.int32, device=cuda), counts,
+                   1, rg.pack_scratch(t.cap, cuda))
+    n = int(counts[1])
+    assert n > 0
+    out = []
+    for k1, stats in ((rg.launch_k1, True), (rg.k1_plain, True), (rg.launch_k1, False)):
+        p = dense.clone()
+        st = torch.full((t.cap // rg.TILE_RECORDS, 8), -1.0, device=cuda) if stats else None
+        k1(inp, p, torch.empty((3, t.cap), device=cuda), counts, 1, t, 0, 2, 3, stats=st)
+        out.append((p, st))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][0][:, :n].view(torch.int32), out[2][0][:, :n].view(torch.int32))
 
 
 # --- the per-warp cull of regroup K0 and K1 ----------------------------------

@@ -21,7 +21,7 @@ chip smoke's [timing] shape, RTiOW 480x270 x 4 spp; random_spheres(10000)
 at 3840x2160 x 4 spp; random_spheres(60000) at 1920x1080 x 1 spp, whose
 boxes pass what a block stages and are read from global memory; 8 bounces,
 frame 0) and its image must equal the stats megakernel's (``stats=True``,
-which sweeps every sphere, one sample after another) in every bit. Then every
+which sweeps every sphere from a staged table) in every bit. Then every
 build is timed on every case with CUDA events around one launch, the least
 of REPS launches after a warm one: the builds in order, then in the
 reverse order. Prints the card's name and power limit, one JSON line per

@@ -27,22 +27,26 @@
 //
 // bounce_step is one bounce; trace_bounces runs it over a span of bounces,
 // and the refill loops (the megakernel's, the wavefront's K0 and K1) call
-// it directly, so each inlines the same expressions.
-// bounce_step<kTextured, kStats = true> is the body of
-// the kStats instantiations: the same bounces, sweeping the same spheres in
-// the same order, plus the cull counters of stats.cuh. Given the cull
-// tables of a scene with chunks (CullView, staged by stage_cull), the
-// kStats = false body sweeps only the chunks that some lane of its warp
-// can enter (sweep_culled), which gives the full sweep's (bt, bi) in every
-// bit; regroup K0 and K1, the megakernel and the wavefront's K0 and K1 pass
-// them. The wavefront's kCull = false instantiations pass none and sweep
-// every sphere: they are the exact full-sweep reference of the gates.
+// it directly, so each inlines the same expressions. Given the cull tables
+// of a scene with chunks (CullView, staged by stage_cull), it sweeps only
+// the chunks that some lane of its warp can enter (sweep_culled), which
+// gives the full sweep's (bt, bi) in every bit; regroup K0 and K1, the
+// megakernel and the wavefront's K0 and K1 pass them. The wavefront's
+// kCull = false instantiations pass none and sweep every sphere: they are
+// the exact full-sweep reference of the gates.
+//
+// The stats kernels (the megakernel's and K1's counters, stats.cuh) sweep
+// every sphere too, from a table staged in shared memory (stats_plan,
+// stage_window, sweep_window below), and then scatter through the same
+// scatter_hit as bounce_step.
 
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "card.cuh"
 #include "stats.cuh"
 
 namespace {
@@ -211,21 +215,37 @@ __device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float 
   r.alive = true;
 }
 
-// One sphere of the closest-hit sweep (sphere_ts, megakernel.py:437-465):
-// sphere i with (cx, cy, cz, kq) = c takes (bt, bi) if it is hit closer.
-// The root and the two roots are taken only of a positive discriminant,
-// the one case in which the TPU's test (sq > 0 on sqrt(disc), NaN for
-// disc < 0) can pass, so every input keeps its (bt, bi); a miss, most
-// tests, never reaches sqrtf's slow path for a negative argument, and a
-// warp whose lanes all miss skips the root.
-__device__ __forceinline__ void sweep_sphere(const float4 c, int i, float ox, float oy, float oz,
-                                             float dx, float dy, float dz, float od, float oo,
-                                             float& bt, int& bi) {
-  const float cd = c.x * dx + c.y * dy + c.z * dz;
-  const float co2 = (c.x + c.x) * ox + (c.y + c.y) * oy + (c.z + c.z) * oz;
-  const float bq = cd - od;
-  const float cq = oo - co2 + c.w;
-  const float disc = bq * bq - cq;
+// x0 y0 + x1 y1 + x2 y2 rounded as nvcc contracts that sum written out:
+// x1 y1 first, x0 y0 fused onto it, x2 y2 onto that, as the SASS of the
+// written sum shows. Spelt out so that every kernel (the render kernels
+// here, sweep.cu's sweep_fma) rounds every pair alike, whatever the code
+// around it.
+__device__ __forceinline__ float dot3(float x0, float y0, float x1, float y1, float x2,
+                                      float y2) {
+  return __fmaf_rn(x2, y2, __fmaf_rn(x0, y0, __fmul_rn(x1, y1)));
+}
+
+// bq = c.d - o.d and the discriminant bq^2 - (|o|^2 - 2c.o + kq) of the
+// sphere (cx, cy, cz, kq) = c whose 2c is (tx, ty, tz) (the expanded
+// quadratic of sphere_ts, megakernel.py:437-465). c + c is exact, so a
+// staged 2c gives the bits of c + c formed in the pair.
+__device__ __forceinline__ float sphere_disc(const float4 c, float tx, float ty, float tz,
+                                             float ox, float oy, float oz, float dx, float dy,
+                                             float dz, float od, float oo, float& bq) {
+  const float cd = dot3(c.x, dx, c.y, dy, c.z, dz);
+  const float co2 = dot3(tx, ox, ty, oy, tz, oz);
+  bq = __fsub_rn(cd, od);
+  const float cq = __fadd_rn(__fsub_rn(oo, co2), c.w);
+  return __fmaf_rn(bq, bq, -cq);
+}
+
+// The root test of sphere i from its bq and discriminant: (bt, bi) takes
+// the nearer root above kMinT if it is below bt. The roots are taken only
+// of a positive discriminant, the one case in which the TPU's test (sq > 0
+// on sqrt(disc), NaN for disc < 0) can pass, so every input keeps its
+// (bt, bi); a miss, most tests, never reaches sqrtf's slow path for a
+// negative argument, and a warp whose lanes all miss skips the root.
+__device__ __forceinline__ void sphere_root(float bq, float disc, int i, float& bt, int& bi) {
   if (disc > 0.0f) {
     const float sq = sqrtf(disc);
     const float t0 = bq - sq;
@@ -238,55 +258,16 @@ __device__ __forceinline__ void sweep_sphere(const float4 c, int i, float ox, fl
   }
 }
 
-// The same sweep, chunk by chunk, with the TPU's whole-tile cull tests run
-// before each chunk and each super-chunk and their outcomes ORed into the
-// loop iteration k's bits of the ray's group (stats.cuh). Sweeps every
-// sphere in the same order, so (bt, bi) is the plain sweep's.
-__device__ __forceinline__ void sweep_counted(const SceneRefs& sc, const RayCounter& rc, int k,
-                                              float ox, float oy, float oz, float dx, float dy,
-                                              float dz, float od, float oo, float& bt, int& bi) {
-  const CullRefs& cu = *rc.cull;
-  const StatsRefs& st = *rc.st;
-  // best-t of the priors alone, which the TPU sweeps before any test
-  // (megakernel.py:615-623)
-  float pbt = kMaxT;
-  int pbi = -1;
-  for (int p = 0; p < kNPriors; ++p) {
-    const int sp = __ldg(cu.priors + p);
-    sweep_sphere(__ldg(sc.sweep + sp), sp, ox, oy, oz, dx, dy, dz, od, oo, pbt, pbi);
-  }
-  const float ix = slab_inverse(dx);
-  const float iy = slab_inverse(dy);
-  const float iz = slab_inverse(dz);
-  const size_t row = static_cast<size_t>(rc.group) * st.n_iters + k;
-  unsigned* cw = st.chunk_words + row * st.words_c;
-  unsigned* sw = st.super_words + row * st.words_s;
-  unsigned cbits = 0u, sbits = 0u;
-  for (int c = 0; c < cu.n_tests; ++c) {
-    const float tb = fminf(pbt, bt);
-    if (cu.n_super > 0 && c % cu.super_factor == 0) {
-      const int s = c / cu.super_factor;
-      if (slab_enters(cu.super_bounds, cu.n_super, s, ox, oy, oz, ix, iy, iz, tb)) {
-        sbits |= 1u << (s & 31);
-      }
-      if ((s & 31) == 31 || s == cu.n_super - 1) {
-        or_word(sw + (s >> 5), sbits);
-        sbits = 0u;
-      }
-    }
-    if (slab_enters(cu.chunk_bounds, cu.n_tests, c, ox, oy, oz, ix, iy, iz, tb)) {
-      cbits |= 1u << (c & 31);
-    }
-    if ((c & 31) == 31 || c == cu.n_tests - 1) {
-      or_word(cw + (c >> 5), cbits);
-      cbits = 0u;
-    }
-    if (c < cu.n_chunks) {
-      for (int i = c * cu.chunk_size; i < (c + 1) * cu.chunk_size; ++i) {
-        sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
-      }
-    }
-  }
+// One sphere of the closest-hit sweep (sphere_ts, megakernel.py:437-465):
+// sphere i with (cx, cy, cz, kq) = c takes (bt, bi) if it is hit closer
+// (expanded quadratic, strict <, first index wins).
+__device__ __forceinline__ void sweep_sphere(const float4 c, int i, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, float od, float oo,
+                                             float& bt, int& bi) {
+  float bq;
+  const float disc =
+      sphere_disc(c, c.x + c.x, c.y + c.y, c.z + c.z, ox, oy, oz, dx, dy, dz, od, oo, bq);
+  sphere_root(bq, disc, i, bt, bi);
 }
 
 // The chunk hierarchy as K0 and K1 read it (regroup.cu stage_cull): the
@@ -480,52 +461,264 @@ __device__ __forceinline__ void sweep_culled(const SceneRefs& sc, const CullView
   }
 }
 
-// One bounce of a live path, the body every kernel runs: the closest hit,
-// then the scatter, which leaves r on the next ray with its throughput
-// attenuated and its RNG state advanced four draws, and returns true. A
-// miss sets the sky colour and a hit on an emissive sphere its light;
-// either ends the path (returns false, alive = false, the ray itself left
-// as it was, the RNG state after the emitter's draws). The kStats
-// instantiation also counts the iteration in rc->trips and, in a scene with
-// chunks, the cull tests of loop iteration k (sweep_counted). The kStats =
-// false one, given the cull tables of a scene with chunks (cv, in shared
-// memory if kStaged), sweeps per warp what its lanes can enter
-// (sweep_culled).
-template <bool kTextured, bool kStats, bool kStaged>
-__device__ __forceinline__ bool bounce_step(const SceneRefs& sc, Ray& r, RayCounter* rc, int k,
-                                            const CullView* cv) {
+// o.d and |o|^2 of a ray, rounded as written, in the order nvcc contracts
+// them elsewhere: left to the compiler, their contraction depended on the
+// kernel around them (the wavefront's culled K1 contracted them otherwise
+// than its full-sweep instantiation, and parted from it by some ulps in a
+// sphere's t), and every kernel must give the same bits for the same ray.
+__device__ __forceinline__ void ray_terms(const Ray& r, float& od, float& oo) {
+  od = __fmaf_rn(r.oz, r.dz, __fmaf_rn(r.oy, r.dy, __fmul_rn(r.ox, r.dx)));
+  oo = __fmaf_rn(r.oz, r.oz, __fmaf_rn(r.oy, r.oy, __fmul_rn(r.ox, r.ox)));
+}
+
+// --- the stats kernels' full sweep -------------------------------------------
+//
+// The stats megakernel and K1's stats kernel sweep every sphere and count,
+// before each chunk and super-chunk, what the TPU's whole-tile cull would
+// enter (stats.cuh). Their sweep on an H100:
+//  - the sphere table is staged in shared memory once a block, each sphere
+//    as (cx, cy, cz, kq) and (2cx, 2cy, 2cz, 0), so a pair reads two
+//    broadcast 16-byte rows and forms no c + c; a table larger than a
+//    block's share (stats_plan) is swept in windows that start at chunk
+//    boundaries, which the block walks in step, a barrier on each side of
+//    staging a window, so a chunk's test always sees the best t of every
+//    sphere before it;
+//  - a lane forms kStatsUnroll spheres' discriminants before any root and
+//    takes the roots only where it has a positive one, in sphere order
+//    (strict <, so the first index wins a tie);
+//  - the chunk and super-chunk boxes and the priors' rows come from
+//    stage_cull's tables (the boxes in global memory above its limit).
+// Each kernel runs it on a persistent grid whose lanes take the next pixel
+// or record as their paths end (take_item, stats.cuh).
+
+// Bytes of shared memory a stats kernel's block stages: the cull tables,
+// then its window of the sphere table, 32 bytes a sphere. Four blocks of
+// 256 threads an SM fit an H100 SM with this much each, and a launch gets
+// it without opting in.
+constexpr size_t kStatsSmemBytes = 48 * 1024;
+constexpr int kStatsSphereBytes = 2 * sizeof(float4);
+// The spheres whose discriminants a lane forms before any root: 4 and 8
+// ran faster on the large scenes (tools/stats_steps.py, PERF.md) but spill
+// at the stats kernels' register budgets.
+constexpr int kStatsUnroll = 2;
+
+// The windows of a stats kernel's launch: `window` spheres each (whole
+// chunks in a scene with chunks), the last one shorter; where the table
+// starts in the block's dynamic shared memory (after the cull tables,
+// 16-byte aligned) and the block's dynamic shared bytes.
+struct StatsPlan {
+  int window, windows;
+  size_t table_offset, smem;
+};
+
+// The fewest windows that each fit kStatsSmemBytes beside the cull
+// tables, then the shortest window of whole chunks that covers the table
+// in that many (so the windows are about even). A window holds one chunk
+// at least; where that passes kStatsSmemBytes the launch opts in to more.
+inline StatsPlan stats_plan(const CullRefs& cu, int n_spheres) {
+  StatsPlan p;
+  p.table_offset = (cull_smem_bytes(cu) + 15) / 16 * 16;
+  const int unit = cu.n_chunks > 0 ? cu.chunk_size : 1;
+  const int units = cu.n_chunks > 0 ? cu.n_chunks : n_spheres;
+  const size_t room = kStatsSmemBytes > p.table_offset ? kStatsSmemBytes - p.table_offset : 0;
+  const int most = std::max(1, static_cast<int>(room / kStatsSphereBytes) / unit);
+  const int fewest = (units + most - 1) / most;
+  p.window = (units + fewest - 1) / fewest * unit;
+  p.windows = (n_spheres + p.window - 1) / p.window;
+  p.smem = p.table_offset + static_cast<size_t>(std::min(p.window, n_spheres)) * kStatsSphereBytes;
+  return p;
+}
+
+// The grid of a persistent stats launch: the blocks of `threads` with
+// `smem` dynamic bytes that the card holds at once, fewer where `items`
+// need fewer; the kernel is opted in to `smem` past kStatsSmemBytes.
+template <class Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, long long items,
+                            unsigned* grid) {
+  cudaError_t err = cudaSuccess;
+  if (smem > kStatsSmemBytes) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0, sms = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+          cudaSuccess ||
+      (err = sm_count(&sms)) != cudaSuccess) {
+    return err;
+  }
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  const long long need = (items + threads - 1) / threads;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  *grid = static_cast<unsigned>(std::max(1LL, std::min(resident, need)));
+  return cudaSuccess;
+}
+
+// The block's staged table: the dynamic shared memory past the cull tables.
+__device__ __forceinline__ float4* stats_table(size_t table_offset) {
+  extern __shared__ float4 stats_smem[];
+  return stats_smem + table_offset / sizeof(float4);
+}
+
+// Spheres [w0, w0 + nw) into the block's table, as (c, kq) and (2c, 0);
+// every thread of the block calls it, and a barrier must follow.
+__device__ __forceinline__ void stage_window(float4* tab, const float4* __restrict__ sweep,
+                                             int w0, int nw) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int threads = blockDim.x * blockDim.y;
+  for (int j = tid; j < nw; j += threads) {
+    const float4 c = __ldg(sweep + w0 + j);
+    tab[2 * j] = c;
+    tab[2 * j + 1] = make_float4(c.x + c.x, c.y + c.y, c.z + c.z, 0.0f);
+  }
+}
+
+// One ray's counted sweep in flight: its origin, direction, o.d, |o|^2,
+// signed inverse direction (the slab tests), the priors' best t, its
+// (bt, bi), the bits of its current word of chunk and super-chunk tests,
+// and the row of words its (group, loop iteration) ORs them into.
+struct CountedSweep {
+  float ox, oy, oz, dx, dy, dz, od, oo, ix, iy, iz, pbt, bt;
+  int bi;
+  unsigned cbits, sbits, row;
+};
+
+// A ray's sweep begins: o.d and |o|^2 as bounce_step forms them, and, in
+// a scene with chunks, the priors' own best t, which the TPU sweeps before
+// any test (megakernel.py:615-623), from stage_cull's rows.
+__device__ __forceinline__ void begin_counted(const CullView& cv, const Ray& r, unsigned row,
+                                              CountedSweep& s) {
+  s.ox = r.ox;
+  s.oy = r.oy;
+  s.oz = r.oz;
+  s.dx = r.dx;
+  s.dy = r.dy;
+  s.dz = r.dz;
+  ray_terms(r, s.od, s.oo);
+  s.bt = kMaxT;
+  s.bi = -1;
+  s.cbits = 0u;
+  s.sbits = 0u;
+  s.row = row;
+  s.pbt = kMaxT;
+  if (cv.n_chunks == 0) return;
+  int pbi = -1;
+  for (int p = 0; p < kNPriors; ++p) {
+    sweep_sphere(cv.prior[p], cv.prior_index[p], s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.od, s.oo,
+                 s.pbt, pbi);
+  }
+  s.ix = slab_inverse(s.dx);
+  s.iy = slab_inverse(s.dy);
+  s.iz = slab_inverse(s.dz);
+}
+
+// kU staged spheres from row j of the window (sphere index `index`): every
+// discriminant first, then, where the lane has a positive one, the roots
+// in sphere order (fmaxf drops a NaN, which has no root).
+template <int kU>
+__device__ __forceinline__ void staged_pairs(const float4* tab, int j, int index,
+                                             CountedSweep& s) {
+  float bq[kU], disc[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const float4 c = tab[2 * (j + u)];
+    const float4 t = tab[2 * (j + u) + 1];
+    disc[u] = sphere_disc(c, t.x, t.y, t.z, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.od, s.oo, bq[u]);
+  }
+  float most = disc[0];
+#pragma unroll
+  for (int u = 1; u < kU; ++u) most = fmaxf(most, disc[u]);
+  if (!(most > 0.0f)) return;
+#pragma unroll
+  for (int u = 0; u < kU; ++u) sphere_root(bq[u], disc[u], index + u, s.bt, s.bi);
+}
+
+// Rows [j0, j1) of the window that starts at sphere w0, kStatsUnroll at a
+// time.
+__device__ __forceinline__ void staged_run(const float4* tab, int j0, int j1, int w0,
+                                           CountedSweep& s) {
+  int j = j0;
+  for (; j + kStatsUnroll <= j1; j += kStatsUnroll) staged_pairs<kStatsUnroll>(tab, j, w0 + j, s);
+  for (; j < j1; ++j) staged_pairs<1>(tab, j, w0 + j, s);
+}
+
+// The TPU's tests before chunk c (sweep order): its super-chunk's first,
+// where c starts one, then its own, each against min(priors' best t, best
+// t of the spheres before c) on the exact box (bound_possible,
+// megakernel.py:529-554), ORed into the row's words at each word's end.
+template <bool kStaged>
+__device__ __forceinline__ void chunk_tests(const CullView& cv, const StatsRefs& st, int c,
+                                            CountedSweep& s) {
+  const float tb = fminf(s.pbt, s.bt);
+  if (cv.n_super > 0 && c % cv.super_factor == 0) {
+    const int q = c / cv.super_factor, k = cv.n_super;
+    const float* b = cv.super;
+    if (slab_box(box_bound<kStaged>(b, q), box_bound<kStaged>(b, k + q),
+                 box_bound<kStaged>(b, 2 * k + q), box_bound<kStaged>(b, 3 * k + q),
+                 box_bound<kStaged>(b, 4 * k + q), box_bound<kStaged>(b, 5 * k + q), s.ox, s.oy,
+                 s.oz, s.ix, s.iy, s.iz, tb)) {
+      s.sbits |= 1u << (q & 31);
+    }
+    if ((q & 31) == 31 || q == k - 1) {
+      or_word(st.super_words + static_cast<size_t>(s.row) * st.words_s + (q >> 5), s.sbits);
+      s.sbits = 0u;
+    }
+  }
+  const int k = cv.n_tests;
+  const float* b = cv.chunk;
+  if (slab_box(box_bound<kStaged>(b, c), box_bound<kStaged>(b, k + c),
+               box_bound<kStaged>(b, 2 * k + c), box_bound<kStaged>(b, 3 * k + c),
+               box_bound<kStaged>(b, 4 * k + c), box_bound<kStaged>(b, 5 * k + c), s.ox, s.oy,
+               s.oz, s.ix, s.iy, s.iz, tb)) {
+    s.cbits |= 1u << (c & 31);
+  }
+  if ((c & 31) == 31 || c == k - 1) {
+    or_word(st.chunk_words + static_cast<size_t>(s.row) * st.words_c + (c >> 5), s.cbits);
+    s.cbits = 0u;
+  }
+}
+
+// The staged window of spheres [w0, w0 + nw): in a scene with chunks, each
+// chunk's tests before its first pair.
+template <bool kStaged>
+__device__ __forceinline__ void sweep_window(const float4* tab, int w0, int nw,
+                                             const CullView& cv, const StatsRefs& st,
+                                             CountedSweep& s) {
+  if (cv.n_chunks == 0) {
+    staged_run(tab, 0, nw, w0, s);
+    return;
+  }
+  const int cs = cv.chunk_size;
+  for (int c = w0 / cs; c < (w0 + nw) / cs; ++c) {
+    chunk_tests<kStaged>(cv, st, c, s);
+    staged_run(tab, c * cs - w0, (c + 1) * cs - w0, w0, s);
+  }
+}
+
+// After the last window: the tests of the chunk boxes that pad the last
+// super-chunk (n_tests > n_chunks), which hold no spheres.
+template <bool kStaged>
+__device__ __forceinline__ void end_counted(const CullView& cv, const StatsRefs& st,
+                                            CountedSweep& s) {
+  if (cv.n_chunks == 0) return;
+  for (int c = cv.n_chunks; c < cv.n_tests; ++c) chunk_tests<kStaged>(cv, st, c, s);
+}
+
+// The scatter of a live path whose closest hit is (bt, bi), the part of a
+// bounce after the sweep that every kernel runs: it leaves r on the next
+// ray with its throughput attenuated and its RNG state advanced four
+// draws, and returns true. A miss (bi < 0) sets the sky colour and a hit
+// on an emissive sphere its light; either ends the path (returns false,
+// alive = false, the ray itself left as it was, the RNG state after the
+// emitter's draws).
+template <bool kTextured>
+__device__ __forceinline__ bool scatter_hit(const SceneRefs& sc, Ray& r, float bt, int bi) {
   const float* __restrict__ sky = sc.sky;
   const float* __restrict__ at = sc.attrs;
   const int n = sc.n;
   const float ox = r.ox, oy = r.oy, oz = r.oz;
   const float dx = r.dx, dy = r.dy, dz = r.dz;
   uint32_t state = r.state;
-  // Closest hit over the prepared spheres. od and oo are rounded as
-  // written, in the order nvcc contracts them elsewhere: left to the
-  // compiler, their contraction depended on the kernel around them (the
-  // wavefront's culled K1 contracted them otherwise than its full-sweep
-  // instantiation, and parted from it by some ulps in a sphere's t), and
-  // every kernel must give the same bits for the same ray.
-  const float od = __fmaf_rn(oz, dz, __fmaf_rn(oy, dy, __fmul_rn(ox, dx)));
-  const float oo = __fmaf_rn(oz, oz, __fmaf_rn(oy, oy, __fmul_rn(ox, ox)));
-  float bt = kMaxT;
-  int bi = -1;
-  if constexpr (kStats) {
-    ++rc->trips;
-    if (rc->cull->n_chunks > 0) {
-      sweep_counted(sc, *rc, k, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
-    } else {
-      for (int i = 0; i < n; ++i) {
-        sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
-      }
-    }
-  } else if (cv != nullptr && cv->n_chunks > 0) {
-    sweep_culled<kStaged>(sc, *cv, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
-  } else {
-    for (int i = 0; i < n; ++i) {
-      sweep_sphere(__ldg(sc.sweep + i), i, ox, oy, oz, dx, dy, dz, od, oo, bt, bi);
-    }
-  }
 
   if (bi < 0) {  // miss: sky radiance ends the path
     const float cos_theta = fabsf(clip1(dy));
@@ -690,14 +883,33 @@ __device__ __forceinline__ bool bounce_step(const SceneRefs& sc, Ray& r, RayCoun
   return true;
 }
 
+// One bounce of a live path, the body of the render kernels: the closest
+// hit, then scatter_hit. Given the cull tables of a scene with chunks (cv,
+// in shared memory if kStaged) it sweeps per warp what its lanes can enter
+// (sweep_culled), else every sphere.
+template <bool kTextured, bool kStaged>
+__device__ __forceinline__ bool bounce_step(const SceneRefs& sc, Ray& r, const CullView* cv) {
+  float od, oo;
+  ray_terms(r, od, oo);
+  float bt = kMaxT;
+  int bi = -1;
+  if (cv != nullptr && cv->n_chunks > 0) {
+    sweep_culled<kStaged>(sc, *cv, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, od, oo, bt, bi);
+  } else {
+    for (int i = 0; i < sc.n; ++i) {
+      sweep_sphere(__ldg(sc.sweep + i), i, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, od, oo, bt, bi);
+    }
+  }
+  return scatter_hit<kTextured>(sc, r, bt, bi);
+}
+
 // Bounces [b_lo, b_hi) of one live path, one bounce_step each, until
 // one ends it. A path still alive after b_hi keeps colour 0.
-template <bool kTextured, bool kStats = false, bool kStaged = true>
+template <bool kTextured, bool kStaged = true>
 __device__ __forceinline__ void trace_bounces(const SceneRefs& sc, int b_lo, int b_hi, Ray& r,
-                                              RayCounter* rc = nullptr,
                                               const CullView* cv = nullptr) {
   for (int bounce = b_lo; bounce < b_hi; ++bounce) {
-    if (!bounce_step<kTextured, kStats, kStaged>(sc, r, rc, bounce - b_lo, cv)) break;
+    if (!bounce_step<kTextured, kStaged>(sc, r, cv)) break;
   }
 }
 

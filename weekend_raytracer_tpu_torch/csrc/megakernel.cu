@@ -58,16 +58,19 @@
 // contraction stays on; images are held to the plain version statistically,
 // as the TPU kernel is held to the XLA path.
 //
-// The kStats instantiation replaces the same TPU kernel built with
-// stats=True (_make_kernel, 1146; its counters 1233-1286): the same frame,
-// plus the per-tile counters of stats.cuh. It keeps the loop of one sample
-// after another and the full sweep: it counts what the TPU's whole-tile
-// cull would enter, skips nothing, and is the exact full-sweep reference of
-// the kStats = false image, which equals it in every bit. Bound like the
-// frame itself, by FP32 work: the cull tests add about 4% to the sweep.
+// The stats kernel, megakernel_stats, replaces the same TPU kernel built
+// with stats=True (_make_kernel, 1146; its counters 1233-1286): the same
+// frame, plus the per-tile counters of stats.cuh. It keeps the full sweep:
+// it counts what the TPU's whole-tile cull would enter, skips nothing, and
+// is the exact full-sweep reference of the culled kernel's image, which
+// equals it in every bit. Bound like the frame itself, by FP32 work (15
+// operations a pair; the cull tests add about 5%). Its design on an H100
+// (see bounce.cuh's stats section): the sphere table staged in shared
+// memory with 2c, in windows that the block walks in step where it does
+// not fit; two spheres' discriminants before any root; and the samples
+// refilled per lane, as above, one full sweep a step.
 
 #include <cstdint>
-#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
@@ -78,7 +81,7 @@ struct Args {
   const float* cam;      // [20] eye, horizontal, vertical, u, v, llc, lens_r, 0
   SceneRefs scene;
   CullRefs cull;         // the chunk hierarchy (n_chunks = 0: none)
-  CullMargin margin;     // read by the kStats = false instantiations
+  CullMargin margin;     // read by the culled kernel (sweep_culled)
   float* acc;            // [height * width, 3]
   int width, height;
   float inv_w, inv_h;    // f32(1 / width), f32(1 / full_height)
@@ -86,40 +89,37 @@ struct Args {
   int clear, spp, num_bounces;
 };
 
-// What the kStats instantiation reads besides: the counters and the TPU
-// tiles across. (The kStats = false instantiations keep Args alone, so
-// they compile without the counters.)
+// What the stats kernel reads besides: the counters, the TPU tiles across,
+// and its windows of the sphere table (stats_plan).
 struct StatsArgs : Args {
   StatsRefs st;
   int tiles_x;
   unsigned pad_x, pad_y;  // lanes of the TPU's last tile past the image edge
+  int window;             // spheres a window
+  unsigned table_offset;  // where the table starts in dynamic shared memory
 };
-
-template <bool kStats>
-using ArgsOf = std::conditional_t<kStats, StatsArgs, Args>;
 
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
-// The kStats = false instantiations' register budget (see the header).
+// The register budget (see the header). The stats kernel's, chosen on the
+// card (tools/stats_steps.py): 4 blocks of 256 threads an SM (64
+// registers) where it stages the table whole, 3 (80) where it sweeps
+// windows, which at 4 spill 68-92 bytes and at 3 hold 78-80 registers with
+// none, as fast or faster; its threads a block (one-dimensional: its lanes
+// take pixels as they go).
 constexpr int kMinBlocks = 4;
+constexpr int kStatsMinBlocks = 4;     // the table staged whole
+constexpr int kWindowedMinBlocks = 3;  // swept in windows
+constexpr int kStatsThreads = 256;
 
 // The TPU kernel's tile: tsub = 32 rows of 128 lanes as a block_w = 64
 // pixel-wide block (megakernel.py:1634-1640).
 constexpr int kTileW = 64;
 constexpr int kTileH = 64;
 
-// The kStats instantiation counts per (TPU tile, sample). The TPU pads the
-// image to whole tiles and clamps a padded lane into the image, so the lane
-// traces the edge pixel's path again and counts it (megakernel.py:1204-1206);
-// here the edge pixel's path is traced once and its live lanes count with
-// the weight of every lane that traces it. Its launch bound asks for 4
-// blocks per SM too: left to itself ptxas kept the textured kStats
-// instantiation at 48 registers and spilled 88 bytes.
-template <bool kTextured, bool kStats, bool kStaged = true>
-__global__ void __launch_bounds__(kBlockX * kBlockY, kStats ? 4 : kMinBlocks)
-    megakernel(const ArgsOf<kStats> a) {
-  CullView cv{};
-  if constexpr (!kStats) cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
+template <bool kTextured, bool kStaged = true>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) megakernel(const Args a) {
+  const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= a.width || y >= a.height) return;
@@ -132,43 +132,25 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kStats ? 4 : kMinBlocks)
   const float yf = static_cast<float>(static_cast<int>(y_g));
   const uint32_t frame_hash = jenkins(a.frame);
 
+  // One bounce a step. When a path ends (a miss, an emitter, or
+  // num_bounces reached alive, colour 0), its tr * c joins the sum and
+  // the lane starts the pixel's next sample, until all spp are done.
   float tot_r = 0.0f, tot_g = 0.0f, tot_b = 0.0f;
-  if constexpr (kStats) {
-    for (int s = 0; s < a.spp; ++s) {
-      Ray r;
-      r.state = sample_seed(pix, frame_hash, static_cast<uint32_t>(s));
-      camera_ray(a.cam, xf, yf, a.inv_w, a.inv_h, r);
-      const int tile = (y / kTileH) * a.tiles_x + x / kTileW;
-      const unsigned weight = (x == a.width - 1 ? 1u + a.pad_x : 1u) *
-                              (y == a.height - 1 ? 1u + a.pad_y : 1u);
-      RayCounter rc{&a.cull, &a.st, tile * a.spp + s, weight, 0u};
-      trace_bounces<kTextured, true>(a.scene, 0, a.num_bounces, r, &rc);
-      count_trips(a.st, rc);
-      tot_r = tot_r + r.tr * r.cr;
-      tot_g = tot_g + r.tg * r.cg;
-      tot_b = tot_b + r.tb * r.cb;
+  Ray r;
+  r.state = sample_seed(pix, frame_hash, 0u);
+  camera_ray(a.cam, xf, yf, a.inv_w, a.inv_h, r);
+  int s = 0, bounce = 0;
+  for (;;) {
+    if (bounce_step<kTextured, kStaged>(a.scene, r, &cv) && ++bounce < a.num_bounces) {
+      continue;
     }
-  } else {
-    // One bounce a step. When a path ends (a miss, an emitter, or
-    // num_bounces reached alive, colour 0), its tr * c joins the sum and
-    // the lane starts the pixel's next sample, until all spp are done.
-    Ray r;
-    r.state = sample_seed(pix, frame_hash, 0u);
+    tot_r = tot_r + r.tr * r.cr;
+    tot_g = tot_g + r.tg * r.cg;
+    tot_b = tot_b + r.tb * r.cb;
+    if (++s == a.spp) break;
+    r.state = sample_seed(pix, frame_hash, static_cast<uint32_t>(s));
     camera_ray(a.cam, xf, yf, a.inv_w, a.inv_h, r);
-    int s = 0, bounce = 0;
-    for (;;) {
-      if (bounce_step<kTextured, false, kStaged>(a.scene, r, nullptr, 0, &cv) &&
-          ++bounce < a.num_bounces) {
-        continue;
-      }
-      tot_r = tot_r + r.tr * r.cr;
-      tot_g = tot_g + r.tg * r.cg;
-      tot_b = tot_b + r.tb * r.cb;
-      if (++s == a.spp) break;
-      r.state = sample_seed(pix, frame_hash, static_cast<uint32_t>(s));
-      camera_ray(a.cam, xf, yf, a.inv_w, a.inv_h, r);
-      bounce = 0;
-    }
+    bounce = 0;
   }
 
   float* out = a.acc + (static_cast<size_t>(y) * a.width + x) * 3;
@@ -179,6 +161,126 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kStats ? 4 : kMinBlocks)
   out[1] = base_g + tot_g;
   out[2] = base_b + tot_b;
 }
+
+// Sample s of pixel (x, y): its seed and its camera ray (as the culled
+// kernel starts each sample, from the global row).
+__device__ __forceinline__ void start_sample(const Args& a, int x, int y, int s, Ray& r) {
+  const uint32_t y_g = static_cast<uint32_t>(y) + a.row_offset;
+  const uint32_t pix = y_g * static_cast<uint32_t>(a.width) + static_cast<uint32_t>(x);
+  r.state = sample_seed(pix, jenkins(a.frame), static_cast<uint32_t>(s));
+  camera_ray(a.cam, static_cast<float>(x), static_cast<float>(static_cast<int>(y_g)), a.inv_w,
+             a.inv_h, r);
+}
+
+// The stats kernel: the frame above with every sphere swept and the
+// counters of each (TPU tile, sample). The TPU pads the image to whole
+// tiles and clamps a padded lane into the image, so the lane traces the
+// edge pixel's path again and counts it (megakernel.py:1204-1206); here the
+// edge pixel's path is traced once and its live lanes count with the
+// weight of every lane that traces it.
+//
+// A persistent grid (the blocks the card holds at once) walks the pixels
+// in scanline order: each lane traces one pixel's samples in order, one
+// bounce a step, adds tr * c of each ended path to the pixel's sum and
+// seeds its next sample, and when the pixel's last path ends writes it and
+// takes the next pixel (take_item). So each pixel's sum is the culled
+// kernel's in every bit, and a lane idles only at the end of the frame;
+// the counters, ORs, maxima and sums keyed by (group, iteration), do not
+// depend on the schedule. Each step is one full sweep of every lane that
+// holds a path: where the table is staged whole, each warp steps on its
+// own; where it is swept in windows (kWindowed), the block steps together,
+// every thread taking part in staging and the barriers until the frame is
+// done.
+template <bool kTextured, bool kStaged, bool kWindowed>
+__global__ void __launch_bounds__(kStatsThreads,
+                                  kWindowed ? kWindowedMinBlocks : kStatsMinBlocks)
+    megakernel_stats(const StatsArgs a) {
+  const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
+  float4* tab = stats_table(a.table_offset);
+  const int n = a.scene.n;
+  if constexpr (!kWindowed) {
+    stage_window(tab, a.scene.sweep, 0, n);
+    __syncthreads();
+  }
+  const int pixels = a.width * a.height;
+  int x = 0, y = 0, group = 0;  // group: the (tile, sample 0) group of the pixel
+  int s = a.spp, bounce = 0;    // s == spp: no pixel in hand
+  float tot_r = 0.0f, tot_g = 0.0f, tot_b = 0.0f;
+  Ray r;
+  // pixel p's first sample
+  auto begin_pixel = [&](int p) {
+    y = p / a.width;
+    x = p - y * a.width;
+    group = ((y / kTileH) * a.tiles_x + x / kTileW) * a.spp;
+    s = 0;
+    tot_r = tot_g = tot_b = 0.0f;
+    start_sample(a, x, y, 0, r);
+  };
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item < pixels) begin_pixel(item);
+  for (;;) {
+    const bool live = s < a.spp;
+    if (kWindowed ? !__syncthreads_or(live) : !__any_sync(0xffffffffu, live)) break;
+    CountedSweep cs;
+    if (live) {
+      begin_counted(cv, r, static_cast<unsigned>((group + s) * a.st.n_iters + bounce), cs);
+    }
+    if constexpr (kWindowed) {
+      for (int w0 = 0; w0 < n; w0 += a.window) {
+        const int nw = min(a.window, n - w0);
+        __syncthreads();
+        stage_window(tab, a.scene.sweep, w0, nw);
+        __syncthreads();
+        if (live) sweep_window<kStaged>(tab, w0, nw, cv, a.st, cs);
+      }
+    } else if (live) {
+      sweep_window<kStaged>(tab, 0, n, cv, a.st, cs);
+    }
+    bool need = false;  // this lane's pixel is written: it takes another
+    if (live) {
+      end_counted<kStaged>(cv, a.st, cs);
+      const bool on = scatter_hit<kTextured>(a.scene, r, cs.bt, cs.bi);
+      // the trips of this sample's loop: its bounce steps, each a full sweep
+      const unsigned trips = static_cast<unsigned>(bounce) + 1u;
+      if (on && ++bounce < a.num_bounces) {
+        // a live path's colour is 0 and it is alive, as camera_ray set them:
+        // said here so that neither is carried from step to step
+        r.cr = r.cg = r.cb = 0.0f;
+        r.alive = true;
+      } else {
+        const unsigned weight = (x == a.width - 1 ? 1u + a.pad_x : 1u) *
+                                (y == a.height - 1 ? 1u + a.pad_y : 1u);
+        count_trips(a.st, group + s, trips, weight);
+        tot_r = tot_r + r.tr * r.cr;
+        tot_g = tot_g + r.tg * r.cg;
+        tot_b = tot_b + r.tb * r.cb;
+        bounce = 0;
+        if (++s < a.spp) {
+          start_sample(a, x, y, s, r);
+        } else {
+          float* out = a.acc + (static_cast<size_t>(y) * a.width + x) * 3;
+          const float base_r = a.clear ? 0.0f : out[0];
+          const float base_g = a.clear ? 0.0f : out[1];
+          const float base_b = a.clear ? 0.0f : out[2];
+          out[0] = base_r + tot_r;
+          out[1] = base_g + tot_g;
+          out[2] = base_b + tot_b;
+          need = true;
+        }
+      }
+    }
+    const long long next = take_item(a.st.ticket, need);
+    if (need && next < pixels) begin_pixel(static_cast<int>(next));
+  }
+}
+
+// megakernel_stats by [textured][boxes staged][windowed].
+void (*const kStatsKernels[2][2][2])(StatsArgs) = {
+    {{megakernel_stats<false, false, false>, megakernel_stats<false, false, true>},
+     {megakernel_stats<false, true, false>, megakernel_stats<false, true, true>}},
+    {{megakernel_stats<true, false, false>, megakernel_stats<true, false, true>},
+     {megakernel_stats<true, true, false>, megakernel_stats<true, true, true>}},
+};
 
 StatsArgs frame_args(const float* cam, const float* sky, const float* sweep, const float* attrs,
                      const int* tex_pool, float* acc, int n_spheres, int width, int height,
@@ -237,21 +339,19 @@ int wrt_megakernel_launch(const float* cam, const float* sky, const float* sweep
   const bool staged = cull_staged(a.cull);
   const size_t smem = cull_smem_bytes(a.cull);
   if (tex_pool != nullptr) {
-    (staged ? megakernel<true, false, true> : megakernel<true, false, false>)
-        <<<grid, block, smem, s>>>(a);
+    (staged ? megakernel<true, true> : megakernel<true, false>)<<<grid, block, smem, s>>>(a);
   } else {
-    (staged ? megakernel<false, false, true> : megakernel<false, false, false>)
-        <<<grid, block, smem, s>>>(a);
+    (staged ? megakernel<false, true> : megakernel<false, false>)<<<grid, block, smem, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same frame through the kStats instantiation, which sweeps every
-// sphere and also writes the TPU kernel's per-tile counters into stats
-// [n_tiles, 8] f32, n_tiles = ceil(width / 64) * ceil(height / 64). The
-// cull hierarchy is the one wrt_megakernel_launch takes; scratch holds
-// scratch_words u32 words (stats_scratch_words with groups = n_tiles * spp
-// and n_iters = num_bounces). Returns a cudaError_t.
+// The same frame through the stats kernel, which sweeps every sphere and
+// also writes the TPU kernel's per-tile counters into stats [n_tiles, 8]
+// f32, n_tiles = ceil(width / 64) * ceil(height / 64). The cull hierarchy
+// is the one wrt_megakernel_launch takes; scratch holds scratch_words u32
+// words (stats_scratch_words with groups = n_tiles * spp and n_iters =
+// num_bounces). Returns a cudaError_t.
 int wrt_megakernel_stats_launch(const float* cam, const float* sky, const float* sweep,
                                 const float* attrs, const int* tex_pool, float* acc,
                                 int n_spheres, int width, int height, float inv_w, float inv_h,
@@ -274,44 +374,64 @@ int wrt_megakernel_stats_launch(const float* cam, const float* sky, const float*
   if (scratch_words != stats_scratch_words(groups, num_bounces, n_tests, n_super)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  a.st = stats_refs(scratch, groups, num_bounces, n_tests, n_super);
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+  if (groups * num_bounces > 0xffffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.st = stats_refs(scratch, groups, num_bounces, n_tests, n_super, stats);
+  const StatsPlan plan = stats_plan(a.cull, n_spheres);
+  a.window = plan.window;
+  a.table_offset = static_cast<unsigned>(plan.table_offset);
+  const auto kernel = kStatsKernels[tex_pool != nullptr][cull_staged(a.cull)][plan.windows > 1];
+  unsigned grid = 0;
+  const cudaError_t err = persistent_grid(kernel, kStatsThreads, plan.smem,
+                                          static_cast<long long>(width) * height, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_counted(scratch, scratch_words, a.st, n_tests, n_super, super_factor, spp, n_tiles,
-                     stats, s, [&] {
-                       if (tex_pool != nullptr) {
-                         megakernel<true, true><<<grid, block, 0, s>>>(a);
-                       } else {
-                         megakernel<false, true><<<grid, block, 0, s>>>(a);
-                       }
-                     });
+                     stats, s, [&] { kernel<<<grid, kStatsThreads, plan.smem, s>>>(a); });
+}
+
+// The stats kernels' windows (stats_plan, shared with regroup.cu's K1) for
+// a cull hierarchy of n_spheres: spheres a window, windows, the table's
+// offset in a block's dynamic shared memory and the block's dynamic bytes.
+void wrt_stats_plan(int n_spheres, int n_chunks, int n_tests, int n_super, int chunk_size,
+                    int* window, int* windows, long long* table_offset, long long* smem) {
+  CullRefs cu = {};
+  cu.n_chunks = n_chunks;
+  cu.n_tests = n_tests;
+  cu.n_super = n_super;
+  cu.chunk_size = chunk_size;
+  const StatsPlan p = stats_plan(cu, n_spheres);
+  *window = p.window;
+  *windows = p.windows;
+  *table_offset = static_cast<long long>(p.table_offset);
+  *smem = static_cast<long long>(p.smem);
 }
 
 // Registers per thread and local (spill) bytes of one instantiation, as the
-// CUDA runtime reports them; returns a cudaError_t. `stats` picks kStats,
-// `staged` (kStats = 0 only) whether the box tables sit in shared memory.
+// CUDA runtime reports them; returns a cudaError_t. `stats`: 0 the culled
+// kernel, 1 the stats kernel with its table staged whole, 2 in windows;
+// `staged` whether the box tables sit in shared memory.
 int wrt_megakernel_attributes(int textured, int stats, int staged, int* num_regs,
                               int* local_bytes) {
-  const void* fns[2][3] = {
-      {reinterpret_cast<const void*>(megakernel<false, false, false>),
-       reinterpret_cast<const void*>(megakernel<false, false, true>),
+  if (stats < 0 || stats > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const void* culled[2][2] = {
+      {reinterpret_cast<const void*>(megakernel<false, false>),
        reinterpret_cast<const void*>(megakernel<false, true>)},
-      {reinterpret_cast<const void*>(megakernel<true, false, false>),
-       reinterpret_cast<const void*>(megakernel<true, false, true>),
+      {reinterpret_cast<const void*>(megakernel<true, false>),
        reinterpret_cast<const void*>(megakernel<true, true>)},
   };
+  const void* fn = stats == 0 ? culled[textured != 0][staged != 0]
+                              : reinterpret_cast<const void*>(
+                                    kStatsKernels[textured != 0][staged != 0][stats == 2]);
   cudaFuncAttributes attr;
-  const cudaError_t err =
-      cudaFuncGetAttributes(&attr, fns[textured != 0][stats != 0 ? 2 : staged != 0]);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   *num_regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   return 0;
 }
 
-// The kStats = false instantiations' launch bounds: threads a block and
-// the blocks an SM that fix their register budget (0: no minimum).
+// The culled kernel's launch bounds: threads a block and the blocks an SM
+// that fix its register budget (0: no minimum).
 void wrt_megakernel_launch_bounds(int* threads, int* min_blocks) {
   *threads = kBlockX * kBlockY;
   *min_blocks = kMinBlocks;

@@ -10,9 +10,10 @@
 //            and the live count.
 //   K1       _make_k1 (regroup.py:1378): bounces [b_lo, b_hi) on the dense
 //            pool, in place, plus the base-radiance pool tr * cr. Its
-//            kStats instantiation is _make_k1(stats=True) (regroup.py:618,
-//            745-758; launched by benchmarks/profile_regroup.py:244), which
-//            also counts per dense tile of 4096 records (stats.cuh).
+//            stats kernel, regroup_k1_stats, is _make_k1(stats=True)
+//            (regroup.py:618, 745-758; launched by
+//            benchmarks/profile_regroup.py:244), which sweeps every sphere
+//            and counts per dense tile of 4096 records (stats.cuh).
 //   COMBINE  _make_level_kernel_v2 / _make_level_kernel (regroup.py:1467):
 //            the reverse-composed levels, and at the home level the fold of
 //            each pixel's samples into the scanline accumulator.
@@ -67,7 +68,6 @@
 
 #include <algorithm>
 #include <cstdint>
-#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
@@ -88,11 +88,14 @@ constexpr int kThreads = 256;    // K0, K1: one thread per record
 // registers (65536 / (5 * 256) = 51, allocated in steps of 8). Measured on
 // an H100 against 52-56 (what ptxas takes when allowed 56 or 64) and
 // 48-register builds by tools/cull_variants.py: K1 runs 3% faster at 48,
-// K0 the same, with no spills. K1's kStats instantiation, which also
-// carries the counters, keeps four blocks (64 registers), as the stats
-// megakernel does: at 48 it spills.
+// K0 the same, with no spills. K1's stats kernel, which also carries the
+// counters, keeps four blocks or three (below), as the stats megakernel
+// does: at 48 it spills.
 constexpr int kTraceMinBlocks = 5;
-constexpr int kStatsMinBlocks = 4;
+// K1's stats kernel: 4 blocks where it stages the table whole, 3 (80
+// registers) where it sweeps windows, as the stats megakernel.
+constexpr int kStatsMinBlocks = 4;     // the table staged whole
+constexpr int kWindowedMinBlocks = 3;  // swept in windows
 
 // Image geometry of the tiles: width, height, tiles across, log2(spp).
 struct Tiling {
@@ -148,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k0(const K0
   r.state = sample_seed(seed_pixel(a.g, x, y, a.row_offset), jenkins(a.frame), sample);
   camera_ray(a.cam, static_cast<float>(x), static_cast<float>(static_cast<int>(y_g)), a.inv_w,
              a.inv_h, r);
-  trace_bounces<kTextured, false, kStaged>(a.scene, 0, a.b_hi, r, nullptr, &cv);
+  trace_bounces<kTextured, kStaged>(a.scene, 0, a.b_hi, r, &cv);
 
   float* p = a.pool + slot;
   const long long c = a.cap;
@@ -177,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k0(const K0
 struct K1Args {
   SceneRefs scene;
   CullRefs cull;
-  CullMargin margin;  // read by the kStats = false instantiations
+  CullMargin margin;  // read by the culled kernel (sweep_culled)
   float* pool;       // [16, cap] dense, updated in place
   float* r8;         // [3, cap] base radiance tr * cr
   const int* count;  // live records in the pool
@@ -187,42 +190,27 @@ struct K1Args {
   int b_lo, b_hi;
 };
 
-// What the kStats instantiation reads besides (the kStats = false one keeps
-// K1Args alone, so it compiles without the counters).
+// What K1's stats kernel reads besides: the counters and its windows of
+// the sphere table (stats_plan).
 struct K1StatsArgs : K1Args {
   StatsRefs st;
+  int window;             // spheres a window
+  unsigned table_offset;  // where the table starts in dynamic shared memory
 };
-
-template <bool kStats>
-using K1ArgsOf = std::conditional_t<kStats, K1StatsArgs, K1Args>;
 
 constexpr int kTileRecords = 32 * 128;  // a dense TPU tile (regroup.py:679-721)
 
-// K1: bounces [b_lo, b_hi) of one dense record. The RNG state is the home
-// slot's seed advanced 4 * (b_lo + 1) draws (regroup.py:723-741). The
-// kStats instantiation also counts per dense tile of 4096 records, as
-// _make_k1(stats=True) at tsub1 = 32 (regroup.py:745-758): col 0 is then
-// the tile's loop trips from b_lo; it sweeps every sphere (sweep_counted)
-// and stages nothing. A block wholly past the count returns before it
-// stages the cull tables.
-template <bool kTextured, bool kStats, bool kStaged = true>
-__global__ void __launch_bounds__(kThreads, kStats ? kStatsMinBlocks : kTraceMinBlocks)
-    regroup_k1(const K1ArgsOf<kStats> a) {
-  const long long first = static_cast<long long>(blockIdx.x) * kThreads;
-  const int count = *a.count;
-  if (first >= count) return;
-  CullView cv{};
-  if constexpr (!kStats) cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
-  const long long i = first + threadIdx.x;
-  if (i >= count) return;
-  float* p = a.pool + i;
+// Dense record i of K1's pool as the Ray entering bounce b_lo. The RNG
+// state is the home slot's seed advanced 4 * (b_lo + 1) draws
+// (regroup.py:723-741).
+__device__ __forceinline__ void load_record(const K1Args& a, long long i, Ray& r) {
+  const float* p = a.pool + i;
   const long long c = a.cap;
   const uint32_t slot = static_cast<uint32_t>(static_cast<int>(p[kHHI * c])) * kHomeRadix +
                         static_cast<uint32_t>(static_cast<int>(p[kHLO * c]));
   int x, y;
   uint32_t sample;
   slot_pixel(a.g, slot, x, y, sample);
-  Ray r;
   r.state = sample_seed(seed_pixel(a.g, x, y, a.row_offset), jenkins(a.frame), sample);
   for (int k = 0; k < 4 * (a.b_lo + 1); ++k) rng_step(r.state);
   r.ox = p[kOX * c];
@@ -238,14 +226,13 @@ __global__ void __launch_bounds__(kThreads, kStats ? kStatsMinBlocks : kTraceMin
   r.cg = p[kCG * c];
   r.cb = p[kCB * c];
   r.alive = true;
-  if constexpr (kStats) {
-    RayCounter rc{&a.cull, &a.st, static_cast<int>(i / kTileRecords), 1u, 0u};
-    trace_bounces<kTextured, true>(a.scene, a.b_lo, a.b_hi, r, &rc);
-    count_trips(a.st, rc);
-  } else {
-    trace_bounces<kTextured, false, kStaged>(a.scene, a.b_lo, a.b_hi, r, nullptr, &cv);
-  }
+}
 
+// The path after K1's bounces back into record i, in place, and its base
+// radiance tr * cr into r8.
+__device__ __forceinline__ void store_record(const K1Args& a, long long i, const Ray& r) {
+  float* p = a.pool + i;
+  const long long c = a.cap;
   p[kOX * c] = r.ox;
   p[kOY * c] = r.oy;
   p[kOZ * c] = r.oz;
@@ -263,6 +250,101 @@ __global__ void __launch_bounds__(kThreads, kStats ? kStatsMinBlocks : kTraceMin
   q[0] = r.tr * r.cr;
   q[c] = r.tg * r.cg;
   q[2 * c] = r.tb * r.cb;
+}
+
+// K1: bounces [b_lo, b_hi) of one dense record. A block wholly past the
+// count returns before it stages the cull tables.
+template <bool kTextured, bool kStaged = true>
+__global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k1(const K1Args a) {
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads;
+  const int count = *a.count;
+  if (first >= count) return;
+  const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
+  const long long i = first + threadIdx.x;
+  if (i >= count) return;
+  Ray r;
+  load_record(a, i, r);
+  trace_bounces<kTextured, kStaged>(a.scene, a.b_lo, a.b_hi, r, &cv);
+  store_record(a, i, r);
+}
+
+// K1's stats kernel, _make_k1(stats=True) at tsub1 = 32 (regroup.py:618,
+// 745-758): K1's bounces with every sphere swept, counted per dense tile
+// of 4096 records (stats.cuh; col 0 the tile's loop trips from b_lo). A
+// persistent grid (the blocks the card holds at once) walks the records:
+// each lane traces one record, one bounce a step, writes it back when its
+// path ends or reaches b_hi, and takes the next record (take_item), so a
+// lane idles only at the end of the pool; records are written in place
+// and the counters are keyed by (dense tile, iteration), so the order
+// changes no bit. Each step is one full sweep (bounce.cuh's stats
+// section) of every lane that holds a record: where the table is staged
+// whole each warp steps on its own, where it is swept in windows
+// (kWindowed) the block steps together, every thread taking part in
+// staging and the barriers until the pool is done. A block whose first records lie past the count
+// returns at once.
+template <bool kTextured, bool kStaged, bool kWindowed>
+__global__ void __launch_bounds__(kThreads, kWindowed ? kWindowedMinBlocks : kStatsMinBlocks)
+    regroup_k1_stats(const K1StatsArgs a) {
+  const int count = *a.count;
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i - static_cast<int>(threadIdx.x) >= count) return;
+  const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
+  float4* tab = stats_table(a.table_offset);
+  const int n = a.scene.n;
+  if constexpr (!kWindowed) {
+    stage_window(tab, a.scene.sweep, 0, n);
+    __syncthreads();
+  }
+  Ray r;
+  int bounce = a.b_hi;  // bounce == b_hi: no record in hand
+  if (i < count) {
+    load_record(a, i, r);
+    bounce = a.b_lo;
+  }
+  for (;;) {
+    const bool live = bounce < a.b_hi;
+    if (kWindowed ? !__syncthreads_or(live) : !__any_sync(0xffffffffu, live)) break;
+    const int group = i / kTileRecords;
+    CountedSweep cs;
+    if (live) {
+      begin_counted(cv, r, static_cast<unsigned>(group * a.st.n_iters + bounce - a.b_lo), cs);
+    }
+    if constexpr (kWindowed) {
+      for (int w0 = 0; w0 < n; w0 += a.window) {
+        const int nw = min(a.window, n - w0);
+        __syncthreads();
+        stage_window(tab, a.scene.sweep, w0, nw);
+        __syncthreads();
+        if (live) sweep_window<kStaged>(tab, w0, nw, cv, a.st, cs);
+      }
+    } else if (live) {
+      sweep_window<kStaged>(tab, 0, n, cv, a.st, cs);
+    }
+    bool need = false;  // this lane's record is written back: it takes another
+    if (live) {
+      end_counted<kStaged>(cv, a.st, cs);
+      const bool on = scatter_hit<kTextured>(a.scene, r, cs.bt, cs.bi);
+      // the trips of this record's loop: its bounce steps, each a full sweep
+      const unsigned trips = static_cast<unsigned>(bounce - a.b_lo) + 1u;
+      if (on && ++bounce < a.b_hi) {
+        // a live path's colour is 0 and it is alive (the pool holds live
+        // records): said here so that neither is carried from step to step
+        r.cr = r.cg = r.cb = 0.0f;
+        r.alive = true;
+      } else {
+        count_trips(a.st, group, trips, 1u);
+        store_record(a, i, r);
+        bounce = a.b_hi;
+        need = true;
+      }
+    }
+    const long long next = take_item(a.st.ticket, need);
+    if (need && next < count) {
+      i = static_cast<int>(next);
+      load_record(a, i, r);
+      bounce = a.b_lo;
+    }
+  }
 }
 
 // --- PACK: one launch, a single-pass stable compaction -------------------
@@ -652,6 +734,14 @@ int launch_culled(Kernel staged, Kernel global, const KArgs& a, long long cap, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// regroup_k1_stats by [textured][boxes staged][windowed].
+void (*const kK1StatsKernels[2][2][2])(K1StatsArgs) = {
+    {{regroup_k1_stats<false, false, false>, regroup_k1_stats<false, false, true>},
+     {regroup_k1_stats<false, true, false>, regroup_k1_stats<false, true, true>}},
+    {{regroup_k1_stats<true, false, false>, regroup_k1_stats<true, false, true>},
+     {regroup_k1_stats<true, true, false>, regroup_k1_stats<true, true, true>}},
+};
+
 K1StatsArgs k1_args(const float* sky, const float* sweep, const float* attrs, const int* tex_pool,
                int n_spheres, float* pool, float* r8, const int* count, long long cap, int width,
                int height, int tiles_x, int spp_shift, unsigned frame, unsigned row_offset,
@@ -679,7 +769,7 @@ extern "C" {
 // pointers, and returns cudaGetLastError() after its launches. `cap` is
 // the slot count, a multiple of 4096 below 2^28. K0 and K1 take the cull
 // hierarchy of prepare_scene_arrays (n_chunks = 0: none, every sphere is
-// swept), as the kStats entry point does, and the two scene terms of each
+// swept), as the stats entry point does, and the two scene terms of each
 // lane's box margin (KernelInputs.cull_reach, cull_scale).
 
 int wrt_regroup_k0(const float* cam, const float* sky, const float* sweep, const float* attrs,
@@ -746,13 +836,12 @@ int wrt_regroup_k1(const float* sky, const float* sweep, const float* attrs, con
                                chunk_size, super_factor));
   a.margin = CullMargin{cull_reach, cull_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tex_pool != nullptr ? launch_culled(regroup_k1<true, false, true>,
-                                             regroup_k1<true, false, false>, a, cap, s)
-                             : launch_culled(regroup_k1<false, false, true>,
-                                             regroup_k1<false, false, false>, a, cap, s);
+  return tex_pool != nullptr
+             ? launch_culled(regroup_k1<true, true>, regroup_k1<true, false>, a, cap, s)
+             : launch_culled(regroup_k1<false, true>, regroup_k1<false, false>, a, cap, s);
 }
 
-// K1 through the kStats instantiation: also writes the per-dense-tile
+// K1 through its stats kernel: also writes the per-dense-tile
 // counters into stats [cap / 4096, 8] f32 (rows of tiles past the count
 // stay 0). The cull hierarchy is prepare_scene_arrays'; scratch holds
 // scratch_words u32 words (stats_scratch_words with groups = cap / 4096
@@ -774,16 +863,17 @@ int wrt_regroup_k1_stats(const float* sky, const float* sweep, const float* attr
       scratch_words != stats_scratch_words(n_tiles, b_hi - b_lo, n_tests, n_super)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  a.st = stats_refs(scratch, n_tiles, b_hi - b_lo, n_tests, n_super);
+  a.st = stats_refs(scratch, n_tiles, b_hi - b_lo, n_tests, n_super, stats);
+  const StatsPlan plan = stats_plan(a.cull, n_spheres);
+  a.window = plan.window;
+  a.table_offset = static_cast<unsigned>(plan.table_offset);
+  const auto kernel = kK1StatsKernels[tex_pool != nullptr][cull_staged(a.cull)][plan.windows > 1];
+  unsigned grid = 0;
+  const cudaError_t err = persistent_grid(kernel, kThreads, plan.smem, cap, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_counted(scratch, scratch_words, a.st, n_tests, n_super, super_factor, 1, n_tiles,
-                     stats, s, [&] {
-                       if (tex_pool != nullptr) {
-                         regroup_k1<true, true><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
-                       } else {
-                         regroup_k1<false, true><<<blocks(cap, kThreads), kThreads, 0, s>>>(a);
-                       }
-                     });
+                     stats, s, [&] { kernel<<<grid, kThreads, plan.smem, s>>>(a); });
 }
 
 // inv [phases, cap] i32 and r8 [phases, 3, cap] f32: each PACK's inverse
@@ -802,23 +892,30 @@ int wrt_regroup_combine(const int* inv, const float* r8, const float* contrib, f
 
 // Registers per thread, local (spill) bytes and static shared bytes of one
 // kernel, as the CUDA runtime reports them; returns a cudaError_t.
-// `which`: 0/1 K0 untextured/textured, 2/3 K1, 4 PACK, 5 COMBINE, 6/7 K1
-// kStats, 8/9 K0 and 10/11 K1 with the box tables in global memory
-// (kStaged = false).
+// `which`: 0/1 K0 untextured/textured, 2/3 K1, 4 PACK, 5 COMBINE, 6/7 K1's
+// stats kernel (its table staged whole), 8/9 K0, 10/11 K1 and 12/13 K1's
+// stats kernel with the box tables in global memory (kStaged = false), 14/15
+// and 16/17 K1's stats kernel in windows (kWindowed), boxes staged and not.
 int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes, int* shared_bytes) {
   const void* fns[] = {
       reinterpret_cast<const void*>(regroup_k0<false, true>),
       reinterpret_cast<const void*>(regroup_k0<true, true>),
-      reinterpret_cast<const void*>(regroup_k1<false, false>),
-      reinterpret_cast<const void*>(regroup_k1<true, false>),
-      reinterpret_cast<const void*>(regroup_pack),
-      reinterpret_cast<const void*>(regroup_combine),
       reinterpret_cast<const void*>(regroup_k1<false, true>),
       reinterpret_cast<const void*>(regroup_k1<true, true>),
+      reinterpret_cast<const void*>(regroup_pack),
+      reinterpret_cast<const void*>(regroup_combine),
+      reinterpret_cast<const void*>(regroup_k1_stats<false, true, false>),
+      reinterpret_cast<const void*>(regroup_k1_stats<true, true, false>),
       reinterpret_cast<const void*>(regroup_k0<false, false>),
       reinterpret_cast<const void*>(regroup_k0<true, false>),
-      reinterpret_cast<const void*>(regroup_k1<false, false, false>),
-      reinterpret_cast<const void*>(regroup_k1<true, false, false>),
+      reinterpret_cast<const void*>(regroup_k1<false, false>),
+      reinterpret_cast<const void*>(regroup_k1<true, false>),
+      reinterpret_cast<const void*>(regroup_k1_stats<false, false, false>),
+      reinterpret_cast<const void*>(regroup_k1_stats<true, false, false>),
+      reinterpret_cast<const void*>(regroup_k1_stats<false, true, true>),
+      reinterpret_cast<const void*>(regroup_k1_stats<true, true, true>),
+      reinterpret_cast<const void*>(regroup_k1_stats<false, false, true>),
+      reinterpret_cast<const void*>(regroup_k1_stats<true, false, true>),
   };
   if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0]))) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,5 +1,5 @@
-// Whole-tile cull counters for the kStats instantiations of the megakernel
-// (megakernel.cu) and K1 (regroup.cu).
+// Whole-tile cull counters for the stats kernels of the megakernel
+// (megakernel.cu megakernel_stats) and K1 (regroup.cu regroup_k1_stats).
 //
 // Counterpart of the stats=True counters of the TPU kernels:
 // weekend_raytracer_tpu/ops/pallas/megakernel.py::_make_bounce (the cull
@@ -10,27 +10,31 @@
 // col 2 chunk bodies the whole-tile cull enters (inside entered
 // super-chunks), col 3 super-chunk bodies it enters, cols 4-7 zero.
 //
-// The kStats instantiations sweep every sphere and skip nothing. They can
-// still count what the TPU's cull decides, because that cull never changes
-// a winner: a chunk is skipped only when no live lane of the tile can hit
+// The stats kernels sweep every sphere and skip nothing. They can still
+// count what the TPU's cull decides, because that cull never changes a
+// winner: a chunk is skipped only when no live lane of the tile can hit
 // inside it, so at chunk c each lane's best-t is min(priors, spheres
-// before c) in the culled sweep and in the full one alike. So a kStats ray, before each chunk of
-// its unchanged chunk-ordered sweep, runs the TPU's slab test
-// (bound_possible, megakernel.py:529-554) with min(prior best-t, best-t so
-// far), and before each super-chunk's first chunk the super test; the
+// before c) in the culled sweep and in the full one alike. So a stats
+// kernel's ray, before each chunk of its unchanged chunk-ordered sweep,
+// runs the TPU's slab test (bound_possible, megakernel.py:529-554) with
+// min(prior best-t, best-t so far), and before each super-chunk's first
+// chunk the super test; the
 // priors are evaluated into their own best-t first. The bits are ORed over
 // the tile's rays per (tile, sample, loop iteration) with warp-aggregated
 // atomics, and stats_finish counts them: a chunk counts only inside an
 // entered super-chunk, as the JAX loops nest them. The counters are the
 // whole-tile cull's decisions, computed on the GPU, without any skipping.
 //
-// Cost on an H100: the slab tests add about 12 FP32 operations per chunk
-// to a sweep of 21 per sphere (so about 4% at 16 spheres a chunk), the
-// priors 4 sphere tests per bounce, and one aggregated atomic per warp per
-// 32 chunks; none of it is on the main path, whose instantiations have
-// kStats = false and compile without it. The main path's own cull, per
-// warp and skipping what no lane enters, is bounce.cuh's sweep_culled; it
-// shares the slab test (slab_box) and the priors with these counters.
+// Cost on an H100: the slab tests add 12 FP32 operations per chunk to a
+// sweep of 15 a pair (16 spheres a chunk: about 5%), the priors 4 pairs
+// per bounce, and one aggregated atomic per warp per 32 chunks; none of it
+// is on the main path, whose kernels compile without it. The stats
+// kernels sweep a table staged in shared memory, a run of discriminants
+// before any root, on a persistent grid whose lanes take the next pixel or
+// record as their paths end (bounce.cuh's stats section, megakernel.cu,
+// regroup.cu). The main path's own cull, per warp and
+// skipping what no lane enters, is bounce.cuh's sweep_culled; it shares
+// the slab test (slab_box) and the priors with these counters.
 
 #pragma once
 
@@ -61,16 +65,8 @@ struct StatsRefs {
   unsigned* live;         // [groups] loop iterations summed over the rays
   unsigned* chunk_words;  // [groups, n_iters, words_c] entered-chunk bits
   unsigned* super_words;  // [groups, n_iters, words_s] entered-super bits
+  unsigned* ticket;       // the persistent grid's next item (take_item)
   int n_iters, words_c, words_s;
-};
-
-// What one ray carries through trace_bounces<*, true>.
-struct RayCounter {
-  const CullRefs* cull;
-  const StatsRefs* st;
-  int group;
-  unsigned weight;  // lanes of the TPU tile that trace this path (its padding repeats the edge)
-  unsigned trips;   // loop iterations this ray ran
 };
 
 inline int stats_words(int bits) { return (bits + 31) / 32; }
@@ -81,9 +77,12 @@ inline long long stats_scratch_words(long long groups, int n_iters, int n_tests,
                            (stats_words(n_tests) + stats_words(n_super)));
 }
 
+// The scratch's parts, and the launch's work ticket: the first word of the
+// stats table `out`, which stats_finish writes over once the kernel is done.
 inline StatsRefs stats_refs(unsigned* scratch, long long groups, int n_iters, int n_tests,
-                            int n_super) {
+                            int n_super, float* out) {
   StatsRefs s;
+  s.ticket = reinterpret_cast<unsigned*>(out);
   s.n_iters = n_iters;
   s.words_c = stats_words(n_tests);
   s.words_s = stats_words(n_super);
@@ -116,17 +115,37 @@ __device__ __forceinline__ void or_word(unsigned* word, unsigned bits) {
   if (leads(peers) && all != 0u) atomicOr(word, all);
 }
 
-// A ray's loop iterations: the group's maximum, and the sum over the lanes
-// that trace the ray.
-__device__ __forceinline__ void count_trips(const StatsRefs& st, const RayCounter& rc) {
-  unsigned* it = st.iters + rc.group;
+// A ray's loop iterations (`trips`, each a full sweep) into its group:
+// the group's maximum, and the sum over the `weight` lanes of the TPU tile
+// that trace the ray (its padding repeats the edge). The peers on a word
+// are the lanes of the warp at this call with the same group, whatever
+// sample or bounce each is at.
+__device__ __forceinline__ void count_trips(const StatsRefs& st, int group, unsigned trips,
+                                            unsigned weight) {
+  unsigned* it = st.iters + group;
   const unsigned peers = peers_of(it);
-  const unsigned most = __reduce_max_sync(peers, rc.trips);
-  const unsigned sum = __reduce_add_sync(peers, rc.trips * rc.weight);
+  const unsigned most = __reduce_max_sync(peers, trips);
+  const unsigned sum = __reduce_add_sync(peers, trips * weight);
   if (leads(peers)) {
     atomicMax(it, most);
-    atomicAdd(st.live + rc.group, sum);
+    atomicAdd(st.live + group, sum);
   }
+}
+
+// The persistent grid's work: items [0, gridDim.x * blockDim.x) are the
+// threads' first, by thread index, and a lane that needs another (`need`)
+// takes the next one the ticket hands out, counted from there; every lane
+// of the warp calls it, converged. One atomic a warp, for the lanes that
+// need one, in lane order.
+__device__ __forceinline__ long long take_item(unsigned* ticket, bool need) {
+  const unsigned want = __ballot_sync(0xffffffffu, need);
+  if (want == 0u) return -1;
+  const int leader = __ffs(want) - 1;
+  unsigned base = 0u;
+  if (static_cast<int>(lane_id()) == leader) base = atomicAdd(ticket, __popc(want));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  return static_cast<long long>(gridDim.x) * blockDim.x + base +
+         __popc(want & ((1u << lane_id()) - 1u));
 }
 
 // The TPU's slab test of the box (lo x, y, z, hi x, y, z): can this ray
@@ -144,15 +163,6 @@ __device__ __forceinline__ bool slab_box(float lx, float ly, float lz, float hx,
   const float tnear = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
   const float tfar = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
   return tfar >= tnear && tfar > kSlabMinT && tnear < bt;
-}
-
-// slab_box for box i of a [6, stride] bound table in global memory.
-__device__ __forceinline__ bool slab_enters(const float* __restrict__ b, int stride, int i,
-                                            float ox, float oy, float oz, float ix, float iy,
-                                            float iz, float bt) {
-  return slab_box(__ldg(b + i), __ldg(b + stride + i), __ldg(b + 2 * stride + i),
-                  __ldg(b + 3 * stride + i), __ldg(b + 4 * stride + i),
-                  __ldg(b + 5 * stride + i), ox, oy, oz, ix, iy, iz, bt);
 }
 
 __device__ __forceinline__ float slab_inverse(float d) {
@@ -197,13 +207,16 @@ __global__ void stats_finish(const StatsRefs st, int n_tests, int n_super, int s
   o[4] = o[5] = o[6] = o[7] = 0.0f;
 }
 
-// Zero the scratch, run `launch` (the kStats kernel), then stats_finish.
+// Zero the scratch and the ticket, run `launch` (the stats kernel), then
+// stats_finish.
 // Returns a cudaError_t.
 template <class Launch>
 int run_counted(unsigned* scratch, long long scratch_words, const StatsRefs& st, int n_tests,
                 int n_super, int super_factor, int groups_per_tile, int n_tiles, float* out,
                 cudaStream_t s, Launch launch) {
   cudaError_t err = cudaMemsetAsync(scratch, 0, scratch_words * sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(st.ticket, 0, sizeof(unsigned), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   launch();
   err = cudaGetLastError();

@@ -176,16 +176,6 @@ __device__ __forceinline__ void put_ray(float* __restrict__ t_out, int* __restri
   i_out[r] = i;
 }
 
-// x0 y0 + x1 y1 + x2 y2 rounded as nvcc contracts that sum written out
-// (bounce.cuh sweep_sphere's c.d and 2c.o, and o.d and |o|^2 as sweep_fma
-// wrote them before): x1 y1 first, x0 y0 fused onto it, x2 y2 onto that,
-// as the SASS of the written sum shows; spelt out so that every
-// instantiation rounds alike.
-__device__ __forceinline__ float dot3(float x0, float y0, float x1, float y1, float x2,
-                                      float y2) {
-  return __fmaf_rn(x2, y2, __fmaf_rn(x0, y0, __fmul_rn(x1, y1)));
-}
-
 // A ray of sweep_fma: origin, direction, o.d, |o|^2 and its running (t, index).
 template <int kR>
 struct FmaRays {

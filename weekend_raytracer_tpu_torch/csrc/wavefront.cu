@@ -146,7 +146,7 @@ __device__ __forceinline__ long long contrib_at(long long row, int lane) {
 template <bool kTextured, bool kStaged>
 __device__ __forceinline__ bool step_on(const SceneRefs& sc, Ray& r, int& bounce, int b_hi,
                                         const CullView& cv) {
-  return bounce < b_hi && bounce_step<kTextured, false, kStaged>(sc, r, nullptr, 0, &cv) &&
+  return bounce < b_hi && bounce_step<kTextured, kStaged>(sc, r, &cv) &&
          ++bounce < b_hi;
 }
 
@@ -217,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, kCull ? kMinBlocks : 0) wavefront_k0
     if (slot >= a.cap) return;
     Ray r;
     k0_start(a, slot, r);
-    trace_bounces<kTextured, false, kStaged>(a.scene, 0, a.b_hi, r, nullptr, nullptr);
+    trace_bounces<kTextured, kStaged>(a.scene, 0, a.b_hi, r);
     k0_store(a, slot, r);
   } else {
     const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
@@ -314,7 +314,7 @@ __device__ __forceinline__ void k1_lane(const K1Args& a, long long row, int lane
   if (p[kAL * kPlane] > 0.5f) {
     Ray r;
     k1_load(p, r);
-    trace_bounces<kTextured, false, true>(a.scene, a.b_lo, a.b_hi, r, nullptr, nullptr);
+    trace_bounces<kTextured>(a.scene, a.b_lo, a.b_hi, r);
     k1_store(p, r);
     k1_contrib(a, p, lane, r.tr, r.tg, r.tb, r.cr, r.cg, r.cb);
   } else {

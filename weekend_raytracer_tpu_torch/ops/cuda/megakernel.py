@@ -21,8 +21,10 @@ see that file for what bounds it on the card and how its design answers.
   PyTorch, vectorized over pixels, for the CPU tests and for holding the
   kernel to it on the card.
 - ``stats=True`` (kernel #2, ``_make_kernel(stats=True)``) also returns the
-  TPU kernel's per-tile cull counters: the CUDA kStats instantiation
-  counts them on the card (csrc/stats.cuh), ``CullStats`` in the twin.
+  TPU kernel's per-tile cull counters: the CUDA stats kernel counts them on
+  the card (csrc/stats.cuh), sweeping every sphere from a table staged in
+  shared memory (in windows, ``stats_plan``) with each lane's samples
+  refilled as the culled kernel's are; ``CullStats`` in the twin.
 """
 from __future__ import annotations
 
@@ -275,7 +277,7 @@ class KernelInputs(NamedTuple):
 
     The chunk hierarchy (the last nine fields) is read by regroup's K0 and
     K1 and the megakernel, which cull their sweep per warp with it, and by
-    the kStats instantiations, which count the TPU kernel's cull decisions
+    the stats kernels, which count the TPU kernel's cull decisions
     and sweep every sphere; it is a
     few KiB (RTiOW: 6 x 31 chunk bounds, 744 bytes; random_spheres(10000):
     6 x 320 chunk and 6 x 20 super bounds, 8,160 bytes). Its boxes are the
@@ -394,26 +396,32 @@ def _library():
         bounds = built.lib.wrt_megakernel_launch_bounds
         bounds.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
         bounds.restype = None
+        plan = built.lib.wrt_stats_plan
+        plan.argtypes = [i] * 5 + [ctypes.POINTER(i)] * 2 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        plan.restype = None
     return built
 
 
-def kernel_attributes(textured: bool, stats: bool = False, staged: bool = True) -> dict:
-    """Registers per thread and local-memory bytes of the built kernel;
-    ``staged`` (stats=False only) picks the instantiation that reads the
-    box tables from shared memory, else the one that reads them from
+def kernel_attributes(textured: bool, stats: bool = False, staged: bool = True,
+                      windowed: bool = False) -> dict:
+    """Registers per thread and local-memory bytes of the built kernel
+    (``stats``: the stats kernel, with its table staged whole or, with
+    ``windowed``, in windows); ``staged`` picks the instantiation that reads
+    the box tables from shared memory, else the one that reads them from
     global memory."""
     built = _library()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = built.lib.wrt_megakernel_attributes(int(textured), int(stats), int(staged),
-                                              ctypes.byref(regs), ctypes.byref(local))
+    err = built.lib.wrt_megakernel_attributes(int(textured), (2 if windowed else 1) if stats else 0,
+                                              int(staged), ctypes.byref(regs),
+                                              ctypes.byref(local))
     if err:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
     return {"registers": regs.value, "local_bytes": local.value}
 
 
 def launch_bounds() -> tuple:
-    """(threads a block, blocks an SM) of the kStats = false
-    instantiations' ``__launch_bounds__`` (0 blocks: no minimum)."""
+    """(threads a block, blocks an SM) of the culled kernel's
+    ``__launch_bounds__`` (0 blocks: no minimum)."""
     threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
     _library().lib.wrt_megakernel_launch_bounds(ctypes.byref(threads), ctypes.byref(blocks))
     return threads.value, blocks.value
@@ -423,12 +431,12 @@ def _stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# ctypes types of cull_args(), as the culled and kStats entry points take them
+# ctypes types of cull_args(), as the culled and stats entry points take them
 CULL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
 
 
 def cull_args(inp: KernelInputs, device) -> tuple:
-    """The chunk hierarchy as a culled or kStats entry point takes it,
+    """The chunk hierarchy as a culled or stats entry point takes it,
     after checking it: three device pointers, then n_chunks, n_tests,
     n_super, chunk_size, super_factor."""
     for t, shape, dtype in ((inp.chunk_bounds, (6, max(inp.n_tests, 1)), _F32),
@@ -445,11 +453,68 @@ def cull_args(inp: KernelInputs, device) -> tuple:
 
 
 def stats_scratch_words(groups: int, n_iters: int, inp: KernelInputs) -> int:
-    """u32 words of a kStats launch's scratch (csrc/stats.cuh): per group
+    """u32 words of a stats launch's scratch (csrc/stats.cuh): per group
     of rays its iterations, its live lanes, and one bit per chunk and per
     super-chunk for each loop iteration."""
     words = lambda bits: -(-bits // 32)  # noqa: E731
     return groups * (2 + n_iters * (words(inp.n_tests) + words(inp.n_super)))
+
+
+# The stats kernels' windows (csrc/bounce.cuh stats_plan): the dynamic
+# shared memory a block stages (cull tables, then the sphere table), 32
+# bytes a staged sphere, and the most a block of the card may opt in to
+# (an H100's 227 KB).
+STATS_SMEM_BYTES = 48 * 1024
+STATS_SPHERE_BYTES = 32
+CARD_SMEM_BYTES = 232_448
+STAGE_BYTES = 44 * 1024  # csrc/bounce.cuh kStageBytes: the culled kernels' limit
+
+
+def cull_smem_bytes(n_chunks: int, n_tests: int, n_super: int) -> int:
+    """csrc/bounce.cuh cull_smem_bytes: a block's staged cull tables (the
+    priors' rows and indices, and the boxes where they fit STAGE_BYTES); 0
+    without chunks."""
+    if n_chunks == 0:
+        return 0
+    priors = N_PRIORS * (16 + 4)
+    boxes = 24 * (n_tests + n_super)
+    return priors + (boxes if priors + boxes <= STAGE_BYTES else 0)
+
+
+def stats_plan(n_spheres: int, n_chunks: int, n_tests: int, n_super: int,
+               chunk_size: int) -> dict:
+    """The stats kernels' windows of the sphere table (csrc/bounce.cuh
+    stats_plan, which ``[build]`` holds to this mirror): the fewest windows
+    of whole chunks (of spheres, without chunks) that each fit
+    STATS_SMEM_BYTES beside the cull tables, then the shortest window that
+    covers the table in that many. ``window`` spheres a window (the last one
+    shorter), ``windows``, the table's offset in a block's dynamic shared
+    memory (16-byte aligned) and the block's dynamic bytes (``smem``)."""
+    offset = -(-cull_smem_bytes(n_chunks, n_tests, n_super) // 16) * 16
+    unit = chunk_size if n_chunks else 1
+    units = n_chunks if n_chunks else n_spheres
+    most = max(1, max(STATS_SMEM_BYTES - offset, 0) // STATS_SPHERE_BYTES // unit)
+    fewest = -(-units // most)
+    window = -(-units // fewest) * unit
+    return {"window": window, "windows": -(-n_spheres // window), "table_offset": offset,
+            "smem": offset + min(window, n_spheres) * STATS_SPHERE_BYTES}
+
+
+def stats_plan_of(inp: KernelInputs) -> dict:
+    """``stats_plan`` of a prepared scene."""
+    return stats_plan(inp.n_spheres, inp.n_chunks, inp.n_tests, inp.n_super, inp.chunk_size)
+
+
+def stats_plan_built(n_spheres: int, n_chunks: int, n_tests: int, n_super: int,
+                     chunk_size: int) -> dict:
+    """The plan as the built library derives it (wrt_stats_plan)."""
+    i, ll = ctypes.c_int, ctypes.c_longlong
+    window, windows, offset, smem = i(0), i(0), ll(0), ll(0)
+    _library().lib.wrt_stats_plan(n_spheres, n_chunks, n_tests, n_super, chunk_size,
+                                  ctypes.byref(window), ctypes.byref(windows),
+                                  ctypes.byref(offset), ctypes.byref(smem))
+    return {"window": window.value, "windows": windows.value, "table_offset": offset.value,
+            "smem": smem.value}
 
 
 def stats_tiles(width: int, height: int) -> int:
@@ -518,7 +583,7 @@ def render_image_megakernel(
     bounce iterations of the tile's loop summed over samples, 1 live lanes
     summed over those iterations, 2 chunk bodies and 3 super-chunk bodies
     the TPU's whole-tile cull enters, 4-7 zero). On a CUDA ``accum`` it
-    launches the kStats instantiation (counted in
+    launches the stats kernel (counted in
     ``render_image_megakernel.stats_launches``) or raises; the image is the
     one stats=False gives.
     """
@@ -551,7 +616,7 @@ def launch_megakernel(accum: torch.Tensor, inp: KernelInputs, frame, clear, *,
                       stats: bool = False):
     """Launch the CUDA kernel on prepared inputs, on the current stream;
     counts the launch in ``render_image_megakernel.launches``. With
-    ``stats`` it launches the kStats instantiation instead, counted in
+    ``stats`` it launches the stats kernel instead, counted in
     ``render_image_megakernel.stats_launches``, and returns
     ``(accum, table)``."""
     _check_accum(accum, width, height, spp, num_bounces)
@@ -763,7 +828,7 @@ def _cull_tests(o, d, inp: KernelInputs, margin=None):
 
 class CullStats:
     """The TPU kernels' stats=True counters, gathered by the plain twins
-    (the CUDA kStats instantiations count the same, csrc/stats.cuh).
+    (the CUDA stats kernels count the same, csrc/stats.cuh).
 
     Rays belong to groups (a TPU tile and sample of the megakernel, a dense
     tile of K1); ``record`` takes the rays alive at the start of loop

@@ -197,7 +197,9 @@ def pack_scratch(cap: int, device) -> torch.Tensor:
 # regroup.cu wrt_regroup_attributes index -> kernel
 KERNEL_NAMES = ("k0", "k0_textured", "k1", "k1_textured", "pack", "combine",
                 "k1_stats", "k1_stats_textured", "k0_global", "k0_global_textured",
-                "k1_global", "k1_global_textured")
+                "k1_global", "k1_global_textured", "k1_stats_global",
+                "k1_stats_global_textured", "k1_stats_windowed", "k1_stats_windowed_textured",
+                "k1_stats_global_windowed", "k1_stats_global_windowed_textured")
 
 
 def _library():
@@ -387,8 +389,8 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
     ``r8`` [3, cap], the sweep culled per warp where ``inp`` has chunks.
     Counts one launch in ``launch_k1.launches``.
 
-    With ``stats`` [cap / 4096, 8] f32 it launches the kStats
-    instantiation instead (counted in ``launch_k1.stats_launches``), which
+    With ``stats`` [cap / 4096, 8] f32 it launches the stats
+    kernel instead (counted in ``launch_k1.stats_launches``), which
     also writes _make_k1(stats=True)'s counters per dense tile of 4096
     records: col 0 the tile's loop iterations from b_lo, col 1 live lanes
     summed over them, cols 2-3 chunk and super-chunk bodies the TPU's

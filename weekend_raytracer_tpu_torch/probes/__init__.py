@@ -23,12 +23,37 @@ HBM_RATE = 3.35e12  # bytes per second
 # cd 5, co2 8, bq 1, cq 2, bq^2 - cq 2, sqrt 1, t0 and t1 2); compares and
 # selects are not counted
 SPHERE_TEST_OPS = 21
+# FP32 operations of a pair whose 2c is staged (sweep.cu sweep_fma; the
+# stats kernels' staged_pairs, csrc/bounce.cuh), an FMA as two: cd 5, 2c.o
+# 5, bq 1, cq 2, bq^2 - cq 2; of the root of a pair with a real root (the
+# root, t0, t1); of a slab test of a chunk or super-chunk box (6
+# subtractions, 6 products). Compares and selects are not counted.
+PAIR_OPS = 15
+ROOT_OPS = 3
+SLAB_TEST_OPS = 12
 # shared memory (and L1) serve 32 banks of 4 B, 128 B a clock an SM
 SMEM_BYTES_PER_CLOCK = 128
 # an H100 SXM's SMs and maximum SM clock (NVIDIA's published figures), the
 # shared-memory rate's factors where no card is present to read them from
 H100_SMS = 132
 H100_MAX_SM_MHZ = 1980
+
+
+def stats_bound(segments: float, kept: float, nbytes: float, n_spheres: int, n_tests: int,
+                n_super: int, n_priors: int) -> dict:
+    """The least time of a stats kernel (the megakernel's or K1's; csrc/
+    bounce.cuh's stats section) on ``segments`` live path segments, each a
+    full sweep: PAIR_OPS for each of its pairs (every sphere of the table
+    and the ``n_priors`` priors', which a scene with chunks sweeps first),
+    SLAB_TEST_OPS for each chunk and super-chunk box it tests, and ROOT_OPS
+    for each of the ``kept`` pairs with a real root (b^2 - cq > 0); or
+    ``nbytes`` over the memory rate, whichever is larger."""
+    ops = (segments * ((n_spheres + n_priors) * PAIR_OPS + (n_tests + n_super) * SLAB_TEST_OPS)
+           + kept * ROOT_OPS)
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
 
 
 def card() -> str:

@@ -52,20 +52,18 @@ import numpy as np
 import torch
 
 from ..ops.cuda import sweep as sw
-from . import (FP32_PEAK, HBM_RATE, TF32_PEAK, card, check, device_times,
+from . import (FP32_PEAK, HBM_RATE, PAIR_OPS, ROOT_OPS, TF32_PEAK, card, check, device_times,
                host_ms, same_bits, sync, time_call, time_mean)
 
 _F32 = torch.float32
-# FP32 operations of sweep_fma's pair, an FMA as two: cd 5, 2c.o 5 (2c is
-# staged, so the sphere test's three c + c are not the pair's), bq 1, cq 2,
-# bq^2 - cq 2; what sweep_mma leaves on the FP32 units: per pair b, cq and
-# b^2 - cq; per pair with a real root (the pairs either sweep takes a root
-# of) the root, t0 and t1; and the products' flops the sweep needs per
-# pair: c.d (depth 3) and -2 c.o + kq (depth 4), multiply and add, once for
-# TF32 and three times for 3xTF32
-FMA_PAIR_OPS = 15
+# FP32 operations of sweep_fma's pair (PAIR_OPS: 2c is staged, so the
+# sphere test's three c + c are not the pair's); what sweep_mma leaves on
+# the FP32 units: per pair b, cq and b^2 - cq; per pair with a real root
+# (the pairs either sweep takes a root of) ROOT_OPS; and the products' flops
+# the sweep needs per pair: c.d (depth 3) and -2 c.o + kq (depth 4),
+# multiply and add, once for TF32 and three times for 3xTF32
+FMA_PAIR_OPS = PAIR_OPS
 MMA_EPILOGUE_OPS = 4
-ROOT_OPS = 3
 MMA_FLOPS_PER_PAIR = 2 * (3 + 4)
 PROBE = dict(spheres=32, rays=4096, iters=64, reps=30)  # p5, p7 (:258, :357)
 P8 = dict(rays=4096, iters=16, reps=20, n_chunks=10, cs=32)  # :535
