@@ -57,14 +57,25 @@ against the full-sweep wavefront (K0's and K1's kCull = false
 instantiations) in every bit, the wavefront at four cut schedules (RTiOW
 1920x1080 x 32 spp over two frames, random_spheres(10000) at 3840x2160 x 4
 spp, and random_spheres(60000), whose boxes K0 and K1 read from global
-memory, at 1920x1080 x 1 spp), and both against the stats megakernel's
-full sweep at one sample per pixel; it prints the sphere and box tests
+memory, at 1920x1080 x 1 spp; and the textured scene, image textures and
+no chunks, at 1920x1080 x 32 spp over two frames, with regroup on a band
+of whole tile rows, 512-543, equal to the same rows of the whole image in
+every bit and within the image gates of its twin), and both against the
+stats megakernel's full sweep at one sample per pixel; it prints the
+sphere and box tests
 per live segment that each lane's own decisions need and that the warp
 vote runs (regroup's warps, and the wavefront's refilled and regrouped
 ones), and times random_spheres(60000)'s culled kernels with CUDA events,
-its census taken in a child process. ``[trace]`` runs one regroup
-1080p frame under ``utils.metrics.profiler_trace`` and prints what the
-profiler saw beside the CUDA-event stage times. The ``kernels`` line gives
+its census taken in a child process. ``[trace]`` runs one regroup and
+one wavefront 1080p frame under ``utils.metrics.profiler_trace``, requires
+each trace to keep every kernel event of its frame, and prints what the
+profiler saw beside the CUDA-event stage times and the frame's idle share;
+its last line counts the ``probes.device_times`` labels that fell back to
+CUDA events. ``[reference]`` holds the megakernel, regroup and the
+wavefront against the JAX package's own images of a few small cases
+(tests/data/jax_images.npz, tools/jax_images.py; read with numpy), each
+at the image gates (first-hit: the share of differing pixels), with the
+twin's distance beside each kernel's. The ``kernels`` line gives
 every kernel its time, its twin's, its bound (the least time the card could
 take, from this run's live counts) and a library call's time where one
 computes the same function.
@@ -188,6 +199,10 @@ _XLA_BUDGETS = (512, 8192)  # and the largest texture's texels
 RMSE_GATE = 5e-3  # tonemapped RMSE (tests/test_pallas.py's gate)
 MEAN_REL_GATE = 1e-3  # relative linear mean radiance
 FIRST_HIT_GATE = 0.01  # fraction of first-hit pixels allowed to differ
+# the JAX package's images that [reference] holds the kernels to
+# (tools/jax_images.py)
+JAX_IMAGES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                          "jax_images.npz")
 # Each counter column's sum against the twin over 8 bounces. The megakernel
 # and its twin differ only by nvcc's contraction of a * b + c into FMAs,
 # which the twin does not do: built with -fmad=false the kernel equals its
@@ -245,9 +260,13 @@ _STATS_K1 = dict(width=1920, height=1080, spp=32, bounces=8, frame=0)
 # (``--child NAME``, NAME a case or "timing", the [timing] shape), so that
 # none adds its launches to this process: with random60k's census in it,
 # later profiler traces of the [access] phase lost all their device events
-# (three runs of three on an H100).
+# (three runs of three on an H100). The textured scene has no chunks, so
+# every lane sweeps every sphere and it takes no census.
 _CULL_CASES = (("rtiow", 1920, 1080, 32, 2, None), ("random10k", 3840, 2160, 4, 1, 32),
-               ("random60k", 1920, 1080, 1, 1, 32))
+               ("random60k", 1920, 1080, 1, 1, 32), ("textured", 1920, 1080, 32, 2, None))
+# the textured case's band of whole tile rows (rows 512-543) on which
+# regroup is held against its twin and against the whole image's rows
+REGROUP_TEX_BAND = (512, 32)
 # the [megakernel] phase: scene, width, height, spp, bounces of the
 # megakernel against the stats megakernel's full sweep in every
 # bit (random_spheres(60000): boxes in global memory; first_hit: one
@@ -342,6 +361,77 @@ def _render(fn, inp, w, h, frames, spp, bounces, **kw):
         fn(acc, inp, f, f == 0, width=w, height=h, spp=spp, num_bounces=bounces, **kw)
     torch.cuda.synchronize()
     return acc / (frames * spp)
+
+
+def _jax_images() -> tuple:
+    """tools/jax_images.py's fixture, read with numpy: ({"<kernel>_<case>":
+    (mean radiance [H*W, 3] f32, (w, h, frames, spp, bounces), regroup's
+    cuts or None)}, the jax version that made it)."""
+    import numpy as np
+
+    with np.load(JAX_IMAGES) as z:
+        images = {key: (z[key], tuple(int(v) for v in z[f"{key}_params"]),
+                        tuple(int(c) for c in z[f"{key}_cuts"])
+                        if f"{key}_cuts" in z.files else None)
+                  for key in z.files if f"{key}_params" in z.files}
+        return images, str(z["jax_version"])
+
+
+def _reference_runs(mk, rg, wf, inp, w, h, spp, bounces, cuts) -> dict:
+    """{backend: {"kernel": frame, "twin": frame}} of each backend that takes
+    this shape and bounce count (regroup needs a cut inside the bounces),
+    each ``frame(accum, f)`` one frame f: the megakernel, regroup at
+    ``cuts`` and the wavefront as the Renderer runs it (no cuts)."""
+    kw = dict(width=w, height=h, spp=spp, num_bounces=bounces)
+    pairs = {"megakernel": (mk.launch_megakernel, mk.render_plain_with_inputs, {})}
+    try:
+        rg.plan(w, h, spp, bounces, cuts)
+        pairs["regroup"] = (rg.launch_regrouped, rg.regrouped_plain_with_inputs,
+                            {"cuts": cuts})
+    except ValueError:
+        pass
+    pairs["wavefront"] = (wf.launch_wavefront, wf.wavefront_plain_with_inputs, {})
+    return {backend: {route: (lambda acc, f, fn=fn, extra=extra:
+                              fn(acc, inp, f, f == 0, **kw, **extra))
+                      for route, fn in (("kernel", kernel), ("twin", twin))}
+            for backend, (kernel, twin, extra) in pairs.items()}
+
+
+def _reference_paths(mk, rg, wf, gate: bool = True) -> dict:
+    """``[reference]``: every render kernel against the JAX package's own
+    image of the same case (tests/data/jax_images.npz, tools/jax_images.py),
+    for every case whose shape and bounces the backend takes, with its twin's
+    distance beside it: tonemapped RMSE and relative mean within the image
+    gates, and on the first-hit image the share of differing pixels within
+    FIRST_HIT_GATE. The kernels are gated (unless ``gate`` is false, as in
+    tools/fma_divergence.py --jax); the twins, which the CPU tests hold to
+    the JAX package, are printed."""
+    images, jax_version = _jax_images()
+    out = {"jax_version": jax_version}
+    for key, (image, (w, h, frames, spp, bounces), cuts) in images.items():
+        name = key.split("_", 1)[1]
+        inp = mk.kernel_inputs(*_case(name, w, h, "cuda"))
+        cuts = cuts or rg.default_cuts(bounces, inp.n_spheres)
+        ref = torch.from_numpy(image).cuda()
+        runs = _reference_runs(mk, rg, wf, inp, w, h, spp, bounces, cuts)
+        for backend, routes in runs.items():
+            res = {}
+            for route, run in routes.items():
+                acc = torch.zeros((w * h, 3), device="cuda")
+                for f in range(frames):
+                    run(acc, f)
+                st = _compare(ref, acc / (frames * spp), w, h)
+                st["pixels"] = w * h
+                res[route] = st
+            if gate:
+                st = res["kernel"]
+                ok = (st["pixel_mismatch"] < FIRST_HIT_GATE if name == "first_hit"
+                      else st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE)
+                _check(ok, ("a kernel against the JAX image", key, backend, st))
+            out[f"{key}.{backend}"] = {"shape": f"{name} {w}x{h} {frames}x{spp}spp b{bounces}",
+                                       "cuts": list(cuts) if backend == "regroup" else [],
+                                       **res}
+    return out
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -849,11 +939,10 @@ def _trace_frame(run, log_dir, expect: dict) -> dict:
     stage times beside it (the frame padded on both sides by
     probes.TRACE_PAD_S of idle host time, as the probes' traces are): each
     kernel's device time as the profiler's key_averages() report it, and
-    how many device events it recorded. The port's kernels among those
-    events are held against ``expect`` (the frame's launches, by kernel
-    name): the profiler can drop device events, so the idle share
-    (1 - kernel ms / stage ms) is given only when none of the frame's
-    kernels is missing, and ``missing_events`` says how many are."""
+    how many device events it recorded, and the idle share (1 - kernel ms /
+    stage ms). The port's kernels among those events are held against
+    ``expect`` (the frame's launches, by kernel name): ``missing_events``
+    says how many the trace lost, which the caller requires to be 0."""
     from torch.autograd import DeviceType
 
     from weekend_raytracer_tpu_torch.utils.metrics import profiler_trace
@@ -883,20 +972,16 @@ def _trace_frame(run, log_dir, expect: dict) -> dict:
     return {"device_events": len(device_events), "frame_kernels": sum(expect.values()),
             "recorded_frame_kernels": seen, "missing_events": missing, "kernel_ms": kernels,
             "kernel_total_ms": kernel_total, "stages_ms": stages,
-            "stage_total_ms": stage_total,
-            "idle_share": None if missing else 1.0 - kernel_total / stage_total}
+            "stage_total_ms": stage_total, "idle_share": 1.0 - kernel_total / stage_total}
 
 
 def _trace_fields(tr: dict) -> dict:
-    """The [trace] line's account of the events: the idle share where every
-    kernel of the frame was recorded, else how many events are missing."""
-    out = {"device_events": tr["device_events"], "frame_kernels": tr["frame_kernels"]}
-    if tr["missing_events"]:
-        out["missing_events"] = tr["missing_events"]
-        out["idle_share"] = "not given: the profiler dropped events"
-    else:
-        out["idle_share"] = f"{tr['idle_share']:.4f}"
-    return out
+    """The [trace] line's account of the events, after requiring that the
+    trace kept every kernel event of the frame."""
+    _check(tr["missing_events"] == 0, ("the profiler dropped kernel events of the frame",
+                                       tr["recorded_frame_kernels"], tr["missing_events"]))
+    return {"device_events": tr["device_events"], "frame_kernels": tr["frame_kernels"],
+            "missing_events": tr["missing_events"], "idle_share": f"{tr['idle_share']:.4f}"}
 
 
 def _census_lines(census) -> dict:
@@ -1125,6 +1210,8 @@ def _cull_paths(mk, rg, wf, ro, sw) -> dict:
                                        _compare(ref, acc, w, h)))
         del acc
         wf_launches = _wf_schedules_vs_full(mk, rg, wf, ro, sw, inp, kw, frames, ref)
+        band = (_regroup_band(rg, inp, kw, frames, ref) if inp.tex_pool is not None
+                else None)
         del ref
         one = dict(kw, spp=1)
         m = torch.zeros((w * h, 3), device="cuda")
@@ -1151,8 +1238,35 @@ def _cull_paths(mk, rg, wf, ro, sw) -> dict:
                      "spheres": inp.n_spheres, "chunks": inp.n_chunks, "supers": inp.n_super,
                      "placement": {"regroup": rg.cull_placement(inp),
                                    "wavefront": wf.cull_placement(inp)}}
+        if band is not None:
+            out[name].update(band=band, texture_pool_rows=band["texture_pool_rows"])
         torch.cuda.empty_cache()
     return out
+
+
+def _regroup_band(rg, inp, kw, frames, ref) -> dict:
+    """Regroup's frames on REGROUP_TEX_BAND, whole tile rows at their global
+    row offset: equal in every bit to the same rows of ``ref``, the full
+    sweep's whole image (which the whole regroup image equals), and its
+    twin on the same band within the image gates."""
+    lo, rows = REGROUP_TEX_BAND
+    w, h, spp = kw["width"], kw["height"], kw["spp"]
+    bkw = dict(kw, height=rows, row_offset=lo, full_height=h, cuts=_CUTS)
+    band = torch.zeros((w * rows, 3), device="cuda")
+    plain = torch.zeros_like(band)
+    for f in range(frames):
+        rg.launch_regrouped(band, inp, f, f == 0, **bkw)
+        rg.regrouped_plain_with_inputs(plain, inp, f, f == 0, **bkw)
+    torch.cuda.synchronize()
+    whole = ref[lo * w:(lo + rows) * w]
+    _check(torch.equal(band, whole), ("regroup's band is not the whole image's rows",
+                                      _compare(whole, band, w, rows)))
+    st = _compare(plain / (frames * spp), band / (frames * spp), w, rows)
+    _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE,
+           ("regroup's textured band against its twin", st))
+    return {"rows": [lo, lo + rows], "frames": frames, "spp": spp,
+            "vs_whole_image": "bit-exact",
+            "texture_pool_rows": int(inp.tex_pool.numel() // 128), **st}
 
 
 def _census_totals(census) -> dict:
@@ -2145,6 +2259,26 @@ def _by_events(res: dict) -> list:
     return out
 
 
+def _device_ms_by(res: dict) -> list:
+    """How each probes.device_times time in a result was taken ("profiler"
+    or "cuda_events"): every ``device_ms_by`` key (``library_device_ms_by``
+    in the tiny child's cases), each dict walked once."""
+    out, seen = [], set()
+
+    def walk(v):
+        if not isinstance(v, dict) or id(v) in seen:
+            return
+        seen.add(id(v))
+        for k, vv in v.items():
+            if isinstance(k, str) and k.endswith("device_ms_by"):
+                out.append(vv)
+            else:
+                walk(vv)
+
+    walk(res)
+    return out
+
+
 def _xla_renderer(name, backend, spp, frames, budget_texels=None):
     """A 1080p Renderer of the ``[xla]`` phase on the card."""
     from weekend_raytracer_tpu_torch import SCENES, RenderParams, Renderer, SamplingParams
@@ -2701,8 +2835,8 @@ def main(argv=None) -> int:
     from weekend_raytracer_tpu_torch.ops.cuda import reorder as ro
     from weekend_raytracer_tpu_torch.ops.cuda import sweep as sw
     from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf
-    from weekend_raytracer_tpu_torch.probes import (binned, dma, gather_cost, mosaic,
-                                                    mxu_sweep, place)
+    from weekend_raytracer_tpu_torch.probes import (binned, dma, gather_cost, mosaic, mxu_sweep,
+                                                    place)
 
     _check("jax" not in sys.modules, "the port imported jax")
     smi = _nvidia_smi()
@@ -2902,6 +3036,20 @@ def main(argv=None) -> int:
                and st["mean_rel"] < MEAN_REL_GATE, st)
         # one sample per pixel leaves no sum to contract: the same bits
         _check(spp != 1 or st["pixels_differing"] == 0, st)
+
+    # 5b. every render kernel against the JAX package's own images
+    # (tests/data/jax_images.npz), its twin's distance beside it
+    t0 = time.perf_counter()
+    ref = _reference_paths(mk, rg, wf)
+    for key, res in ref.items():
+        if key == "jax_version":
+            continue
+        _say("reference", case=key, shape=res["shape"], cuts=res["cuts"],
+             **{route: json.dumps({k: _sig(v) for k, v in res[route].items()})
+                for route in ("kernel", "twin")})
+    record["reference"] = {**ref, "seconds": time.perf_counter() - t0}
+    _say("reference", jax_version=ref["jax_version"], cases=len(ref) - 1,
+         seconds=f"{time.perf_counter() - t0:.1f}", card=repr(smi))
 
     # 6. the main paths, through the entry points a user calls: "auto"
     # (which resolves to regroup), then "pallas" (the megakernel)
@@ -3185,7 +3333,19 @@ def main(argv=None) -> int:
                             for k, v in res["ms"].items()}),
              spheres=res["spheres"], chunks=res["chunks"], supers=res["supers"],
              placement=json.dumps(res["placement"]), card=repr(smi))
+        if "band" in res:  # the textured case: its band, and each backend's stages
+            _say("cull", case=f"{name}_band_vs_plain",
+                 **{k: (f"{v:.3e}" if isinstance(v, float) else json.dumps(v))
+                    for k, v in res["band"].items()}, card=repr(smi))
+            for backend, stages in res["ms"].items():
+                _say("cull", case=f"{name}_stages", backend=backend,
+                     texture_pool_rows=res["texture_pool_rows"],
+                     stage_ms=json.dumps({k: round(v, 3) for k, v in stages.items()}),
+                     card=repr(smi))
     for name, res in cull.items():
+        if not res["chunks"]:  # no chunks, no cull: nothing for a census to count
+            _say("cull", case=f"{name}_census", skipped="the scene has no chunks")
+            continue
         res.update(_census_in_child(name))
         _say("cull", case=f"{name}_census", full_sweep_tests_per_segment=res["spheres"],
              **{k: json.dumps(v) for k, v in res["census_line"].items()}, card=repr(smi))
@@ -3637,6 +3797,12 @@ def main(argv=None) -> int:
     record["access"] = {**access, "seconds": access_s,
                         "traces_by_cuda_events": by_events}
     torch.cuda.empty_cache()
+    # every probes.device_times label whose time this run keeps (this
+    # process's and the tiny child's), and those that took CUDA events
+    # because their trace lost device events
+    by = _device_ms_by(record)
+    record["device_times"] = {"labels": len(by), "by_cuda_events": by.count("cuda_events")}
+    _say("trace", case="device_times", **record["device_times"], card=repr(smi))
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -40,6 +40,7 @@ port; a checkpoint saved on the card resumes there in every bit, for
 regroup and for xla.
 """
 import math
+import os
 
 import numpy as np
 import pytest
@@ -1486,3 +1487,84 @@ def test_checkpoint_resume_on_the_card(backend, cuda, tmp_path):
     while b.render_frame():
         pass
     assert torch.equal(a._accum, b._accum)
+
+
+@pytest.mark.cuda
+def test_textured_paths_equal_the_full_sweep_at_32_spp(cuda):
+    """The textured scene (image textures, no chunks) at the main path's 32
+    spp and 8 bounces, over two frames (the second accumulated): regroup at
+    cuts (2, 4, 6) and the culled wavefront at every cut schedule equal the
+    full-sweep wavefront in every bit, and regroup on a band of whole tile
+    rows equals the same rows of that image."""
+    w, h, spp, lo, rows = 128, 96, 32, 32, 32
+    inp = _inputs("textured", w, h, cuda)
+    assert inp.tex_pool is not None and inp.n_chunks == 0
+    ref = _render(wf._launch_wavefront_full_sweep, inp, w, h, 2, spp, 8, cuda)
+    got = _render(rg.launch_regrouped, inp, w, h, 2, spp, 8, cuda, cuts=(2, 4, 6))
+    assert torch.equal(got, ref)
+    for cuts in _WF_SCHEDULES:
+        got = _render(wf.launch_wavefront, inp, w, h, 2, spp, 8, cuda, phase_cuts=cuts)
+        assert torch.equal(got, ref), cuts
+    band = torch.zeros((w * rows, 3), device=cuda)
+    for f in range(2):
+        rg.launch_regrouped(band, inp, f, f == 0, width=w, height=rows, spp=spp,
+                            num_bounces=8, cuts=(2, 4, 6), row_offset=lo, full_height=h)
+    torch.cuda.synchronize()
+    assert torch.equal(band / (2 * spp), ref[lo * w:(lo + rows) * w])
+
+
+# tools/jax_images.py's fixture: the JAX package's own images
+_JAX_IMAGES = os.path.join(os.path.dirname(__file__), "data", "jax_images.npz")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["first_hit", "rtiow", "textured"])
+def test_megakernel_matches_committed_jax_images(name, cuda):
+    """The megakernel against render_image_pallas's image of the same case
+    (tests/test_torch_megakernel.py's _CASES), at the image gates: < 1% of
+    first-hit pixels differ, else tonemapped RMSE < 5e-3 and the mean within
+    a relative 1e-3."""
+    with np.load(_JAX_IMAGES) as z:
+        ref = torch.from_numpy(z[f"megakernel_{name}"]).to(cuda)
+        w, h, frames, spp, bounces = (int(v) for v in z[f"megakernel_{name}_params"])
+    got = _render(mk.launch_megakernel, _inputs(name, w, h, cuda), w, h, frames, spp,
+                  bounces, cuda)
+    if name == "first_hit":
+        assert float(((got - ref).abs() > 1e-6).any(dim=1).float().mean()) < 0.01
+        return
+    rmse = float(((_tonemapped(got, w, h) - _tonemapped(ref, w, h)) ** 2).mean().sqrt())
+    assert rmse < 5e-3, rmse
+    assert abs(float(got.mean()) - float(ref.mean())) / float(ref.mean()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_profiler_trace_keeps_every_event_of_50_regroup_frames(cuda, tmp_path):
+    """50 traces through utils.metrics.profiler_trace, one regroup frame
+    each: every trace keeps the device event of each of the frame's 8
+    kernels (K0, PACK and K1 at each of 3 cuts, COMBINE)."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    from weekend_raytracer_tpu_torch.utils.metrics import profiler_trace
+
+    w, h = 96, 64
+    inp = _inputs("rtiow", w, h, cuda)
+    acc = torch.zeros((w * h, 3), device=cuda)
+    want = {"regroup_k0": 1, "regroup_pack": 3, "regroup_k1": 3, "regroup_combine": 1}
+
+    def frame():
+        rg.launch_regrouped(acc, inp, 0, True, width=w, height=h, spp=4, num_bounces=8,
+                            cuts=(2, 4, 6))
+
+    frame()
+    torch.cuda.synchronize()
+    for i in range(50):
+        with profiler_trace(str(tmp_path)) as prof:
+            frame()
+        seen = {}
+        for e in prof.events():
+            m = re.search(r"(\w+)(<[^(]*>)?\(", e.name)
+            if e.device_type == DeviceType.CUDA and m and m.group(1) in want:
+                seen[m.group(1)] = seen.get(m.group(1), 0) + 1
+        assert seen == want, (i, seen)

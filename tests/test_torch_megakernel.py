@@ -14,6 +14,8 @@ The wrapper's dispatch is tested here with a stub kernel library; the CUDA
 kernel itself is held to the plain version by tests/test_torch_cuda.py,
 whose tests need a card.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -134,6 +136,22 @@ def jax_reference():
     return get
 
 
+@pytest.fixture(scope="module")
+def port_images(jax_reference):
+    """Each case's image from the port's plain megakernel on the JAX
+    case's leaves, computed once per module."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            _, (scene, sky, basis) = jax_reference(name)
+            cache[name] = _run_port(mk.render_image_megakernel, scene, sky, basis,
+                                    *_CASES[name])
+        return cache[name]
+
+    return get
+
+
 def _tonemapped(img, w, h):
     return np.asarray(to_srgb_u8(img.reshape(h, w, 3))).astype(np.float32) / 255
 
@@ -145,23 +163,58 @@ def _assert_statistically_equal(a, b, w, h):
 
 
 @pytest.mark.parametrize("name", ["three", "rtiow", "textured", "emissive"])
-def test_statistical_equivalence(name, jax_reference):
-    ref, (scene, sky, basis) = jax_reference(name)
+def test_statistical_equivalence(name, jax_reference, port_images):
+    ref = jax_reference(name)[0]
     w, h = _CASES[name][:2]
-    got = _run_port(mk.render_image_megakernel, scene, sky, basis, *_CASES[name])
+    got = port_images(name)
     assert np.isfinite(got).all()
     assert got.mean() > 0.01
     _assert_statistically_equal(ref, got, w, h)
 
 
-def test_first_hit_geometry_identical(jax_reference):
+def test_first_hit_geometry_identical(jax_reference, port_images):
     """1 bounce, constant sky, no lens: each pixel is a binary hit/miss;
     only sub-ulp silhouette pixels may differ."""
-    ref, (scene, sky, basis) = jax_reference("first_hit")
-    got = _run_port(mk.render_image_megakernel, scene, sky, basis,
-                    *_CASES["first_hit"])
+    ref = jax_reference("first_hit")[0]
+    got = port_images("first_hit")
     mismatch = (np.abs(ref - got) > 1e-6).any(axis=-1).mean()
     assert mismatch < 0.01, mismatch
+
+
+# The JAX package's images that chip_smoke.py's [reference] holds the
+# kernels to on the card, where there is no JAX (tools/jax_images.py)
+_JAX_IMAGES = os.path.join(os.path.dirname(__file__), "data", "jax_images.npz")
+_FIXTURE_CASES = ["first_hit", "rtiow", "textured"]
+
+
+@pytest.mark.parametrize("name", _FIXTURE_CASES)
+def test_committed_jax_images_are_the_jax_kernels(name, jax_reference):
+    """tests/data/jax_images.npz holds render_image_pallas's image of the
+    case at this module's parameters, in every bit: it was written by the
+    same code with the same jax on this kind of CPU. Exact, because
+    anything looser would let a changed JAX kernel pass; if XLA:CPU on
+    another CPU rounds a last ulp differently, the paths part and the
+    fixture is regenerated there with tools/jax_images.py."""
+    with np.load(_JAX_IMAGES) as z:
+        params, image, version = (z[f"megakernel_{name}_params"], z[f"megakernel_{name}"],
+                                  str(z["jax_version"]))
+    assert tuple(params) == _CASES[name]
+    assert version
+    np.testing.assert_array_equal(image, jax_reference(name)[0])
+
+
+@pytest.mark.parametrize("name", _FIXTURE_CASES)
+def test_twin_meets_gates_against_committed_jax_images(name, port_images):
+    """The port's plain megakernel against the fixture, at the gates that
+    [reference] holds the CUDA kernels to on the card."""
+    w, h = _CASES[name][:2]
+    with np.load(_JAX_IMAGES) as z:
+        ref = z[f"megakernel_{name}"]
+    got = port_images(name)
+    if name == "first_hit":
+        assert (np.abs(ref - got) > 1e-6).any(axis=-1).mean() < 0.01
+    else:
+        _assert_statistically_equal(ref, got, w, h)
 
 
 def _three(w, h):

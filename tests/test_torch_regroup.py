@@ -21,6 +21,8 @@ JAX compiles each interpret-mode kernel once per shape (tens of seconds),
 so the JAX outputs are cached in module-scoped fixtures and the sizes are
 small: at most 64x32, spp <= 4, <= 8 bounces.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -467,13 +469,57 @@ def slices():
     return get
 
 
+@pytest.fixture(scope="module")
+def port_slices(slices):
+    """Each scene's image from the port's regrouped twins on the JAX
+    case's leaves, cached."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            _, (scene, sky, basis) = slices(name)
+            cache[name] = _run_slice(rg.render_image_regrouped, scene, sky, basis,
+                                     *_SLICE[name])
+        return cache[name]
+
+    return get
+
+
 @pytest.mark.parametrize("name", list(_SLICE))
-def test_slice_matches_jax(name, slices):
-    ref, (scene, sky, basis) = slices(name)
+def test_slice_matches_jax(name, slices, port_slices):
+    ref = slices(name)[0]
     w, h, frames, spp, bounces, cuts = _SLICE[name]
-    got = _run_slice(rg.render_image_regrouped, scene, sky, basis, *_SLICE[name])
+    got = port_slices(name)
     assert np.isfinite(got).all() and got.mean() > 0.01
     _assert_statistically_equal(ref, got, w, h)
+
+
+# The JAX package's images that chip_smoke.py's [reference] holds the
+# kernels to on the card, where there is no JAX (tools/jax_images.py)
+_JAX_IMAGES = os.path.join(os.path.dirname(__file__), "data", "jax_images.npz")
+_FIXTURE_CASES = ["rtiow", "textured"]
+
+
+@pytest.mark.parametrize("name", _FIXTURE_CASES)
+def test_committed_jax_images_are_the_jax_kernels(name, slices):
+    """tests/data/jax_images.npz holds render_image_regrouped's image of
+    the case at this module's parameters and cuts, in every bit (exact, as
+    tests/test_torch_megakernel.py says why)."""
+    with np.load(_JAX_IMAGES) as z:
+        params, cuts, image = (z[f"regroup_{name}_params"], z[f"regroup_{name}_cuts"],
+                               z[f"regroup_{name}"])
+    assert tuple(params) + (tuple(cuts),) == _SLICE[name]
+    np.testing.assert_array_equal(image, slices(name)[0])
+
+
+@pytest.mark.parametrize("name", _FIXTURE_CASES)
+def test_twin_meets_gates_against_committed_jax_images(name, port_slices):
+    """The port's regrouped twins against the fixture, at the gates that
+    [reference] holds the CUDA kernels to on the card."""
+    w, h = _SLICE[name][:2]
+    with np.load(_JAX_IMAGES) as z:
+        ref = z[f"regroup_{name}"]
+    _assert_statistically_equal(ref, port_slices(name), w, h)
 
 
 @pytest.mark.parametrize("name", ["rtiow", "textured"])
@@ -702,6 +748,28 @@ def test_build_key_hashes_headers(tmp_path, monkeypatch):
     (tmp_path / "notes.txt").write_text("not a header\n")
     assert build.build_key("lib", ("k.cu",)) == key4
     assert len(rg.LIBRARY) == len(mk.LIBRARY) == 2
+
+
+def test_textured_band_of_tile_rows_is_the_full_image():
+    """The textured scene (image textures through the texture pool): a band
+    of whole tile rows, rendered at its global row offset, equals the same
+    rows of the full image in every bit, as chip_smoke.py's textured 1080p
+    band does on the card."""
+    w, h, lo, rows = 24, 96, 32, 32
+    _, (scene, sky, basis) = _setup("textured", w, h)
+    kw = dict(width=w, spp=4, num_bounces=6, cuts=(2,))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        full = torch.zeros((w * h, 3))
+        rg.render_image_regrouped(full, 3, True, scene, sky, basis, height=h, **kw)
+        band = torch.zeros((w * rows, 3))
+        rg.render_image_regrouped(band, 3, True, scene, sky, basis, height=rows,
+                                  row_offset=lo, full_height=h, **kw)
+    finally:
+        torch.set_num_threads(threads)
+    torch.testing.assert_close(band, full[lo * w:(lo + rows) * w], rtol=0, atol=0)
+    assert float(band.mean()) > 0.01
 
 
 def test_row_band_reproduces_full_image():

@@ -25,6 +25,13 @@ whole image and its twin one band of tile rows (rows 512-543), and K1 runs
 the whole dense pool and its twin the last 32 tiles of dense rows. Each
 case counts the lanes whose record differs in any bit (the home row aside)
 and the lanes whose contribution differs.
+
+With ``--jax`` it measures instead how far the megakernel, regroup and the
+wavefront, built both ways, and their twins sit from the JAX package's own
+images (tests/data/jax_images.npz, written by tools/jax_images.py; read
+with numpy, so no JAX is needed here): chip_smoke.py's ``[reference]``
+cases, each kernel's tonemapped RMSE, relative mean and share of differing
+pixels beside its twin's, with and without -fmad=false.
 """
 from __future__ import annotations
 
@@ -35,6 +42,21 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _measure_jax(no_fma: bool) -> dict:
+    """chip_smoke.py's [reference] distances, with this build's flags."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from weekend_raytracer_tpu_torch.ops.cuda import build
+    from weekend_raytracer_tpu_torch.ops.cuda import megakernel as mk
+    from weekend_raytracer_tpu_torch.ops.cuda import regroup as rg
+    from weekend_raytracer_tpu_torch.ops.cuda import wavefront as wf
+
+    if no_fma:
+        build.NVCC_FLAGS = build.NVCC_FLAGS + ("-fmad=false",)
+    build.load_libraries([mk.LIBRARY, rg.LIBRARY, wf.LIBRARY])
+    return cs._reference_paths(mk, rg, wf, gate=False)
 
 
 def _measure(no_fma: bool) -> dict:
@@ -162,10 +184,13 @@ def _wavefront(cs, mk, wf, dev) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--jax", action="store_true",
+                    help="the distances from the JAX package's images instead")
     ap.add_argument("--child", choices=("fma", "no_fma"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(_measure(args.child == "no_fma")), flush=True)
+        measure = _measure_jax if args.jax else _measure
+        print(json.dumps(measure(args.child == "no_fma")), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -173,10 +198,17 @@ def main() -> int:
     print(smi, flush=True)
     record = {"card": smi}
     for mode in ("fma", "no_fma"):
-        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", mode],
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", mode]
+                             + (["--jax"] if args.jax else []),
                              capture_output=True, text=True, check=True, cwd=ROOT)
         record[mode] = json.loads(run.stdout.strip().splitlines()[-1])
         for name, r in record[mode].items():
+            if args.jax:
+                if name != "jax_version":
+                    print(f"[{mode}] case=jax.{name} shape={r['shape']!r} "
+                          f"kernel={json.dumps(r['kernel'])} twin={json.dumps(r['twin'])}",
+                          flush=True)
+                continue
             if name.startswith("wavefront"):
                 print(f"[{mode}] case={name} {json.dumps(r)}", flush=True)
                 continue
@@ -185,7 +217,8 @@ def main() -> int:
                   f"image={json.dumps(r['image'])}", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "fma_divergence.json"), "w") as f:
+        name = "fma_divergence_jax.json" if args.jax else "fma_divergence.json"
+        with open(os.path.join(args.out, name), "w") as f:
             json.dump(record, f, indent=1)
     return 0
 

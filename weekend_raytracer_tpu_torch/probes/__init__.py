@@ -185,13 +185,15 @@ def device_times(fns: dict, reps: int, device, several=()):
     times under its own utils.metrics.profiler_trace, the calls padded on
     both sides by TRACE_PAD_S of idle host time, with a pair of CUDA events
     around each call. By "profiler", the time is the mean of the device
-    events the profiler records there (as chip_smoke's [trace] reads them);
-    a trace can miss a few of its events, so the mean is over those it has.
+    events the profiler records there (as chip_smoke's [trace] reads them),
+    the mean over those it has.
     A label of ``several`` is first traced over one call of its own, which
     counts its kernels a call; its time is then the sum of its events over
     ``reps`` (``library_device_ms``), and only where the trace holds every
-    event it should. A trace that records none of them (one did after some
-    hundred traces in one process), or a ``several`` trace that lost any,
+    event it should. A trace that records none of them, or that lost every
+    primer kernel of profiler_trace (``Trace.complete``; after other
+    processes made CUDA contexts on the card, a session loses its first
+    device events), or a ``several`` trace that lost any,
     gives by "cuda_events" the mean of the event pairs of the same calls
     instead, which also counts each launch's host side: no call is made
     again, so the launches stay ``reps`` a function (one more for a label of
@@ -221,7 +223,7 @@ def device_times(fns: dict, reps: int, device, several=()):
                 torch.cuda.synchronize()
                 time.sleep(TRACE_PAD_S)
             us = [e.self_device_time_total for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA] if prof.complete else []
         return us, pairs
 
     out = {}

@@ -62,11 +62,75 @@ class StepTimer:
         )
 
 
+# A CUDA profiler session in this process loses the first device events
+# it should record once another process has made a CUDA context on the
+# card after CUPTI started here (a census child, the CLI, torchrun): in
+# tools/trace_events.py each such child made every later session lose one
+# more of its first events, and now and then a session lost tens or
+# hundreds (51, 336; PERF.md). profiler_trace therefore opens each session
+# with PRIMERS primer kernels, which take the loss, and keeps them out of
+# what it yields; a session that lost them all says so (Trace.complete).
+PRIMER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+PRIMERS = 1024
+# the CPU-side launch calls of a kernel, which share its correlation id
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+class Trace:
+    """What profiler_trace yields: ``events()`` and ``key_averages()`` of
+    the traced block (its device events without the primer kernels and
+    their launch calls), the profiler itself as ``prof``, ``primers``
+    (launched) and ``primers_lost``. ``complete`` is False where the
+    session lost every primer, so that the block's own device events may
+    be missing too."""
+
+    def __init__(self, prof, primers: int):
+        self.prof, self.primers = prof, primers
+        self._events, self._kept = None, 0
+
+    def events(self):
+        if self._events is None:
+            from torch.autograd import DeviceType
+            from torch.autograd.profiler_util import EventList
+
+            events = self.prof.events()
+            primer = [e for e in events
+                      if e.device_type == DeviceType.CUDA and PRIMER_KERNEL in e.name]
+            drop = {id(e) for e in primer}
+            # a CPU event's id and a kernel's come from two counters, so
+            # only a launch call is matched to a primer by its id
+            launches = {e.id for e in primer}
+            self._events = EventList(
+                [e for e in events if id(e) not in drop
+                 and not (e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS
+                          and e.id in launches)],
+                use_device=getattr(events, "_use_device", None))
+            self._events._tree_built = True  # the events keep their tree
+            self._kept = len(primer)
+        return self._events
+
+    def key_averages(self):
+        return self.events().key_averages()
+
+    @property
+    def primers_lost(self) -> int:
+        self.events()
+        return self.primers - self._kept
+
+    @property
+    def complete(self) -> bool:
+        return self.primers == 0 or self.primers_lost < self.primers
+
+
 @contextlib.contextmanager
 def profiler_trace(log_dir: Optional[str]) -> Iterator[object]:
     """Trace the block with torch.profiler when log_dir is set, and write
-    the Chrome trace to ``log_dir/trace.json``; yields the profiler (for
-    ``key_averages()``), or None as a no-op without a log dir."""
+    the Chrome trace (primer kernels included) to ``log_dir/trace.json``;
+    yields a ``Trace``, or None as a no-op without a log dir. With a card,
+    the session first launches primer kernels (``torch.cuda._sleep``) and
+    waits for them, so that the events it can lose are theirs, and waits
+    for the block's kernels before it stops, so that a kernel still running
+    there keeps its event."""
     if not log_dir:
         yield None
         return
@@ -74,9 +138,18 @@ def profiler_trace(log_dir: Optional[str]) -> Iterator[object]:
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
+    primers = 0
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+        primers = PRIMERS
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield prof
+        for _ in range(primers):
+            torch.cuda._sleep(1)
+        if primers:
+            torch.cuda.synchronize()
+        trace = Trace(prof, primers)
+        yield trace
+        if primers:
+            torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
