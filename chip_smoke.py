@@ -75,7 +75,29 @@ CUDA events. ``[reference]`` holds the megakernel, regroup and the
 wavefront against the JAX package's own images of a few small cases
 (tests/data/jax_images.npz, tools/jax_images.py; read with numpy), each
 at the image gates (first-hit: the share of differing pixels), with the
-twin's distance beside each kernel's. The ``kernels`` line gives
+twin's distance beside each kernel's.
+
+``[mxu]`` runs the MXU chunk sweep (``mxu_sweep=True``; csrc/mxu.cuh, the
+kMxu instantiations of the megakernel, regroup's K0 and K1 and the
+wavefront's culled K0 and K1, their 3xTF32 products on the tensor cores):
+each instantiation against its twin at the main path's shape (RTiOW 1920
+wide, 32 spp, 8 bounces, the cuts; on the rows of MXU_BAND, regroup with K0
+and K1 each alone on the MXU route, then both; the wavefront's K0 on the
+whole image), then against its twin and against the FMA kernel on the
+same inputs at the image gates, with the share of pixels equal to the FMA
+kernel's (RTiOW 96x64, 4 frames of 4 spp; chunk sizes 16, 32 and 8);
+``[reference]`` lines for the JAX package's mxu_sweep=True images
+(``<kernel>_mxu_<case>``; the textured scene has no chunks, so its keys
+hold the FMA kernels, which the knob leaves in every bit);
+``Renderer(..., mxu_sweep=True)`` at the main
+path's size as ``"auto"`` (regroup), ``"pallas"`` and ``"wavefront"``, and
+render_image_wavefront at the cuts, each with its launches counted from 0
+and its image against the FMA route's; then the two routes' times in turns
+at the ``[timing]`` shape and at 1080p x 32 spp, the MXU twins' at the
+``[timing]`` shape (their frames held to the MXU kernels' there), and each
+MXU kernel's bound there. ``[build]
+case=mxu`` gives their launch bounds, registers and local bytes. The
+``kernels`` line gives
 every kernel its time, its twin's, its bound (the least time the card could
 take, from this run's live counts) and a library call's time where one
 computes the same function.
@@ -213,6 +235,9 @@ STATS_SUM_GATE = 0.01
 STATS_SUM_GATE_RANDOM = 0.03
 _RANDOM_SCENES = ("super", "random10k")
 REGROUP_KERNELS = ("k0", "pack", "k1", "combine")
+# the MXU chunk sweep's instantiations (csrc/mxu.cuh, kMxu): the megakernel's,
+# regroup's K0 and K1, the wavefront's culled K0 and K1
+MXU_KERNELS = ("megakernel_mxu", "k0_mxu", "k1_mxu", "wavefront_k0_mxu", "wavefront_k1_mxu")
 # the kernels that cull per warp ("wavefront_k0_nocut": the Renderer's K0,
 # all bounces in one launch)
 CULLED_KERNELS = ("k0", "k1", "megakernel", "wavefront_k0", "wavefront_k0_nocut", "wavefront_k1")
@@ -243,6 +268,19 @@ ALIVE_GATE = 0.99  # share of a K1's lanes whose alive flag must match the twin'
 # random_spheres(1200) in 75 chunks of 16 and 5 super-chunks, seen through a
 # narrow lens so that a tile's rays miss some super-chunks (col 3)
 _STATS_PLAIN_CASES = (("rtiow", 96, 64, 4), ("super", 256, 128, 4))
+# [mxu]'s holds: RTiOW at _REGROUP_CASES' shape (name, w, h, frames, spp,
+# bounces), at the chunk size of its prepared scene (16: one sphere tile a
+# chunk), 32 (two) and 8 (one, half padding); the (K0, K1) routes of regroup
+# and the wavefront: both on the MXU sweep, then each alone
+_MXU_CASE = ("rtiow", 96, 64, 4, 4, 8)
+_MXU_CHUNKS = (None, 32, 8)
+_MXU_SPLITS = ((True, True), (True, False), (False, True))
+# [mxu]'s holds at the main path's shape (_MAIN, _CUTS): the whole tile rows
+# of RTiOW 1920x1080 on which each MXU kernel meets its twin
+MXU_BAND = (512, 32)
+# frames of 4 spp at the [timing] shape over which each MXU frame meets its
+# twin: 16 spp, as _MXU_CASE's
+MXU_TIMING_FRAMES = 4
 K1_SPAN_TILES = 32  # dense tiles of the 1080p pool held against k1_plain
 # the counters' full-size cases: benchmarks/kernel_stats.py:30, 41-45 and
 # benchmarks/profile_regroup.py:42, 114-279
@@ -409,6 +447,8 @@ def _reference_paths(mk, rg, wf, gate: bool = True) -> dict:
     images, jax_version = _jax_images()
     out = {"jax_version": jax_version}
     for key, (image, (w, h, frames, spp, bounces), cuts) in images.items():
+        if "_mxu_" in key:  # the MXU chunk sweep's images: _reference_mxu
+            continue
         name = key.split("_", 1)[1]
         inp = mk.kernel_inputs(*_case(name, w, h, "cuda"))
         cuts = cuts or rg.default_cuts(bounces, inp.n_spheres)
@@ -432,6 +472,443 @@ def _reference_paths(mk, rg, wf, gate: bool = True) -> dict:
                                        "cuts": list(cuts) if backend == "regroup" else [],
                                        **res}
     return out
+
+
+def _mxu_routes(mk, rg, wf, backend: str, cuts) -> tuple:
+    """(kernel, twin, keywords) of a backend's frame on prepared inputs, as
+    [mxu] and _reference_mxu run it (regroup at ``cuts``, the wavefront at
+    ``cuts`` as phase cuts)."""
+    return {"megakernel": (mk.launch_megakernel, mk.render_plain_with_inputs, {}),
+            "regroup": (rg.launch_regrouped, rg.regrouped_plain_with_inputs, {"cuts": cuts}),
+            "wavefront": (wf.launch_wavefront, wf.wavefront_plain_with_inputs,
+                          {"phase_cuts": cuts})}[backend]
+
+
+def _reference_mxu(mk, rg, wf, gate: bool = True) -> dict:
+    """``[reference]`` of the MXU chunk sweep: each backend's frame on
+    kernel_inputs(..., mxu_sweep=True) against the JAX package's
+    mxu_sweep=True image of the same case (tests/data/jax_images.npz
+    ``<kernel>_mxu_<case>``), gated at the image gates (unless ``gate`` is
+    false, as in tools/mxu_steps.py), its twin's distance beside it. Where
+    the case's scene has chunks (``mxu_route``) its K0, K1 or megakernel
+    launches are the kMxu instantiations; where it has none (the textured
+    scene) the knob is ignored, as in the JAX package: no MXU kernel
+    launches and the image equals the FMA route's in every bit, so those
+    keys hold the FMA kernels to the JAX package's MXU image."""
+    images, _ = _jax_images()
+    counters = _mxu_counters(mk, rg, wf)
+    out = {}
+    for key, (image, (w, h, frames, spp, bounces), cuts) in images.items():
+        if "_mxu_" not in key:
+            continue
+        backend, name = key.split("_mxu_")
+        case = _case(name, w, h, "cuda")
+        inp = mk.kernel_inputs(*case, mxu_sweep=True)
+        route = mk.mxu_route(inp)
+        ref = torch.from_numpy(image).cuda()
+        kernel, twin, extra = _mxu_routes(mk, rg, wf, backend, cuts or ())
+        res = {}
+        for fn in counters.values():
+            setattr(*fn, 0)
+        img = _render(kernel, inp, w, h, frames, spp, bounces, **extra)
+        launched = sum(getattr(*fn) for fn in counters.values())
+        _check((launched > 0) == route, ("MXU launches against the route", key, route, launched))
+        if not route:
+            fma = _render(kernel, mk.kernel_inputs(*case), w, h, frames, spp, bounces, **extra)
+            _check(torch.equal(img, fma), ("the knob changed the bits of a scene without chunks",
+                                           key, _compare(fma, img, w, h)))
+        for route_name, a in (("kernel", img), ("twin", _render(twin, inp, w, h, frames, spp,
+                                                                  bounces, **extra))):
+            st = _compare(ref, a, w, h)
+            st["pixels"] = w * h
+            res[route_name] = st
+        st = res["kernel"]
+        _check(not gate or st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE,
+               ("an MXU frame against the JAX image", key, st))
+        out[key] = {"shape": f"{name} {w}x{h} {frames}x{spp}spp b{bounces}",
+                    "cuts": list(cuts or ()), "mxu_route": route, "mxu_launches": launched,
+                    "holds": "the MXU kernels" if route else
+                    "the FMA kernels (no chunks: the knob is ignored, every bit the FMA route's)",
+                    **res}
+    return out
+
+
+def _mxu_vs_twins(mk, rg, wf, gate: bool = True) -> dict:
+    """``[mxu]``'s holds on RTiOW at _MXU_CASE's shape: each MXU
+    instantiation against its twin and against the FMA kernel on the same
+    inputs, both at the image gates, with the share of pixels equal to the
+    FMA kernel's (the JAX test asks more than half of its own; on the card
+    the tensor cores round c.d otherwise than the FMA chain, so it is
+    recorded). At chunk size 16 (RTiOW's) the megakernel, then regroup and
+    the wavefront (at _CUTS) with each route of _MXU_SPLITS, so that K0 and
+    K1 are each held alone; at 32 (two sphere tiles a chunk) and 8 (one
+    tile, half of it padding) the three frames with every kernel on the MXU
+    route. ``gate`` false prints without holding (tools/mxu_steps.py)."""
+    name, w, h, frames, spp, bounces = _MXU_CASE
+    case = _case(name, w, h, "cuda")
+    out = {}
+    for cs in _MXU_CHUNKS:
+        fma = mk.kernel_inputs(*case, chunk_size=cs)
+        inp = mk.kernel_inputs(*case, chunk_size=cs, mxu_sweep=True)
+        _check(mk.mxu_route(inp), ("no MXU route", name, inp.chunk_size))
+        runs = [("megakernel", None)] + [(b, sp) for sp in (_MXU_SPLITS if cs is None
+                                                             else _MXU_SPLITS[:1])
+                                         for b in ("regroup", "wavefront")]
+        fma_img = {}
+        for backend, sp in runs:
+            kernel, twin, extra = _mxu_routes(mk, rg, wf, backend, _CUTS)
+            kw = dict(extra) if sp is None else dict(extra, mxu=sp)
+            a = _render(kernel, inp, w, h, frames, spp, bounces, **kw)
+            b = _render(twin, inp, w, h, frames, spp, bounces, **kw)
+            if backend not in fma_img:
+                fma_img[backend] = _render(kernel, fma, w, h, frames, spp, bounces, **extra)
+            f = fma_img[backend]
+            key = f"cs{inp.chunk_size}.{backend}" + ("" if sp is None else
+                                                     f".k0_{'mxu' if sp[0] else 'fma'}"
+                                                     f".k1_{'mxu' if sp[1] else 'fma'}")
+            _check(bool(torch.isfinite(a).all()), (key, "non-finite MXU output"))
+            vs_twin, vs_fma = _compare(b, a, w, h), _compare(f, a, w, h)
+            vs_fma["equal_share"] = float((a == f).all(dim=1).float().mean())
+            for what, st in (("twin", vs_twin), ("fma", vs_fma)):
+                _check(not gate or st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE,
+                       ("an MXU kernel against its " + what, key, st))
+            out[key] = {"vs_twin": vs_twin, "vs_fma": vs_fma}
+    return out
+
+
+def _mxu_band_holds(mk, rg, wf, gate: bool = True) -> dict:
+    """``[mxu]``'s holds at the main path's shape (_MAIN: RTiOW 1920x1080,
+    32 spp a frame, 8 bounces, _CUTS), on MXU_BAND's whole tile rows: each
+    MXU kernel against its twin on the same inputs at the image gates, and
+    the MXU launches each kernel run made. The megakernel's band
+    (row_offset, full_height); regroup's band frame with each route of
+    _MXU_SPLITS, so that K0 and K1 are each held alone; the wavefront's K0
+    on the whole image with no cuts (the Renderer's frame), the band's
+    tiles against k0_plain on the band's tiling; and the wavefront's K1 at
+    each of _CUTS on the band's dense rows, COMPACT and K1 as kernels
+    against COMPACT and K1 as twins, both from the band's K0 records (the
+    twin's, on the FMA route: the kernel aims every tiling at row 0).
+    ``gate`` false prints without holding the images (tools/mxu_steps.py)."""
+    mp = _MAIN
+    w, h, spp, bounces = mp["width"], mp["height"], mp["spp"], mp["bounces"]
+    lo, rows = MXU_BAND
+    dev = torch.device("cuda")
+    inp = mk.kernel_inputs(*_case("rtiow", w, h, "cuda"), mxu_sweep=True)
+    _check(mk.mxu_route(inp), ("no MXU route at the main path's shape", inp.chunk_size))
+    counters = _mxu_counters(mk, rg, wf)
+    bkw = dict(width=w, height=rows, spp=spp, num_bounces=bounces, row_offset=lo,
+               full_height=h)
+    out = {}
+
+    def hold(key, kernel, twin, want):
+        a, b = torch.zeros((w * rows, 3), device=dev), torch.zeros((w * rows, 3), device=dev)
+        for fn in counters.values():
+            setattr(*fn, 0)
+        kernel(a)
+        torch.cuda.synchronize()
+        launched = {k: getattr(*fn) for k, fn in counters.items() if getattr(*fn)}
+        _check(launched == want, ("MXU launches of a band hold", key, launched, want))
+        twin(b)
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(a).all()), (key, "non-finite MXU output"))
+        st = _compare(b / spp, a / spp, w, rows)
+        _check(not gate or st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE,
+               ("an MXU kernel against its twin at the main path's shape", key, st))
+        out[key] = {**st, "mxu_launches": launched}
+
+    hold("megakernel", lambda acc: mk.launch_megakernel(acc, inp, 0, True, **bkw),
+         lambda acc: mk.render_plain_with_inputs(acc, inp, 0, True, **bkw),
+         {"megakernel_mxu": 1})
+    for sp in _MXU_SPLITS:
+        want = {k: n for k, n, on in (("k0_mxu", 1, sp[0]), ("k1_mxu", len(_CUTS), sp[1]))
+                if on}
+        hold(f"regroup.k0_{'mxu' if sp[0] else 'fma'}.k1_{'mxu' if sp[1] else 'fma'}",
+             lambda acc, sp=sp: rg.launch_regrouped(acc, inp, 0, True, cuts=_CUTS, mxu=sp,
+                                                    **bkw),
+             lambda acc, sp=sp: rg.regrouped_plain_with_inputs(acc, inp, 0, True, cuts=_CUTS,
+                                                               mxu=sp, **bkw), want)
+    t = wf.plan(w, h, spp)
+    tb = rg.plan(w, rows, spp, bounces, _CUTS, row_offset=lo, full_height=h)[0]
+    first = lo // wf.TILE_ROWS * t.tiles_x
+
+    def wf_k0(acc):
+        ws = wf._workspace(dev, t, 0)
+        wf.launch_k0(inp, ws.pools[0], ws.contrib, t, 0, bounces)
+        wf._fold(ws.contrib[first:first + tb.tiles_x], acc, tb, True)
+
+    def wf_k0_plain(acc):
+        ws = wf._workspace(dev, tb, 0)
+        wf.k0_plain(inp, ws.pools[0], ws.contrib, tb, 0, bounces)
+        wf._fold(ws.contrib, acc, tb, True)
+
+    base = wf._workspace(dev, tb, 0)
+    wf.k0_plain(mk.with_route(inp, False), base.pools[0], base.contrib, tb, 0, _CUTS[0])
+
+    def wf_k1(compact, k1):
+        def run(acc):
+            ws = wf._workspace(dev, tb, len(_CUTS))
+            ws.pools[0].copy_(base.pools[0])
+            ws.contrib.copy_(base.contrib)
+            for k, b_lo in enumerate(_CUTS, 1):
+                b_hi = _CUTS[k] if k < len(_CUTS) else bounces
+                compact(ws.pools[(k - 1) % 2], ws.pools[k % 2], ws.counts, k, ws.tile_sums)
+                k1(inp, ws.pools[k % 2], ws.contrib, ws.counts, k, b_lo, b_hi)
+            wf._fold(ws.contrib, acc, tb, True)
+        return run
+
+    hold("wavefront.k0", wf_k0, wf_k0_plain, {"wavefront_k0_mxu": 1})
+    hold("wavefront.k1", wf_k1(wf.launch_compact, wf.launch_k1),
+         wf_k1(wf.compact_plain, wf.k1_plain), {"wavefront_k1_mxu": len(_CUTS)})
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mxu_bound(spans, nbytes: float) -> dict:
+    """An MXU kernel's bound from a census of its frame (the FMA route's
+    rays, rg.cull_census / cull.megakernel_census / cull.wavefront_census):
+    the pairs of the chunks each lane's own cull decisions enter, at
+    MMA_FLOPS_PER_PAIR flops three times (3xTF32) over the TF32 rate, beside
+    their epilogue (MMA_EPILOGUE_OPS a pair), the priors' FMA tests and the
+    box tests over the FP32 rate (the larger of the two, the tensor cores
+    and the FP32 units running side by side, as probes.mxu_sweep.mma_bound
+    counts); or the bytes, whichever is larger."""
+    from weekend_raytracer_tpu_torch.probes import TF32_PEAK
+    from weekend_raytracer_tpu_torch.probes.mxu_sweep import MMA_EPILOGUE_OPS, MMA_FLOPS_PER_PAIR
+
+    counts = [c for _, cs in spans for c in cs]
+    pairs = float(sum(c.own_sphere_tests for c in counts))
+    fp32 = (pairs * MMA_EPILOGUE_OPS + SPHERE_TEST_OPS * sum(c.prior_tests for c in counts)
+            + SLAB_TEST_OPS * sum(c.own_box_tests for c in counts))
+    tc_ms = pairs * MMA_FLOPS_PER_PAIR * 3 / TF32_PEAK * 1e3
+    fp32_ms = fp32 / FP32_PEAK * 1e3
+    byte_ms = nbytes / HBM_RATE * 1e3
+    ops_ms = max(tc_ms, fp32_ms)
+    return {"bound_ms": max(ops_ms, byte_ms), "bound_by": "operations" if ops_ms >= byte_ms
+            else "bytes", "tensor_ms": tc_ms, "fp32_ms": fp32_ms, "pairs": pairs,
+            "bytes": nbytes}
+
+
+def _mxu_main(mk, rg, wf, ro, sw) -> dict:
+    """[mxu]'s main paths at _MAIN's size (RTiOW 1920x1080, 32 spp a frame,
+    8 bounces), through the entry points a user calls with
+    ``mxu_sweep=True``, each with the launches counted from 0 just before
+    and read just after: Renderer(backend="auto") (regroup: K0 and K1 on
+    their MXU instantiations, PACK and COMBINE as ever), backend="pallas"
+    (the megakernel's MXU instantiation), backend="wavefront" (K0's, no
+    cuts), then one render_image_wavefront frame at _CUTS (the wavefront's
+    K1). Each image is held at the image gates against the FMA route's of
+    the same frames, with the share of equal pixels."""
+    from weekend_raytracer_tpu_torch import SCENES, RenderParams, Renderer, SamplingParams
+
+    mp = _MAIN
+    w, h = mp["width"], mp["height"]
+    params = RenderParams(
+        camera=SCENES["rtiow"][1](), viewport_size=(w, h),
+        sampling=SamplingParams(max_samples_per_pixel=mp["max_spp"],
+                                num_samples_per_pixel=mp["spp"], num_bounces=mp["bounces"]))
+    fkw = dict(width=w, height=h, spp=mp["spp"], num_bounces=mp["bounces"])
+    out = {}
+    wants = {"auto": lambda n: {"k0_mxu": n, "pack": 3 * n, "k1_mxu": 3 * n, "combine": n},
+             "pallas": lambda n: {"megakernel_mxu": n},
+             "wavefront": lambda n: {"wavefront_k0_mxu": n}}
+    fma_frames = {"auto": lambda acc, inp, f: rg.launch_regrouped(acc, inp, f, f == 0,
+                                                                  cuts=_CUTS, **fkw),
+                  "pallas": lambda acc, inp, f: mk.launch_megakernel(acc, inp, f, f == 0, **fkw),
+                  "wavefront": lambda acc, inp, f: wf.launch_wavefront(acc, inp, f, f == 0,
+                                                                       **fkw)}
+    for backend, want_of in wants.items():
+        renderer = Renderer(SCENES["rtiow"][0](), params, backend=backend, device="cuda",
+                            mxu_sweep=True)
+        _check(renderer.resolved_mxu_sweep(), (backend, "mxu_sweep not resolved on"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts(mk, rg, wf, ro, sw)
+        stats = renderer.render()
+        counts = _launch_counts(mk, rg, wf, ro, sw)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        frames = stats.frames
+        want = {**dict.fromkeys(counts, 0), **want_of(frames)}
+        _check(frames == mp["max_spp"] // mp["spp"] and counts == want,
+               ("MXU Renderer launches", backend, counts, want))
+        img = renderer.image()
+        _check(bool(torch.isfinite(renderer._accum).all()) and 20 < img.mean() < 235,
+               (backend, img.mean()))
+        fma = torch.zeros_like(renderer._accum)
+        inp = mk.kernel_inputs(renderer._scene, renderer._sky, renderer._basis)
+        for f in range(frames):
+            fma_frames[backend](fma, inp, f)
+        torch.cuda.synchronize()
+        n = stats.samples_per_pixel
+        st = _compare(fma / n, renderer._accum / n, w, h)
+        st["equal_share"] = float((fma == renderer._accum).all(dim=1).float().mean())
+        _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE,
+               ("the MXU Renderer against the FMA route", backend, st))
+        warm_s = (stats.seconds - stats.warmup_seconds) / max(frames - 1, 1)
+        out[renderer.backend] = {
+            "frames": frames, "launches": counts, "warmup_s": stats.warmup_seconds,
+            "warm_frame_s": warm_s, "rays_per_s": stats.rays_per_sec, "peak_gb": peak_gb,
+            "image_mean": float(img.mean()), "vs_fma": st}
+        del renderer, fma
+        torch.cuda.empty_cache()
+    case = _case("rtiow", w, h, "cuda")
+    acc = torch.zeros((w * h, 3), device="cuda")
+    torch.cuda.synchronize()
+    _zero_launch_counts(mk, rg, wf, ro, sw)
+    wf.render_image_wavefront(acc, 0, True, *case, phase_cuts=_CUTS, mxu_sweep=True, **fkw)
+    counts = _launch_counts(mk, rg, wf, ro, sw)
+    want = {**dict.fromkeys(counts, 0), "wavefront_k0_mxu": 1,
+            "wavefront_compact": len(_CUTS), "wavefront_k1_mxu": len(_CUTS)}
+    _check(counts == want, ("MXU wavefront launches at the cuts", counts, want))
+    fma = torch.zeros_like(acc)
+    wf.launch_wavefront(fma, mk.kernel_inputs(*case), 0, True, phase_cuts=_CUTS, **fkw)
+    st = _compare(fma / mp["spp"], acc / mp["spp"], w, h)
+    _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE,
+           ("the MXU wavefront at the cuts against the FMA route", st))
+    out["wavefront_cuts"] = {"launches": counts, "vs_fma": st}
+    return out
+
+
+def _mxu_times(mk, rg, wf, inp_fma, inp_mxu, kw, reps: int) -> dict:
+    """The FMA and the MXU route of each of MXU_KERNELS' frames on the same
+    inputs (``kw``: a shape), in turns (FMA, MXU, MXU, FMA), by CUDA events:
+    the megakernel's frame, regroup's K0 and K1 (their stages summed), the
+    wavefront's K0 and K1 at _CUTS; the least of each route's two rounds."""
+    acc = torch.zeros((kw["width"] * kw["height"], 3), device="cuda")
+
+    def one(inp):
+        rgs = _per_kernel(_stage_ms(lambda mark: rg.launch_regrouped(
+            acc, inp, 0, True, cuts=_CUTS, on_stage=mark, **kw)))
+        wfs = _per_kernel(_stage_ms(lambda mark: wf.launch_wavefront(
+            acc, inp, 0, True, phase_cuts=_CUTS, on_stage=mark, **kw)),
+            WAVEFRONT_KERNELS + ("fold",))
+        return {"megakernel_mxu": _time_ms(lambda: mk.launch_megakernel(acc, inp, 0, True, **kw),
+                                           reps),
+                "k0_mxu": rgs["k0"], "k1_mxu": rgs["k1"], "wavefront_k0_mxu": wfs["k0"],
+                "wavefront_k1_mxu": wfs["k1"]}
+
+    for inp in (inp_fma, inp_mxu):  # warm
+        one(inp)
+    runs = {"fma": [], "mxu": []}
+    for route in ("fma", "mxu", "mxu", "fma"):
+        runs[route].append(one(inp_fma if route == "fma" else inp_mxu))
+    return {route: {k: min(r[k] for r in rs) for k in MXU_KERNELS} for route, rs in runs.items()}
+
+
+def _mxu_phase(mk, rg, wf, ro, sw, smi, inp_t, bounds, census_t, mk_census_t,
+               wf_census_t) -> dict:
+    """``[mxu]``: the holds at the main path's shape (_mxu_band_holds) and
+    on the small case at three chunk sizes (_mxu_vs_twins), the JAX MXU
+    images (_reference_mxu), the main paths (_mxu_main), the MXU and FMA
+    routes' times at the [timing] shape and at 1080p x 32 spp in turns, the
+    MXU twins' time at the [timing] shape and their frames there against
+    the MXU kernels' (MXU_TIMING_FRAMES, at the image gates), and each MXU
+    kernel's bound at the [timing] shape (_mxu_bound on the census [timing]
+    took; the bytes are the FMA kernel's: the same records move)."""
+    t0 = time.perf_counter()
+    band = _mxu_band_holds(mk, rg, wf)
+    mp = _MAIN
+    for key, st in band.items():
+        _say("mxu", case=f"band_{key}", shape=f"rtiow {mp['width']}x{mp['height']} "
+             f"spp{mp['spp']} b{mp['bounces']}", rows=list(MXU_BAND), cuts=_CUTS,
+             vs_twin=json.dumps({k: v if isinstance(v, dict) else _sig(v)
+                                 for k, v in st.items()}))
+    holds = _mxu_vs_twins(mk, rg, wf)
+    for key, res in holds.items():
+        _say("mxu", case=key, shape=" ".join(map(str, _MXU_CASE)), cuts=_CUTS,
+             **{k: json.dumps({f: _sig(v) for f, v in st.items()}) for k, st in res.items()})
+    ref = _reference_mxu(mk, rg, wf)
+    for key, res in ref.items():
+        _say("reference", case=key, shape=res["shape"], cuts=res["cuts"],
+             mxu_route=res["mxu_route"], mxu_launches=res["mxu_launches"],
+             holds=repr(res["holds"]),
+             **{route: json.dumps({k: _sig(v) for k, v in res[route].items()})
+                for route in ("kernel", "twin")})
+    main = _mxu_main(mk, rg, wf, ro, sw)
+    for key, res in main.items():
+        _say("mxu", case=f"main_{key}", **{k: json.dumps(v) if isinstance(v, dict) else
+                                           _sig(v) if isinstance(v, float) else v
+                                           for k, v in res.items()}, card=repr(smi))
+    # the [timing] shape: both routes in turns, then the MXU twins, their
+    # first frame timed, against the MXU kernels' frames
+    tm = _TIMING
+    tw, th, frames = tm["width"], tm["height"], MXU_TIMING_FRAMES
+    kw = dict(width=tw, height=th, spp=tm["spp"], num_bounces=tm["bounces"])
+    case_t = _case(tm["scene"], tw, th, "cuda")
+    inp_m = mk.kernel_inputs(*case_t, mxu_sweep=True)
+    timing = _mxu_times(mk, rg, wf, inp_t, inp_m, kw, 10)
+    twins = {b: torch.zeros((tw * th, 3), device="cuda")
+             for b in ("megakernel", "regroup", "wavefront")}
+    t1 = time.perf_counter()
+    mk.render_plain_with_inputs(twins["megakernel"], inp_m, 0, True, **kw)
+    torch.cuda.synchronize()
+    plain = {"megakernel_mxu": (time.perf_counter() - t1) * 1e3}
+    rgs = _per_kernel(_stage_ms(lambda mark: rg.regrouped_plain_with_inputs(
+        twins["regroup"], inp_m, 0, True, cuts=_CUTS, on_stage=mark, **kw)))
+    wfs = _per_kernel(_stage_ms(lambda mark: wf.wavefront_plain_with_inputs(
+        twins["wavefront"], inp_m, 0, True, phase_cuts=_CUTS, on_stage=mark, **kw)),
+        WAVEFRONT_KERNELS + ("fold",))
+    plain.update(k0_mxu=rgs["k0"], k1_mxu=rgs["k1"], wavefront_k0_mxu=wfs["k0"],
+                 wavefront_k1_mxu=wfs["k1"])
+    timing_holds = {}
+    for backend, acc in twins.items():
+        kernel, twin, extra = _mxu_routes(mk, rg, wf, backend, _CUTS)
+        for f in range(1, frames):
+            twin(acc, inp_m, f, False, **kw, **extra)
+        a = _render(kernel, inp_m, tw, th, frames, tm["spp"], tm["bounces"], **extra)
+        st = _compare(acc / (frames * tm["spp"]), a, tw, th)
+        _check(st["rmse"] < RMSE_GATE and st["mean_rel"] < MEAN_REL_GATE,
+               ("an MXU frame against its twin at the [timing] shape", backend, st))
+        timing_holds[backend] = st
+    del twins
+    mb = {"megakernel_mxu": _mxu_bound([(None, [c.count for c in mk_census_t["refill"]])],
+                                       bounds["megakernel"]["bytes"]),
+          "k0_mxu": _mxu_bound(census_t[:1], bounds["k0"]["bytes"]),
+          "k1_mxu": _mxu_bound(census_t[1:], bounds["k1"]["bytes"]),
+          "wavefront_k0_mxu": _mxu_bound(_wf_spans(wf_census_t[:1]),
+                                         bounds["wavefront_k0"]["bytes"]),
+          "wavefront_k1_mxu": _mxu_bound(_wf_spans(wf_census_t[1:]),
+                                         bounds["wavefront_k1"]["bytes"])}
+    _say("mxu", case="timing", shape=f"{tm['scene']} {tm['width']}x{tm['height']} "
+         f"spp{tm['spp']} b{tm['bounces']}", cuts=_CUTS,
+         fma_mxu_ms_bound_share=json.dumps(
+             {k: [_sig(timing["fma"][k]), _sig(timing["mxu"][k]), _sig(mb[k]["bound_ms"]),
+                  mb[k]["bound_by"], _sig(mb[k]["bound_ms"] / timing["mxu"][k])]
+              for k in MXU_KERNELS}),
+         tensor_fp32_ms=json.dumps({k: [_sig(mb[k]["tensor_ms"]), _sig(mb[k]["fp32_ms"])]
+                                    for k in MXU_KERNELS}),
+         plain_ms=json.dumps({k: _sig(v) for k, v in plain.items()}),
+         frames_vs_twin=json.dumps({b: {k: _sig(v) for k, v in st.items()}
+                                    for b, st in timing_holds.items()}),
+         twin_frames=frames, card=repr(smi))
+    # 1080p x 32 spp: both routes in turns
+    mp = _MAIN
+    big = dict(width=mp["width"], height=mp["height"], spp=mp["spp"], num_bounces=mp["bounces"])
+    case = _case("rtiow", mp["width"], mp["height"], "cuda")
+    timing_1080p = _mxu_times(mk, rg, wf, mk.kernel_inputs(*case),
+                              mk.kernel_inputs(*case, mxu_sweep=True), big, 3)
+    _say("mxu", case="timing_1080p", shape=f"rtiow {mp['width']}x{mp['height']} "
+         f"spp{mp['spp']} b{mp['bounces']}", cuts=_CUTS,
+         fma_mxu_ms=json.dumps({k: [_sig(timing_1080p["fma"][k]), _sig(timing_1080p["mxu"][k])]
+                                for k in MXU_KERNELS}),
+         regroup_warm_frame_s=_sig(main["regroup"]["warm_frame_s"]),
+         regroup_peak_gb=_sig(main["regroup"]["peak_gb"]), card=repr(smi))
+    launches = {"megakernel_mxu": main["pallas"]["launches"]["megakernel_mxu"],
+                "k0_mxu": main["regroup"]["launches"]["k0_mxu"],
+                "k1_mxu": main["regroup"]["launches"]["k1_mxu"],
+                "wavefront_k0_mxu": main["wavefront"]["launches"]["wavefront_k0_mxu"],
+                "wavefront_k1_mxu": main["wavefront_cuts"]["launches"]["wavefront_k1_mxu"]}
+    errs = {"megakernel_mxu": band["megakernel"]["max_abs_err"],
+            "k0_mxu": band["regroup.k0_mxu.k1_fma"]["max_abs_err"],
+            "k1_mxu": band["regroup.k0_fma.k1_mxu"]["max_abs_err"],
+            "wavefront_k0_mxu": band["wavefront.k0"]["max_abs_err"],
+            "wavefront_k1_mxu": band["wavefront.k1"]["max_abs_err"]}
+    seconds = time.perf_counter() - t0
+    _say("mxu", launches=json.dumps(launches), seconds=f"{seconds:.1f}", card=repr(smi))
+    return {"band": band, "holds": holds, "reference": ref, "main": main, "timing": timing,
+            "timing_holds": timing_holds, "timing_1080p": timing_1080p, "plain_ms": plain,
+            "bounds": mb,
+            "launches": launches, "max_abs_err": errs, "seconds": seconds}
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -470,6 +947,14 @@ def _per_kernel(stages: dict, kernels=REGROUP_KERNELS) -> dict:
     return out
 
 
+def _mxu_counters(mk, rg, wf) -> dict:
+    """MXU_KERNELS' launch counters: (wrapper, attribute) by name."""
+    return {"megakernel_mxu": (mk.render_image_megakernel, "mxu_launches"),
+            "k0_mxu": (rg.launch_k0, "mxu_launches"), "k1_mxu": (rg.launch_k1, "mxu_launches"),
+            "wavefront_k0_mxu": (wf.launch_k0, "mxu_launches"),
+            "wavefront_k1_mxu": (wf.launch_k1, "mxu_launches")}
+
+
 def _launch_counts(mk, rg, wf, ro, sw) -> dict:
     return {"megakernel": mk.render_image_megakernel.launches,
             **{k: getattr(rg, f"launch_{k}").launches for k in REGROUP_KERNELS},
@@ -478,12 +963,15 @@ def _launch_counts(mk, rg, wf, ro, sw) -> dict:
             **{f"wavefront_{k}": getattr(wf, f"launch_{k}").launches
                for k in WAVEFRONT_KERNELS},
             **{k: getattr(ro, k).launches for k in REORDER_KERNELS},
-            **sw.launch_counts(), **_access().launch_counts()}
+            **sw.launch_counts(), **_access().launch_counts(),
+            **{k: getattr(fn, attr) for k, (fn, attr) in _mxu_counters(mk, rg, wf).items()}}
 
 
 def _zero_launch_counts(mk, rg, wf, ro, sw) -> None:
     mk.render_image_megakernel.launches = 0
     mk.render_image_megakernel.stats_launches = 0
+    for fn, attr in _mxu_counters(mk, rg, wf).values():
+        setattr(fn, attr, 0)
     rg.launch_k1.stats_launches = 0
     for k in REGROUP_KERNELS:
         getattr(rg, f"launch_{k}").launches = 0
@@ -501,11 +989,11 @@ def _access():
     return access
 
 
-# launches of no wavefront, reorder, sweep or access kernel, for the other
-# paths' counts
+# launches of no wavefront, reorder, sweep, access or MXU kernel, for the
+# other paths' counts
 _NO_WAVEFRONT = {**{f"wavefront_{k}": 0 for k in WAVEFRONT_KERNELS},
                  **{k: 0 for k in REORDER_KERNELS}, **{k: 0 for k in SWEEP_KERNELS},
-                 **{k: 0 for k in ACCESS_KERNELS}}
+                 **{k: 0 for k in ACCESS_KERNELS}, **{k: 0 for k in MXU_KERNELS}}
 
 
 def _bitwise_max_err(a, b, what) -> float:
@@ -2941,6 +3429,19 @@ def main(argv=None) -> int:
          fma_plans=json.dumps(fma_plans), sms=sms)
     record["build"]["sweep_fma_row_sort"] = {"attributes": fma_sort_attrs,
                                              "fma_plans": fma_plans}
+    # the MXU chunk sweep's instantiations (kMxu; csrc/mxu.cuh): their launch
+    # bounds, registers and local bytes, both placements of the boxes,
+    # textured and not (their spills are ptxas's, none allowed, above)
+    mxu_attrs = {"megakernel": {("textured" if t else "plain") + ("" if st else "_global"):
+                                mk.mxu_kernel_attributes(t, st)
+                                for t in (False, True) for st in (True, False)},
+                 "regroup": {k: v for k, v in attrs["regroup"].items() if "_mxu" in k},
+                 "wavefront": {k: v for k, v in attrs["wavefront"].items() if "_mxu" in k}}
+    mxu_bounds = {"megakernel": mk.launch_bounds(mxu=True), "regroup": rg.launch_bounds(mxu=True),
+                  "wavefront": wf.launch_bounds(mxu=True)}
+    _say("build", case="mxu", launch_bounds=json.dumps(mxu_bounds),
+         attributes=json.dumps(mxu_attrs))
+    record["build"]["mxu"] = {"launch_bounds": mxu_bounds, "attributes": mxu_attrs}
 
     # 3. megakernel against plain, both on the card
     record["plain"] = {}
@@ -3648,6 +4149,19 @@ def main(argv=None) -> int:
                               "library_ms": library_big, "wavefront_device_ms": wf_device}
     torch.cuda.empty_cache()
 
+    # 9b. the MXU chunk sweep (csrc/mxu.cuh): each kMxu instantiation against
+    # its twin and the FMA kernel, against the JAX package's MXU images, then
+    # the main paths through Renderer(..., mxu_sweep=True) with the launches
+    # counted from 0, and the MXU and FMA routes' times in turns
+    mx = _mxu_phase(mk, rg, wf, ro, sw, smi, inp_t, bounds, census_t, mk_census_t,
+                    child_t["wf_census"])
+    record["mxu"] = mx
+    for key in MXU_KERNELS:
+        ms[key], plain_ms[key] = mx["timing"]["mxu"][key], mx["plain_ms"][key]
+        bounds[key] = mx["bounds"][key]
+        launches.setdefault("mxu", {})[key] = mx["launches"][key]
+    torch.cuda.empty_cache()
+
     # 10. the record-DMA probes (probes/dma.py) on the reorder kernels, with
     # their launches counted from 0
     rp = _reorder_probes(ro, dma)
@@ -3857,6 +4371,17 @@ def main(argv=None) -> int:
                  "dot_mma": sp7["p3"]["fp32"]["max_abs_err"], "layout": 0.0}
     kernels += [entry(k, k, sw.KERNEL_SOURCE, sw.REPLACES[k], sp7["launches"][k], sweep_err[k])
                 for k in SWEEP_KERNELS]
+    # the MXU chunk sweep's instantiations: their launches are those of the
+    # Renderer's MXU frames (render_image_wavefront's with cuts for the
+    # wavefront's K1), ms and bounds the [timing] shape's, max_abs_err each
+    # one's image against its twin on MXU_BAND at the main path's shape
+    mxu_src = {"megakernel_mxu": (mk.KERNEL_SOURCE, mk.REPLACES),
+               "k0_mxu": (rg.KERNEL_SOURCE, rg.REPLACES["k0"]),
+               "k1_mxu": (rg.KERNEL_SOURCE, rg.REPLACES["k1"]),
+               "wavefront_k0_mxu": (wf.KERNEL_SOURCE, wf.REPLACES["k0"]),
+               "wavefront_k1_mxu": (wf.KERNEL_SOURCE, wf.REPLACES["k1"])}
+    kernels += [entry(k, k, *mxu_src[k], launches["mxu"][k], mx["max_abs_err"][k])
+                for k in MXU_KERNELS]
     # the access kernels' numbers are a card-filling case of each (table_gather
     # at 4,096 tiles, span 16, "global"; lane_gather 10c's lanes, smem_rw
     # p2's rotated reads, "smem"); all equal their twins in every bit

@@ -112,11 +112,6 @@ def test_cli_json_line_has_the_jax_keys(tmp_path, capsys):
     assert abs(got.mean() - want.mean()) / want.mean() < 1e-3
 
 
-def test_cli_mxu_sweep_exits_2(capsys):
-    assert tcli.main(["--mxu-sweep", "--device", "cpu"]) == 2
-    assert "Do not port" in capsys.readouterr().err
-
-
 def test_cli_needs_a_card_for_cuda(capsys):
     """The default --device cuda without a card is an error, not a CPU run."""
     if torch.cuda.is_available():

@@ -154,18 +154,23 @@ def test_megakernel_is_the_full_sweep(name, cuda):
 @pytest.mark.cuda
 def test_megakernel_budget_has_no_spills(cuda):
     """Every megakernel instantiation builds without spills, and the culled
-    ones stay inside their launch bounds' register budget."""
+    ones (the FMA and the MXU route) stay inside their launch bounds'
+    register budget."""
     usage = {k: v for k, v in mk._library().ptxas_usage().items()
              if "megakernel" in k and "stats_finish" not in k}
-    # 2 textures x 2 box placements x (culled, stats staged whole, in windows)
-    assert len(usage) == 12
+    # 2 textures x 2 box placements x (culled, its MXU route, stats staged
+    # whole, in windows)
+    assert len(usage) == 16
     assert all(v["spill_stores"] == 0 and v["spill_loads"] == 0 for v in usage.values()), usage
     threads, blocks = mk.launch_bounds()
-    assert blocks > 0
+    mxu_threads, mxu_blocks = mk.launch_bounds(mxu=True)
+    assert blocks > 0 and mxu_blocks > 0
     for textured in (False, True):
         for staged in (True, False):
             regs = mk.kernel_attributes(textured, False, staged)["registers"]
             assert regs <= 65536 // (threads * blocks), (textured, staged, regs)
+            regs = mk.mxu_kernel_attributes(textured, staged)["registers"]
+            assert regs <= 65536 // (mxu_threads * mxu_blocks), (textured, staged, regs)
 
 
 @pytest.mark.cuda
@@ -766,19 +771,23 @@ def test_culled_wavefront_k1_with_a_ragged_count(cuda, name):
 
 @pytest.mark.cuda
 def test_wavefront_budget_has_no_spills(cuda):
-    """Every wavefront instantiation (culled, full-sweep; boxes staged and
-    in global memory; textured and not) and COMPACT build without spills;
-    the culled K0 and K1 stay inside their launch bounds' register budget."""
+    """Every wavefront instantiation (culled, full-sweep, the culled ones'
+    MXU route; boxes staged and in global memory; textured and not) and
+    COMPACT build without spills; the culled K0 and K1 and their MXU route
+    stay inside their launch bounds' register budget."""
     usage = {k: v for k, v in wf._library().ptxas_usage().items()
              if "wavefront" in k and "stats_finish" not in k}
-    assert len(usage) == 12 + 3, sorted(usage)
+    assert len(usage) == 12 + 8 + 3, sorted(usage)
     assert all(v["spill_stores"] == 0 and v["spill_loads"] == 0 for v in usage.values()), usage
     threads, min_blocks = wf.launch_bounds()
     assert (threads, min_blocks) == (256, 4)
+    assert wf.launch_bounds(mxu=True) == (256, 2)
     attrs = wf.kernel_attributes()
     for k in ("k0", "k0_textured", "k0_global", "k0_global_textured", "k1", "k1_textured",
               "k1_global", "k1_global_textured"):
         assert attrs[k]["registers"] <= 65536 // (threads * min_blocks), (k, attrs[k])
+        mxu = k[:2] + "_mxu" + k[2:]
+        assert attrs[mxu]["registers"] <= 65536 // (threads * 2), (mxu, attrs[mxu])
 
 
 @pytest.mark.cuda

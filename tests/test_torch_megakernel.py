@@ -270,8 +270,7 @@ def test_row_band_reproduces_full_image():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("tsub", 16), ("block_w", 32), ("subcull", 8),
-    ("listed", True), ("mxu_sweep", True)])
+    ("tsub", 16), ("block_w", 32), ("subcull", 8), ("listed", True)])
 def test_tpu_only_knobs_raise(knob, value):
     w, h = 8, 8
     scene, sky, basis = _three(w, h)

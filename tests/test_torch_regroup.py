@@ -615,7 +615,7 @@ def test_default_cuts_match_jax():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("mxu_sweep", True), ("listed", True), ("k1_subcull", 8), ("rowsweep", True),
+    ("listed", True), ("k1_subcull", 8), ("rowsweep", True),
     ("rowsweep_k0", True), ("profile_stop", "k0")])
 def test_tpu_only_knobs_raise(knob, value):
     scene, sky, basis = _three(8, 8)

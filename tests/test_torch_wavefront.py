@@ -376,16 +376,6 @@ def test_bad_spp_raises(spp):
                                   width=16, height=8, spp=spp, num_bounces=4)
 
 
-def test_tpu_only_knob_raises():
-    scene, sky, basis = _three(8, 8)
-    with pytest.raises(NotImplementedError, match="mxu_sweep"):
-        wf.render_image_wavefront(torch.zeros((64, 3)), 0, True, scene, sky, basis,
-                                  width=8, height=8, spp=1, num_bounces=4, mxu_sweep=True)
-    for off in (None, False):
-        wf.render_image_wavefront(torch.zeros((64, 3)), 0, True, scene, sky, basis,
-                                  width=8, height=8, spp=1, num_bounces=4, mxu_sweep=off)
-
-
 def test_compact_edge_cases():
     """COMPACT's twin on a seeded pool: only rows below the input count are
     kept, rows with one live lane are kept, NaN-state bits move as they are,

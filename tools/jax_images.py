@@ -18,7 +18,14 @@ interpret mode, at the same parameters:
   8 bounces) and ``textured`` (40x24, 8 x 4, 6 bounces);
 - ``render_image_regrouped`` at tests/test_torch_regroup.py's ``_SLICE``
   for ``rtiow`` (64x32, 8 x 4, 8 bounces, cuts (2, 4)) and ``textured``
-  (64x32, 8 x 4, 6 bounces, cuts (2,)).
+  (64x32, 8 x 4, 6 bounces, cuts (2,));
+- the same with ``mxu_sweep=True`` (the MXU chunk sweep), as
+  ``<kernel>_mxu_<case>``: ``megakernel_mxu_rtiow``,
+  ``megakernel_mxu_textured``, ``regroup_mxu_rtiow``,
+  ``regroup_mxu_textured``, and ``render_image_wavefront`` on ``rtiow``
+  at regroup's parameters with ``phase_cuts`` (2, 4) (``wavefront_mxu_rtiow``,
+  its cuts as ``wavefront_mxu_rtiow_cuts``), so that its K1 runs too. The
+  textured scene has no chunks, so there the knob changes nothing.
 
 Each image is the mean radiance, [H*W, 3] float32 (the accumulator over
 frames x spp), stored as ``<kernel>_<case>``, with its parameters as
@@ -80,7 +87,7 @@ def _setup(name, w, h):
     return desc.build(), sky, CameraBasis.create(cam, (w, h))
 
 
-def megakernel_image(name) -> np.ndarray:
+def megakernel_image(name, mxu_sweep: bool = False) -> np.ndarray:
     import jax.numpy as jnp
 
     from weekend_raytracer_tpu.ops.pallas import megakernel as jmk
@@ -90,11 +97,12 @@ def megakernel_image(name) -> np.ndarray:
     acc = jnp.zeros((w * h, 3), jnp.float32)
     for f in range(frames):
         acc = jmk.render_image_pallas(acc, jnp.uint32(f), jnp.bool_(f == 0), scene, sky,
-                                      basis, width=w, height=h, spp=spp, num_bounces=bounces)
+                                      basis, width=w, height=h, spp=spp, num_bounces=bounces,
+                                      mxu_sweep=mxu_sweep)
     return np.asarray(acc) / (frames * spp)
 
 
-def regroup_image(name) -> np.ndarray:
+def regroup_image(name, mxu_sweep: bool = False) -> np.ndarray:
     import jax.numpy as jnp
 
     from weekend_raytracer_tpu.ops.pallas import regroup as jrg
@@ -105,8 +113,31 @@ def regroup_image(name) -> np.ndarray:
     for f in range(frames):
         acc = jrg.render_image_regrouped(acc, jnp.uint32(f), jnp.bool_(f == 0), scene, sky,
                                          basis, width=w, height=h, spp=spp,
-                                         num_bounces=bounces, cuts=cuts)
+                                         num_bounces=bounces, cuts=cuts, mxu_sweep=mxu_sweep)
     return np.asarray(acc) / (frames * spp)
+
+
+def wavefront_image(name, mxu_sweep: bool = False) -> np.ndarray:
+    """render_image_wavefront at regroup's parameters, its cuts as phase
+    cuts."""
+    import jax.numpy as jnp
+
+    from weekend_raytracer_tpu.ops.pallas import wavefront as jwf
+
+    w, h, frames, spp, bounces, cuts = REGROUP_CASES[name]
+    scene, sky, basis = _setup(name, w, h)
+    acc = jnp.zeros((w * h, 3), jnp.float32)
+    for f in range(frames):
+        acc = jwf.render_image_wavefront(acc, jnp.uint32(f), jnp.bool_(f == 0), scene, sky,
+                                         basis, width=w, height=h, spp=spp,
+                                         num_bounces=bounces, phase_cuts=cuts,
+                                         mxu_sweep=mxu_sweep)
+    return np.asarray(acc) / (frames * spp)
+
+
+# the MXU chunk sweep's images: (kernel, case) of each
+MXU_IMAGES = (("megakernel", "rtiow"), ("megakernel", "textured"), ("regroup", "rtiow"),
+              ("regroup", "textured"), ("wavefront", "rtiow"))
 
 
 def main() -> int:
@@ -130,6 +161,17 @@ def main() -> int:
         arrays[f"regroup_{name}_params"] = np.array(case[:5], np.int32)
         arrays[f"regroup_{name}_cuts"] = np.array(case[5], np.int32)
         print(f"regroup {name} {case}: {time.perf_counter() - t0:.1f} s", flush=True)
+    images = {"megakernel": megakernel_image, "regroup": regroup_image,
+              "wavefront": wavefront_image}
+    for kernel, name in MXU_IMAGES:
+        t0 = time.perf_counter()
+        key = f"{kernel}_mxu_{name}"
+        case = MEGAKERNEL_CASES[name] if kernel == "megakernel" else REGROUP_CASES[name]
+        arrays[key] = images[kernel](name, mxu_sweep=True).astype(np.float32)
+        arrays[f"{key}_params"] = np.array(case[:5], np.int32)
+        if kernel != "megakernel":
+            arrays[f"{key}_cuts"] = np.array(case[5], np.int32)
+        print(f"{key} {case}: {time.perf_counter() - t0:.1f} s", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     np.savez_compressed(args.out, **arrays)
     print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes)", flush=True)

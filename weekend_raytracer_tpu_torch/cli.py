@@ -26,15 +26,6 @@ import json
 import os
 import sys
 
-# ROADMAP Queue 2, "Do not port": the MXU chunk sweep lost on the TPU
-# (docs/PERF.md 603-636) and its tensor-core counterpart lost on the H100
-# (PERF.md, PR 7), so the port has only the FMA sweep
-_MXU_REFUSAL = ("--mxu-sweep is not ported: the MXU chunk sweep was measured "
-                "as a loss on the TPU and its tensor-core counterpart as a loss "
-                "on the H100 (ROADMAP Queue 2, 'Do not port'); the port runs "
-                "the FMA sweep only")
-
-
 def parse_size(s: str):
     w, h = s.lower().split("x")
     return int(w), int(h)
@@ -85,15 +76,16 @@ def main(argv=None) -> int:
                         "the built-in Preetham fit, and print one JSON "
                         "line with the image RMSE between them")
     p.add_argument("--mxu-sweep", action="store_true",
-                   help="not ported (exits 2): the MXU chunk sweep of the "
-                        "JAX package")
+                   help="run the closest-hit chunk sweeps on the MXU "
+                        "(per-chunk matmuls) instead of the VPU FMA "
+                        "chain — statistically equivalent, not "
+                        "bit-identical (also: WRT_MXU_SWEEP=1). On the "
+                        "card: 3xTF32 tensor-core products, 4-7.5x slower "
+                        "than the FMA sweep at RTiOW 1920x1080 x 32 spp on "
+                        "an H100 80GB HBM3 at 700 W (PERF.md)")
     p.add_argument("--stats-json", action="store_true",
                    help="print render stats as one JSON line")
     args = p.parse_args(argv)
-
-    if args.mxu_sweep:
-        print(_MXU_REFUSAL, file=sys.stderr)
-        return 2
 
     from .models import scenes as scene_lib
 
@@ -164,7 +156,8 @@ def _render(args, desc, params, device, mesh) -> int:
     from .utils.image import save_png
 
     renderer = Renderer(desc, params, backend=args.backend, device=device, mesh=mesh,
-                        budget_texels=args.texture_budget, hw_dataset=args.hw_dataset)
+                        budget_texels=args.texture_budget, hw_dataset=args.hw_dataset,
+                        mxu_sweep=True if args.mxu_sweep else None)
     lead = mesh is None or not mesh.distributed or dist.get_rank() == 0
     if args.checkpoint and os.path.exists(args.checkpoint):
         renderer.load_checkpoint(args.checkpoint)

@@ -74,6 +74,7 @@
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
+#include "mxu.cuh"
 
 namespace {
 
@@ -87,6 +88,7 @@ struct Args {
   float inv_w, inv_h;    // f32(1 / width), f32(1 / full_height)
   uint32_t frame, row_offset;
   int clear, spp, num_bounces;
+  const float* amats;    // the MXU chunk sweep's A table (kMxu; mxu.cuh)
 };
 
 // What the stats kernel reads besides: the counters, the TPU tiles across,
@@ -108,6 +110,10 @@ constexpr int kBlockY = 16;
 // none, as fast or faster; its threads a block (one-dimensional: its lanes
 // take pixels as they go).
 constexpr int kMinBlocks = 4;
+// The MXU instantiation's budget: 2 blocks of 256 threads an SM (up to
+// 128 registers), room for the hoisted B fragments and the epilogue's
+// slots (mxu.cuh) without spills.
+constexpr int kMxuMinBlocks = 2;
 constexpr int kStatsMinBlocks = 4;     // the table staged whole
 constexpr int kWindowedMinBlocks = 3;  // swept in windows
 constexpr int kStatsThreads = 256;
@@ -117,11 +123,57 @@ constexpr int kStatsThreads = 256;
 constexpr int kTileW = 64;
 constexpr int kTileH = 64;
 
-template <bool kTextured, bool kStaged = true>
-__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) megakernel(const Args a) {
+//
+// kMxu: the same frame on the MXU chunk sweep (mxu.cuh), whose products
+// take the whole warp: a lane whose pixel lies past the image, or whose
+// samples are done, stays in the loop without a path until no lane of its
+// warp has one, and each lane still adds its samples in sample order.
+template <bool kTextured, bool kStaged = true, bool kMxu = false>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMxu ? kMxuMinBlocks : kMinBlocks)
+    megakernel(const Args a) {
   const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if constexpr (kMxu) {
+    const bool inside = x < a.width && y < a.height;
+    const uint32_t y_g = static_cast<uint32_t>(y) + a.row_offset;
+    const uint32_t pix = y_g * static_cast<uint32_t>(a.width) + static_cast<uint32_t>(x);
+    const float xf = static_cast<float>(x);
+    const float yf = static_cast<float>(static_cast<int>(y_g));
+    const uint32_t frame_hash = jenkins(a.frame);
+    float tot_r = 0.0f, tot_g = 0.0f, tot_b = 0.0f;
+    Ray r = {};
+    bool live = inside;
+    if (live) {
+      r.state = sample_seed(pix, frame_hash, 0u);
+      camera_ray(a.cam, xf, yf, a.inv_w, a.inv_h, r);
+    }
+    int s = 0, bounce = 0;
+    while (__any_sync(kFullWarp, live)) {
+      const bool on = bounce_step_mxu<kTextured, kStaged>(a.scene, r, cv, a.amats, live);
+      if (!live) continue;
+      if (on && ++bounce < a.num_bounces) continue;
+      tot_r = tot_r + r.tr * r.cr;
+      tot_g = tot_g + r.tg * r.cg;
+      tot_b = tot_b + r.tb * r.cb;
+      if (++s == a.spp) {
+        live = false;
+        continue;
+      }
+      r.state = sample_seed(pix, frame_hash, static_cast<uint32_t>(s));
+      camera_ray(a.cam, xf, yf, a.inv_w, a.inv_h, r);
+      bounce = 0;
+    }
+    if (!inside) return;
+    float* out = a.acc + (static_cast<size_t>(y) * a.width + x) * 3;
+    const float base_r = a.clear ? 0.0f : out[0];
+    const float base_g = a.clear ? 0.0f : out[1];
+    const float base_b = a.clear ? 0.0f : out[2];
+    out[0] = base_r + tot_r;
+    out[1] = base_g + tot_g;
+    out[2] = base_b + tot_b;
+    return;
+  }
   if (x >= a.width || y >= a.height) return;
 
   // Seeds and aim use the global row, so a row band of a sharded image
@@ -346,6 +398,43 @@ int wrt_megakernel_launch(const float* cam, const float* sky, const float* sweep
   return static_cast<int>(cudaGetLastError());
 }
 
+// The same frame on the MXU chunk sweep (megakernel<..., kMxu = true>):
+// the arguments of wrt_megakernel_launch and the A table amats [n_chunks,
+// 8, 2 * chunk_size] (mxu_sweep_amats). A scene without chunks has no MXU
+// sweep: it is refused (cudaErrorInvalidValue), never swept otherwise.
+int wrt_megakernel_mxu_launch(const float* cam, const float* sky, const float* sweep,
+                              const float* attrs, const int* tex_pool, float* acc,
+                              int n_spheres, int width, int height, float inv_w, float inv_h,
+                              unsigned frame, unsigned row_offset, int clear, int spp,
+                              int num_bounces, const float* chunk_bounds,
+                              const float* super_bounds, const int* priors, int n_chunks,
+                              int n_tests, int n_super, int chunk_size, int super_factor,
+                              float cull_reach, float cull_scale, const float* amats,
+                              void* stream) {
+  if (n_chunks <= 0 || chunk_size <= 0 || amats == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a = frame_args(cam, sky, sweep, attrs, tex_pool, acc, n_spheres, width, height, inv_w,
+                      inv_h, frame, row_offset, clear, spp, num_bounces, chunk_bounds,
+                      super_bounds, priors, n_chunks, n_tests, n_super, chunk_size,
+                      super_factor);
+  a.margin = CullMargin{cull_reach, cull_scale};
+  a.amats = amats;
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool staged = cull_staged(a.cull);
+  const size_t smem = cull_smem_bytes(a.cull);
+  if (tex_pool != nullptr) {
+    (staged ? megakernel<true, true, true> : megakernel<true, false, true>)<<<grid, block, smem,
+                                                                              s>>>(a);
+  } else {
+    (staged ? megakernel<false, true, true> : megakernel<false, false, true>)<<<grid, block,
+                                                                                smem, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The same frame through the stats kernel, which sweeps every sphere and
 // also writes the TPU kernel's per-tile counters into stats [n_tiles, 8]
 // f32, n_tiles = ceil(width / 64) * ceil(height / 64). The cull hierarchy
@@ -435,6 +524,30 @@ int wrt_megakernel_attributes(int textured, int stats, int staged, int* num_regs
 void wrt_megakernel_launch_bounds(int* threads, int* min_blocks) {
   *threads = kBlockX * kBlockY;
   *min_blocks = kMinBlocks;
+}
+
+// The same of its MXU instantiation.
+void wrt_megakernel_mxu_launch_bounds(int* threads, int* min_blocks) {
+  *threads = kBlockX * kBlockY;
+  *min_blocks = kMxuMinBlocks;
+}
+
+// Registers per thread and local (spill) bytes of the MXU instantiation,
+// textured or not, with the box tables in shared memory (`staged`) or not;
+// returns a cudaError_t.
+int wrt_megakernel_mxu_attributes(int textured, int staged, int* num_regs, int* local_bytes) {
+  const void* fns[2][2] = {
+      {reinterpret_cast<const void*>(megakernel<false, false, true>),
+       reinterpret_cast<const void*>(megakernel<false, true, true>)},
+      {reinterpret_cast<const void*>(megakernel<true, false, true>),
+       reinterpret_cast<const void*>(megakernel<true, true, true>)},
+  };
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[textured != 0][staged != 0]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *num_regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 }  // extern "C"

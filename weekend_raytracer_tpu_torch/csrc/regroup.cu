@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
+#include "mxu.cuh"
 
 namespace {
 
@@ -92,6 +93,10 @@ constexpr int kThreads = 256;    // K0, K1: one thread per record
 // counters, keeps four blocks or three (below), as the stats megakernel
 // does: at 48 it spills.
 constexpr int kTraceMinBlocks = 5;
+// The MXU instantiations' budget (kMxu; mxu.cuh): 2 blocks of 256 threads
+// an SM, up to 128 registers, room for the hoisted B fragments and the
+// epilogue's slots without spills.
+constexpr int kMxuMinBlocks = 2;
 // K1's stats kernel: 4 blocks where it stages the table whole, 3 (80
 // registers) where it sweeps windows, as the stats megakernel.
 constexpr int kStatsMinBlocks = 4;     // the table staged whole
@@ -135,24 +140,11 @@ struct K0Args {
   float inv_w, inv_h;  // f32(1 / width), f32(1 / full_height)
   uint32_t frame, row_offset;
   int b_hi;
+  const float* amats;  // the MXU chunk sweep's A table (kMxu; mxu.cuh)
 };
 
-// K0: camera ray and bounces [0, b_hi) of one slot; every slot is written.
-template <bool kTextured, bool kStaged>
-__global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k0(const K0Args a) {
-  const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
-  const long long slot = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (slot >= a.cap) return;
-  int x, y;
-  uint32_t sample;
-  slot_pixel(a.g, static_cast<uint32_t>(slot), x, y, sample);
-  const uint32_t y_g = static_cast<uint32_t>(y) + a.row_offset;
-  Ray r;
-  r.state = sample_seed(seed_pixel(a.g, x, y, a.row_offset), jenkins(a.frame), sample);
-  camera_ray(a.cam, static_cast<float>(x), static_cast<float>(static_cast<int>(y_g)), a.inv_w,
-             a.inv_h, r);
-  trace_bounces<kTextured, kStaged>(a.scene, 0, a.b_hi, r, &cv);
-
+// A slot's record and contribution after K0's bounces.
+__device__ __forceinline__ void k0_store(const K0Args& a, long long slot, const Ray& r) {
   float* p = a.pool + slot;
   const long long c = a.cap;
   p[kOX * c] = r.ox;
@@ -177,6 +169,43 @@ __global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k0(const K0
   q[2 * c] = r.tb * r.cb;
 }
 
+// K0: camera ray and bounces [0, b_hi) of one slot; every slot is written.
+// kMxu: on the MXU chunk sweep, the whole warp stepping together (a slot
+// past the pool, of which a launch has none, would join without a path).
+template <bool kTextured, bool kStaged, bool kMxu = false>
+__global__ void __launch_bounds__(kThreads, kMxu ? kMxuMinBlocks : kTraceMinBlocks)
+    regroup_k0(const K0Args a) {
+  const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
+  const long long slot = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if constexpr (kMxu) {
+    const bool inside = slot < a.cap;
+    int x, y;
+    uint32_t sample;
+    slot_pixel(a.g, static_cast<uint32_t>(slot), x, y, sample);
+    const uint32_t y_g = static_cast<uint32_t>(y) + a.row_offset;
+    Ray r = {};
+    if (inside) {
+      r.state = sample_seed(seed_pixel(a.g, x, y, a.row_offset), jenkins(a.frame), sample);
+      camera_ray(a.cam, static_cast<float>(x), static_cast<float>(static_cast<int>(y_g)),
+                 a.inv_w, a.inv_h, r);
+    }
+    trace_bounces_mxu<kTextured, kStaged>(a.scene, 0, a.b_hi, r, inside, cv, a.amats);
+    if (inside) k0_store(a, slot, r);
+    return;
+  }
+  if (slot >= a.cap) return;
+  int x, y;
+  uint32_t sample;
+  slot_pixel(a.g, static_cast<uint32_t>(slot), x, y, sample);
+  const uint32_t y_g = static_cast<uint32_t>(y) + a.row_offset;
+  Ray r;
+  r.state = sample_seed(seed_pixel(a.g, x, y, a.row_offset), jenkins(a.frame), sample);
+  camera_ray(a.cam, static_cast<float>(x), static_cast<float>(static_cast<int>(y_g)), a.inv_w,
+             a.inv_h, r);
+  trace_bounces<kTextured, kStaged>(a.scene, 0, a.b_hi, r, &cv);
+  k0_store(a, slot, r);
+}
+
 struct K1Args {
   SceneRefs scene;
   CullRefs cull;
@@ -188,6 +217,7 @@ struct K1Args {
   Tiling g;
   uint32_t frame, row_offset;
   int b_lo, b_hi;
+  const float* amats;  // the MXU chunk sweep's A table (kMxu; mxu.cuh)
 };
 
 // What K1's stats kernel reads besides: the counters and its windows of
@@ -253,14 +283,25 @@ __device__ __forceinline__ void store_record(const K1Args& a, long long i, const
 }
 
 // K1: bounces [b_lo, b_hi) of one dense record. A block wholly past the
-// count returns before it stages the cull tables.
-template <bool kTextured, bool kStaged = true>
-__global__ void __launch_bounds__(kThreads, kTraceMinBlocks) regroup_k1(const K1Args a) {
+// count returns before it stages the cull tables. kMxu: on the MXU chunk
+// sweep, the threads of the block's last warps past the count joining their
+// warp's products without a record.
+template <bool kTextured, bool kStaged = true, bool kMxu = false>
+__global__ void __launch_bounds__(kThreads, kMxu ? kMxuMinBlocks : kTraceMinBlocks)
+    regroup_k1(const K1Args a) {
   const long long first = static_cast<long long>(blockIdx.x) * kThreads;
   const int count = *a.count;
   if (first >= count) return;
   const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
   const long long i = first + threadIdx.x;
+  if constexpr (kMxu) {
+    const bool inside = i < count;
+    Ray r = {};
+    if (inside) load_record(a, i, r);
+    trace_bounces_mxu<kTextured, kStaged>(a.scene, a.b_lo, a.b_hi, r, inside, cv, a.amats);
+    if (inside) store_record(a, i, r);
+    return;
+  }
   if (i >= count) return;
   Ray r;
   load_record(a, i, r);
@@ -725,6 +766,28 @@ CullRefs cull_refs(const float* chunk_bounds, const float* super_bounds, const i
                   n_super, chunk_size, super_factor};
 }
 
+K0Args k0_args(const float* cam, const float* sky, const float* sweep, const float* attrs,
+               const int* tex_pool, int n_spheres, float* pool, float* contrib, long long cap,
+               int width, int height, int tiles_x, int spp_shift, float inv_w, float inv_h,
+               unsigned frame, unsigned row_offset, int b_hi, const CullRefs& cull,
+               float cull_reach, float cull_scale) {
+  K0Args a = {};
+  a.cam = cam;
+  a.scene = scene_refs(sky, sweep, attrs, tex_pool, n_spheres);
+  a.cull = cull;
+  a.margin = CullMargin{cull_reach, cull_scale};
+  a.pool = pool;
+  a.contrib = contrib;
+  a.cap = cap;
+  a.g = tiling(width, height, tiles_x, spp_shift);
+  a.inv_w = inv_w;
+  a.inv_h = inv_h;
+  a.frame = frame;
+  a.row_offset = row_offset;
+  a.b_hi = b_hi;
+  return a;
+}
+
 // Launch K0 or K1 with its dynamic shared memory (cull_smem_bytes), as
 // `staged` (kStaged = true) where cull_staged and as `global` otherwise.
 template <class Kernel, class KArgs>
@@ -779,25 +842,43 @@ int wrt_regroup_k0(const float* cam, const float* sky, const float* sweep, const
                    const float* chunk_bounds, const float* super_bounds, const int* priors,
                    int n_chunks, int n_tests, int n_super, int chunk_size, int super_factor,
                    float cull_reach, float cull_scale, void* stream) {
-  K0Args a;
-  a.cam = cam;
-  a.scene = scene_refs(sky, sweep, attrs, tex_pool, n_spheres);
-  a.cull = cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests, n_super, chunk_size,
-                     super_factor);
-  a.margin = CullMargin{cull_reach, cull_scale};
-  a.pool = pool;
-  a.contrib = contrib;
-  a.cap = cap;
-  a.g = tiling(width, height, tiles_x, spp_shift);
-  a.inv_w = inv_w;
-  a.inv_h = inv_h;
-  a.frame = frame;
-  a.row_offset = row_offset;
-  a.b_hi = b_hi;
+  const K0Args a = k0_args(cam, sky, sweep, attrs, tex_pool, n_spheres, pool, contrib, cap, width,
+                           height, tiles_x, spp_shift, inv_w, inv_h, frame, row_offset, b_hi,
+                           cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests,
+                                     n_super, chunk_size, super_factor),
+                           cull_reach, cull_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tex_pool != nullptr
              ? launch_culled(regroup_k0<true, true>, regroup_k0<true, false>, a, cap, s)
              : launch_culled(regroup_k0<false, true>, regroup_k0<false, false>, a, cap, s);
+}
+
+// K0 on the MXU chunk sweep (regroup_k0<..., kMxu = true>): the arguments of
+// wrt_regroup_k0 and the A table amats [n_chunks, 8, 2 * chunk_size]
+// (mxu_sweep_amats). Without chunks it is refused (cudaErrorInvalidValue).
+int wrt_regroup_k0_mxu(const float* cam, const float* sky, const float* sweep,
+                       const float* attrs, const int* tex_pool, int n_spheres, float* pool,
+                       float* contrib, long long cap, int width, int height, int tiles_x,
+                       int spp_shift, float inv_w, float inv_h, unsigned frame,
+                       unsigned row_offset, int b_hi, const float* chunk_bounds,
+                       const float* super_bounds, const int* priors, int n_chunks, int n_tests,
+                       int n_super, int chunk_size, int super_factor, float cull_reach,
+                       float cull_scale, const float* amats, void* stream) {
+  if (n_chunks <= 0 || chunk_size <= 0 || amats == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  K0Args a = k0_args(cam, sky, sweep, attrs, tex_pool, n_spheres, pool, contrib, cap, width,
+                     height, tiles_x, spp_shift, inv_w, inv_h, frame, row_offset, b_hi,
+                     cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests, n_super,
+                               chunk_size, super_factor),
+                     cull_reach, cull_scale);
+  a.amats = amats;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tex_pool != nullptr
+             ? launch_culled(regroup_k0<true, true, true>, regroup_k0<true, false, true>, a, cap,
+                             s)
+             : launch_culled(regroup_k0<false, true, true>, regroup_k0<false, false, true>, a,
+                             cap, s);
 }
 
 // count_in: live records of `pool`; writes count_out, `dense` and `inv`.
@@ -839,6 +920,32 @@ int wrt_regroup_k1(const float* sky, const float* sweep, const float* attrs, con
   return tex_pool != nullptr
              ? launch_culled(regroup_k1<true, true>, regroup_k1<true, false>, a, cap, s)
              : launch_culled(regroup_k1<false, true>, regroup_k1<false, false>, a, cap, s);
+}
+
+// K1 on the MXU chunk sweep (regroup_k1<..., kMxu = true>): the arguments of
+// wrt_regroup_k1 and the A table, as wrt_regroup_k0_mxu.
+int wrt_regroup_k1_mxu(const float* sky, const float* sweep, const float* attrs,
+                       const int* tex_pool, int n_spheres, float* pool, float* r8,
+                       const int* count, long long cap, int width, int height, int tiles_x,
+                       int spp_shift, unsigned frame, unsigned row_offset, int b_lo, int b_hi,
+                       const float* chunk_bounds, const float* super_bounds, const int* priors,
+                       int n_chunks, int n_tests, int n_super, int chunk_size, int super_factor,
+                       float cull_reach, float cull_scale, const float* amats, void* stream) {
+  if (n_chunks <= 0 || chunk_size <= 0 || amats == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  K1Args a = k1_args(sky, sweep, attrs, tex_pool, n_spheres, pool, r8, count, cap, width, height,
+                     tiles_x, spp_shift, frame, row_offset, b_lo, b_hi,
+                     cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests, n_super,
+                               chunk_size, super_factor));
+  a.margin = CullMargin{cull_reach, cull_scale};
+  a.amats = amats;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tex_pool != nullptr
+             ? launch_culled(regroup_k1<true, true, true>, regroup_k1<true, false, true>, a, cap,
+                             s)
+             : launch_culled(regroup_k1<false, true, true>, regroup_k1<false, false, true>, a,
+                             cap, s);
 }
 
 // K1 through its stats kernel: also writes the per-dense-tile
@@ -895,7 +1002,8 @@ int wrt_regroup_combine(const int* inv, const float* r8, const float* contrib, f
 // `which`: 0/1 K0 untextured/textured, 2/3 K1, 4 PACK, 5 COMBINE, 6/7 K1's
 // stats kernel (its table staged whole), 8/9 K0, 10/11 K1 and 12/13 K1's
 // stats kernel with the box tables in global memory (kStaged = false), 14/15
-// and 16/17 K1's stats kernel in windows (kWindowed), boxes staged and not.
+// and 16/17 K1's stats kernel in windows (kWindowed), boxes staged and not;
+// 18-25 the MXU instantiations (kMxu) of K0 and K1 as 0-3, then as 8-11.
 int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes, int* shared_bytes) {
   const void* fns[] = {
       reinterpret_cast<const void*>(regroup_k0<false, true>),
@@ -916,6 +1024,14 @@ int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes, int* shar
       reinterpret_cast<const void*>(regroup_k1_stats<true, true, true>),
       reinterpret_cast<const void*>(regroup_k1_stats<false, false, true>),
       reinterpret_cast<const void*>(regroup_k1_stats<true, false, true>),
+      reinterpret_cast<const void*>(regroup_k0<false, true, true>),
+      reinterpret_cast<const void*>(regroup_k0<true, true, true>),
+      reinterpret_cast<const void*>(regroup_k1<false, true, true>),
+      reinterpret_cast<const void*>(regroup_k1<true, true, true>),
+      reinterpret_cast<const void*>(regroup_k0<false, false, true>),
+      reinterpret_cast<const void*>(regroup_k0<true, false, true>),
+      reinterpret_cast<const void*>(regroup_k1<false, false, true>),
+      reinterpret_cast<const void*>(regroup_k1<true, false, true>),
   };
   if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0]))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -934,6 +1050,12 @@ int wrt_regroup_attributes(int which, int* num_regs, int* local_bytes, int* shar
 void wrt_regroup_launch_bounds(int* threads, int* min_blocks) {
   *threads = kThreads;
   *min_blocks = kTraceMinBlocks;
+}
+
+// The same of their MXU instantiations.
+void wrt_regroup_mxu_launch_bounds(int* threads, int* min_blocks) {
+  *threads = kThreads;
+  *min_blocks = kMxuMinBlocks;
 }
 
 // Dynamic shared bytes of a block of K0 or K1 for a cull hierarchy

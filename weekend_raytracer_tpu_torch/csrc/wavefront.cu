@@ -81,6 +81,7 @@
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
+#include "mxu.cuh"
 
 namespace {
 
@@ -94,6 +95,9 @@ constexpr int kWarps = kThreads / 32;
 // The culled instantiations' register budget: __launch_bounds__(kThreads,
 // kMinBlocks), up to 64 registers (see the header).
 constexpr int kMinBlocks = 4;
+// The MXU instantiations' budget (kMxu; mxu.cuh): 2 blocks of 256 threads
+// an SM, up to 128 registers.
+constexpr int kMxuMinBlocks = 2;
 // K0: the most slices of 32 slots a warp walks down a tile; a frame of spp
 // samples a pixel takes min(spp, kK0MaxSlices), a divisor of a tile's 32
 // rows.
@@ -162,6 +166,7 @@ struct K0Args {
   float inv_w, inv_h;  // f32(1 / width), f32(1 / height)
   uint32_t frame;
   int b_hi;
+  const float* amats;  // the MXU chunk sweep's A table (kMxu; mxu.cuh)
 };
 
 // A slot's camera ray: its own seed, a live path.
@@ -209,9 +214,13 @@ __host__ __device__ __forceinline__ int k0_slices(int spp_shift) {
 // K0: camera ray and bounces [0, b_hi) of every slot; every slot is
 // written. kCull = false: one slot a thread, every sphere swept. kCull:
 // the cull tables staged per block, then each warp walks its k0_slices
-// slices down a tile with refill.
-template <bool kTextured, bool kCull, bool kStaged>
-__global__ void __launch_bounds__(kThreads, kCull ? kMinBlocks : 0) wavefront_k0(const K0Args a) {
+// slices down a tile with refill. kMxu (with kCull): the same walk on the
+// MXU chunk sweep, a lane whose slices are done staying in the loop without
+// a path until no lane of its warp has one.
+template <bool kTextured, bool kCull, bool kStaged, bool kMxu = false>
+__global__ void __launch_bounds__(kThreads, kMxu ? kMxuMinBlocks : kCull ? kMinBlocks : 0)
+    wavefront_k0(const K0Args a) {
+  static_assert(kCull || !kMxu, "the MXU chunk sweep is culled");
   if constexpr (!kCull) {
     const long long slot = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
     if (slot >= a.cap) return;
@@ -233,6 +242,26 @@ __global__ void __launch_bounds__(kThreads, kCull ? kMinBlocks : 0) wavefront_k0
     Ray r;
     k0_start(a, slot, r);
     int bounce = 0;
+    if constexpr (kMxu) {
+      bool live = true;  // this lane has a slot in hand
+      int slice = 0;
+      while (__any_sync(kFullWarp, live)) {
+        // step_on's bounces: a lane steps while its bounce is below b_hi
+        const bool stepping = live && bounce < a.b_hi;
+        const bool on = bounce_step_mxu<kTextured, kStaged>(a.scene, r, cv, a.amats, stepping);
+        if (!live) continue;
+        if (on && ++bounce < a.b_hi) continue;
+        k0_store(a, slot, r);
+        if (++slice == slices) {
+          live = false;
+          continue;
+        }
+        slot += kLanes;
+        k0_start(a, slot, r);
+        bounce = 0;
+      }
+      return;
+    }
     for (int slice = 0;;) {
       if (step_on<kTextured, kStaged>(a.scene, r, bounce, a.b_hi, cv)) continue;
       k0_store(a, slot, r);
@@ -253,6 +282,7 @@ struct K1Args {
   const int* count;  // dense rows in the pool
   long long cap;     // slots
   int b_lo, b_hi;
+  const float* amats;  // the MXU chunk sweep's A table (kMxu; mxu.cuh)
 };
 
 // A live lane's stored path entering b_lo. Its colour is 0 (a path has
@@ -328,8 +358,9 @@ __device__ __forceinline__ void k1_lane(const K1Args& a, long long row, int lane
 // writes its contribution; a live lane's bit goes to the warp's ballot,
 // whose count joins an exclusive prefix over (it, warp), so each live lane
 // takes the list entry of its rank in lane order. Second pass: thread j
-// traces entries j, j + 256, ... with refill.
-template <bool kTextured, bool kStaged>
+// traces entries j, j + 256, ... with refill (kMxu: on the MXU chunk sweep,
+// a thread past the list staying in its warp's loop without a path).
+template <bool kTextured, bool kStaged, bool kMxu = false>
 __device__ __forceinline__ void k1_regrouped(const K1Args& a, long long row0, int rows,
                                              const CullView& cv) {
   __shared__ unsigned short list[kK1Lanes];
@@ -383,6 +414,36 @@ __device__ __forceinline__ void k1_regrouped(const K1Args& a, long long row0, in
   __syncthreads();
   const int n_live = rank_base[kK1Iters * kWarps];
   int at = threadIdx.x;
+  if constexpr (kMxu) {
+    bool live = at < n_live;  // this thread has a list entry in hand
+    int e = 0;
+    float* p = nullptr;
+    Ray r = {};
+    if (live) {
+      e = list[at];
+      p = a.pool + record_at(row0 + (e >> 7), e & 127);
+      k1_load(p, r);
+    }
+    int bounce = a.b_lo;
+    while (__any_sync(kFullWarp, live)) {
+      const bool stepping = live && bounce < a.b_hi;
+      const bool on = bounce_step_mxu<kTextured, kStaged>(a.scene, r, cv, a.amats, stepping);
+      if (!live) continue;
+      if (on && ++bounce < a.b_hi) continue;
+      k1_store(p, r);
+      k1_contrib(a, p, e & 127, r.tr, r.tg, r.tb, r.cr, r.cg, r.cb);
+      at += kThreads;
+      if (at >= n_live) {
+        live = false;
+        continue;
+      }
+      e = list[at];
+      p = a.pool + record_at(row0 + (e >> 7), e & 127);
+      k1_load(p, r);
+      bounce = a.b_lo;
+    }
+    return;
+  }
   if (at >= n_live) return;
   int e = list[at];
   float* p = a.pool + record_at(row0 + (e >> 7), e & 127);
@@ -406,8 +467,10 @@ __device__ __forceinline__ void k1_regrouped(const K1Args& a, long long row0, in
 // every lane's tr * cr to its home row. kCull = false: one thread per lane,
 // every sphere swept. kCull: a block wholly past the count returns before
 // it stages the cull tables; the rest regroup their live lanes.
-template <bool kTextured, bool kCull, bool kStaged>
-__global__ void __launch_bounds__(kThreads, kCull ? kMinBlocks : 0) wavefront_k1(const K1Args a) {
+template <bool kTextured, bool kCull, bool kStaged, bool kMxu = false>
+__global__ void __launch_bounds__(kThreads, kMxu ? kMxuMinBlocks : kCull ? kMinBlocks : 0)
+    wavefront_k1(const K1Args a) {
+  static_assert(kCull || !kMxu, "the MXU chunk sweep is culled");
   const int count = *a.count;
   if constexpr (!kCull) {
     const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -418,8 +481,8 @@ __global__ void __launch_bounds__(kThreads, kCull ? kMinBlocks : 0) wavefront_k1
     if (row0 >= count) return;
     const CullView cv = stage_cull<kStaged>(a.cull, a.scene.sweep, a.margin);
     const long long rows = count - row0;
-    k1_regrouped<kTextured, kStaged>(a, row0, rows < kK1Rows ? static_cast<int>(rows) : kK1Rows,
-                                     cv);
+    k1_regrouped<kTextured, kStaged, kMxu>(a, row0,
+                                           rows < kK1Rows ? static_cast<int>(rows) : kK1Rows, cv);
   }
 }
 
@@ -631,6 +694,33 @@ int wrt_wavefront_k0(const float* cam, const float* sky, const float* sweep,
                        static_cast<cudaStream_t>(stream));
 }
 
+// K0 on the MXU chunk sweep (wavefront_k0<..., kCull, ..., kMxu = true>):
+// wrt_wavefront_k0's arguments and the A table amats [n_chunks, 8, 2 *
+// chunk_size] (mxu_sweep_amats). Without chunks it is refused
+// (cudaErrorInvalidValue).
+int wrt_wavefront_k0_mxu(const float* cam, const float* sky, const float* sweep,
+                         const float* attrs, const int* tex_pool, int n_spheres, float* pool,
+                         float* contrib, long long cap, int width, int height, int tiles_x,
+                         int spp_shift, float inv_w, float inv_h, unsigned frame, int b_hi,
+                         const float* chunk_bounds, const float* super_bounds, const int* priors,
+                         int n_chunks, int n_tests, int n_super, int chunk_size, int super_factor,
+                         float cull_reach, float cull_scale, const float* amats, void* stream) {
+  if (n_chunks <= 0 || chunk_size <= 0 || amats == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  K0Args a = k0_args(cam, sky, sweep, attrs, tex_pool, n_spheres, pool, contrib, cap, width,
+                     height, tiles_x, spp_shift, inv_w, inv_h, frame, b_hi);
+  a.cull = cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests, n_super, chunk_size,
+                     super_factor);
+  a.margin = CullMargin{cull_reach, cull_scale};
+  a.amats = amats;
+  static void (*const kernels[2][2])(K0Args) = {
+      {wavefront_k0<false, true, false, true>, wavefront_k0<false, true, true, true>},
+      {wavefront_k0<true, true, false, true>, wavefront_k0<true, true, true, true>}};
+  return launch_culled(kernels, a, false, grid_k0(cap, spp_shift, true),
+                       static_cast<cudaStream_t>(stream));
+}
+
 int wrt_wavefront_k0_full_sweep(const float* cam, const float* sky, const float* sweep,
                                 const float* attrs, const int* tex_pool, int n_spheres,
                                 float* pool, float* contrib, long long cap, int width,
@@ -677,6 +767,29 @@ int wrt_wavefront_k1(const float* sky, const float* sweep, const float* attrs,
   return launch_culled(kernels, a, true, grid_k1(cap, true), static_cast<cudaStream_t>(stream));
 }
 
+// K1 on the MXU chunk sweep: wrt_wavefront_k1's arguments and the A table,
+// as wrt_wavefront_k0_mxu.
+int wrt_wavefront_k1_mxu(const float* sky, const float* sweep, const float* attrs,
+                         const int* tex_pool, int n_spheres, float* pool, float* contrib,
+                         const int* count, long long cap, int b_lo, int b_hi,
+                         const float* chunk_bounds, const float* super_bounds, const int* priors,
+                         int n_chunks, int n_tests, int n_super, int chunk_size, int super_factor,
+                         float cull_reach, float cull_scale, const float* amats, void* stream) {
+  if (n_chunks <= 0 || chunk_size <= 0 || amats == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  K1Args a = k1_args(sky, sweep, attrs, tex_pool, n_spheres, pool, contrib, count, cap, b_lo,
+                     b_hi);
+  a.cull = cull_refs(chunk_bounds, super_bounds, priors, n_chunks, n_tests, n_super, chunk_size,
+                     super_factor);
+  a.margin = CullMargin{cull_reach, cull_scale};
+  a.amats = amats;
+  static void (*const kernels[2][2])(K1Args) = {
+      {wavefront_k1<false, true, false, true>, wavefront_k1<false, true, true, true>},
+      {wavefront_k1<true, true, false, true>, wavefront_k1<true, true, true, true>}};
+  return launch_culled(kernels, a, true, grid_k1(cap, true), static_cast<cudaStream_t>(stream));
+}
+
 int wrt_wavefront_k1_full_sweep(const float* sky, const float* sweep, const float* attrs,
                                 const int* tex_pool, int n_spheres, float* pool, float* contrib,
                                 const int* count, long long cap, int b_lo, int b_hi,
@@ -694,7 +807,7 @@ int wrt_wavefront_k1_full_sweep(const float* sky, const float* sweep, const floa
 // `which`: 0/1 K0 untextured/textured, 2/3 the same with the boxes in
 // global memory (kStaged = false), 4/5 K0's full sweep (kCull = false);
 // 6-11 K1 in the same order; 12 compact_count, 13 compact_scan, 14
-// compact_scatter.
+// compact_scatter; 15-18 K0's MXU instantiations (kMxu) as 0-3, 19-22 K1's.
 int wrt_wavefront_attributes(int which, int* num_regs, int* local_bytes, int* shared_bytes) {
   const void* fns[] = {
       reinterpret_cast<const void*>(wavefront_k0<false, true, true>),
@@ -712,6 +825,14 @@ int wrt_wavefront_attributes(int which, int* num_regs, int* local_bytes, int* sh
       reinterpret_cast<const void*>(compact_count),
       reinterpret_cast<const void*>(compact_scan),
       reinterpret_cast<const void*>(compact_scatter),
+      reinterpret_cast<const void*>(wavefront_k0<false, true, true, true>),
+      reinterpret_cast<const void*>(wavefront_k0<true, true, true, true>),
+      reinterpret_cast<const void*>(wavefront_k0<false, true, false, true>),
+      reinterpret_cast<const void*>(wavefront_k0<true, true, false, true>),
+      reinterpret_cast<const void*>(wavefront_k1<false, true, true, true>),
+      reinterpret_cast<const void*>(wavefront_k1<true, true, true, true>),
+      reinterpret_cast<const void*>(wavefront_k1<false, true, false, true>),
+      reinterpret_cast<const void*>(wavefront_k1<true, true, false, true>),
   };
   if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0]))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -730,6 +851,12 @@ int wrt_wavefront_attributes(int which, int* num_regs, int* local_bytes, int* sh
 void wrt_wavefront_launch_bounds(int* threads, int* min_blocks) {
   *threads = kThreads;
   *min_blocks = kMinBlocks;
+}
+
+// The same of their MXU instantiations.
+void wrt_wavefront_mxu_launch_bounds(int* threads, int* min_blocks) {
+  *threads = kThreads;
+  *min_blocks = kMxuMinBlocks;
 }
 
 // Dynamic shared bytes of a block of the culled K0 (k1 = 0) or K1 (k1 =

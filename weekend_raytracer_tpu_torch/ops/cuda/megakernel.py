@@ -25,6 +25,12 @@ see that file for what bounds it on the card and how its design answers.
   the card (csrc/stats.cuh), sweeping every sphere from a table staged in
   shared memory (in windows, ``stats_plan``) with each lane's samples
   refilled as the culled kernel's are; ``CullStats`` in the twin.
+- ``mxu_sweep`` (the JAX package's knob, megakernel.py:1681-1708) runs the
+  culled chunk sweep's products on the tensor cores: ``kernel_inputs(...,
+  mxu_sweep=True)`` builds the per-chunk A table (``mxu_sweep_amats``), and
+  a kernel whose inputs carry it takes its ``kMxu`` instantiation where the
+  JAX condition holds (``mxu_route``); its twin is ``_closest_hit_mxu``.
+  Statistically equivalent to the FMA sweep, not bit-identical.
 """
 from __future__ import annotations
 
@@ -183,6 +189,50 @@ def build_kernel_texture_pool(mat, budget_texels: int = DEFAULT_TEXTURE_BUDGET):
     return pool, desc_arr(0), desc_arr(1)
 
 
+def mxu_sweep_amats(s_attrs, chunk_size: int, n_chunks: int) -> torch.Tensor:
+    """Per-chunk A matrices of the MXU chunk sweep (megakernel.py:1529-1545),
+    equal to the JAX array in every bit: (n_chunks, 8, 2 * chunk_size) f32
+    whose columns [0, cs) hold C^T in rows 0-2 (dotted against the ray
+    direction) and columns [cs, 2cs) hold -2 C^T in rows 3-5 and kq = |c|^2 -
+    r^2 in row 6 (dotted against [o; 1]); row 7 is zero. One product per ray
+    then gives c.d and -2 c.o + kq of every sphere of the chunk."""
+    cx, cy, cz, kq = s_attrs[0], s_attrs[1], s_attrs[2], s_attrs[-1]
+    cs = chunk_size
+    c3 = torch.stack([cx, cy, cz], 0).reshape(3, n_chunks, cs).permute(1, 0, 2)
+    a = torch.zeros((n_chunks, 8, 2 * cs), dtype=_F32, device=cx.device)
+    a[:, 0:3, :cs] = c3
+    a[:, 3:6, cs:] = -2.0 * c3
+    a[:, 6, cs:] = kq.reshape(n_chunks, cs)
+    return a
+
+
+# The scene size from which the MXU chunk sweep defaults on (the JAX
+# package's constant, megakernel.py:1295-1302): None, never.
+MXU_DEFAULT_MIN_SPHERES: Optional[int] = None
+
+
+def _default_mxu_sweep(n_spheres: Optional[int] = None) -> bool:
+    """Default for the MXU chunk sweep (megakernel.py:1305-1315):
+    WRT_MXU_SWEEP=0/1 forces either way; otherwise scenes of at least
+    MXU_DEFAULT_MIN_SPHERES spheres default on once that constant is set."""
+    import os
+
+    env = os.environ.get("WRT_MXU_SWEEP")
+    if env is not None:
+        return env == "1"
+    return (MXU_DEFAULT_MIN_SPHERES is not None and n_spheres is not None
+            and n_spheres >= MXU_DEFAULT_MIN_SPHERES)
+
+
+def resolve_mxu_sweep(mxu_sweep, scene: Scene) -> bool:
+    """A render_image_* function's ``mxu_sweep``: an explicit value, or for
+    None the default of the scene's size (``_default_mxu_sweep``), as the
+    JAX wrappers resolve it."""
+    if mxu_sweep is None:
+        return _default_mxu_sweep(int(scene.spheres.centers.shape[0]))
+    return bool(mxu_sweep)
+
+
 def default_chunk_size(n_spheres: int) -> int:
     """The JAX package's chunk size: 16 up to 2048 spheres, 32 above
     (chosen for its culled sweep; regroup's K0 and K1, the megakernel and
@@ -299,6 +349,9 @@ class KernelInputs(NamedTuple):
     super_factor: int
     cull_reach: float  # f32: max |c| + |r| of the non-prior spheres (cull_terms)
     cull_scale: float  # f32: CULL_MARGIN_ULPS * 2^-24 / their least |r|
+    # [n_chunks, 8, 2 * chunk_size] f32 (mxu_sweep_amats) where the MXU
+    # chunk sweep was asked for and the scene has chunks, else None
+    amats: Optional[torch.Tensor] = None
 
     @property
     def n_tests(self) -> int:
@@ -309,9 +362,12 @@ class KernelInputs(NamedTuple):
 
 def kernel_inputs(scene: Scene, sky: SkyState, basis: CameraBasis, *,
                   chunk_size: Optional[int] = None, super_factor: int = 16,
-                  budget_texels: int = DEFAULT_TEXTURE_BUDGET) -> KernelInputs:
+                  budget_texels: int = DEFAULT_TEXTURE_BUDGET,
+                  mxu_sweep: bool = False) -> KernelInputs:
     """Prepare the scene and pack camera, sky and spheres for the kernel
-    (one call per frame, on the scene's device)."""
+    (one call per frame, on the scene's device). With ``mxu_sweep`` a scene
+    with chunks also gets the MXU chunk sweep's A table (``amats``), which
+    the kernels then sweep where ``mxu_route`` holds."""
     if chunk_size is None:
         chunk_size = default_chunk_size(scene.spheres.num_spheres)
     prep = prepare_scene_arrays(scene, basis, chunk_size, super_factor,
@@ -327,7 +383,47 @@ def kernel_inputs(scene: Scene, sky: SkyState, basis: CameraBasis, *,
                         torch.stack(prep.chunk_arrays[:6]).contiguous(),
                         torch.stack(prep.super_arrays).contiguous(),
                         prior_idx, prep.n_chunks, prep.n_super, chunk_size, super_factor,
-                        *terms)
+                        *terms,
+                        mxu_sweep_amats(a, chunk_size, prep.n_chunks).contiguous()
+                        if mxu_sweep and prep.n_chunks else None)
+
+
+def mxu_route(inp: KernelInputs, chunk_size: Optional[int] = None) -> bool:
+    """Whether a kernel sweeping ``inp``'s chunks takes the MXU chunk
+    sweep: the inputs carry the A table (the knob was on and the scene has
+    chunks) and the chunk size the JAX package's condition reads
+    (``chunk_size``: K1's k1_chunk_size; else the prepared one) is a power
+    of two (megakernel.py:1681-1682, regroup.py:1171-1174,
+    wavefront.py:390-391). Where it fails the knob is ignored, as there."""
+    cs = inp.chunk_size if chunk_size is None else int(chunk_size)
+    return inp.amats is not None and cs > 0 and cs & (cs - 1) == 0
+
+
+def with_route(inp: KernelInputs, mxu: Optional[bool]) -> KernelInputs:
+    """``inp`` for a kernel whose MXU route a frame sets apart from the
+    inputs (the (K0, K1) routes of regroup's and the wavefront's frames):
+    None keeps ``inp``, whose ``mxu_route`` decides; False drops the A
+    table, so the FMA sweep runs; True needs inputs on the MXU route."""
+    if mxu is None:
+        return inp
+    if not mxu:
+        return inp if inp.amats is None else inp._replace(amats=None)
+    if not mxu_route(inp):
+        raise ValueError("the MXU chunk sweep needs kernel_inputs(..., mxu_sweep=True) "
+                         "on a scene with chunks of a power-of-two size")
+    return inp
+
+
+def check_amats(inp: KernelInputs, device) -> int:
+    """The A table's device pointer, after checking it against the chunk
+    hierarchy."""
+    t = inp.amats
+    shape = (inp.n_chunks, 8, 2 * inp.chunk_size)
+    if (t is None or t.device != device or tuple(t.shape) != shape or t.dtype != _F32
+            or not t.is_contiguous()):
+        raise ValueError(f"the MXU chunk sweep's A table must be {shape} f32 contiguous "
+                         f"on {device}")
+    return t.data_ptr()
 
 
 def _f32_up(x: float) -> float:
@@ -367,15 +463,18 @@ LIBRARY = ("wrt_megakernel", ("megakernel.cu",))
 TILE_W = TILE_H = 64
 
 # TPU-only knobs of render_image_pallas and the values that leave them off.
-# mxu_sweep, listed and subcull were measured as losses on the TPU; tsub and
-# block_w shape its lane tiles.
+# listed and subcull were measured as losses on the TPU; tsub and block_w
+# shape its lane tiles.
 _TPU_KNOBS = {
     "tsub": (None, 32),
     "block_w": (None, 64),
     "subcull": (0,),
     "listed": (False,),
-    "mxu_sweep": (None, False),
 }
+# stats=True with the MXU chunk sweep: the stats kernels count the FMA
+# sweep's cull; the JAX kernel takes both, the port not yet
+STATS_MXU_REFUSAL = ("stats=True with mxu_sweep=True is not ported yet "
+                     "(ROADMAP Queue 2, 'stats=True with mxu_sweep')")
 
 
 def _library():
@@ -387,6 +486,15 @@ def _library():
         frame = [vp, vp, vp, vp, vp, vp, i, i, i, f, f, u, u, i, i, i]
         fn.argtypes = frame + CULL_ARGTYPES + [f, f, vp]
         fn.restype = ctypes.c_int
+        mxu = built.lib.wrt_megakernel_mxu_launch
+        mxu.argtypes = frame + CULL_ARGTYPES + [f, f, vp, vp]
+        mxu.restype = ctypes.c_int
+        mattr = built.lib.wrt_megakernel_mxu_attributes
+        mattr.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        mattr.restype = ctypes.c_int
+        mbounds = built.lib.wrt_megakernel_mxu_launch_bounds
+        mbounds.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+        mbounds.restype = None
         st = built.lib.wrt_megakernel_stats_launch
         st.argtypes = frame + CULL_ARGTYPES + [vp, ctypes.c_longlong, vp, vp]
         st.restype = ctypes.c_int
@@ -419,12 +527,26 @@ def kernel_attributes(textured: bool, stats: bool = False, staged: bool = True,
     return {"registers": regs.value, "local_bytes": local.value}
 
 
-def launch_bounds() -> tuple:
+def launch_bounds(mxu: bool = False) -> tuple:
     """(threads a block, blocks an SM) of the culled kernel's
-    ``__launch_bounds__`` (0 blocks: no minimum)."""
+    ``__launch_bounds__`` (0 blocks: no minimum); ``mxu``: its MXU
+    instantiation's."""
     threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    _library().lib.wrt_megakernel_launch_bounds(ctypes.byref(threads), ctypes.byref(blocks))
+    lib = _library().lib
+    fn = lib.wrt_megakernel_mxu_launch_bounds if mxu else lib.wrt_megakernel_launch_bounds
+    fn(ctypes.byref(threads), ctypes.byref(blocks))
     return threads.value, blocks.value
+
+
+def mxu_kernel_attributes(textured: bool, staged: bool = True) -> dict:
+    """Registers per thread and local-memory bytes of the built kernel's
+    MXU instantiation (``staged``: the box tables in shared memory)."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = _library().lib.wrt_megakernel_mxu_attributes(int(textured), int(staged),
+                                                       ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _stream_handle(device: torch.device) -> int:
@@ -532,7 +654,7 @@ def _check_knobs(knobs):
             raise NotImplementedError(
                 f"{name}={value!r} is a TPU-only knob of render_image_pallas; "
                 "the CUDA megakernel takes only its off value "
-                f"{_TPU_KNOBS[name][-1]!r} (ROADMAP Queue 2, 'Do not port')")
+                f"{_TPU_KNOBS[name][-1]!r} (ROADMAP Queue 2, still to port)")
 
 
 def _check_accum(accum, width, height, spp, num_bounces):
@@ -578,6 +700,13 @@ def render_image_megakernel(
     CUDA kernel (and counts one launch in ``render_image_megakernel.launches``)
     or raises; a CPU ``accum`` runs ``render_image_megakernel_plain``.
 
+    ``mxu_sweep`` (None: ``_default_mxu_sweep``, off unless WRT_MXU_SWEEP=1)
+    runs the culled chunk sweep's products on the tensor cores, where the
+    scene has chunks of a power-of-two size (``mxu_route``), in the kernel's
+    ``kMxu`` instantiation (counted in
+    ``render_image_megakernel.mxu_launches``) or, on the CPU, the twin's
+    ``_closest_hit_mxu``; elsewhere the knob changes nothing.
+
     stats=True returns ``(accum, table)`` as ``render_image_pallas`` does:
     a [n_tiles, 8] f32 table, one row per 64 x 64-pixel TPU tile (col 0
     bounce iterations of the tile's loop summed over samples, 1 live lanes
@@ -587,13 +716,15 @@ def render_image_megakernel(
     ``render_image_megakernel.stats_launches``) or raises; the image is the
     one stats=False gives.
     """
-    _check_knobs(dict(tsub=tsub, block_w=block_w, subcull=subcull, listed=listed,
-                      mxu_sweep=mxu_sweep))
+    _check_knobs(dict(tsub=tsub, block_w=block_w, subcull=subcull, listed=listed))
     _check_accum(accum, width, height, spp, num_bounces)
+    mxu = resolve_mxu_sweep(mxu_sweep, scene)
+    if stats and mxu:
+        raise NotImplementedError(STATS_MXU_REFUSAL)
     kw = dict(width=width, height=height, spp=spp, num_bounces=num_bounces,
               chunk_size=chunk_size, super_factor=super_factor,
               row_offset=row_offset, full_height=full_height,
-              budget_texels=budget_texels, stats=stats)
+              budget_texels=budget_texels, stats=stats, mxu_sweep=mxu)
     kind = _device_type(accum)
     if kind == "cpu":
         return render_image_megakernel_plain(accum, frame, clear, scene, sky,
@@ -603,7 +734,8 @@ def render_image_megakernel(
     if scene.device != accum.device:
         raise ValueError(f"scene on {scene.device}, accum on {accum.device}")
     inp = kernel_inputs(scene, sky, basis, chunk_size=chunk_size,
-                        super_factor=super_factor, budget_texels=budget_texels)
+                        super_factor=super_factor, budget_texels=budget_texels,
+                        mxu_sweep=mxu)
     return launch_megakernel(accum, inp, frame, clear, width=width,
                              height=height, spp=spp, num_bounces=num_bounces,
                              row_offset=row_offset, full_height=full_height,
@@ -618,8 +750,12 @@ def launch_megakernel(accum: torch.Tensor, inp: KernelInputs, frame, clear, *,
     counts the launch in ``render_image_megakernel.launches``. With
     ``stats`` it launches the stats kernel instead, counted in
     ``render_image_megakernel.stats_launches``, and returns
-    ``(accum, table)``."""
+    ``(accum, table)``. Where ``mxu_route(inp)`` it launches the kernel's
+    MXU instantiation, counted in ``render_image_megakernel.mxu_launches``."""
     _check_accum(accum, width, height, spp, num_bounces)
+    mxu = mxu_route(inp)
+    if stats and mxu:
+        raise NotImplementedError(STATS_MXU_REFUSAL)
     n = inp.n_spheres
     expect = [(inp.cam, (20,), _F32), (inp.sky, (33,), _F32),
               (inp.sweep, (n, 4), _F32),
@@ -643,6 +779,14 @@ def launch_megakernel(accum: torch.Tensor, inp: KernelInputs, frame, clear, *,
         int(frame) & rng.MASK32, int(row_offset) & rng.MASK32, int(bool(clear)),
         spp, num_bounces)
     cull = cull_args(inp, accum.device)
+    if mxu:
+        err = lib.wrt_megakernel_mxu_launch(*frame_args, *cull, _f32(inp.cull_reach),
+                                            _f32(inp.cull_scale), check_amats(inp, accum.device),
+                                            _stream_handle(accum.device))
+        if err != 0:
+            raise RuntimeError(f"megakernel MXU launch failed: CUDA error {err}")
+        render_image_megakernel.mxu_launches += 1
+        return accum
     if not stats:
         err = lib.wrt_megakernel_launch(*frame_args, *cull, _f32(inp.cull_reach),
                                         _f32(inp.cull_scale), _stream_handle(accum.device))
@@ -665,6 +809,7 @@ def launch_megakernel(accum: torch.Tensor, inp: KernelInputs, frame, clear, *,
 
 render_image_megakernel.launches = 0
 render_image_megakernel.stats_launches = 0
+render_image_megakernel.mxu_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -771,6 +916,60 @@ def _closest_hit(o, d, sweep):
         bt = torch.where(better, tm, bt)
         bi = torch.where(better, im + s0, bi)
     return bt, bi
+
+
+def _closest_hit_mxu(o, d, inp: KernelInputs):
+    """Closest hit with the MXU chunk sweep, the JAX form of
+    megakernel.py:560-610 (the CUDA kernels' sweep_culled_mma): the priors
+    first, on the FMA sweep (``_sphere_ts``), their least (t, index) kept
+    apart; then for each chunk out = A_c^T . [d; o; 1; 0] in f32 (one
+    product per ray against ``inp.amats``), b = out[:cs] - o.d, cq = |o|^2 +
+    out[cs:], sq = sqrt(b^2 - cq) and the root choice with MIN_T / MAX_T;
+    the least (t, index) over every chunk, then the priors' joined by (t,
+    index). Ties go to the least sphere index, the port's rule: the JAX
+    kernel's half-tree argmin may keep another index on an exact tie
+    (megakernel.py:594-597), within the knob's statistical contract.
+
+    It sweeps every chunk: the kernels' per-warp cull skips a chunk only
+    where no lane's widened box test enters it, which holds every hit the
+    f32-accurate products can take up to rounding at a box's face (a ray
+    where it does not is within the same statistical contract). The
+    product's f32 sum order is PyTorch's, not the tensor cores' (3xTF32),
+    nor XLA's: the twin and the kernels agree statistically, not in every
+    bit. It runs on the CPU and nowhere on the card's path."""
+    od, oo = _od_oo(o, d)
+    n = o[0].shape[0]
+    dev = o[0].device
+    pbt = torch.full((n,), MAX_T, dtype=_F32, device=dev)
+    pbi = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for p in inp.prior_idx.tolist():
+        ts = _sphere_ts(o, d, od, oo, inp.sweep[p:p + 1])[:, 0]
+        take = (ts < MAX_T) & ((ts < pbt) | ((ts == pbt) & (p < pbi)))
+        pbt = torch.where(take, ts, pbt)
+        pbi = torch.where(take, torch.full_like(pbi, p), pbi)
+    ones = torch.ones_like(o[0])
+    rays = torch.stack([d[0], d[1], d[2], o[0], o[1], o[2], ones, torch.zeros_like(ones)], 1)
+    cs = inp.chunk_size
+    per_block = max(1, _SPHERE_BLOCK // cs)
+    bt = torch.full((n,), MAX_T, dtype=_F32, device=dev)
+    bi = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for c0 in range(0, inp.n_chunks, per_block):
+        a = inp.amats[c0:c0 + per_block]
+        k = a.shape[0]
+        out = (rays @ a.permute(1, 0, 2).reshape(8, k * 2 * cs)).reshape(n, k, 2 * cs)
+        b = out[:, :, :cs] - od[:, :, None]
+        cq = oo[:, :, None] + out[:, :, cs:]
+        sq = torch.sqrt(b * b - cq)  # NaN for a negative discriminant
+        t0 = b - sq
+        t1 = b + sq
+        ts = torch.where(t0 > MIN_T, t0, t1)
+        ts = torch.where((sq > 0.0) & (ts > MIN_T), ts, torch.full_like(ts, MAX_T))
+        tm, im = torch.min(ts.reshape(n, k * cs), dim=1)  # the first index of the least
+        better = tm < bt
+        bt = torch.where(better, tm, bt)
+        bi = torch.where(better, im + c0 * cs, bi)
+    prior = (pbi >= 0) & ((pbt < bt) | ((pbt == bt) & (pbi < bi)))
+    return torch.where(prior, pbt, bt), torch.where(prior, pbi, bi)
 
 
 def _slab_enters(bounds, o, inv, bt, margin=None):
@@ -887,7 +1086,7 @@ class PathState(NamedTuple):
 
 
 def trace_bounces_plain(o, d, tr, state, inp: KernelInputs, b_lo: int,
-                        b_hi: int, counted=None) -> PathState:
+                        b_hi: int, counted=None, mxu: bool = False) -> PathState:
     """Bounces [b_lo, b_hi) of live paths (bounce.cuh ``trace_bounces``).
 
     o and d are (x, y, z) tuples of [n] f32, tr is [n, 3]. Paths that end
@@ -895,7 +1094,8 @@ def trace_bounces_plain(o, d, tr, state, inp: KernelInputs, b_lo: int,
     path that ends keeps the ray it ended on and the RNG state it had then
     (after the draws of an emissive hit), as the kernel does, and one still
     alive after b_hi keeps colour 0. ``counted`` = (CullStats, group [n], weight [n])
-    records each bounce's live rays there."""
+    records each bounce's live rays there. ``mxu`` sweeps with the MXU chunk
+    sweep's twin (``_closest_hit_mxu``), which needs ``inp.amats``."""
     n = o[0].shape[0]
     dev = o[0].device
     out_c = torch.zeros((n, 3), dtype=_F32, device=dev)
@@ -920,7 +1120,10 @@ def trace_bounces_plain(o, d, tr, state, inp: KernelInputs, b_lo: int,
             counter, group, weight = counted
             counter.record(bounce - b_lo, group[live], weight[live], (ox, oy, oz),
                            (dx, dy, dz))
-        bt, bi = _closest_hit((ox, oy, oz), (dx, dy, dz), inp.sweep)
+        if mxu:
+            bt, bi = _closest_hit_mxu((ox, oy, oz), (dx, dy, dz), inp)
+        else:
+            bt, bi = _closest_hit((ox, oy, oz), (dx, dy, dz), inp.sweep)
         hit = bi >= 0
 
         # miss: sky radiance ends the path
@@ -1111,10 +1314,11 @@ def camera_rays_plain(cam, xf, yf, inv_w: float, inv_h: float, state):
     return state, (ox, oy, oz), (dx * inv_len, dy * inv_len, dz * inv_len)
 
 
-def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int, counted=None):
+def _trace_plain(o, d, state, inp: KernelInputs, num_bounces: int, counted=None,
+                 mxu: bool = False):
     """Radiance [n, 3] of one sample per ray: tr * c after every bounce."""
     tr = torch.ones((o[0].shape[0], 3), dtype=_F32, device=o[0].device)
-    p = trace_bounces_plain(o, d, tr, state, inp, 0, num_bounces, counted)
+    p = trace_bounces_plain(o, d, tr, state, inp, 0, num_bounces, counted, mxu)
     return p.tr * p.c
 
 
@@ -1136,6 +1340,7 @@ def render_image_megakernel_plain(
     full_height: Optional[int] = None,
     budget_texels: int = DEFAULT_TEXTURE_BUDGET,
     stats: bool = False,
+    mxu_sweep: bool = False,
 ):
     """The megakernel's computation in plain PyTorch, on ``accum``'s device;
     accumulates in place and returns ``accum`` (and, with ``stats``, the
@@ -1145,7 +1350,8 @@ def render_image_megakernel_plain(
     prefolded albedos. Pixels run in blocks of _PIXEL_BLOCK and spheres in
     blocks of _SPHERE_BLOCK, to bound memory."""
     inp = kernel_inputs(scene, sky, basis, chunk_size=chunk_size,
-                        super_factor=super_factor, budget_texels=budget_texels)
+                        super_factor=super_factor, budget_texels=budget_texels,
+                        mxu_sweep=mxu_sweep)
     return render_plain_with_inputs(
         accum, inp, frame, clear, width=width, height=height, spp=spp,
         num_bounces=num_bounces, row_offset=row_offset,
@@ -1166,9 +1372,13 @@ def render_plain_with_inputs(accum: torch.Tensor, inp: KernelInputs, frame,
                              clear, *, width: int, height: int, spp: int,
                              num_bounces: int, row_offset: int = 0,
                              full_height: Optional[int] = None, stats: bool = False):
-    """The plain version on prepared inputs (``launch_megakernel``'s twin).
-    The counters do not touch the image's arithmetic: with ``stats`` the
-    image is the same in every bit."""
+    """The plain version on prepared inputs (``launch_megakernel``'s twin,
+    on the MXU route where ``mxu_route(inp)``). The counters do not touch
+    the image's arithmetic: with ``stats`` the image is the same in every
+    bit."""
+    mxu = mxu_route(inp)
+    if stats and mxu:
+        raise NotImplementedError(STATS_MXU_REFUSAL)
     dev = accum.device
     fh = height if full_height is None else full_height
     inv_w = _f32(1.0 / width)
@@ -1196,7 +1406,7 @@ def render_plain_with_inputs(accum: torch.Tensor, inp: KernelInputs, frame,
             state = rng.init_sample_state(pix, frame, s)
             state, o, d = camera_rays_plain(cam, xf, yf, inv_w, inv_h, state)
             counted = None if counter is None else (counter, tile * spp + s, weight)
-            tot = tot + _trace_plain(o, d, state, inp, num_bounces, counted)
+            tot = tot + _trace_plain(o, d, state, inp, num_bounces, counted, mxu)
         total[p0:p0 + idx.numel()] = tot
     if clear:
         accum.zero_()

@@ -42,9 +42,14 @@ synchronisation.
 Knobs of the JAX function that only choose a TPU mechanism, and that its
 own tests show bit-identical (``pack_v2``, ``combine_v2``, ``skip_dead``,
 ``dyn_grid``, ``k1_tsub``, ``k1_chunk_size``), are accepted: the port has
-one implementation of their common contract. The TPU sweep variants
-(``mxu_sweep``, ``listed``, ``k1_subcull``, ``rowsweep``, ``rowsweep_k0``)
-and ``profile_stop`` raise ``NotImplementedError`` for any value but off.
+one implementation of their common contract. ``mxu_sweep`` runs K0's and
+K1's culled chunk sweep on the tensor cores (their ``kMxu``
+instantiations; ``mk._closest_hit_mxu`` in the twins) where the JAX
+condition holds for each (regroup.py:1171-1174: K1 reads
+``k1_chunk_size``); K1 sweeps K0's prepared chunks either way. The other
+TPU sweep variants (``listed``, ``k1_subcull``, ``rowsweep``,
+``rowsweep_k0``) and ``profile_stop`` raise ``NotImplementedError`` for any
+value but off.
 """
 from __future__ import annotations
 
@@ -91,10 +96,9 @@ REPLACES = {
 }
 TILE_RECORDS = 32 * 128  # a dense TPU tile: the rows of K1's stats table
 
-# TPU sweep variants measured as losses on the TPU (ROADMAP Queue 2, "Do
-# not port"), and the values that leave them off.
+# TPU sweep variants the port does not run yet (ROADMAP Queue 2), and the
+# values that leave them off.
 _OFF_KNOBS = {
-    "mxu_sweep": (None, False),
     "listed": (False,),
     "k1_subcull": (0,),
     "rowsweep": (None, False),
@@ -199,7 +203,9 @@ KERNEL_NAMES = ("k0", "k0_textured", "k1", "k1_textured", "pack", "combine",
                 "k1_stats", "k1_stats_textured", "k0_global", "k0_global_textured",
                 "k1_global", "k1_global_textured", "k1_stats_global",
                 "k1_stats_global_textured", "k1_stats_windowed", "k1_stats_windowed_textured",
-                "k1_stats_global_windowed", "k1_stats_global_windowed_textured")
+                "k1_stats_global_windowed", "k1_stats_global_windowed_textured",
+                "k0_mxu", "k0_mxu_textured", "k1_mxu", "k1_mxu_textured", "k0_mxu_global",
+                "k0_mxu_global_textured", "k1_mxu_global", "k1_mxu_global_textured")
 
 
 def _library():
@@ -217,6 +223,10 @@ def _library():
                                + mk.CULL_ARGTYPES + [f, f, vp]),
             "wrt_regroup_k1_stats": ([vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i]
                                      + mk.CULL_ARGTYPES + [vp, ll, vp, vp]),
+            "wrt_regroup_k0_mxu": ([vp] * 5 + [i, vp, vp, ll, i, i, i, i, f, f, u, u, i]
+                                   + mk.CULL_ARGTYPES + [f, f, vp, vp]),
+            "wrt_regroup_k1_mxu": ([vp] * 4 + [i, vp, vp, vp, ll, i, i, i, i, u, u, i, i]
+                                   + mk.CULL_ARGTYPES + [f, f, vp, vp]),
             "wrt_regroup_combine": [vp] * 4 + [i, ll, i, i, i, i, i, vp],
             "wrt_regroup_attributes": [i] + [ctypes.POINTER(i)] * 3,
         }
@@ -226,16 +236,20 @@ def _library():
             fn.restype = ctypes.c_int
         lib.wrt_regroup_cull_smem.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.wrt_regroup_cull_smem.restype = ll
-        lib.wrt_regroup_launch_bounds.argtypes = [ctypes.POINTER(i)] * 2
-        lib.wrt_regroup_launch_bounds.restype = None
+        for name in ("wrt_regroup_launch_bounds", "wrt_regroup_mxu_launch_bounds"):
+            getattr(lib, name).argtypes = [ctypes.POINTER(i)] * 2
+            getattr(lib, name).restype = None
     return built
 
 
-def launch_bounds() -> tuple:
+def launch_bounds(mxu: bool = False) -> tuple:
     """K0's and K1's __launch_bounds__: (threads a block, blocks an SM),
-    which fix their register budget (regroup.cu kTraceMinBlocks)."""
+    which fix their register budget (regroup.cu kTraceMinBlocks; ``mxu``:
+    their MXU instantiations', kMxuMinBlocks)."""
     threads, min_blocks = ctypes.c_int(0), ctypes.c_int(0)
-    _library().lib.wrt_regroup_launch_bounds(ctypes.byref(threads), ctypes.byref(min_blocks))
+    lib = _library().lib
+    fn = lib.wrt_regroup_mxu_launch_bounds if mxu else lib.wrt_regroup_launch_bounds
+    fn(ctypes.byref(threads), ctypes.byref(min_blocks))
     return threads.value, min_blocks.value
 
 
@@ -335,18 +349,26 @@ def launch_k0(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
               t: Tiling, frame, b_hi: int) -> None:
     """K0 on the current stream: every slot's record into ``pool`` [16, cap]
     and its tr * cr into ``contrib`` [3, cap], the sweep culled per warp
-    where ``inp`` has chunks. Counts one launch in ``launch_k0.launches``."""
+    where ``inp`` has chunks. Counts one launch in ``launch_k0.launches``;
+    where ``mk.mxu_route(inp)`` it launches K0's MXU instantiation, counted
+    in ``launch_k0.mxu_launches``."""
     dev = pool.device
     _expect_scene(inp, dev)
     _expect(pool, (N_COMP, t.cap), _F32, dev)
     _expect(contrib, (3, t.cap), _F32, dev)
-    err = _library().lib.wrt_regroup_k0(
-        inp.cam.data_ptr(), *_scene_ptrs(inp), pool.data_ptr(), contrib.data_ptr(),
-        t.cap, t.width, t.height, t.tiles_x, t.spp_shift,
-        mk._f32(1.0 / t.width), mk._f32(1.0 / t.full_height),
-        int(frame) & rng.MASK32, t.row_offset & rng.MASK32, int(b_hi),
-        *_cull_args(inp, dev), _stream_handle(dev))
-    _raise_on(err, "K0")
+    mxu = mk.mxu_route(inp)
+    lib = _library().lib
+    args = (inp.cam.data_ptr(), *_scene_ptrs(inp), pool.data_ptr(), contrib.data_ptr(),
+            t.cap, t.width, t.height, t.tiles_x, t.spp_shift,
+            mk._f32(1.0 / t.width), mk._f32(1.0 / t.full_height),
+            int(frame) & rng.MASK32, t.row_offset & rng.MASK32, int(b_hi),
+            *_cull_args(inp, dev))
+    if mxu:
+        _raise_on(lib.wrt_regroup_k0_mxu(*args, mk.check_amats(inp, dev), _stream_handle(dev)),
+                  "K0 MXU")
+        launch_k0.mxu_launches += 1
+        return
+    _raise_on(lib.wrt_regroup_k0(*args, _stream_handle(dev)), "K0")
     launch_k0.launches += 1
 
 
@@ -387,7 +409,9 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
     """K1 of phase k on the current stream: bounces [b_lo, b_hi) of the
     counts[k] dense records of ``pool``, in place, and their tr * cr into
     ``r8`` [3, cap], the sweep culled per warp where ``inp`` has chunks.
-    Counts one launch in ``launch_k1.launches``.
+    Counts one launch in ``launch_k1.launches``; where ``mk.mxu_route(inp)``
+    it launches K1's MXU instantiation, counted in
+    ``launch_k1.mxu_launches``.
 
     With ``stats`` [cap / 4096, 8] f32 it launches the stats
     kernel instead (counted in ``launch_k1.stats_launches``), which
@@ -403,10 +427,19 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
     _expect(pool, (N_COMP, t.cap), _F32, dev)
     _expect(r8, (3, t.cap), _F32, dev)
     _check_k1_stats(stats, t, b_lo, b_hi, dev)
+    mxu = mk.mxu_route(inp)
+    if stats is not None and mxu:
+        raise NotImplementedError(mk.STATS_MXU_REFUSAL)
     lib = _library().lib
     args = (*_scene_ptrs(inp), pool.data_ptr(), r8.data_ptr(), _count_ptr(counts, k, dev),
             t.cap, t.width, t.height, t.tiles_x, t.spp_shift, int(frame) & rng.MASK32,
             t.row_offset & rng.MASK32, int(b_lo), int(b_hi))
+    if mxu:
+        _raise_on(lib.wrt_regroup_k1_mxu(*args, *_cull_args(inp, dev),
+                                         mk.check_amats(inp, dev), _stream_handle(dev)),
+                  "K1 MXU")
+        launch_k1.mxu_launches += 1
+        return
     if stats is None:
         _raise_on(lib.wrt_regroup_k1(*args, *_cull_args(inp, dev), _stream_handle(dev)), "K1")
         launch_k1.launches += 1
@@ -455,6 +488,7 @@ def launch_combine(inv: torch.Tensor, r8: torch.Tensor, contrib: torch.Tensor,
 for _fn in (launch_k0, launch_pack, launch_k1, launch_combine):
     _fn.launches = 0
 launch_k1.stats_launches = 0
+launch_k0.mxu_launches = launch_k1.mxu_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -492,6 +526,7 @@ def _store(pool: torch.Tensor, lo: int, hi: int, p: mk.PathState) -> None:
 def k0_plain(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
              t: Tiling, frame, b_hi: int) -> None:
     """``launch_k0``'s twin."""
+    mxu = mk.mxu_route(inp)
     dev = pool.device
     cam = [mk._f32(v) for v in inp.cam.tolist()]
     inv_w, inv_h = mk._f32(1.0 / t.width), mk._f32(1.0 / t.full_height)
@@ -503,7 +538,7 @@ def k0_plain(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
         yf = y_g.to(torch.int32).to(_F32)
         state, o, d = mk.camera_rays_plain(cam, x.to(_F32), yf, inv_w, inv_h, state)
         tr = torch.ones((hi - lo, 3), dtype=_F32, device=dev)
-        p = mk.trace_bounces_plain(o, d, tr, state, inp, 0, b_hi)
+        p = mk.trace_bounces_plain(o, d, tr, state, inp, 0, b_hi, mxu=mxu)
         _store(pool, lo, hi, p)
         pool[_HLO, lo:hi] = (slot & (_HOME_RADIX - 1)).to(_F32)
         pool[_HHI, lo:hi] = (slot >> 12).to(_F32)
@@ -532,6 +567,9 @@ def k1_plain(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
              b_hi: int, stats: Optional[torch.Tensor] = None) -> None:
     """``launch_k1``'s twin, with the counters when given ``stats``."""
     _check_k1_stats(stats, t, b_lo, b_hi, pool.device)
+    mxu = mk.mxu_route(inp)
+    if stats is not None and mxu:
+        raise NotImplementedError(mk.STATS_MXU_REFUSAL)
     n = int(counts[k])
     frame = int(frame) & rng.MASK32
     counter = (mk.CullStats(inp, t.cap // TILE_RECORDS, b_hi - b_lo, pool.device)
@@ -550,7 +588,7 @@ def k1_plain(inp: mk.KernelInputs, pool: torch.Tensor, r8: torch.Tensor,
         if counter is not None:
             tile = torch.arange(lo, hi, device=pool.device) // TILE_RECORDS
             counted = (counter, tile, torch.ones_like(tile))
-        p = mk.trace_bounces_plain(o, d, tr, state, inp, b_lo, b_hi, counted)
+        p = mk.trace_bounces_plain(o, d, tr, state, inp, b_lo, b_hi, counted, mxu)
         _store(pool, lo, hi, p)
         r8[:, lo:hi] = (p.tr * p.c).T
     if counter is not None:
@@ -674,22 +712,25 @@ def combine_chain_plain(inv: torch.Tensor, r8: torch.Tensor, contrib: torch.Tens
 
 def _frame(kernels: bool, accum: torch.Tensor, inp: mk.KernelInputs, frame,
            clear, t: Tiling, cuts: tuple, num_bounces: int, on_stage=None,
-           debug_counts: bool = False):
+           debug_counts: bool = False, mxu=None):
     """K0, then PACK and K1 per cut, then COMBINE, on the kernels or on
-    their twins."""
+    their twins; ``mxu`` = (K0's, K1's) route (``mk.with_route``), None:
+    each ``mk.mxu_route(inp)``."""
     k0, pack, k1, combine = ((launch_k0, launch_pack, launch_k1, launch_combine)
                              if kernels else
                              (k0_plain, pack_plain, k1_plain, combine_chain_plain))
+    mxu0, mxu1 = (None, None) if mxu is None else mxu
+    inp0, inp1 = mk.with_route(inp, mxu0), mk.with_route(inp, mxu1)
     mark = on_stage or (lambda name: None)
     ws = _workspace(accum.device, t.cap, len(cuts))
-    k0(inp, ws.pools[0], ws.contrib, t, frame, cuts[0])
+    k0(inp0, ws.pools[0], ws.contrib, t, frame, cuts[0])
     mark("k0")
     for k, b_lo in enumerate(cuts, 1):
         b_hi = cuts[k] if k < len(cuts) else num_bounces
         src, dst = ws.pools[(k - 1) % 2], ws.pools[k % 2]
         pack(src, dst, ws.inv[k - 1], ws.counts, k, ws.pack_status)
         mark(f"pack{k}")
-        k1(inp, dst, ws.r8[k - 1], ws.counts, k, t, frame, b_lo, b_hi)
+        k1(inp1, dst, ws.r8[k - 1], ws.counts, k, t, frame, b_lo, b_hi)
         mark(f"k1_{k}")
     combine(ws.inv, ws.r8, ws.contrib, accum, t, clear)
     mark("combine")
@@ -703,28 +744,29 @@ def launch_regrouped(accum: torch.Tensor, inp: mk.KernelInputs, frame, clear, *,
                      width: int, height: int, spp: int, num_bounces: int,
                      cuts=(2,), row_offset: int = 0,
                      full_height: Optional[int] = None, on_stage=None,
-                     debug_counts: bool = False):
+                     debug_counts: bool = False, mxu=None):
     """One frame of the CUDA kernels on prepared inputs, on the current
     stream. ``on_stage(name)`` is called after each launch ("k0", "pack1",
-    "k1_1", ..., "combine"), e.g. to record a CUDA event."""
+    "k1_1", ..., "combine"), e.g. to record a CUDA event. ``mxu`` = (K0's,
+    K1's) MXU route; None follows ``inp`` (``mk.mxu_route``)."""
     t, cuts = plan(width, height, spp, num_bounces, cuts, row_offset=row_offset,
                    full_height=full_height)
     mk._check_accum(accum, width, height, spp, num_bounces)
     return _frame(True, accum, inp, frame, clear, t, cuts, num_bounces,
-                  on_stage, debug_counts)
+                  on_stage, debug_counts, mxu)
 
 
 def regrouped_plain_with_inputs(accum: torch.Tensor, inp: mk.KernelInputs, frame,
                                 clear, *, width: int, height: int, spp: int,
                                 num_bounces: int, cuts=(2,), row_offset: int = 0,
                                 full_height: Optional[int] = None, on_stage=None,
-                                debug_counts: bool = False):
+                                debug_counts: bool = False, mxu=None):
     """``launch_regrouped``'s twin, on ``accum``'s device."""
     t, cuts = plan(width, height, spp, num_bounces, cuts, row_offset=row_offset,
                    full_height=full_height)
     mk._check_accum(accum, width, height, spp, num_bounces)
     return _frame(False, accum, inp, frame, clear, t, cuts, num_bounces,
-                  on_stage, debug_counts)
+                  on_stage, debug_counts, mxu)
 
 
 def render_image_regrouped(
@@ -770,9 +812,13 @@ def render_image_regrouped(
     counted on its ``launch_*`` wrapper) or raises; a CPU ``accum`` runs the
     plain twins. ``k1_chunk_size`` picks the JAX package's cull granularity
     for K1; the port's K1 culls the prepared chunks per warp, exactly, so
-    it changes nothing here.
+    it changes nothing here but whether K1 takes the MXU chunk sweep.
+    ``mxu_sweep`` (None: ``mk._default_mxu_sweep``) runs K0's and K1's
+    culled chunk sweeps on the tensor cores where ``mk.mxu_route`` holds
+    for each (K1 with ``k1_chunk_size``, the JAX condition; the port's K1
+    needs K0's chunks too).
     """
-    knobs = dict(mxu_sweep=mxu_sweep, listed=listed, k1_subcull=k1_subcull,
+    knobs = dict(listed=listed, k1_subcull=k1_subcull,
                  rowsweep=rowsweep, rowsweep_k0=rowsweep_k0,
                  profile_stop=profile_stop)
     for name, value in knobs.items():
@@ -780,7 +826,7 @@ def render_image_regrouped(
             raise NotImplementedError(
                 f"{name}={value!r} is a TPU-only knob of render_image_regrouped; "
                 f"the port takes only its off value {_OFF_KNOBS[name][-1]!r} "
-                "(ROADMAP Queue 2, 'Do not port')")
+                "(ROADMAP Queue 2, still to port)")
     t, cuts = plan(width, height, spp, num_bounces, cuts, k1_tsub, row_offset,
                    full_height)
     mk._check_accum(accum, width, height, spp, num_bounces)
@@ -790,10 +836,20 @@ def render_image_regrouped(
             raise ValueError(f"scene on {scene.device}, accum on {accum.device}")
     elif kind != "cpu":
         raise ValueError(f"unsupported device {accum.device}")
+    mxu = mk.resolve_mxu_sweep(mxu_sweep, scene)
     inp = mk.kernel_inputs(scene, sky, basis, chunk_size=chunk_size,
-                           super_factor=super_factor, budget_texels=budget_texels)
+                           super_factor=super_factor, budget_texels=budget_texels,
+                           mxu_sweep=mxu)
+    k1_cs = inp.chunk_size if k1_chunk_size is None else int(k1_chunk_size)
+    mxu1 = _k1_chunked(scene, k1_cs) and mk.mxu_route(inp, k1_cs)
     return _frame(kind == "cuda", accum, inp, frame, clear, t, cuts, num_bounces,
-                  debug_counts=debug_counts)
+                  debug_counts=debug_counts, mxu=(mk.mxu_route(inp), mxu1))
+
+
+def _k1_chunked(scene: Scene, k1_chunk_size: int) -> bool:
+    """Whether the JAX package's K1 prepares chunks of ``k1_chunk_size``
+    for this scene (n_chunks1 > 0; prepare_scene_arrays' rule)."""
+    return k1_chunk_size > 0 and scene.spheres.num_spheres >= 2 * k1_chunk_size
 
 
 def render_image_regrouped_plain(

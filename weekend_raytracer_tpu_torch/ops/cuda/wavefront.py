@@ -43,8 +43,10 @@ with the JAX kernels'. A record carries its RNG state (the uint32's bits in
 an f32) and its home row (tile * 32 + row, an exact f32 integer). Row
 counts stay on the device.
 
-The JAX function's ``mxu_sweep`` is a TPU sweep variant (ROADMAP Queue 2,
-"Do not port"): any value but off raises ``NotImplementedError``.
+The JAX function's ``mxu_sweep`` runs K0's and K1's culled chunk sweep on
+the tensor cores (their ``kMxu`` instantiations; ``mk._closest_hit_mxu``
+in the twins) where the JAX condition holds (``mk.mxu_route``,
+wavefront.py:390-391); the full-sweep reference has no such route.
 """
 from __future__ import annotations
 
@@ -83,8 +85,6 @@ REPLACES = {
     "compact": "weekend_raytracer_tpu/ops/pallas/wavefront.py:427",
     "k1": "weekend_raytracer_tpu/ops/pallas/wavefront.py:461",
 }
-# the TPU sweep variant of the JAX function and the values that leave it off
-_OFF_MXU = (None, False)
 # csrc/wavefront.cu kK0MaxSlices, kK1Rows and kThreads (the census groups
 # lanes by them; tests/test_torch_wavefront_cull.py reads them there): the
 # most slices of 32 slots a culled K0 warp walks down a tile
@@ -157,7 +157,9 @@ def _workspace(device, t: rg.Tiling, phases: int) -> Workspace:
 KERNEL_NAMES = ("k0", "k0_textured", "k0_global", "k0_global_textured", "k0_full_sweep",
                 "k0_full_sweep_textured", "k1", "k1_textured", "k1_global",
                 "k1_global_textured", "k1_full_sweep", "k1_full_sweep_textured",
-                "compact_count", "compact_scan", "compact_scatter")
+                "compact_count", "compact_scan", "compact_scatter", "k0_mxu", "k0_mxu_textured",
+                "k0_mxu_global", "k0_mxu_global_textured", "k1_mxu", "k1_mxu_textured",
+                "k1_mxu_global", "k1_mxu_global_textured")
 
 
 def _library():
@@ -175,14 +177,17 @@ def _library():
             "wrt_wavefront_compact": [vp] * 5 + [ll, vp],
             "wrt_wavefront_k1": k1 + mk.CULL_ARGTYPES + [f, f, vp],
             "wrt_wavefront_k1_full_sweep": k1 + [vp],
+            "wrt_wavefront_k0_mxu": k0 + mk.CULL_ARGTYPES + [f, f, vp, vp],
+            "wrt_wavefront_k1_mxu": k1 + mk.CULL_ARGTYPES + [f, f, vp, vp],
             "wrt_wavefront_attributes": [i] + [ctypes.POINTER(i)] * 3,
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.wrt_wavefront_launch_bounds.argtypes = [ctypes.POINTER(i)] * 2
-        lib.wrt_wavefront_launch_bounds.restype = None
+        for name in ("wrt_wavefront_launch_bounds", "wrt_wavefront_mxu_launch_bounds"):
+            getattr(lib, name).argtypes = [ctypes.POINTER(i)] * 2
+            getattr(lib, name).restype = None
         lib.wrt_wavefront_cull_smem.argtypes = [i, i, i, i, ctypes.POINTER(i)]
         lib.wrt_wavefront_cull_smem.restype = ll
     return built
@@ -204,11 +209,14 @@ def kernel_attributes() -> dict:
     return out
 
 
-def launch_bounds() -> tuple:
+def launch_bounds(mxu: bool = False) -> tuple:
     """The culled K0's and K1's __launch_bounds__: (threads a block, blocks
-    an SM), which fix their register budget (wavefront.cu kMinBlocks)."""
+    an SM), which fix their register budget (wavefront.cu kMinBlocks;
+    ``mxu``: their MXU instantiations', kMxuMinBlocks)."""
     threads, min_blocks = ctypes.c_int(0), ctypes.c_int(0)
-    _library().lib.wrt_wavefront_launch_bounds(ctypes.byref(threads), ctypes.byref(min_blocks))
+    lib = _library().lib
+    fn = lib.wrt_wavefront_mxu_launch_bounds if mxu else lib.wrt_wavefront_launch_bounds
+    fn(ctypes.byref(threads), ctypes.byref(min_blocks))
     return threads.value, min_blocks.value
 
 
@@ -269,10 +277,18 @@ def launch_k0(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
     sweep culled per warp where ``inp`` has chunks (the library stages the
     boxes in shared memory while they fit, else reads them from global
     memory) and each lane's slots refilled (``k0_slices``). Counts one launch in
-    ``launch_k0.launches``."""
+    ``launch_k0.launches``; where ``mk.mxu_route(inp)`` it launches K0's
+    MXU instantiation, counted in ``launch_k0.mxu_launches``."""
     args = _k0_args(inp, pool, contrib, t, frame, b_hi)
-    err = _library().lib.wrt_wavefront_k0(*args, *rg._cull_args(inp, pool.device),
-                                          _stream_handle(pool.device))
+    dev = pool.device
+    lib = _library().lib
+    if mk.mxu_route(inp):
+        err = lib.wrt_wavefront_k0_mxu(*args, *rg._cull_args(inp, dev),
+                                       mk.check_amats(inp, dev), _stream_handle(dev))
+        _raise_on(err, "K0 MXU")
+        launch_k0.mxu_launches += 1
+        return
+    err = lib.wrt_wavefront_k0(*args, *rg._cull_args(inp, dev), _stream_handle(dev))
     _raise_on(err, "K0")
     launch_k0.launches += 1
 
@@ -280,8 +296,9 @@ def launch_k0(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
 def _launch_k0_full_sweep(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
                           t: rg.Tiling, frame, b_hi: int) -> None:
     """``launch_k0``'s contract through the kCull = false instantiation
-    (one slot a thread, every sphere swept): the gates' exact reference.
-    Counts in ``_launch_k0_full_sweep.launches``."""
+    (one slot a thread, every sphere swept with FMAs, whatever ``inp``
+    carries): the gates' exact reference. Counts in
+    ``_launch_k0_full_sweep.launches``."""
     args = _k0_args(inp, pool, contrib, t, frame, b_hi)
     err = _library().lib.wrt_wavefront_k0_full_sweep(*args, _stream_handle(pool.device))
     _raise_on(err, "K0 full-sweep")
@@ -325,10 +342,19 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
     live lanes of the counts[k] dense rows of ``pool``, in place, and every
     lane's tr * cr into its home row of ``contrib``, the live lanes of each
     K1_ROWS rows regrouped and their sweep culled per warp where ``inp``
-    has chunks. Counts one launch in ``launch_k1.launches``."""
+    has chunks. Counts one launch in ``launch_k1.launches``; where
+    ``mk.mxu_route(inp)`` it launches K1's MXU instantiation, counted in
+    ``launch_k1.mxu_launches``."""
     args = _k1_args(inp, pool, contrib, counts, k, b_lo, b_hi)
-    err = _library().lib.wrt_wavefront_k1(*args, *rg._cull_args(inp, pool.device),
-                                          _stream_handle(pool.device))
+    dev = pool.device
+    lib = _library().lib
+    if mk.mxu_route(inp):
+        err = lib.wrt_wavefront_k1_mxu(*args, *rg._cull_args(inp, dev),
+                                       mk.check_amats(inp, dev), _stream_handle(dev))
+        _raise_on(err, "K1 MXU")
+        launch_k1.mxu_launches += 1
+        return
+    err = lib.wrt_wavefront_k1(*args, *rg._cull_args(inp, dev), _stream_handle(dev))
     _raise_on(err, "K1")
     launch_k1.launches += 1
 
@@ -336,8 +362,9 @@ def launch_k1(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
 def _launch_k1_full_sweep(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
                           counts: torch.Tensor, k: int, b_lo: int, b_hi: int) -> None:
     """``launch_k1``'s contract through the kCull = false instantiation
-    (one lane a thread, every sphere swept): the gates' exact reference.
-    Counts in ``_launch_k1_full_sweep.launches``."""
+    (one lane a thread, every sphere swept with FMAs, whatever ``inp``
+    carries): the gates' exact reference. Counts in
+    ``_launch_k1_full_sweep.launches``."""
     args = _k1_args(inp, pool, contrib, counts, k, b_lo, b_hi)
     err = _library().lib.wrt_wavefront_k1_full_sweep(*args, _stream_handle(pool.device))
     _raise_on(err, "K1 full-sweep")
@@ -347,6 +374,7 @@ def _launch_k1_full_sweep(inp: mk.KernelInputs, pool: torch.Tensor, contrib: tor
 for _fn in (launch_k0, launch_compact, launch_k1, _launch_k0_full_sweep,
             _launch_k1_full_sweep):
     _fn.launches = 0
+launch_k0.mxu_launches = launch_k1.mxu_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -373,6 +401,7 @@ def k0_plain(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
     aims rows at ``t.row_offset`` of an image ``t.full_height`` tall, as
     regroup does (0 and the height for every tiling ``plan`` makes), so a
     band of tile rows can be held against the kernel's full image."""
+    mxu = mk.mxu_route(inp)
     dev = pool.device
     n_tiles = t.cap // _PLANE
     recs = pool.view(n_tiles, N_COMP, _PLANE)
@@ -387,7 +416,7 @@ def k0_plain(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
         yf = y_g.to(torch.int32).to(_F32)
         state, o, d = mk.camera_rays_plain(cam, x.to(_F32), yf, inv_w, inv_h, state)
         tr = torch.ones((hi - lo, 3), dtype=_F32, device=dev)
-        p = mk.trace_bounces_plain(o, d, tr, state, inp, 0, b_hi)
+        p = mk.trace_bounces_plain(o, d, tr, state, inp, 0, b_hi, mxu=mxu)
         nt = (hi - lo) // _PLANE
         blk = recs[lo // _PLANE:hi // _PLANE]
         blk[:, _OX:_OZ + 1] = _planes(p.o, nt)
@@ -427,6 +456,7 @@ def k1_plain(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
     """``launch_k1``'s twin. It traces the live lanes in dense order, which
     is regroup's dense order, in regroup's k1_plain's batches, so the two
     give the same bits on the CPU too."""
+    mxu = mk.mxu_route(inp)
     n_rows = int(counts[k])
     flat = pool.view(-1)
     bits = flat.view(_I32)
@@ -444,7 +474,7 @@ def k1_plain(inp: mk.KernelInputs, pool: torch.Tensor, contrib: torch.Tensor,
         d = (comp(_DX), comp(_DY), comp(_DZ))
         tr = torch.stack([comp(_TR), comp(_TG), comp(_TB)], dim=1)
         state = bits[at + _ST * _PLANE].to(torch.int64) & rng.MASK32
-        p = mk.trace_bounces_plain(o, d, tr, state, inp, b_lo, b_hi)
+        p = mk.trace_bounces_plain(o, d, tr, state, inp, b_lo, b_hi, mxu=mxu)
         for c, v in ((_OX, p.o), (_DX, p.d), (_TR, p.tr), (_CR, p.c)):
             for j in range(3):
                 flat[at + (c + j) * _PLANE] = v[:, j]
@@ -516,20 +546,23 @@ def _steps(route: str) -> tuple:
 
 def _frame(route: str, accum: torch.Tensor, inp: mk.KernelInputs, frame, clear,
            t: rg.Tiling, cuts: tuple, num_bounces: int, on_stage=None,
-           debug_counts: bool = False):
+           debug_counts: bool = False, mxu=None):
     """K0, then COMPACT and K1 per cut, then the fold, on one route
-    (``_steps``)."""
+    (``_steps``); ``mxu`` = (K0's, K1's) MXU route, None: each
+    ``mk.mxu_route(inp)`` (the full-sweep route has none and sweeps with FMAs)."""
     k0, compact, k1 = _steps(route)
+    mxu0, mxu1 = (None, None) if mxu is None else mxu
     mark = on_stage or (lambda name: None)
     ws = _workspace(accum.device, t, len(cuts))
-    k0(inp, ws.pools[0], ws.contrib, t, frame, cuts[0] if cuts else num_bounces)
+    inp0, inp1 = mk.with_route(inp, mxu0), mk.with_route(inp, mxu1)
+    k0(inp0, ws.pools[0], ws.contrib, t, frame, cuts[0] if cuts else num_bounces)
     mark("k0")
     for k, b_lo in enumerate(cuts, 1):
         b_hi = cuts[k] if k < len(cuts) else num_bounces
         src, dst = ws.pools[(k - 1) % 2], ws.pools[k % 2]
         compact(src, dst, ws.counts, k, ws.tile_sums)
         mark(f"compact{k}")
-        k1(inp, dst, ws.contrib, ws.counts, k, b_lo, b_hi)
+        k1(inp1, dst, ws.contrib, ws.counts, k, b_lo, b_hi)
         mark(f"k1_{k}")
     _fold(ws.contrib, accum, t, clear)
     mark("fold")
@@ -540,14 +573,17 @@ def _frame(route: str, accum: torch.Tensor, inp: mk.KernelInputs, frame, clear,
 
 def launch_wavefront(accum: torch.Tensor, inp: mk.KernelInputs, frame, clear, *,
                      width: int, height: int, spp: int, num_bounces: int,
-                     phase_cuts: tuple = (), on_stage=None, debug_counts: bool = False):
+                     phase_cuts: tuple = (), on_stage=None, debug_counts: bool = False,
+                     mxu=None):
     """One frame of the CUDA kernels on prepared inputs, on the current
     stream. ``on_stage(name)`` is called after each step ("k0",
-    "compact1", "k1_1", ..., "fold"), e.g. to record a CUDA event."""
+    "compact1", "k1_1", ..., "fold"), e.g. to record a CUDA event. ``mxu`` =
+    (K0's, K1's) MXU route; None follows ``inp`` (``mk.mxu_route``)."""
     t = plan(width, height, spp)
     mk._check_accum(accum, width, height, spp, num_bounces)
     return _frame("kernels", accum, inp, frame, clear, t,
-                  _cuts_within(phase_cuts, num_bounces), num_bounces, on_stage, debug_counts)
+                  _cuts_within(phase_cuts, num_bounces), num_bounces, on_stage, debug_counts,
+                  mxu)
 
 
 def _launch_wavefront_full_sweep(accum: torch.Tensor, inp: mk.KernelInputs, frame, clear, *,
@@ -557,23 +593,24 @@ def _launch_wavefront_full_sweep(accum: torch.Tensor, inp: mk.KernelInputs, fram
     """``launch_wavefront`` through K0's and K1's kCull = false
     instantiations, which sweep every sphere, one slot or lane a thread (and
     the same COMPACT): the exact full-sweep reference that the gates hold
-    the culled kernels to. Neither the Renderer nor any public entry point
-    reaches it."""
+    the culled kernels to, with FMAs whatever ``inp`` carries. Neither the
+    Renderer nor any public entry point reaches it."""
     t = plan(width, height, spp)
     mk._check_accum(accum, width, height, spp, num_bounces)
     return _frame("full_sweep", accum, inp, frame, clear, t,
-                  _cuts_within(phase_cuts, num_bounces), num_bounces, on_stage, debug_counts)
+                  _cuts_within(phase_cuts, num_bounces), num_bounces, on_stage, debug_counts,
+                  (False, False))
 
 
 def wavefront_plain_with_inputs(accum: torch.Tensor, inp: mk.KernelInputs, frame, clear, *,
                                 width: int, height: int, spp: int, num_bounces: int,
                                 phase_cuts: tuple = (), on_stage=None,
-                                debug_counts: bool = False):
+                                debug_counts: bool = False, mxu=None):
     """``launch_wavefront``'s twin, on ``accum``'s device."""
     t = plan(width, height, spp)
     mk._check_accum(accum, width, height, spp, num_bounces)
     return _frame("twins", accum, inp, frame, clear, t, _cuts_within(phase_cuts, num_bounces),
-                  num_bounces, on_stage, debug_counts)
+                  num_bounces, on_stage, debug_counts, mxu)
 
 
 def _texture_budget(budget_texels: Optional[int]) -> int:
@@ -597,7 +634,7 @@ def render_image_wavefront(
     phase_cuts: tuple = (),
     debug_counts: bool = False,
     budget_texels: Optional[int] = None,
-    mxu_sweep=False,
+    mxu_sweep=None,
 ):
     """One progressive frame via the row-compacted wavefront; returns
     ``accum`` (and, with ``debug_counts``, the home pool's row count and the
@@ -609,12 +646,11 @@ def render_image_wavefront(
     whole bounce budget in K0, as the JAX Renderer does. The frame
     accumulates in place into ``accum``. A CUDA ``accum`` launches the CUDA
     kernels (each counted on its ``launch_*`` wrapper) or raises; a CPU
-    ``accum`` runs the plain twins.
+    ``accum`` runs the plain twins. ``mxu_sweep`` (None:
+    ``mk._default_mxu_sweep``) runs K0's and K1's culled chunk sweeps on
+    the tensor cores where ``mk.mxu_route`` holds.
     """
-    if mxu_sweep not in _OFF_MXU:
-        raise NotImplementedError(
-            f"mxu_sweep={mxu_sweep!r} is a TPU-only knob of render_image_wavefront; "
-            "the port takes only its off value False (ROADMAP Queue 2, 'Do not port')")
+    mxu = mk.resolve_mxu_sweep(mxu_sweep, scene)
     t = plan(width, height, spp)
     mk._check_accum(accum, width, height, spp, num_bounces)
     kind = _device_type(accum)
@@ -624,7 +660,7 @@ def render_image_wavefront(
     elif kind != "cpu":
         raise ValueError(f"unsupported device {accum.device}")
     inp = mk.kernel_inputs(scene, sky, basis, chunk_size=chunk_size, super_factor=super_factor,
-                           budget_texels=_texture_budget(budget_texels))
+                           budget_texels=_texture_budget(budget_texels), mxu_sweep=mxu)
     return _frame("kernels" if kind == "cuda" else "twins", accum, inp, frame, clear, t,
                   _cuts_within(phase_cuts, num_bounces), num_bounces,
                   debug_counts=debug_counts)

@@ -190,6 +190,7 @@ def render_shard(
     aim_height: Optional[int] = None,
     budget_texels: Optional[int] = None,
     sphere_chunk: int = 512,
+    mxu_sweep: Optional[bool] = None,
 ) -> torch.Tensor:
     """One shard's contribution to a frame: the sum of its ``spp // n_spp``
     samples for each pixel of its band, [height // n_tiles * width, 3] f32
@@ -208,6 +209,8 @@ def render_shard(
     the band's pools are sized from the band), "pallas" (the megakernel)
     and "xla" (``render_pixels`` over the band's global pixel indices).
     CUDA tensors launch the kernels, CPU tensors run their plain twins.
+    ``mxu_sweep`` goes to the fused backends (their MXU chunk sweep); "xla"
+    ignores it, as the JAX package's does.
     """
     _check_split(height, spp, n_tiles, n_spp)
     if aim_height is None:
@@ -220,7 +223,7 @@ def render_shard(
     if backend in ("regroup", "pallas"):
         contrib = torch.zeros((block_rows * width, 3), dtype=torch.float32, device=dev)
         kw = dict(width=width, height=block_rows, spp=local_spp, num_bounces=num_bounces,
-                  row_offset=row_offset, full_height=aim_height, **bt)
+                  row_offset=row_offset, full_height=aim_height, mxu_sweep=mxu_sweep, **bt)
         if backend == "regroup":
             from ..ops.cuda.regroup import default_cuts, render_image_regrouped
 
@@ -264,6 +267,7 @@ def render_image_sharded(
     aim_height: Optional[int] = None,
     budget_texels: Optional[int] = None,
     on_stage: Optional[Callable[[str], None]] = None,
+    mxu_sweep: Optional[bool] = None,
 ) -> torch.Tensor:
     """One progressive frame of this rank's band; returns ``accum``,
     updated in place to ``base + contrib`` (base = 0 when ``clear``).
@@ -275,7 +279,8 @@ def render_image_sharded(
     padded accumulator height, ``aim_height`` the real one (see
     ``render_shard``). Every rank of the mesh must call it. ``on_stage(name)``
     is called after the shard's render ("shard") and after the all_reduce
-    ("all_reduce"), e.g. to record a CUDA event.
+    ("all_reduce"), e.g. to record a CUDA event. ``mxu_sweep`` as
+    ``render_shard``'s.
     """
     n_tiles, n_spp = mesh.shape[TILE_AXIS], mesh.shape[SPP_AXIS]
     _check_split(height, spp, n_tiles, n_spp)
@@ -289,7 +294,7 @@ def render_image_sharded(
                            n_tiles=n_tiles, n_spp=n_spp, width=width, height=height,
                            spp=spp, num_bounces=num_bounces, backend=backend,
                            aim_height=aim_height, budget_texels=budget_texels,
-                           sphere_chunk=sphere_chunk)
+                           sphere_chunk=sphere_chunk, mxu_sweep=mxu_sweep)
     mark("shard")
     if mesh.distributed:
         dist.all_reduce(contrib, op=dist.ReduceOp.SUM, group=mesh.tile_groups[tile_idx])

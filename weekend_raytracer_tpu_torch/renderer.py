@@ -43,7 +43,8 @@ from .models.params import RenderParams, RenderParamsValidationError
 from .models.scenes import SceneDesc
 from .models.sky import resolve_sky_state
 from .ops import tonemap
-from .ops.cuda.megakernel import DEFAULT_TEXTURE_BUDGET, render_image_megakernel
+from .ops.cuda.megakernel import (DEFAULT_TEXTURE_BUDGET, resolve_mxu_sweep,
+                                  render_image_megakernel)
 from .ops.cuda.regroup import default_cuts, render_image_regrouped
 from .ops.cuda.wavefront import render_image_wavefront
 from .ops.tracer import Scene, render_image
@@ -193,11 +194,17 @@ class Renderer:
         backend samples full resolution and ignores it.
     hw_dataset : optional path to the published Hosek-Wilkie 2012 RGB
         dataset; otherwise the built-in Preetham fit supplies the sky.
+    mxu_sweep : run the fused kernels' culled chunk sweeps with their
+        products on the tensor cores (3xTF32 ``mma.sync``; on the CPU the
+        twins' f32 product) instead of the FMA chain. Statistically
+        equivalent, not bit-identical; None defers to WRT_MXU_SWEEP
+        (default off). Ignored by the ``"xla"`` backend and by scenes
+        without chunks.
     """
 
     def __init__(self, scene, params: RenderParams, backend: str = "auto", *,
                  device, mesh=None, budget_texels: Optional[int] = None,
-                 hw_dataset: Optional[str] = None):
+                 hw_dataset: Optional[str] = None, mxu_sweep: Optional[bool] = None):
         params.validate()
         self.device = rank_device(device, mesh)
         if isinstance(scene, SceneDesc):
@@ -208,6 +215,7 @@ class Renderer:
         self.mesh = mesh
         self.budget_texels = budget_texels
         self.hw_dataset = hw_dataset
+        self.mxu_sweep = mxu_sweep
         self.backend = resolve_backend(backend, params, mesh)
         self._params = params
         self._progress = RenderProgress()
@@ -228,6 +236,13 @@ class Renderer:
     def sky_model(self) -> str:
         """Which sky model this renderer's frames actually use."""
         return self._sky_model
+
+    def resolved_mxu_sweep(self) -> bool:
+        """Whether this renderer's fused kernels run the MXU chunk sweep
+        (explicit knob > WRT_MXU_SWEEP > scene-size default, the JAX
+        package's order). Part of the checkpoint fingerprint: the MXU
+        estimator is not bit-identical to the FMA one."""
+        return resolve_mxu_sweep(self.mxu_sweep, self._scene)
 
     def _padded_height(self) -> int:
         """Image height padded so the tile axis divides the rows evenly
@@ -279,18 +294,21 @@ class Renderer:
         if gpu.num_samples_per_pixel == 0:
             return False
         w, h = self._params.viewport_size
+        mxu = self.resolved_mxu_sweep()
         if self.mesh is not None:
             render_image_sharded(
                 self._accum, self._frame_number, gpu.clear_accumulated_samples,
                 self._scene, self._sky, self._basis, width=w,
                 height=self._padded_height(), aim_height=h,
                 spp=gpu.num_samples_per_pixel, num_bounces=gpu.num_bounces,
-                mesh=self.mesh, backend=self.backend, budget_texels=self.budget_texels)
+                mesh=self.mesh, backend=self.backend, budget_texels=self.budget_texels,
+                mxu_sweep=mxu)
             self._frame_number += 1
             return True
         bt = ({} if self.budget_texels is None
               else {"budget_texels": self.budget_texels})
-        if self.backend == "xla":  # full-resolution textures: no budget
+        bt["mxu_sweep"] = mxu
+        if self.backend == "xla":  # full-resolution textures, no MXU sweep
             fn, bt = render_image, {"pixel_batch": _default_pixel_batch(w * h)}
         elif self.backend == "regroup":
             n_spheres = int(self._scene.spheres.centers.shape[0])
@@ -383,8 +401,9 @@ class Renderer:
         same per-sample radiances, so they share one family; the xla
         backend samples textures at full resolution, not from the fused
         kernels' mipped LUT, so it is a family of its own. The fused family
-        hashes ``mxu=False`` (the only sweep this package has) and, for a
-        textured scene, the LUT's budget.
+        hashes ``mxu={resolved_mxu_sweep()}`` (the MXU chunk sweep is
+        another estimator: a checkpoint of one setting is refused by the
+        other) and, for a textured scene, the LUT's budget.
         """
         h = hashlib.sha256()
         sp, mt = self._scene.spheres, self._scene.materials
@@ -407,7 +426,7 @@ class Renderer:
         h.update(family.encode())
         h.update(PACKAGE_TAG.encode())
         if family == "fused":
-            h.update(b"mxu=False")
+            h.update(f"mxu={self.resolved_mxu_sweep()}".encode())
             if not mt.all_solid:
                 bt = (DEFAULT_TEXTURE_BUDGET if self.budget_texels is None
                       else self.budget_texels)
